@@ -1,0 +1,1 @@
+"""Hand-written CUDA kernels of the port (``csrc/``) with their plain PyTorch versions."""

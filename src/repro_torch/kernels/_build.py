@@ -1,0 +1,128 @@
+"""Build and bind the port's CUDA kernels: nvcc -> one shared library -> ctypes.
+
+The library is built at first use, from the sources under ``csrc/`` alone,
+into ``_build/`` beside this file (listed in ``.gitignore``) under a name
+keyed by a hash of the sources and flags, so an edit rebuilds and an
+unchanged tree loads the existing file.  Each ``.cu`` compiles in its own
+``nvcc`` process, all started together, and the objects link into one
+``.so``.  The kernels include no PyTorch header, so a build takes seconds.
+
+Flags: ``sm_90a``, ``-O3``, and no ``--use_fast_math``, so ``sqrtf`` and
+``/`` are IEEE-rounded as in PyTorch's elementwise ops; ``screen.cu`` also
+gets ``-fmad=false`` so its verdicts are bit-identical to the plain
+version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"] + ARCH
+SOURCES: Dict[str, List[str]] = {
+    "screen.cu": ["-fmad=false"],
+    "gradpsi.cu": [],
+}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "screen_launch": [_P] * 12 + [_I] * 5 + [_P],
+    "gradpsi_grid_launch": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
+    "gradpsi_compact_launch": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
+    "slot_sum_launch": [_P, _P, _I, _I, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(repr((COMMON_FLAGS, SOURCES)).encode())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Tuple[Path, float, str]:
+    """Build the library if missing; return (path, seconds, compiler log).
+
+    ``verbose`` adds ``-Xptxas -v`` so the log lists each kernel's
+    registers, shared memory and spills.
+    """
+    out = BUILD_DIR / f"libreprotorch_{_digest()}.so"
+    if out.exists():
+        return out, 0.0, ""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for name, extra in SOURCES.items():
+            obj = os.path.join(tmp, name + ".o")
+            cmd = [nvcc, "-c", str(CSRC / name), "-o", obj, *COMMON_FLAGS, *extra]
+            if verbose:
+                cmd += ["-Xptxas", "-v"]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for name, _, proc in procs:
+            text, _ = proc.communicate()
+            logs.append(f"== {name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+        tmp_so = os.path.join(tmp, out.name)
+        link = subprocess.run(
+            [nvcc, "-shared", *ARCH, "-o", tmp_so, *(obj for _, obj, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernel library failed:\n{link.stdout}")
+        os.replace(tmp_so, out)           # atomic: concurrent builds are safe
+    return out, time.perf_counter() - t0, "\n".join(logs)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed), argtypes declared."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def stream_handle(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
