@@ -5,7 +5,8 @@
 Counterpart of ``repro.core.dual``.  Every function is batch-polymorphic:
 inputs may carry leading batch dims and all reductions run over trailing
 axes, so a solo call and a batched call run the same per-problem
-reductions.  This is plain PyTorch, as the JAX module is plain XLA.
+reductions.  This is plain PyTorch, as the JAX module is plain XLA; the
+value's sums go through the batch-invariant ``kernels.reduce.row_sum``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.regularizers import Regularizer
+from repro_torch.kernels.reduce import row_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,9 +85,9 @@ def dual_value_and_grad(
     if zero_mask is not None:
         psi = torch.where(zero_mask, zero, psi)
     value = (
-        torch.sum(alpha * a, dim=-1)
-        + torch.sum(beta * b, dim=-1)
-        - torch.sum(psi, dim=(-2, -1))
+        row_sum(alpha * a)
+        + row_sum(beta * b)
+        - row_sum(psi.reshape(psi.shape[:-2] + (-1,)))
     )
     grad_alpha = a - torch.sum(T, dim=-1)
     grad_beta = b - torch.sum(T, dim=-2)
@@ -103,6 +105,30 @@ def plan_from_duals(
     return torch.repeat_interleave(s, g, dim=-2) * torch.clamp_min(F, 0.0) / prob.reg.gamma
 
 
+def member_norms(F: torch.Tensor, row_mask: torch.Tensor, L: int, g: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(||[fm]_+||, ||fm||, ||[fm]_-||) per group of F (..., L*g, n), each (..., L, n).
+
+    ``fm`` is F with the rows where ``row_mask`` (..., L*g) is False set to
+    0, BEFORE the sums; each sum runs over the g members in order, one
+    rounded add per member.  This is the order of the snapshot kernel
+    (``csrc/snapshot.cu``), so the plain and the kernel norms, and the
+    dense and the factorized routes, give the same bits.
+    """
+    Fg = F.reshape(F.shape[:-2] + (L, g, F.shape[-1]))
+    mask = row_mask.reshape(row_mask.shape[:-1] + (L, g, 1))
+    Fm = torch.where(mask, Fg, torch.zeros((), dtype=F.dtype, device=F.device))
+    zsq = ksq = osq = None
+    for i in range(g):
+        f = Fm[..., i, :]
+        fp, fn = torch.clamp_min(f, 0.0), torch.clamp_max(f, 0.0)
+        if i == 0:
+            zsq, ksq, osq = fp * fp, f * f, fn * fn
+        else:
+            zsq, ksq, osq = zsq + fp * fp, ksq + f * f, osq + fn * fn
+    return torch.sqrt(zsq), torch.sqrt(ksq), torch.sqrt(osq)
+
+
 def snapshot_norms(
     alpha: torch.Tensor,
     beta: torch.Tensor,
@@ -115,13 +141,8 @@ def snapshot_norms(
       z~[l,j] = ||[f_[l]]_+||_2
       k~[l,j] = ||f_[l]||_2          over real rows only (row_mask)
       o~[l,j] = ||[f_[l]]_-||_2      over real rows only
+
+    Members are summed in order (:func:`member_norms`).
     """
-    L, g = prob.num_groups, prob.group_size
-    F = _outer_f(alpha, beta, C)
-    Fg = F.reshape(F.shape[:-2] + (L, g, F.shape[-1]))
-    mask = row_mask.reshape(row_mask.shape[:-1] + (L, g, 1))
-    Fm = torch.where(mask, Fg, torch.zeros((), dtype=F.dtype, device=F.device))
-    z = torch.sqrt(torch.sum(torch.square(torch.clamp_min(Fm, 0.0)), dim=-2))
-    k = torch.sqrt(torch.sum(torch.square(Fm), dim=-2))
-    o = torch.sqrt(torch.sum(torch.square(torch.clamp_max(Fm, 0.0)), dim=-2))
-    return z, k, o
+    return member_norms(_outer_f(alpha, beta, C), row_mask, prob.num_groups,
+                        prob.group_size)

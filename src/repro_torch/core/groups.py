@@ -79,6 +79,21 @@ def spec_from_labels(labels: Sequence[int], *, pad_to: int = 8) -> GroupSpec:
     )
 
 
+def pad_sources(X: np.ndarray, labels: np.ndarray, spec: GroupSpec):
+    """Sort rows by label and pad each class to g_pad.
+
+    Returns ``(X_pad (L*g_pad, d), perm, row_mask_flat)``; ``perm`` maps a
+    padded row to its original row (-1 = padding).
+    """
+    order = np.argsort(np.asarray(labels), kind="stable")
+    mask = spec.row_mask().reshape(-1)
+    perm = np.full((spec.m_pad,), -1, dtype=np.int64)
+    perm[mask] = order
+    X_pad = np.zeros((spec.m_pad,) + X.shape[1:], X.dtype)
+    X_pad[mask] = X[order]
+    return X_pad, perm, mask
+
+
 def padded_perm(labels: np.ndarray, spec: GroupSpec) -> np.ndarray:
     """Padded-row -> original-row map (-1 = padding), from labels alone."""
     order = np.argsort(np.asarray(labels), kind="stable")

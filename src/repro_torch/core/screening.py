@@ -19,6 +19,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.reduce import row_sum
+
 ZERO, CHECK, ACTIVE = 0, 1, 2
 
 
@@ -68,8 +70,8 @@ def init_state(
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
-    """||x||_2 over the last axis, as ``sqrt(sum(x*x))`` (the JAX form)."""
-    return torch.sqrt(torch.sum(x * x, dim=-1))
+    """||x||_2 over the last axis, as ``sqrt(sum(x*x))`` (the JAX form), batch-invariant."""
+    return torch.sqrt(row_sum(x * x))
 
 
 def grouped_norms(x: torch.Tensor, L: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -12,11 +12,17 @@ from lower bounds -> take new snapshots -> repeat until convergence.
 
 By Theorem 2 all backends return the same objective up to summation order.
 
+Cost operand: a dense ``(B, m_pad, n)`` tensor, or for ``'pallas'`` a
+:class:`~repro_torch.kernels.ops.FactorizedCost` (the materialization-free
+squared-l2 route: K4 snapshots, K5/K6 gradients, no (m, n) array).  The
+factorized route gives the dense route's bits on the cost materialized
+with the same recipe.
+
 Batching: every tensor carries a leading problem axis B; :func:`solve_dual`
 is the B = 1 slice of :func:`solve_dual_batch` and runs the same op
-sequence.  On the CPU a problem solved solo and inside a batch gives the
-same bits; on CUDA PyTorch's reductions may pick another order for another
-B (ROADMAP §C), while the kernels stay batch-invariant.
+sequence.  A problem solved solo and inside a batch gives the same bits:
+the kernels write per-problem slots, and every per-problem sum outside
+them goes through the batch-invariant ``kernels.reduce.row_sum``.
 """
 from __future__ import annotations
 
@@ -193,12 +199,15 @@ def make_value_and_grad_batched(C, a, b, prob: DualProblem, sqrt_g, grad_impl: s
 
     For the kernel backend the screening state is padded to the kernel grid
     HERE, once per snapshot round; each evaluation computes only the delta
-    norms, runs K1 for the tile flags and K2/K3 for the gradient.
+    norms, runs K1 for the tile flags and K2/K3 (dense cost) or K5/K6
+    (factorized cost) for the gradient.
     """
     m_pad = prob.m_pad
     tau = prob.tau_vec(C.device)
 
     if grad_impl == "dense":
+        _reject_factorized(C, grad_impl)
+
         def vag(x):
             alpha, beta = _split(x, m_pad)
             v, (ga, gb) = dual_value_and_grad(alpha, beta, C, a, b, prob)
@@ -207,6 +216,8 @@ def make_value_and_grad_batched(C, a, b, prob: DualProblem, sqrt_g, grad_impl: s
         return vag
 
     if grad_impl == "screened":
+        _reject_factorized(C, grad_impl)
+
         def vag(x):
             alpha, beta = _split(x, m_pad)
             verdict = screening.verdicts(screen_state, alpha, beta, sqrt_g, tau)
@@ -220,18 +231,21 @@ def make_value_and_grad_batched(C, a, b, prob: DualProblem, sqrt_g, grad_impl: s
         from repro_torch.kernels import ops as kops
 
         B = C.shape[0]
-        pp = padded if padded is not None else kops.prepare_padded_problem_batched(C, prob)
+        pp = padded if padded is not None else _kernel_problem(C, prob)
         sqb = torch.broadcast_to(sqrt_g, (B, prob.num_groups))
         pstate = kops.pad_screen_state_batched(screen_state, sqb, pp)
         tau_p = kops._pad_tau(tau, pp.L, pp.tile_l, C.device)
+        grad_fn = (kops.dual_value_and_grad_factorized_batched
+                   if isinstance(pp, kops.FactorizedProblem)
+                   else kops.dual_value_and_grad_padded_batched)
 
         def vag(x):
             alpha, beta = _split(x, m_pad)
             flags = kops.screen_tile_flags_batched(pstate, alpha, beta, pp, tau, tau_p=tau_p)
             if tile_stats is not None:
                 tile_stats.add(flags)
-            v, ga, gb = kops.dual_value_and_grad_padded_batched(
-                alpha, beta, a, b, flags, pp, prob, impl=pallas_impl, tau_p=tau_p)
+            v, ga, gb = grad_fn(alpha, beta, a, b, flags, pp, prob, impl=pallas_impl,
+                                tau_p=tau_p)
             return -v, -torch.cat([ga, gb], dim=-1)
 
         return vag
@@ -239,13 +253,56 @@ def make_value_and_grad_batched(C, a, b, prob: DualProblem, sqrt_g, grad_impl: s
     raise ValueError(f"unknown grad_impl: {grad_impl}")
 
 
-def _prepare_padded(C, prob: DualProblem, opts: SolveOptions):
-    """One-time padded-problem preparation for the kernel backend."""
-    if opts.grad_impl != "pallas":
-        return None
+def _is_factorized(C) -> bool:
+    """True when the cost operand is a materialization-free FactorizedCost."""
     from repro_torch.kernels import ops as kops
 
+    return isinstance(C, kops.FactorizedCost)
+
+
+def _reject_factorized(C, grad_impl: str) -> None:
+    """Only the kernel backend takes a factorized cost; the others raise."""
+    if _is_factorized(C):
+        raise TypeError(
+            f"grad_impl='{grad_impl}' cannot take a FactorizedCost; use grad_impl='pallas' "
+            "or materialize the geometry first (SquaredL2Geometry.materialize)")
+
+
+def _kernel_problem(C, prob: DualProblem):
+    """The tile-padded problem of the kernel backend.
+
+    A dense cost gets a :class:`~repro_torch.kernels.ops.PaddedProblem`, a
+    factorized one a :class:`~repro_torch.kernels.ops.FactorizedProblem`,
+    which holds no (m, n) array.
+    """
+    from repro_torch.kernels import ops as kops
+
+    if _is_factorized(C):
+        return kops.prepare_factorized_problem(C, prob)
     return kops.prepare_padded_problem_batched(C, prob)
+
+
+def _prepare_padded(C, prob: DualProblem, opts: SolveOptions):
+    """One-time preparation for the kernel backend (None for the plain backends)."""
+    return _kernel_problem(C, prob) if opts.grad_impl == "pallas" else None
+
+
+def _snapshot_norms_any(alpha, beta, C, prob: DualProblem, row_mask, padded):
+    """Eq. 6 snapshot norms for either cost form.
+
+    With the kernel backend's prepared problem: K4's body, on the
+    factorized cost or on the padded dense one; without (the plain
+    backends): ``dual.snapshot_norms``.  All three sum the group members in
+    the same order, so they give the same bits on the same cost.
+    """
+    from repro_torch.kernels import ops as kops
+
+    if isinstance(padded, kops.FactorizedProblem):
+        return kops.snapshot_norms_factorized(alpha, beta, padded, row_mask)
+    if isinstance(padded, kops.PaddedProblem):
+        return kops.snapshot_norms_padded(alpha, beta, padded, row_mask)
+    _reject_factorized(C, "screened")
+    return snapshot_norms(alpha, beta, C, prob, row_mask)
 
 
 def _init_batch_state(C, a, b, row_mask, sqrt_g, prob, opts, padded, tile_stats=None):
@@ -254,7 +311,8 @@ def _init_batch_state(C, a, b, row_mask, sqrt_g, prob, opts, padded, tile_stats=
     m_pad, n, L = prob.m_pad, prob.n, prob.num_groups
     x0 = torch.zeros((B, m_pad + n), dtype=C.dtype, device=C.device)
     screen0 = screening.init_state(m_pad, n, L, C.dtype, batch_shape=(B,), device=C.device)
-    z0, k0, o0 = snapshot_norms(x0[..., :m_pad], x0[..., m_pad:], C, prob, row_mask)
+    z0, k0, o0 = _snapshot_norms_any(x0[..., :m_pad], x0[..., m_pad:], C, prob, row_mask,
+                                     padded)
     screen0 = screening.take_snapshot(screen0, x0[..., :m_pad], x0[..., m_pad:], z0, k0, o0)
     vag0 = make_value_and_grad_batched(C, a, b, prob, sqrt_g, opts.grad_impl, screen0,
                                        padded=padded, pallas_impl=opts.pallas_impl,
@@ -283,10 +341,10 @@ def _round_body(state, C, a, b, row_mask, sqrt_g, prob, opts, padded, tile_stats
         if not opts.tight_active_refresh:
             # paper order: refresh N w.r.t. OLD snapshots (Eq. 7), then snapshot
             scr_new = screening.refresh_active(scr, alpha, beta, sqrt_g, tau)
-            z, k, o = snapshot_norms(alpha, beta, C, prob, row_mask)
+            z, k, o = _snapshot_norms_any(alpha, beta, C, prob, row_mask, padded)
             scr_new = screening.take_snapshot(scr_new, alpha, beta, z, k, o)
         else:
-            z, k, o = snapshot_norms(alpha, beta, C, prob, row_mask)
+            z, k, o = _snapshot_norms_any(alpha, beta, C, prob, row_mask, padded)
             scr_new = screening.take_snapshot(scr, alpha, beta, z, k, o)
             scr_new = screening.refresh_active(scr_new, alpha, beta, sqrt_g, tau)
         verdict = screening.verdicts(scr_new, alpha, beta, sqrt_g, tau)
@@ -315,8 +373,15 @@ def _solve_batch_impl(C, a, b, row_mask, sqrt_g, prob, opts, tile_stats=None):
     return st.lb, st.scr, st.rounds, st.stats
 
 
+def _cost_operand(C, device: torch.device):
+    """A dense cost or a FactorizedCost as float32 tensors on ``device``."""
+    if _is_factorized(C):
+        return C.map(lambda t: as_tensor(t, device, torch.float32).contiguous())
+    return as_tensor(C, device, torch.float32)
+
+
 def _operands(C, a, b, spec: GroupSpec, device: torch.device):
-    C = as_tensor(C, device, torch.float32)
+    C = _cost_operand(C, device)
     a = as_tensor(a, device, torch.float32)
     b = as_tensor(b, device, torch.float32)
     row_mask = torch.as_tensor(spec.row_mask().reshape(-1), device=device)
@@ -329,14 +394,17 @@ def solve_dual_batch(C, a, b, spec: GroupSpec, reg: Regularizer,
                      device: DeviceLike = None) -> BatchOTResult:
     """Solve B same-shape problems together (``C`` (B, m_pad, n), ``a`` (B, m_pad), ``b`` (B, n)).
 
-    On the CPU, per problem bitwise-identical to :func:`solve_dual` on the
-    same inputs; on CUDA the duals may differ in their low bits (ROADMAP §C).
+    ``C`` may be a :class:`~repro_torch.kernels.ops.FactorizedCost` with a
+    leading B axis on its leaves (``grad_impl='pallas'`` only).  Per
+    problem bitwise-identical to :func:`solve_dual` on the same inputs.
     Runs on ``cuda`` unless ``device='cpu'`` is passed.
     """
     dev = resolve_device(device)
     C, a, b, row_mask, sqrt_g = _operands(C, a, b, spec, dev)
-    if C.ndim != 3:
+    if len(C.shape) != 3:
         raise ValueError(f"expected (B, m_pad, n) costs, got {tuple(C.shape)}")
+    if opts.grad_impl != "pallas":
+        _reject_factorized(C, opts.grad_impl)
     prob = DualProblem(spec.num_groups, spec.group_size, int(C.shape[2]), reg)
     ts = TileStats() if opts.grad_impl == "pallas" else None
     lb, scr, rounds, stats = _solve_batch_impl(C, a, b, row_mask, sqrt_g, prob, opts, ts)
@@ -353,8 +421,9 @@ def solve_dual(C, a, b, spec: GroupSpec, reg: Regularizer,
 
     Parameters
     ----------
-    C : array or tensor
-        ``(m_pad, n)`` float32 padded cost (``groups.pad_cost_matrix``).
+    C : array, tensor or FactorizedCost
+        ``(m_pad, n)`` float32 padded cost (``groups.pad_cost_matrix``), or
+        a factorized cost whose leaves have no batch axis (``'pallas'``).
     a, b : array or tensor
         ``(m_pad,)`` padded source marginal / ``(n,)`` target marginal.
     spec : GroupSpec
@@ -367,8 +436,9 @@ def solve_dual(C, a, b, spec: GroupSpec, reg: Regularizer,
         ``None`` means ``cuda``; pass ``'cpu'`` for the host.
     """
     dev = resolve_device(device)
-    C = as_tensor(C, dev, torch.float32)
-    res = solve_dual_batch(C[None], as_tensor(a, dev)[None], as_tensor(b, dev)[None],
+    C = _cost_operand(C, dev)
+    C = C.map(lambda t: t[None]) if _is_factorized(C) else C[None]
+    res = solve_dual_batch(C, as_tensor(a, dev)[None], as_tensor(b, dev)[None],
                            spec, reg, opts, dev)
     return res[0]
 

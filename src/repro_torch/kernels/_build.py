@@ -6,11 +6,13 @@ keyed by a hash of the sources and flags, so an edit rebuilds and an
 unchanged tree loads the existing file.  Each ``.cu`` compiles in its own
 ``nvcc`` process, all started together, and the objects link into one
 ``.so``.  The kernels include no PyTorch header, so a build takes seconds.
+Each kernel wrapper also counts its launches here (:func:`record_launch`).
 
 Flags: ``sm_90a``, ``-O3``, and no ``--use_fast_math``, so ``sqrtf`` and
-``/`` are IEEE-rounded as in PyTorch's elementwise ops; ``screen.cu`` also
-gets ``-fmad=false`` so its verdicts are bit-identical to the plain
-version.
+``/`` are IEEE-rounded as in PyTorch's elementwise ops; ``screen.cu`` and
+``snapshot.cu`` also get ``-fmad=false`` so their verdicts and norms are
+bit-identical to the plain versions.  The factorized cost (``cost.cuh``)
+rounds each step with ``__fmul_rn`` / ``__fadd_rn`` and so needs no flag.
 """
 from __future__ import annotations
 
@@ -25,6 +27,24 @@ import time
 from pathlib import Path
 from typing import Dict, List, Tuple
 
+# Each wrapper adds one where it launches its CUDA kernel, and nowhere else.
+_LAUNCHES: Dict[str, int] = {}
+
+
+def record_launch(name: str) -> None:
+    _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Snapshot of {kernel wrapper name: CUDA launches since the last reset}."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    """Zero the launch counters."""
+    _LAUNCHES.clear()
+
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
@@ -33,6 +53,8 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"] + ARCH
 SOURCES: Dict[str, List[str]] = {
     "screen.cu": ["-fmad=false"],
     "gradpsi.cu": [],
+    "snapshot.cu": ["-fmad=false"],
+    "reduce.cu": [],
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -40,7 +62,12 @@ SIGNATURES = {
     "screen_launch": [_P] * 12 + [_I] * 5 + [_P],
     "gradpsi_grid_launch": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
     "gradpsi_compact_launch": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
+    "gradpsi_fact_grid_launch": [_P] * 11 + [_I] * 8 + [_F, _F, _P],
+    "gradpsi_fact_compact_launch": [_P] * 12 + [_I] * 8 + [_F, _F, _P],
     "slot_sum_launch": [_P, _P, _I, _I, _I, _P],
+    "snapshot_fact_launch": [_P] * 10 + [_I] * 8 + [_P],
+    "snapshot_dense_launch": [_P] * 7 + [_I] * 6 + [_P],
+    "row_sum_launch": [_P, _P, _I, _I, _I, _P],
 }
 
 

@@ -1,4 +1,4 @@
-"""Screening verdicts and tile flags (paper Eq. 6/7): CUDA kernel K1 + plain version.
+"""Screening (paper Eq. 6/7) and snapshot norms: CUDA kernels K1 and K4 + plain versions.
 
 Counterpart of ``repro.kernels.screen.screen_pallas``, which the JAX solver
 vmaps over the problem axis; here one kernel covers the B axis.  Per entry
@@ -12,6 +12,15 @@ vmaps over the problem axis; here one kernel covers the B axis.  Per entry
 and a tile's flag is 1 unless every entry of it is ZERO.  With
 ``emit_verdict=False`` only the flags are written.  The CUDA source is
 ``csrc/screen.cu``; see its opening note for the design.
+
+K4, :func:`snapshot_norms_fact_batched`, replaces
+``repro.kernels.screen.snapshot_norms_fact_pallas``: the snapshot norms
+z~ = ||[f]_+||, k~ = ||f||, o~ = ||[f]_-|| per group with the cost rebuilt
+from samples and padded group members masked before the sums.  The same
+kernel body over the dense cost, :func:`snapshot_norms_dense_batched`,
+takes the dense route's snapshots.  Both sum the members in order, as the
+plain ``core.dual.snapshot_norms``, so the two routes and the plain
+versions give the same bits (``csrc/snapshot.cu``).
 """
 from __future__ import annotations
 
@@ -19,9 +28,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.dual import member_norms
 from repro_torch.core.screening import ACTIVE, CHECK, ZERO
 from repro_torch.kernels import _build
-from repro_torch.kernels.gradpsi import _record_launch, tau_row
+from repro_torch.kernels.gradpsi import (
+    _check_cuda_inputs,
+    d_chunk,
+    factorized_cost_tile,
+    tau_row,
+)
 
 
 def screen_batched_ref(z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g, *, tau,
@@ -89,5 +104,89 @@ def screen_batched(z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g, *, tau,
         tau_g.data_ptr(), flags.data_ptr(), None if verdict is None else verdict.data_ptr(),
         B, L_pad, n_pad, tile_l, tile_n, _build.stream_handle(z.device))
     _build.check(err, "screen_launch")
-    _record_launch("screen_batched")
+    _build.record_launch("screen_batched")
     return verdict, flags
+
+
+# -- K4: snapshot norms ------------------------------------------------------
+
+def snapshot_norms_dense_ref(alpha, beta, C, mask, *, num_groups: int, group_size: int):
+    """Plain snapshot norms on a dense cost.
+
+    alpha (B, L_pad*g), beta (B, n_pad), C (B, L_pad*g, n_pad) f32, mask
+    (L_pad*g,) nonzero on real rows -> (z~, k~, o~) each (B, L_pad, n_pad).
+    """
+    F = alpha[..., :, None] + beta[..., None, :] - C
+    return member_norms(F, mask != 0, num_groups, group_size)
+
+
+def snapshot_norms_fact_ref(alpha, beta, x, x_sq, y, y_sq, mask, *, num_groups: int,
+                            group_size: int):
+    """Plain version of K4: the cost rebuilt by ``factorized_cost_tile``, then the dense norms."""
+    return snapshot_norms_dense_ref(alpha, beta, factorized_cost_tile(x, x_sq, y, y_sq), mask,
+                                    num_groups=num_groups, group_size=group_size)
+
+
+def _snapshot_checks(alpha, beta, mask, num_groups, group_size, tile_l, tile_n):
+    B, n_pad = beta.shape
+    L_pad, g = num_groups, group_size
+    if L_pad % tile_l or n_pad % tile_n:
+        raise ValueError(f"(L_pad={L_pad}, n_pad={n_pad}) not multiples of "
+                         f"({tile_l}, {tile_n})")
+    if not 1 <= tile_n <= 1024:
+        raise ValueError(f"tile_n={tile_n}: one thread per column, at most 1024")
+    if tuple(alpha.shape) != (B, L_pad * g):
+        raise ValueError(f"alpha {tuple(alpha.shape)} != {(B, L_pad * g)}")
+    if tuple(mask.shape) != (L_pad * g,) or mask.dtype != torch.int8 \
+            or mask.device != alpha.device or not mask.is_contiguous():
+        raise ValueError(f"mask: expected contiguous int8 {(L_pad * g,)} on {alpha.device}")
+    kw = dict(dtype=torch.float32, device=alpha.device)
+    return B, n_pad, tuple(torch.empty((B, L_pad, n_pad), **kw) for _ in range(3))
+
+
+def snapshot_norms_dense_batched(alpha, beta, C, mask, *, num_groups: int, group_size: int,
+                                 tile_l: int, tile_n: int):
+    """K4's body on the dense cost: (z~, k~, o~) each (B, L_pad, n_pad)."""
+    if not alpha.is_cuda:
+        return snapshot_norms_dense_ref(alpha, beta, C, mask, num_groups=num_groups,
+                                        group_size=group_size)
+    B, n_pad, (z, k, o) = _snapshot_checks(alpha, beta, mask, num_groups, group_size,
+                                           tile_l, tile_n)
+    if tuple(C.shape) != (B, num_groups * group_size, n_pad):
+        raise ValueError(f"C {tuple(C.shape)} != {(B, num_groups * group_size, n_pad)}")
+    _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta), ("C", C)))
+    err = _build.library().snapshot_dense_launch(
+        alpha.data_ptr(), beta.data_ptr(), C.data_ptr(), mask.data_ptr(), z.data_ptr(),
+        k.data_ptr(), o.data_ptr(), B, num_groups, group_size, n_pad, tile_l, tile_n,
+        _build.stream_handle(alpha.device))
+    _build.check(err, "snapshot_dense_launch")
+    _build.record_launch("snapshot_norms_dense_batched")
+    return z, k, o
+
+
+def snapshot_norms_fact_batched(alpha, beta, x, x_sq, y, y_sq, mask, *, num_groups: int,
+                                group_size: int, tile_l: int, tile_n: int):
+    """K4: snapshot norms on the factorized cost, (z~, k~, o~) each (B, L_pad, n_pad).
+
+    x (B, L_pad*g, d), x_sq (B, L_pad*g), y (B, n_pad, d), y_sq (B, n_pad).
+    """
+    if not alpha.is_cuda:
+        return snapshot_norms_fact_ref(alpha, beta, x, x_sq, y, y_sq, mask,
+                                       num_groups=num_groups, group_size=group_size)
+    B, n_pad, (z, k, o) = _snapshot_checks(alpha, beta, mask, num_groups, group_size,
+                                           tile_l, tile_n)
+    m_pad, d = num_groups * group_size, x.shape[-1]
+    want = {"x": (B, m_pad, d), "x_sq": (B, m_pad), "y": (B, n_pad, d), "y_sq": (B, n_pad)}
+    for name, t in (("x", x), ("x_sq", x_sq), ("y", y), ("y_sq", y_sq)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} {tuple(t.shape)} != {want[name]}")
+    _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta), ("x", x),
+                                      ("x_sq", x_sq), ("y", y), ("y_sq", y_sq)))
+    err = _build.library().snapshot_fact_launch(
+        alpha.data_ptr(), beta.data_ptr(), x.data_ptr(), x_sq.data_ptr(), y.data_ptr(),
+        y_sq.data_ptr(), mask.data_ptr(), z.data_ptr(), k.data_ptr(), o.data_ptr(), B,
+        num_groups, group_size, n_pad, d, d_chunk(tile_l, group_size, tile_n, d), tile_l,
+        tile_n, _build.stream_handle(alpha.device))
+    _build.check(err, "snapshot_fact_launch")
+    _build.record_launch("snapshot_norms_fact_batched")
+    return z, k, o

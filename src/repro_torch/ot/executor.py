@@ -1,10 +1,21 @@
 """Compile a (Problem template, ExecutionPlan) into a reusable Executor.
 
 Counterpart of ``repro.ot.executor`` for the solo route:
-:meth:`Executor.solve` lowers a problem to the padded layout and runs the
-B = 1 slice of the batched solver (``core.solver.solve_dual_batch``), on
-the executor's device.  ``solve_many``, ``stream`` and device meshes are
-not ported yet (ROADMAP queue A items 3 and 9).
+:meth:`Executor.solve` lowers a problem on one of three routes
+(:meth:`Executor._route`, the JAX decision table) and runs the B = 1 slice
+of the batched solver (``core.solver.solve_dual_batch``) on the executor's
+device:
+
+  * ``'dense'``       the padded dense cost, built on the host;
+  * ``'factorized'``  a samples-mode problem on the kernel backend: the
+    samples and squared norms of ``SquaredL2Geometry`` go to the device and
+    the kernels rebuild each cost tile; no (m, n) cost exists during the
+    solve;
+  * ``'materialize'`` the same geometry materialized on the device in row
+    chunks, for the plain backends, so they see the kernels' cost bits.
+
+``solve_many``, ``stream`` and device meshes are not ported yet (ROADMAP
+queue A items 3 and 9).
 """
 from __future__ import annotations
 
@@ -17,13 +28,10 @@ from repro_torch.core import groups as G
 from repro_torch.core import solver as slv
 from repro_torch.core.regularizers import Regularizer
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.ot import geometry as geo
 from repro_torch.ot.plan import ExecutionPlan
 from repro_torch.ot.problem import Problem
 from repro_torch.ot.solution import Solution, build_solution
-
-# The dense cost above which the JAX 'auto' geometry keeps sample-mode
-# problems factorized on the kernel backend (repro/ot/geometry.py).
-AUTO_ONTHEFLY_BYTES = 64 * 1024 * 1024
 
 
 def compile(problem: Problem, plan: Optional[ExecutionPlan] = None,
@@ -103,7 +111,9 @@ class Executor:
         ]
         if self._template is not None:
             lines.append(f"geometry: plan={self._plan.geometry} -> route="
-                         f"{self._route(self._template)} (template)")
+                         f"{self._route(self._template)} (template, dense cost "
+                         f"{spec.m_pad * n * 4} B vs auto threshold "
+                         f"{geo.AUTO_ONTHEFLY_BYTES} B)")
         if result is not None:
             s = result.stats
             total = max(s["zero"] + s["check"] + s["active"], 1)
@@ -118,20 +128,26 @@ class Executor:
         return "\n".join(lines)
 
     def _route(self, problem: Problem) -> str:
-        """Resolve the plan's geometry for one problem; only 'dense' is ported.
+        """Resolve the plan's geometry for one problem (the JAX decision table).
 
-        Where the JAX ``'auto'`` policy would keep the problem factorized
-        (a sample-mode problem on the kernel backend whose dense cost
-        exceeds 64 MiB), this raises instead of quietly taking the dense
-        route.
+        ``'dense'`` (padded dense cost), ``'factorized'`` (samples on the
+        kernel backend: costs rebuilt inside the kernels) or
+        ``'materialize'`` (the factorized geometry materialized in chunks,
+        for the plain backends).  ``'auto'`` keeps a samples-mode problem
+        factorized on the kernel backend once its dense cost would exceed
+        ``AUTO_ONTHEFLY_BYTES``.
         """
-        if self._plan.geometry == "dense":
+        sel = self._plan.geometry
+        if sel == "dense":
             return "dense"
-        if (problem.mode == "samples" and self._plan.grad_impl == "pallas"
-                and self._spec.m_pad * self._n * 4 > AUTO_ONTHEFLY_BYTES):
-            raise NotImplementedError(
-                "geometry='auto' resolves to the factorized route here, which is not "
-                "ported yet (ROADMAP queue A item 6); pass geometry='dense'")
+        samples = problem.mode == "samples"
+        pallas = self._plan.grad_impl in ("pallas", "fused")
+        if sel == "on_the_fly":
+            if not samples:
+                return "dense"          # a given cost: nothing to factorize
+            return "factorized" if pallas else "materialize"
+        if samples and pallas and self._spec.m_pad * self._n * 4 > geo.AUTO_ONTHEFLY_BYTES:
+            return "factorized"
         return "dense"
 
     def _record(self, result: slv.OTResult) -> None:
@@ -141,6 +157,46 @@ class Executor:
         failed = bool(result.lbfgs_state.failed)
         self._counters["status"]["FAILED" if failed else "DONE"] += 1
 
+    def _check_layout(self, spec: G.GroupSpec, n: int) -> None:
+        L, g = spec.num_groups, spec.group_size
+        if (L, g) != (self._spec.num_groups, self._spec.group_size):
+            raise ValueError(f"problem layout (L={L}, g_pad={g}) does not match the "
+                             f"executor template (L={self._spec.num_groups}, "
+                             f"g_pad={self._spec.group_size})")
+        if n > self._n:
+            raise ValueError(f"problem has {n} target columns but the executor compiled "
+                             f"for {self._n}")
+
+    def geometry(self, problem: Problem) -> geo.SquaredL2Geometry:
+        """The factorized geometry of a samples-mode problem, on the device, template-wide.
+
+        Raises ``ValueError`` where the samples cannot be factorized (mixed
+        feature dimensions) or the layout does not fit the template.
+        """
+        if problem.mode != "samples":
+            raise ValueError(f"only a samples-mode problem has a factorized geometry, "
+                             f"not a {problem.mode}-mode one")
+        if problem.X_S.ndim != 2 or problem.X_S.shape[1:] != problem.X_T.shape[1:]:
+            raise ValueError(f"the factorized route needs (m, d) and (n, d) samples, got "
+                             f"{problem.X_S.shape} and {problem.X_T.shape}")
+        spec = problem.group_spec()
+        self._check_layout(spec, problem.num_target)
+        geom = geo.SquaredL2Geometry.from_samples(problem.X_S, problem.labels, problem.X_T,
+                                                  spec, normalize_cost=problem.normalize_cost,
+                                                  device=self._device)
+        return geom.pad_columns(self._n)
+
+    def _marginals(self, problem: Problem):
+        """Padded source marginal, template-wide target marginal and the row map."""
+        spec = problem.group_spec()
+        m, n = problem.num_source, problem.num_target
+        a = problem.a if problem.a is not None else np.full((m,), 1.0 / m, np.float32)
+        b = problem.b if problem.b is not None else np.full((n,), 1.0 / n, np.float32)
+        bf = np.zeros((self._n,), np.float32)
+        bf[:n] = np.asarray(b, np.float32)
+        return (G.pad_marginal(np.asarray(a, np.float32), problem.labels, spec), bf,
+                G.padded_perm(problem.labels, spec))
+
     def solve(self, problem: Optional[Problem] = None) -> Solution:
         """Solve ONE problem (defaults to the template) on the executor's device."""
         problem = problem if problem is not None else self._template
@@ -149,17 +205,26 @@ class Executor:
         if problem.reg != self._reg:
             raise ValueError(f"problem regularizer {problem.reg!r} does not match the "
                              f"executor's {self._reg!r}")
-        self._route(problem)
+        route = self._route(problem)
+        dev = self._device
+        if route != "dense":
+            geom = self.geometry(problem)
+            a, b, perm = self._marginals(problem)
+            spec, n = problem.group_spec(), problem.num_target
+            if route == "factorized":
+                from repro_torch.kernels.ops import FactorizedCost
+
+                result = slv.solve_dual(FactorizedCost(*geom.operands()), a, b, spec,
+                                        self._reg, self._opts, dev)
+                C_t = geom.materialize()     # the dense cost exists only from here on
+            else:
+                C_t = geom.materialize()
+                result = slv.solve_dual(C_t, a, b, spec, self._reg, self._opts, dev)
+            self._record(result)
+            return build_solution(result, self._reg, C_t, spec, perm, n)
         pa = problem.padded()
-        L, g = pa.spec.num_groups, pa.spec.group_size
-        if (L, g) != (self._spec.num_groups, self._spec.group_size):
-            raise ValueError(f"problem layout (L={L}, g_pad={g}) does not match the "
-                             f"executor template (L={self._spec.num_groups}, "
-                             f"g_pad={self._spec.group_size})")
         n = int(pa.C.shape[1])
-        if n > self._n:
-            raise ValueError(f"problem has {n} target columns but the executor compiled "
-                             f"for {self._n}")
+        self._check_layout(pa.spec, n)
         C, b = pa.C, pa.b
         if n < self._n:                      # auto-pad columns up to the template
             Cf = np.full((C.shape[0], self._n), G.PAD_COST, np.float32)
@@ -167,7 +232,6 @@ class Executor:
             bf = np.zeros((self._n,), np.float32)
             bf[:n] = b
             C, b = Cf, bf
-        dev = self._device
         C_t = torch.from_numpy(np.ascontiguousarray(C)).to(dev)
         result = slv.solve_dual(C_t, pa.a, b, pa.spec, self._reg, self._opts, dev)
         self._record(result)

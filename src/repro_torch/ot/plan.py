@@ -32,7 +32,8 @@ class ExecutionPlan:
 
     Supported in this port: ``grad_impl`` in {'dense', 'screened',
     'pallas'}, ``pallas_impl`` in {'grid', 'compact', 'auto'},
-    ``geometry='dense'`` (or ``'auto'`` where it resolves to dense),
+    ``geometry`` in {'auto', 'dense', 'on_the_fly'} (the factorized
+    squared-l2 route, resolved per problem by ``Executor._route``),
     ``precision='f32'``, ``devices='single'``, ``solver='lbfgs'``.
     """
 
@@ -80,8 +81,6 @@ class ExecutionPlan:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         if self.grad_impl == "fused":
             raise _not_ported("grad_impl='fused'", "5")
-        if self.geometry == "on_the_fly":
-            raise _not_ported("geometry='on_the_fly' (factorized cost)", "6")
         if self.precision == "bf16":
             raise _not_ported("precision='bf16'", "7")
         if self.solver == "stochastic":

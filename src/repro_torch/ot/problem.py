@@ -11,7 +11,9 @@ regularized OT instance, in one of three modes:
 
 A Problem lives on the host (numpy); :meth:`Problem.padded` lowers it with
 the same numpy op sequence as the JAX package, so both packages see the
-same cost bits.  Configs are the JAX package's JSON.
+same cost bits.  :meth:`Problem.materialized` gives instead the cost of
+the factorized route (``ot.geometry``), built on a device.  Configs are
+the JAX package's JSON.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 
 from repro_torch.core import groups as G
 from repro_torch.core.regularizers import Regularizer, from_config as reg_from_config
+from repro_torch.device import DeviceLike
 
 
 def squared_euclidean_cost(X_S: np.ndarray, X_T: np.ndarray) -> np.ndarray:
@@ -209,6 +212,34 @@ class Problem:
             spec,
             G.padded_perm(self.labels, spec),
         )
+
+    def materialized(self, chunk_rows: Optional[int] = None,
+                     device: DeviceLike = None) -> "Problem":
+        """Samples mode -> cost mode, with the cost of the factorized route.
+
+        The dense cost is the one the kernels rebuild on the fly
+        (``ot.geometry.SquaredL2Geometry``), materialized on ``device`` in
+        row chunks and brought back in this problem's row order, so the
+        dense route on the result is bitwise comparable to the factorized
+        route on ``self``.  It is the kernels' f32 recipe, not
+        :meth:`cost`'s numpy one; the two agree to f32 tolerance.  Other
+        modes come back unchanged.  ``device`` is ``None`` for ``cuda``.
+        """
+        if self.mode != "samples":
+            return self
+        from repro_torch.ot.geometry import SquaredL2Geometry
+
+        spec = self.group_spec()
+        geom = SquaredL2Geometry.from_samples(self.X_S, self.labels, self.X_T, spec,
+                                              normalize_cost=self.normalize_cost,
+                                              chunk_rows=chunk_rows, device=device)
+        C_pad = geom.materialize(chunk_rows).cpu().numpy()
+        perm = G.padded_perm(self.labels, spec)
+        real = perm >= 0
+        C = np.empty((self.num_source, self.num_target), np.float32)
+        C[perm[real]] = C_pad[real]
+        return Problem(reg=self.reg, C=C, labels=self.labels, a=self.a, b=self.b,
+                       normalize_cost=self.normalize_cost, pad_to=self.pad_to)
 
     def config(self) -> dict:
         """JSON-able description, the same as the JAX package's."""

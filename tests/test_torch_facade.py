@@ -110,7 +110,7 @@ def test_plan_config_crosses_packages():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(grad_impl="fused"), "item 5"),
-    (dict(geometry="on_the_fly"), "item 6"),
+    (dict(grad_impl="fused", geometry="on_the_fly"), "item 5"),
     (dict(grad_impl="pallas", precision="bf16"), "item 7"),
     (dict(solver="stochastic"), "item 8"),
     (dict(devices="all"), "item 9"),
@@ -137,17 +137,25 @@ def test_unported_entry_points_raise():
 
 
 def test_auto_geometry_never_takes_the_dense_route_quietly():
-    """Where the JAX 'auto' policy picks the factorized route, the port raises."""
+    """Where the JAX 'auto' policy picks the factorized route, the port takes it and solves."""
     rng = np.random.default_rng(0)
-    m = 4200                                   # m_pad * n * 4 bytes > 64 MiB
-    labels = np.repeat(np.arange(600), 7)
-    X = rng.normal(size=(m, 2)).astype(np.float32)
-    big = tot.Problem.from_samples(X, labels, X, TGroupSparseReg(0.1, 1.0))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tot.compile(big, tot.ExecutionPlan(grad_impl="pallas"), device="cpu").solve()
-    # geometry='dense' is the supported route; 'auto' stays dense off the kernel backend
-    assert tot.compile(big, tot.ExecutionPlan(grad_impl="screened"),
-                       device="cpu")._route(big) == "dense"
+    labels = np.repeat(np.arange(600), 7)      # m_pad = 4800
+    Xs = rng.normal(size=(labels.size, 2)).astype(np.float32)
+    Xt = rng.normal(size=(3500, 2)).astype(np.float32)
+    big = tot.Problem.from_samples(Xs, labels, Xt, TGroupSparseReg(0.1, 1.0))
+    assert big.group_spec().m_pad * 3500 * 4 > 64 * 1024 * 1024
+    ex = tot.compile(big, tot.ExecutionPlan(grad_impl="pallas", snapshot_every=1, max_rounds=1),
+                     device="cpu")
+    assert ex._route(big) == "factorized"
+    sol = ex.solve()
+    assert "route=factorized" in ex.describe(sol)
+    assert tuple(sol.plan.shape) == (labels.size, 3500)
+    assert np.isfinite(sol.value) and bool(torch.isfinite(sol.plan).all())
+    assert sol.iterations == 1 and sol.rounds == 1
+    # geometry='dense' stays dense; 'auto' stays dense off the kernel backend
+    for plan in (tot.ExecutionPlan(grad_impl="pallas", geometry="dense"),
+                 tot.ExecutionPlan(grad_impl="screened")):
+        assert tot.compile(big, plan, device="cpu")._route(big) == "dense"
 
 
 def test_entry_points_without_cuda_raise():
@@ -166,7 +174,11 @@ def test_entry_points_without_cuda_raise():
 
 
 def test_import_hygiene():
-    """repro_torch and chip_smoke.py import neither jax nor any repro module."""
+    """repro_torch and chip_smoke.py import neither jax nor any repro module.
+
+    Every module, the factorized route's included, imports without triton,
+    nvcc or a card.
+    """
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -175,9 +187,15 @@ def test_import_hygiene():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "for name in ('repro_torch.ot.geometry', 'repro_torch.kernels.reduce',\n"
+        "             'repro_torch.kernels.screen', 'repro_torch.kernels.gradpsi'):\n"
+        "    assert name in sys.modules, name\n"
+        "assert 'triton' not in sys.modules\n"
         "print('ok', len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
     )
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # no nvcc on the path and no CUDA toolkit: an import that built a kernel would fail
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), PATH=os.path.dirname(
+        sys.executable), CUDA_HOME=os.path.join(ROOT, "no-cuda-toolkit"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr

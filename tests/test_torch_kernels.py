@@ -28,6 +28,7 @@ from repro.kernels.screen import screen_pallas
 from repro_torch.core import screening as tscr
 from repro_torch.core.dual import DualProblem as TDualProblem
 from repro_torch.core.regularizers import GroupSparseReg as TGroupSparseReg
+from repro_torch.kernels import _build
 from repro_torch.kernels import gradpsi as tgp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import screen as tsc
@@ -199,11 +200,11 @@ def test_tiling_matches_jax_and_fits_shared_memory():
 
 
 def test_cpu_wrappers_count_no_launches():
-    tgp.reset_launch_counts()
+    _build.reset_launch_counts()
     alpha, beta, C, flags, tau = _grad_inputs(3)
     kw = dict(num_groups=16, group_size=8, tau=_t(tau), gamma=0.25, tile_l=8, tile_n=128)
     tgp.gradpsi_batched(_t(alpha), _t(beta), _t(C), _t(flags), **kw)
     sched, nact = tgp.build_batch_tile_schedule(_t(flags))
     tgp.gradpsi_compact_batched(_t(alpha), _t(beta), _t(C), sched, nact, **kw)
-    assert tgp.launch_counts() == {}
+    assert _build.launch_counts() == {}
 
