@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py      # needs one CUDA card; takes about two minutes
+    python3 chip_smoke.py      # needs one CUDA card; takes four to five minutes
 
 The main path is the default plan at the paper's largest scale:
 ``repro_torch.ot.compile(Problem.from_samples(...), ExecutionPlan(grad_impl=
@@ -8,7 +8,10 @@ The main path is the default plan at the paper's largest scale:
 (the dense cost would take 1.05 GB): per L-BFGS evaluation K1 (screen) and
 K5 or K6 (gradient on costs rebuilt from samples), per snapshot K4.  The
 dense-cost route (K1, K2/K3, and K4's body on the dense cost) is driven as
-well.
+well, and so are the fused oracle, ``ExecutionPlan(grad_impl='fused')``
+(per evaluation K8 on the factorized route or K7 on the dense one, screen
+and gradient in one launch; K1 + K6 / K3 on its compact branch), and
+``precision='bf16'`` (the prepared cost stored in bfloat16) on both.
 
 Phases:
   1. device: require CUDA; print the card's name and power limit;
@@ -17,32 +20,47 @@ Phases:
      1280, g = 16, n_pad = 12800, d = 2, 8 x 128 tiles) at four live-tile
      shares: K1 exactly equal, K2 within rtol 1e-5 / atol 1e-6, K3 bitwise
      equal to K2, K5 and K6 bitwise equal to K2 and K3 on the
-     device-materialized cost, K4 (both loaders) torch.equal to its plain
-     version, all deterministic across runs; once more at d = 64 on a
-     narrower problem (the d-chunk loop); the row-sum kernel against its
-     plain version and across batch sizes;
+     device-materialized cost, K7/K8 flags exactly K1's and their sums
+     bitwise K2's / K5's (and K8 == K7), K4 (both loaders) torch.equal to
+     its plain version, all deterministic across runs; then the bf16
+     instantiations of K2-K8 on the bf16 cost forms, held to their plain
+     versions as the f32 ones are; once more at d = 64 on a narrower
+     problem (the d-chunk loop, K8 == K5 there too); the row-sum kernel
+     against its plain version and across batch sizes;
   4. end to end through ``repro_torch.ot``: the default plan (factorized)
      with grid / compact / auto, the dense route (``geometry='dense'``)
      with grid / compact / auto, the dense route on
-     ``problem.materialized()`` with grid / compact / auto, and the plain
-     'screened' and 'dense' backends.  Factorized equals
-     dense-on-materialized bit for bit (duals, value, plan, rounds,
-     stats); grid == compact == auto bitwise per route; every objective
-     within rtol 2e-5 of 'dense'; launch counters reset just before and
-     read just after each solve, and held per path (K1 once per
-     evaluation, one of K2/K3 or K5/K6 per evaluation, K4 once per
-     snapshot).  Then the main path's solver call alone: its peak device
-     memory (must stay under the 1.05 GB dense cost) and a torch.profiler
-     trace (device busy time, idle share, largest kernels);
-  5. at the state of the main path's last round boundary: K1-K6 held to
+     ``problem.materialized()`` with grid / compact / auto, the fused
+     oracle on both routes with grid / compact / auto, bf16 with pallas and
+     fused, grid / compact / auto, on both routes, and the plain 'screened'
+     and 'dense' backends.  Factorized equals dense-on-materialized bit for bit
+     (duals, value, plan, rounds, stats); grid == compact == auto bitwise
+     per route; fused == pallas bitwise per route, impl and precision (the
+     plan by an exact integer fingerprint of its bits); every f32
+     objective within rtol 2e-5 of 'dense', every bf16 one printed beside
+     it with its relative gap; launch counters reset just before and read
+     just after each solve, and held per path (pallas: K1 and one gradient
+     kernel per evaluation; fused grid: the fused kernel once per
+     evaluation and no K1; fused compact: K1 and the compact kernel; the
+     route's snapshot kernel once per snapshot).  Then the solver calls
+     alone: the main path's and the fused/auto and fused/grid factorized
+     ones, each with its peak device memory (must stay under the 1.05 GB
+     dense cost) and a torch.profiler trace (device busy time, idle share,
+     launches per evaluation, largest kernels); the dense route's
+     fused/auto solver call in f32 and bf16, peak memory.  The fused route's
+     'auto' decides once per round at the snapshot point (as the JAX
+     package does); at this scale it takes the two-launch compact branch in
+     every round, so the kernel table counts K7/K8 on the fused grid paths;
+  5. at the state of the main path's last round boundary: K1-K8 held to
      their plain versions (K1 and K4 exactly, K2/K3 within the f32 error
-     bound of a float64 evaluation, K5/K6 bitwise to K2/K3) and timed (CUDA
-     events, median) beside their bounds and the plain versions; the
-     round boundary with the plain torch.sum snapshot norms against K4's body;
-     K2/K3/K5/K6 times across live shares;
+     bound of a float64 evaluation, K5/K6 bitwise to K2/K3, K7/K8 flags
+     exactly K1's and sums bitwise K2's / K5's) and timed (CUDA events,
+     median) beside their bounds and the plain versions; the round
+     boundary with the plain torch.sum snapshot norms against K4's body;
+     K2/K3/K5-K8 times across live shares, and K2/K5/K7/K8 on bf16 costs;
   6. solo vs batched (B = 2) at L = 64, n = 1024, dense and factorized,
-     grid and compact: bitwise equal (duals, value, rounds, stats), or the
-     smoke fails.
+     pallas and fused, grid and compact: bitwise equal (duals, value,
+     rounds, stats), or the smoke fails.
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
@@ -63,11 +81,20 @@ TILE_L, TILE_N = 8, 128
 
 K1, K2, K3 = "screen_batched", "gradpsi_batched", "gradpsi_compact_batched"
 K4, K5, K6 = "snapshot_norms_fact_batched", "gradpsi_fact_batched", "gradpsi_fact_compact_batched"
+K7, K8 = "gradpsi_fused_batched", "gradpsi_fused_fact_batched"
 K4D = "snapshot_norms_dense_batched"          # K4's body on the dense cost
+KERNELS = (K1, K2, K3, K4, K5, K6, K7, K8)
 MAIN_PATH = "factorized/auto"
 DENSE_PATH = "dense/auto"
+FUSED_PATH = "factorized/fused-auto"          # ExecutionPlan(grad_impl='fused')
+# 'auto' on the fused route decides once per round at the snapshot point;
+# at this scale it takes the two-launch compact branch every round, so the
+# fused kernels run on the fused route's grid paths
+FUSED_GRID_PATH = "factorized/fused-grid"
+FUSED_DENSE_GRID_PATH = "dense/fused-grid"
 PORT_KERNELS = ("screen_kernel", "gradpsi_grid_kernel", "gradpsi_compact_kernel",
-                "slot_sum_kernel", "snapshot_kernel", "row_sum_kernel")
+                "gradpsi_fused_kernel", "slot_sum_kernel", "snapshot_kernel",
+                "row_sum_kernel")
 SOURCES = {
     K1: ("src/repro_torch/kernels/csrc/screen.cu", "src/repro/kernels/screen.py:63"),
     K2: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:522"),
@@ -75,6 +102,8 @@ SOURCES = {
     K4: ("src/repro_torch/kernels/csrc/snapshot.cu", "src/repro/kernels/screen.py:157"),
     K5: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:1091"),
     K6: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:1205"),
+    K7: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:1485"),
+    K8: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:1751"),
 }
 
 
@@ -163,7 +192,7 @@ class Operands:
         rm = torch.as_tensor(self.spec.row_mask().reshape(-1), device=device)
         self.row_mask = rm
         self.mask = kops._padded_mask(rm, self.fp)
-        self._pp = None
+        self._pp = self._forms16 = None
 
     @property
     def pp(self):
@@ -180,7 +209,23 @@ class Operands:
 
     def drop_dense(self) -> None:
         """Free the materialized cost (the main path's solve must not need it)."""
-        self._pp = None
+        self._pp = self._forms16 = None
+
+    def cost_forms(self, storage: str):
+        """(dense padded cost, factorized leaves) stored as ``storage`` ('f32' or 'bf16').
+
+        bf16: each f32 form rounded to bfloat16, as ``precision='bf16'``
+        prepares them (the dense form rounds the materialized cost, so it
+        is not the factorized bf16 cost materialized).
+        """
+        import torch
+
+        if storage == "f32":
+            return self.pp.Cp, self.fp.leaves()
+        if self._forms16 is None:
+            self._forms16 = (self.pp.Cp.to(torch.bfloat16),
+                             tuple(t.to(torch.bfloat16) for t in self.fp.leaves()))
+        return self._forms16
 
 
 # -- phase 3 inputs ------------------------------------------------------------
@@ -216,25 +261,34 @@ def kernel_inputs(rng, C, L_pad: int, tau_val: float, live_share: float, device)
                 g=g, L_pad=L_pad)
 
 
-def run_kernels(inp, ops, tau_p, gamma):
-    """K1 flags, then K2/K3 on the dense cost, K5/K6 on the factorized one, and K4."""
+def screen_args(inp):
+    """K1's operands in launch order, from ``kernel_inputs``."""
+    return tuple(inp[k] for k in ("z", "k", "o", "act", "da_plus", "da_full", "da_neg", "db",
+                                  "sqrt_g"))
+
+
+def run_kernels(inp, ops, tau_p, gamma, storage="f32"):
+    """K1 flags, then K2/K3/K7 on the dense cost, K5/K6/K8 on the factorized one, and K4,
+    on the cost forms stored as ``storage``."""
     from repro_torch.kernels import gradpsi as kg
     from repro_torch.kernels import screen as ks
 
-    verdict, flags = ks.screen_batched(
-        inp["z"], inp["k"], inp["o"], inp["act"], inp["da_plus"], inp["da_full"],
-        inp["da_neg"], inp["db"], inp["sqrt_g"], tau=tau_p, tile_l=TILE_L, tile_n=TILE_N,
-        emit_verdict=True)
+    sargs = screen_args(inp)
+    verdict, flags = ks.screen_batched(*sargs, tau=tau_p, tile_l=TILE_L, tile_n=TILE_N,
+                                       emit_verdict=True)
     kw = dict(num_groups=inp["L_pad"], group_size=inp["g"], tau=tau_p, gamma=gamma,
               tile_l=TILE_L, tile_n=TILE_N)
-    a, b, C, leaves = inp["alpha"], inp["beta"], ops.pp.Cp, ops.fp.leaves()
+    a, b = inp["alpha"], inp["beta"]
+    C, leaves = ops.cost_forms(storage)
     sched, nact = kg.build_batch_tile_schedule(flags)
     out = dict(
-        verdict=verdict, flags=flags, sched=sched, nact=nact,
+        verdict=verdict, flags=flags, sched=sched, nact=nact, C=C, leaves=leaves,
         k2=kg.gradpsi_batched(a, b, C, flags, **kw),
         k3=kg.gradpsi_compact_batched(a, b, C, sched, nact, **kw),
         k5=kg.gradpsi_fact_batched(a, b, *leaves, flags, **kw),
         k6=kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw),
+        k7=kg.gradpsi_fused_batched(a, b, C, *sargs, **kw),
+        k8=kg.gradpsi_fused_fact_batched(a, b, *leaves, *sargs, **kw),
     )
     skw = dict(num_groups=inp["L_pad"], group_size=inp["g"], tile_l=TILE_L, tile_n=TILE_N)
     out["k4"] = ks.snapshot_norms_fact_batched(a, b, *leaves, ops.mask, **skw)
@@ -249,58 +303,69 @@ def phase_kernels(ops, reg, device):
     from repro_torch.kernels import gradpsi as kg
     from repro_torch.kernels import screen as ks
 
-    rng = np.random.default_rng(0)
     tau_val = float(reg.tau)
-    L_pad, C = ops.fp.L_pad, ops.pp.Cp
+    L_pad = ops.fp.L_pad
     tau_p = torch.full((L_pad,), tau_val, dtype=torch.float32, device=device)
-    k4_plain = None
-    for target in (0.0, 0.1, 0.6, 1.0):
-        inp = kernel_inputs(rng, C, L_pad, tau_val, target, device)
-        r = run_kernels(inp, ops, tau_p, reg.gamma)
-        v_ref, f_ref = ks.screen_batched_ref(
-            inp["z"], inp["k"], inp["o"], inp["act"], inp["da_plus"], inp["da_full"],
-            inp["da_neg"], inp["db"], inp["sqrt_g"], tau=tau_p, tile_l=TILE_L,
-            tile_n=TILE_N)
-        check(torch.equal(r["verdict"], v_ref), f"K1 verdicts differ from the plain version "
-              f"at share {target}")
-        check(torch.equal(r["flags"], f_ref), f"K1 flags differ from the plain version at "
-              f"share {target}")
-        ref = kg.gradpsi_batched_ref(inp["alpha"], inp["beta"], C, r["flags"],
-                                     num_groups=L_pad, group_size=inp["g"], tau=tau_p,
-                                     gamma=reg.gamma, tile_l=TILE_L, tile_n=TILE_N)
-        errs, rels = [], []
-        for name, got, want in zip(("rowsum", "colsum", "psi"), r["k2"], ref):
-            check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
-                  f"K2 {name} off its plain version at share {target}: max abs err "
-                  f"{float((got - want).abs().max())}")
-            errs.append(float((got - want).abs().max()))
-            rels.append(float(((got - want).abs() / want.abs().clamp_min(1e-30)).max()))
-        live = int(torch.count_nonzero(r["flags"]))
-        check(int(r["k3"][3]) == live and int(r["k6"][3]) == live,
-              f"K3/K6 num_active {int(r['k3'][3])}/{int(r['k6'][3])} != live tiles {live}")
-        check(same(r["k2"], r["k3"][:3]), f"K3 not bitwise equal to K2 at share {target}")
-        check(same(r["k5"], r["k2"]), f"K5 not bitwise equal to K2 on the materialized cost "
-              f"at share {target}")
-        check(same(r["k6"][:3], r["k3"][:3]), f"K6 not bitwise equal to K3 at share {target}")
-        # K4 does not depend on the flags: its plain version once, on the first inputs
-        # of each share (the duals change per share)
-        k4_plain = ks.snapshot_norms_fact_ref(inp["alpha"], inp["beta"], *ops.fp.leaves(),
-                                              ops.mask, num_groups=L_pad, group_size=inp["g"])
-        check(same(r["k4"], k4_plain), f"K4 differs from its plain version at share {target}")
-        check(same(r["k4d"], k4_plain), f"K4's body on the dense cost differs from the "
-              f"factorized K4 at share {target}")
-        again = run_kernels(inp, ops, tau_p, reg.gamma)
-        check(torch.equal(r["flags"], again["flags"]), "K1 not deterministic")
-        for key in ("k2", "k3", "k5", "k6", "k4", "k4d"):
-            check(same(r[key], again[key]), f"{key} not deterministic")
-        share = live / r["flags"].numel()
-        print(f"kernels @ live share {share:.4f} (target {target}): K1 == plain (verdicts, "
-              f"flags); K2 max abs err {max(errs):.3e}, max rel err {max(rels):.3e} "
-              f"(rtol 1e-5, atol 1e-6); K3 == K2, K5 == K2, K6 == K3 bitwise, "
-              f"num_active={live}; K4 (factorized and dense loaders) == plain bitwise; "
-              f"rerun bitwise equal", flush=True)
-        del r, again, inp, ref
-    del k4_plain
+    for storage in ("f32", "bf16"):
+        rng = np.random.default_rng(0)
+        for target in (0.0, 0.1, 0.6, 1.0):
+            inp = kernel_inputs(rng, ops.pp.Cp, L_pad, tau_val, target, device)
+            r = run_kernels(inp, ops, tau_p, reg.gamma, storage)
+            C, leaves = r["C"], r["leaves"]
+            at = f"at share {target} ({storage})"
+            v_ref, f_ref = ks.screen_batched_ref(*screen_args(inp), tau=tau_p, tile_l=TILE_L,
+                                                 tile_n=TILE_N)
+            check(torch.equal(r["verdict"], v_ref), f"K1 verdicts differ from the plain "
+                  f"version {at}")
+            check(torch.equal(r["flags"], f_ref), f"K1 flags differ from the plain version {at}")
+            gkw = dict(num_groups=L_pad, group_size=inp["g"], tau=tau_p, gamma=reg.gamma,
+                       tile_l=TILE_L, tile_n=TILE_N)
+            errs, rels = [], []
+            for key, ref in (("k2", kg.gradpsi_batched_ref(inp["alpha"], inp["beta"], C,
+                                                           r["flags"], **gkw)),
+                             ("k5", kg.gradpsi_fact_batched_ref(inp["alpha"], inp["beta"],
+                                                                *leaves, r["flags"], **gkw))):
+                for name, got, want in zip(("rowsum", "colsum", "psi"), r[key], ref):
+                    check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+                          f"{key} {name} off its plain version {at}: max abs err "
+                          f"{float((got - want).abs().max())}")
+                    errs.append(float((got - want).abs().max()))
+                    rels.append(float(((got - want).abs() / want.abs().clamp_min(1e-30)).max()))
+                del ref
+            live = int(torch.count_nonzero(r["flags"]))
+            check(int(r["k3"][3]) == live and int(r["k6"][3]) == live,
+                  f"K3/K6 num_active {int(r['k3'][3])}/{int(r['k6'][3])} != live tiles {live}")
+            check(same(r["k2"], r["k3"][:3]), f"K3 not bitwise equal to K2 {at}")
+            check(same(r["k6"][:3], r["k5"]), f"K6 not bitwise equal to K5 {at}")
+            check(torch.equal(r["k7"][3], r["flags"]) and torch.equal(r["k8"][3], r["flags"]),
+                  f"K7/K8 flags differ from K1's {at}")
+            check(same(r["k7"][:3], r["k2"]), f"K7 not bitwise equal to K2 on K1's flags {at}")
+            check(same(r["k8"][:3], r["k5"]), f"K8 not bitwise equal to K5 on K1's flags {at}")
+            if storage == "f32":          # the dense cost is the factorized one, materialized
+                check(same(r["k5"], r["k2"]), f"K5 not bitwise equal to K2 on the "
+                      f"materialized cost {at}")
+                check(same(r["k8"], r["k7"]), f"K8 not bitwise equal to K7 {at}")
+            # K4 does not depend on the flags: its plain versions once per share
+            k4_plain = ks.snapshot_norms_fact_ref(inp["alpha"], inp["beta"], *leaves, ops.mask,
+                                                  num_groups=L_pad, group_size=inp["g"])
+            check(same(r["k4"], k4_plain), f"K4 differs from its plain version {at}")
+            k4d_plain = k4_plain if storage == "f32" else ks.snapshot_norms_dense_ref(
+                inp["alpha"], inp["beta"], C, ops.mask, num_groups=L_pad, group_size=inp["g"])
+            check(same(r["k4d"], k4d_plain), f"K4's body on the dense cost differs from its "
+                  f"plain version {at}")
+            again = run_kernels(inp, ops, tau_p, reg.gamma, storage)
+            check(torch.equal(r["flags"], again["flags"]), "K1 not deterministic")
+            for key in ("k2", "k3", "k5", "k6", "k7", "k8", "k4", "k4d"):
+                check(same(r[key], again[key]), f"{key} not deterministic ({storage})")
+            share = live / r["flags"].numel()
+            print(f"kernels {storage} @ live share {share:.4f} (target {target}): K1 == plain "
+                  f"(verdicts, flags); K2, K5 max abs err {max(errs):.3e}, max rel err "
+                  f"{max(rels):.3e} (rtol 1e-5, atol 1e-6); K3 == K2, K6 == K5, K7 == K2 and "
+                  f"K8 == K5 on K1's flags (K7/K8 flags == K1's) bitwise"
+                  f"{', K5 == K2, K8 == K7 bitwise' if storage == 'f32' else ''}, "
+                  f"num_active={live}; K4 (factorized and dense loaders) == plain bitwise; "
+                  f"rerun bitwise equal", flush=True)
+            del r, again, inp, k4_plain, k4d_plain, C, leaves
 
 
 def phase_kernels_wide_d(device):
@@ -340,13 +405,22 @@ def phase_kernels_wide_d(device):
     C = kg.factorized_cost_tile(xx, xs, yy, ys)
     k2 = kg.gradpsi_batched(a, b, C, fl, **kw)
     check(same(k5, k2) and same(k6[:3], k5), "K5/K6 at d = 64 not bitwise equal to K2")
+    # K8: its own flags (K1's on random screening operands), K5 on them
+    inp = kernel_inputs(rng, C, L_pad, 0.2, 0.5, device)
+    sargs = screen_args(inp)
+    _, f1 = ks.screen_batched(*sargs, tau=tp, tile_l=TILE_L, tile_n=TILE_N, emit_verdict=False)
+    k8 = kg.gradpsi_fused_fact_batched(a, b, xx, xs, yy, ys, *sargs, **kw)
+    k5f = kg.gradpsi_fact_batched(a, b, xx, xs, yy, ys, f1, **kw)
+    check(torch.equal(k8[3], f1) and same(k8[:3], k5f),
+          "K8 at d = 64 not K1's flags and K5's sums bit for bit")
     skw = dict(num_groups=L_pad, group_size=g, tile_l=TILE_L, tile_n=TILE_N)
     k4 = ks.snapshot_norms_fact_batched(a, b, xx, xs, yy, ys, mk, **skw)
     k4p = ks.snapshot_norms_fact_ref(a, b, xx, xs, yy, ys, mk, num_groups=L_pad, group_size=g)
     check(same(k4, k4p), "K4 at d = 64 differs from its plain version")
     print(f"kernels @ d = 64 (B = 2, L_pad = 64, g = 16, n_pad = 1024, 2 chunks of 32): K5 max "
-          f"abs err {err:.3e} (rtol 1e-5, atol 1e-6), K5 == K2 and K6 == K5 bitwise, K4 == "
-          f"plain bitwise", flush=True)
+          f"abs err {err:.3e} (rtol 1e-5, atol 1e-6), K5 == K2 and K6 == K5 bitwise, K8 == "
+          f"K1's flags and K5's sums bitwise (live share "
+          f"{int(f1.count_nonzero()) / f1.numel():.3f}), K4 == plain bitwise", flush=True)
 
 
 def phase_row_sum(device):
@@ -373,35 +447,68 @@ def phase_row_sum(device):
 
 # -- phase 4 -------------------------------------------------------------------
 
-GRID_K = {"factorized": (K5, K6, K4), "dense": (K2, K3, K4D), "materialized": (K2, K3, K4D)}
+# per route: (grid kernel, compact kernel, snapshot kernel, fused kernel)
+ROUTE_K = {"factorized": (K5, K6, K4, K8), "dense": (K2, K3, K4D, K7),
+           "materialized": (K2, K3, K4D, K7)}
+
+
+def path_parts(name: str):
+    """'route/impl', 'route/fused-impl', 'route/bf16-grad_impl[-impl]' (impl 'auto' when
+    left out) -> (route, grad_impl, impl, precision); the plain backends -> (None, name,
+    None, 'f32')."""
+    route, sep, rest = name.partition("/")
+    if not sep:
+        return None, name, None, "f32"
+    if rest.startswith("bf16-"):
+        grad_impl, _, impl = rest[5:].partition("-")
+        return route, grad_impl, impl or "auto", "bf16"
+    if rest.startswith("fused-"):
+        return route, "fused", rest[6:], "f32"
+    return route, "pallas", rest, "f32"
 
 
 def check_path_launches(name: str, counts: dict, sol) -> None:
     """Each path launched what it should.
 
-    Kernel routes: K1 once per evaluation, one gradient kernel per
-    evaluation (grid: the grid kernel only, compact: the compact one only,
-    auto: both), the snapshot kernel of the route once per snapshot (one at
-    the start, one per round); no kernel of the other route.  The plain
-    backends launch none of them.
+    pallas: K1 once per evaluation and one gradient kernel per evaluation
+    (grid: the grid kernel only, compact: the compact one only, auto: both).
+    fused: the fused kernel or K1 + the compact kernel per evaluation (grid:
+    the fused kernel only, no K1; compact: K1 and the compact kernel only;
+    auto: either, decided per round).  Every kernel path: the route's
+    snapshot kernel once per snapshot (one at the start, one per round) and
+    no kernel of the other route.  The plain backends launch none of them.
     """
     n_evals, snaps = sol.n_evals, 1 + sol.rounds
-    route, sep, impl = name.partition("/")
-    c = {k: counts.get(k, 0) for k in (K1, K2, K3, K4, K4D, K5, K6)}
-    if not sep:
+    route, grad_impl, impl, _ = path_parts(name)
+    c = {k: counts.get(k, 0) for k in (K1, K2, K3, K4, K4D, K5, K6, K7, K8)}
+    if route is None:
         ok = not any(c.values())
     else:
-        grid_k, compact_k, snap_k = GRID_K[route]
-        others = [k for k in (K2, K3, K4, K4D, K5, K6) if k not in (grid_k, compact_k, snap_k)]
-        g_, c_ = c[grid_k], c[compact_k]
-        ok = (c[K1] == n_evals and c[snap_k] == snaps and not any(c[k] for k in others)
-              and {"grid": g_ == n_evals and c_ == 0, "compact": c_ == n_evals and g_ == 0,
-                   "auto": g_ + c_ == n_evals and g_ > 0 and c_ > 0}[impl])
+        grid_k, compact_k, snap_k, fused_k = ROUTE_K[route]
+        mine = (K1, grid_k, compact_k, snap_k, fused_k)
+        g_, c_, f_ = c[grid_k], c[compact_k], c[fused_k]
+        ok = c[snap_k] == snaps and not any(c[k] for k in c if k not in mine)
+        if grad_impl == "pallas":
+            ok = ok and f_ == 0 and c[K1] == n_evals and {
+                "grid": g_ == n_evals and c_ == 0, "compact": c_ == n_evals and g_ == 0,
+                "auto": g_ + c_ == n_evals and g_ > 0 and c_ > 0}[impl]
+        else:
+            ok = ok and g_ == 0 and c[K1] == c_ and f_ + c_ == n_evals and {
+                "grid": c_ == 0, "compact": f_ == 0, "auto": True}[impl]
     check(ok, f"{name}: launches {counts} do not fit n_evals {n_evals}, snapshots {snaps}")
 
 
 def solution_bits(sol):
     return (sol.value, sol.rounds, sol.iterations, sol.n_evals, sol.stats)
+
+
+def fingerprint(t) -> int:
+    """An exact integer function of a float32 tensor's bits: equal tensors, equal prints."""
+    import torch
+
+    bits = t.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    w = torch.arange(bits.numel(), device=t.device, dtype=torch.int64) % 65521 + 1
+    return int(torch.sum(bits * w)) ^ (int(torch.sum(bits)) << 1)
 
 
 def phase_end_to_end(problem, mat_problem, device):
@@ -422,19 +529,34 @@ def phase_end_to_end(problem, mat_problem, device):
             if impl != "auto":                         # 'auto' is the default plan
                 kw["pallas_impl"] = impl
             runs.append((f"{route}/{impl}", prob, kw))
+    for route, geo in (("factorized", {}), ("dense", {"geometry": "dense"})):
+        for impl in ("grid", "compact", "auto"):
+            kw = {"grad_impl": "fused", **geo}
+            if impl != "auto":
+                kw["pallas_impl"] = impl
+            runs.append((f"{route}/fused-{impl}", problem, kw))
+        for gi in ("pallas", "fused"):
+            for impl in ("grid", "compact", "auto"):
+                kw = {"grad_impl": gi, "precision": "bf16", **geo}
+                if impl != "auto":
+                    kw["pallas_impl"] = impl
+                runs.append((f"{route}/bf16-{gi}{'' if impl == 'auto' else '-' + impl}",
+                             problem, kw))
     runs += [("screened", problem, {"grad_impl": "screened", "geometry": "dense"}),
              ("dense", problem, {"grad_impl": "dense", "geometry": "dense"})]
 
+    for grad_impl in ("pallas", "fused"):
+        ex = ot.compile(problem, P(grad_impl=grad_impl), device=device)
+        check(ex._route(problem) == "factorized", f"ExecutionPlan(grad_impl={grad_impl!r}) "
+              f"resolves to {ex._route(problem)!r}, not 'factorized'")
+        print(f"plan ExecutionPlan(grad_impl={grad_impl!r}): " + "; ".join(
+            ln for ln in ex.describe().splitlines() if ln.startswith(("geometry:", "backend:"))),
+              flush=True)
     main_ex = ot.compile(problem, P(grad_impl="pallas"), device=device)
-    check(main_ex._route(problem) == "factorized",
-          f"the default plan resolves to {main_ex._route(problem)!r}, not 'factorized'")
-    print("default plan ExecutionPlan(grad_impl='pallas'): " +
-          [ln for ln in main_ex.describe().splitlines() if ln.startswith("geometry:")][0],
-          flush=True)
 
     # warm-up: one short solve per backend family (allocator, library load)
     for name, prob, kw in runs:
-        if name.endswith("/auto") or name.startswith("materialized"):
+        if name.endswith("auto") or name.startswith("materialized") or "bf16" in name:
             continue
         ot.compile(prob, P(**kw, max_iters=2, max_rounds=1), device=device).solve()
     sync()
@@ -457,7 +579,7 @@ def phase_end_to_end(problem, mat_problem, device):
           " (factorized: samples, squared norms and the 1 / max C pass on the card; dense: "
           "Problem.padded in numpy and the copy of the padded cost)", flush=True)
 
-    sols, launches, plans = {}, {}, {}
+    sols, launches, plans, prints = {}, {}, {}, {}
     for name, prob, kw in runs:
         ex = ot.compile(prob, P(**kw), device=device)
         route = name.partition("/")[0]
@@ -485,8 +607,10 @@ def phase_end_to_end(problem, mat_problem, device):
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches "
               f"{ {k: v for k, v in launches[name].items() if k != 'row_sum'} }", flush=True)
         check_path_launches(name, launches[name], sol)
-        if route in ("factorized", "materialized"):
-            impl = name.partition("/")[2]
+        prints[name] = fingerprint(sol.plan)
+        _, grad_impl, impl, precision = path_parts(name)
+        if route in ("factorized", "materialized") and (grad_impl, precision) == ("pallas",
+                                                                                  "f32"):
             if route == "factorized":
                 plans[impl] = sol.plan
             else:
@@ -501,20 +625,36 @@ def phase_end_to_end(problem, mat_problem, device):
     ref = sols["dense"].value
     for name, sol in sols.items():
         rel = abs(sol.value - ref) / abs(ref)
+        if path_parts(name)[3] == "bf16":
+            print(f"e2e {name}: bf16 value {sol.value!r} vs f32 dense {ref!r}: rel gap "
+                  f"{rel:.3e} (recorded, not gated)", flush=True)
+            continue
         check(rel <= 2e-5, f"{name} objective {sol.value} vs dense {ref}: rel {rel:.3e}")
+
+    def bitwise(x, y):
+        return (torch.equal(sols[x].alpha, sols[y].alpha) and torch.equal(sols[x].beta,
+                                                                          sols[y].beta)
+                and solution_bits(sols[x]) == solution_bits(sols[y]))
+
     for route in ("factorized", "dense", "materialized"):
-        g = sols[f"{route}/grid"]
         for impl in ("compact", "auto"):
-            s = sols[f"{route}/{impl}"]
-            check(torch.equal(s.alpha, g.alpha) and torch.equal(s.beta, g.beta)
-                  and solution_bits(s) == solution_bits(g),
+            check(bitwise(f"{route}/{impl}", f"{route}/grid"),
                   f"{route}/{impl} not bitwise equal to {route}/grid")
+    for route in ("factorized", "dense"):
+        pairs = [(f"{route}/fused-{impl}", f"{route}/{impl}") for impl in ("grid", "compact",
+                                                                           "auto")]
+        pairs += [(f"{route}/bf16-fused{sfx}", f"{route}/bf16-pallas{sfx}")
+                  for sfx in ("-grid", "-compact", "")]
+        for x, y in pairs:
+            check(bitwise(x, y) and prints[x] == prints[y],
+                  f"{x} not bitwise equal to {y} (duals, value, rounds, stats, plan)")
     rel_fd = abs(sols[MAIN_PATH].value - sols[DENSE_PATH].value) / abs(sols[DENSE_PATH].value)
     print(f"e2e checks: factorized == dense on problem.materialized() bit for bit (duals, "
           f"value, plan, rounds, iterations, evaluations, stats) for grid, compact and auto; "
-          f"grid == compact == auto bitwise per route; all objectives within rtol 2e-5 of "
+          f"grid == compact == auto bitwise per route; fused == pallas bitwise per route, impl "
+          f"and precision (plans by fingerprint); all f32 objectives within rtol 2e-5 of "
           f"dense (factorized vs the numpy-lowered dense route: rel {rel_fd:.3e}); per path, "
-          f"K1 and one gradient kernel per evaluation and the route's snapshot kernel per "
+          f"the launches of its oracle per evaluation and the route's snapshot kernel per "
           f"snapshot, the plain backends none", flush=True)
     return sols, launches
 
@@ -527,42 +667,58 @@ def device_us(evt) -> float:
     return 0.0
 
 
-def main_path_solver_call(ops, problem, device):
-    """The arguments of the main path's solver call: (FactorizedCost, a, b, spec, opts)."""
-    import repro_torch.ot as ot
+def solver_call(ops, problem, device, plan, dense=False):
+    """The arguments of a path's solver call: (cost, a, b, spec, opts).
 
-    ex = ot.compile(problem, ot.ExecutionPlan(grad_impl="pallas"), device=device)
-    a, b, _ = ex._marginals(problem)
+    The cost is the main problem's FactorizedCost, or with ``dense`` its
+    device-materialized (m_pad, n) cost.
+    """
+    import repro_torch.ot as ot
     from repro_torch.kernels.ops import FactorizedCost
 
-    fc = FactorizedCost(*(t[0] for t in ops.fc.leaves()))
-    return fc, a, b, ops.spec, ex.plan.solve_options()
+    ex = ot.compile(problem, plan, device=device)
+    a, b, _ = ex._marginals(problem)
+    if dense:
+        cost = ops.pp.Cp[0, : ops.spec.m_pad, : problem.num_target]
+    else:
+        cost = FactorizedCost(*(t[0] for t in ops.fc.leaves()))
+    return cost, a, b, ops.spec, ex.plan.solve_options()
 
 
-def phase_memory_and_profile(ops, problem, reg, device):
-    """Peak device memory and a profile of the main path's solver call (plan recovery excluded)."""
+def peak_memory(ops, problem, reg, device, plan, dense=False):
+    """(peak device bytes of one solver call, bytes held before it, result)."""
     import torch
+
+    from repro_torch.core import solver as slv
+
+    cost, a, b, spec, opts = solver_call(ops, problem, device, plan, dense)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = slv.solve_dual(cost, a, b, spec, reg, opts, device)
+    sync()
+    return torch.cuda.max_memory_allocated(), base, res
+
+
+def profile_solver_call(label, ops, problem, reg, device, plan):
+    """Peak device memory and a torch.profiler trace of one factorized solver call
+    (plan recovery excluded); returns the peak."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import solver as slv
 
-    fc, a, b, spec, opts = main_path_solver_call(ops, problem, device)
-    sync()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    res = slv.solve_dual(fc, a, b, spec, reg, opts, device)
-    sync()
-    peak = torch.cuda.max_memory_allocated()
-    dense_bytes = spec.m_pad * problem.num_target * 4
-    print(f"peak device memory of the {MAIN_PATH} solver call: {peak} B "
+    peak, base, res = peak_memory(ops, problem, reg, device, plan)
+    dense_bytes = ops.spec.m_pad * problem.num_target * 4
+    print(f"peak device memory of the {label} solver call: {peak} B "
           f"({peak / 2**20:.1f} MiB, of which {base} B were held before it) vs the dense cost "
           f"alone {dense_bytes} B; n_evals {res.n_evals}", flush=True)
-    check(peak < dense_bytes, f"the factorized solver call peaked at {peak} B, not below the "
+    check(peak < dense_bytes, f"the {label} solver call peaked at {peak} B, not below the "
           f"{dense_bytes} B of the dense cost")
 
+    cost, a, b, spec, opts = solver_call(ops, problem, device, plan)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = slv.solve_dual(fc, a, b, spec, reg, opts, device)
+        res = slv.solve_dual(cost, a, b, spec, reg, opts, device)
         sync()
         wall = time.perf_counter() - t0
     # CPU-side events (aten ops, CUDA runtime calls) carry their kernels'
@@ -572,13 +728,36 @@ def phase_memory_and_profile(ops, problem, reg, device):
                      key=lambda r: -r[1])
     busy = sum(r[1] for r in kernels) / 1e6
     port = sum(r[1] for r in kernels if any(k in r[0] for k in PORT_KERNELS)) / 1e6
-    print(f"profile {MAIN_PATH} solver call: wall {wall:.4f} s, rounds {res.rounds}, n_evals "
+    n_launch = sum(r[2] for r in kernels)
+    print(f"profile {label} solver call: wall {wall:.4f} s, rounds {res.rounds}, n_evals "
           f"{res.n_evals}, device busy {busy:.4f} s, idle share {1.0 - busy / wall:.4f}, port "
-          f"kernels {port:.4f} s, PyTorch kernels {busy - port:.4f} s, "
-          f"{sum(r[2] for r in kernels)} device launches", flush=True)
+          f"kernels {port:.4f} s, PyTorch kernels {busy - port:.4f} s, {n_launch} device "
+          f"launches ({n_launch / res.n_evals:.1f} per evaluation)", flush=True)
     for key, us, count in kernels[:14]:
         print(f"  {us / 1e3:10.3f} ms  x{count:<6d} {key[:100]}", flush=True)
     return peak
+
+
+def phase_memory_and_profile(ops, problem, reg, device):
+    """The main path's and the fused/auto factorized solver calls: peak memory and profile;
+    the dense route's fused/auto solver call in f32 and bf16: peak memory."""
+    import repro_torch.ot as ot
+
+    P = ot.ExecutionPlan
+    profile_solver_call(MAIN_PATH, ops, problem, reg, device, P(grad_impl="pallas"))
+    profile_solver_call(FUSED_PATH, ops, problem, reg, device, P(grad_impl="fused"))
+    profile_solver_call(FUSED_GRID_PATH, ops, problem, reg, device,
+                        P(grad_impl="fused", pallas_impl="grid"))
+    peaks = {}
+    for precision in ("f32", "bf16"):
+        peaks[precision] = peak_memory(ops, problem, reg, device,
+                                       P(grad_impl="fused", precision=precision,
+                                         geometry="dense"), dense=True)[:2]
+    print("peak device memory of the dense/fused-auto solver call (materialized cost, "
+          f"{ops.spec.m_pad * problem.num_target * 4} B, held before it): " + ", ".join(
+              f"{p} {peak} B ({(peak - base) / 2**20:.1f} MiB above the {base} B held)"
+              for p, (peak, base) in peaks.items()), flush=True)
+    ops.drop_dense()
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -730,9 +909,14 @@ def phase_times(sol, ops, reg, launches, device):
              lambda: kg.gradpsi_fact_batched_ref(a, b, *leaves, flags, **gkw)),
         K6: (lambda: kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **gkw),
              lambda: kg.gradpsi_fact_compact_batched_ref(a, b, *leaves, sched, nact, **gkw)),
+        K7: (lambda: kg.gradpsi_fused_batched(a, b, pp.Cp, *sargs, **gkw),
+             lambda: kg.gradpsi_fused_batched_ref(a, b, pp.Cp, *sargs, **gkw)),
+        K8: (lambda: kg.gradpsi_fused_fact_batched(a, b, *leaves, *sargs, **gkw),
+             lambda: kg.gradpsi_fused_fact_batched_ref(a, b, *leaves, *sargs, **gkw)),
     }
     out = {name: (fn(), plain()) for name, (fn, plain) in fns.items()}
-    for name in (K3, K6):
+    fused_flags = {name: (out[name][0][3], out[name][1][3]) for name in (K7, K8)}
+    for name in (K3, K6, K7, K8):
         out[name] = (out[name][0][:3], out[name][1][:3])
     out[K1] = ((out[K1][0][1].float(),), (out[K1][1][1].float(),))
 
@@ -758,6 +942,8 @@ def phase_times(sol, ops, reg, launches, device):
         K4: same(out[K4][0], out[K4][1]),
         K5: same(out[K5][0], out[K2][0]),
         K6: same(out[K6][0], out[K3][0]),
+        K7: (same(fused_flags[K7], (flags, flags)) and same(out[K7][0], out[K2][0])),
+        K8: (same(fused_flags[K8], (flags, flags)) and same(out[K8][0], out[K5][0])),
     }
     checks = {
         K1: "flags == plain (torch.equal)",
@@ -766,6 +952,9 @@ def phase_times(sol, ops, reg, launches, device):
         K4: "z~, k~, o~ == plain (torch.equal)",
         K5: "bitwise == gradpsi_batched on the device-materialized cost",
         K6: "bitwise == gradpsi_compact_batched on the device-materialized cost",
+        K7: "flags == K1's and its plain version's, sums bitwise == gradpsi_batched on them",
+        K8: "flags == K1's and its plain version's, sums bitwise == gradpsi_fact_batched on "
+            "them",
     }
 
     E = pp.L_pad * pp.n_pad                               # bound-matrix entries
@@ -785,15 +974,19 @@ def phase_times(sol, ops, reg, launches, device):
         K6: (live * sample_bytes + vec_bytes + 12 * live + 4,
              fact_ops_per_entry(d) * live * tile_entries),
     }
+    # the fused kernels: K1's reads and flags, then K2's or K5's live-tile work
+    work[K7] = (work[K1][0] + work[K2][0] - 4 * T, work[K1][1] + work[K2][1])
+    work[K8] = (work[K1][0] + work[K5][0] - 4 * T, work[K1][1] + work[K5][1])
     rows = []
-    for name in (K1, K2, K3, K4, K5, K6):
+    for name in KERNELS:
         fn, plain = fns[name]
         err, rel = max_errs(*out[name])
         ms = median_ms(fn, 50)
         plain_ms = median_ms(plain, 5, warmup=1)
         nbytes, nops = work[name]
         bms, by = bound(nbytes, nops)
-        path = DENSE_PATH if name in (K2, K3) else MAIN_PATH
+        path = {K2: DENSE_PATH, K3: DENSE_PATH, K7: FUSED_DENSE_GRID_PATH,
+                K8: FUSED_GRID_PATH}.get(name, MAIN_PATH)
         source, replaces = SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[path].get(name, 0), "launches_path": path,
@@ -866,7 +1059,8 @@ def phase_round_boundary(st, ops):
 
 
 def phase_density_times(ops, reg, device):
-    """K2/K3/K5/K6 times across live shares (the grid/compact crossover)."""
+    """K1-K3, K5-K8 times across live shares (the grid/compact crossover, the fused
+    kernels against K1 + K2 / K5), and K2/K5/K7/K8 on the bf16 cost forms."""
     import numpy as np
     import torch
 
@@ -874,24 +1068,34 @@ def phase_density_times(ops, reg, device):
     from repro_torch.kernels import screen as ks
 
     rng = np.random.default_rng(1)
-    L_pad, C, leaves = ops.fp.L_pad, ops.pp.Cp, ops.fp.leaves()
+    L_pad = ops.fp.L_pad
+    C, leaves = ops.cost_forms("f32")
+    C16, leaves16 = ops.cost_forms("bf16")
     tau_p = torch.full((L_pad,), float(reg.tau), dtype=torch.float32, device=device)
     for target in (0.0, 0.1, 0.6, 1.0):
         inp = kernel_inputs(rng, C, L_pad, float(reg.tau), target, device)
-        _, flags = ks.screen_batched(
-            inp["z"], inp["k"], inp["o"], inp["act"], inp["da_plus"], inp["da_full"],
-            inp["da_neg"], inp["db"], inp["sqrt_g"], tau=tau_p, tile_l=TILE_L,
-            tile_n=TILE_N, emit_verdict=False)
+        sargs = screen_args(inp)
+        _, flags = ks.screen_batched(*sargs, tau=tau_p, tile_l=TILE_L, tile_n=TILE_N,
+                                     emit_verdict=False)
         kw = dict(num_groups=L_pad, group_size=inp["g"], tau=tau_p, gamma=reg.gamma,
                   tile_l=TILE_L, tile_n=TILE_N)
         a, b = inp["alpha"], inp["beta"]
         sched, nact = kg.build_batch_tile_schedule(flags)
-        t = {K2: lambda: kg.gradpsi_batched(a, b, C, flags, **kw),
+        t = {K1: lambda: ks.screen_batched(*sargs, tau=tau_p, tile_l=TILE_L, tile_n=TILE_N,
+                                           emit_verdict=False),
+             K2: lambda: kg.gradpsi_batched(a, b, C, flags, **kw),
              K3: lambda: kg.gradpsi_compact_batched(a, b, C, sched, nact, **kw),
              K5: lambda: kg.gradpsi_fact_batched(a, b, *leaves, flags, **kw),
-             K6: lambda: kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw)}
+             K6: lambda: kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw),
+             K7: lambda: kg.gradpsi_fused_batched(a, b, C, *sargs, **kw),
+             K8: lambda: kg.gradpsi_fused_fact_batched(a, b, *leaves, *sargs, **kw),
+             K2 + " bf16": lambda: kg.gradpsi_batched(a, b, C16, flags, **kw),
+             K5 + " bf16": lambda: kg.gradpsi_fact_batched(a, b, *leaves16, flags, **kw),
+             K7 + " bf16": lambda: kg.gradpsi_fused_batched(a, b, C16, *sargs, **kw),
+             K8 + " bf16": lambda: kg.gradpsi_fused_fact_batched(a, b, *leaves16, *sargs,
+                                                                  **kw)}
         ms = {k: median_ms(f, 20) for k, f in t.items()}
-        ms.update({k + " again": median_ms(t[k], 20) for k in (K5, K2)})
+        ms.update({k + " again": median_ms(t[k], 20) for k in (K5, K2, K7, K8)})
         ts = median_ms(lambda: kg.build_batch_tile_schedule(flags), 20)
         share = int(nact) / flags.numel()
         print(f"share sweep @ live share {share:.4f}: " + ", ".join(
@@ -933,22 +1137,27 @@ def phase_solo_vs_batched(device):
                        [m[0] for m in margs], [m[1] for m in margs]),
     }
     for route, (solo_costs, batch_cost, a, b) in routes.items():
-        for impl in ("grid", "compact"):
-            opts = slv.SolveOptions(grad_impl="pallas", pallas_impl=impl)
-            both = slv.solve_dual_batch(batch_cost, np.stack(a), np.stack(b), spec, reg, opts,
-                                        device)
-            for i in range(2):
-                solo = slv.solve_dual(solo_costs[i], a[i], b[i], spec, reg, opts, device)
-                one = both[i]
-                bitwise = (torch.equal(solo.alpha, one.alpha) and torch.equal(solo.beta, one.beta)
-                           and torch.equal(solo.value, one.value) and solo.rounds == one.rounds
-                           and solo.stats == one.stats and solo.iterations == one.iterations
-                           and solo.n_evals == one.n_evals)
-                rel = abs(float(solo.value) - float(one.value)) / abs(float(solo.value))
-                print(f"solo vs batched (L=64, n=1024, B=2, {route}/{impl}, problem {i}): "
-                      f"bitwise={bitwise}, value rel diff {rel:.3e}, rounds solo {solo.rounds} "
-                      f"batched {one.rounds}, stats equal {solo.stats == one.stats}", flush=True)
-                check(bitwise, f"solo != batched on {route}/{impl}, problem {i}")
+        for grad_impl in ("pallas", "fused"):
+            for impl in ("grid", "compact"):
+                opts = slv.SolveOptions(grad_impl=grad_impl, pallas_impl=impl)
+                both = slv.solve_dual_batch(batch_cost, np.stack(a), np.stack(b), spec, reg,
+                                            opts, device)
+                for i in range(2):
+                    solo = slv.solve_dual(solo_costs[i], a[i], b[i], spec, reg, opts, device)
+                    one = both[i]
+                    bitwise = (torch.equal(solo.alpha, one.alpha)
+                               and torch.equal(solo.beta, one.beta)
+                               and torch.equal(solo.value, one.value)
+                               and solo.rounds == one.rounds and solo.stats == one.stats
+                               and solo.iterations == one.iterations
+                               and solo.n_evals == one.n_evals)
+                    rel = abs(float(solo.value) - float(one.value)) / abs(float(solo.value))
+                    tag = f"{route}/{'' if grad_impl == 'pallas' else 'fused-'}{impl}"
+                    print(f"solo vs batched (L=64, n=1024, B=2, {tag}, problem {i}): "
+                          f"bitwise={bitwise}, value rel diff {rel:.3e}, rounds solo "
+                          f"{solo.rounds} batched {one.rounds}, stats equal "
+                          f"{solo.stats == one.stats}", flush=True)
+                    check(bitwise, f"solo != batched on {tag}, problem {i}")
 
 
 def main() -> None:
@@ -1004,7 +1213,7 @@ def main() -> None:
     phase_kernels_wide_d(device)
     phase_row_sum(device)
     ops.drop_dense()
-    # 4. the main path's solver call (memory, profile), then every path end to end
+    # 4. the solver calls alone (memory, profile), then every path end to end
     phase_memory_and_profile(ops, problem, reg, device)
     sols, launches = phase_end_to_end(problem, mat_problem, device)
     del mat_problem

@@ -15,7 +15,8 @@ only dicts and numpy arrays (it imports nothing of ``repro``):
     from ``repro.ot.geometry.SquaredL2Geometry`` (duck-typed through its
     ``operands()``), from a ``repro.kernels.ops.FactorizedCost`` (through
     its ``x, x_sq, y, y_sq`` attributes) or from the four arrays, so both
-    packages compute on the same operand bits.
+    packages compute on the same operand bits; bfloat16 leaves (the JAX
+    package's ``precision='bf16'`` storage) stay bfloat16.
 """
 from __future__ import annotations
 
@@ -90,18 +91,25 @@ def _factorized_leaves(obj):
         leaves = tuple(obj)
     if len(leaves) != 4:
         raise ValueError(f"expected the four leaves (x, x_sq, y, y_sq), got {len(leaves)}")
-    return tuple(np.asarray(v, np.float32) for v in leaves)
+    return tuple(np.asarray(v) for v in leaves)
+
+
+def _leaf_tensor(v: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A float32 tensor, or a bfloat16 one for a bfloat16 array (numpy has no such
+    type of its own: its name is the ml_dtypes extension's); both casts are exact."""
+    t = torch.from_numpy(np.array(v, dtype=np.float32, copy=True)).to(device)
+    return t.to(torch.bfloat16) if v.dtype.name == "bfloat16" else t
 
 
 def factorized_cost_from_numpy(obj, device: DeviceLike = None) -> FactorizedCost:
     """The port's :class:`~repro_torch.kernels.ops.FactorizedCost` from factorized operands.
 
     ``obj`` is a JAX ``SquaredL2Geometry`` or ``FactorizedCost``, or the
-    arrays ``(x, x_sq, y, y_sq)``; leading batch axes pass through.
+    arrays ``(x, x_sq, y, y_sq)``; leading batch axes pass through.  Leaves
+    come across as float32, bfloat16 leaves as bfloat16.
     """
     dev = resolve_device(device)
-    return FactorizedCost(*(torch.from_numpy(np.array(v, copy=True)).to(dev)
-                            for v in _factorized_leaves(obj)))
+    return FactorizedCost(*(_leaf_tensor(v, dev) for v in _factorized_leaves(obj)))
 
 
 def geometry_from_numpy(obj, n_real: Optional[int] = None, device: DeviceLike = None

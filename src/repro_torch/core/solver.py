@@ -8,15 +8,18 @@ from lower bounds -> take new snapshots -> repeat until convergence.
   'dense'     the unscreened closed form (the paper's "origin"),
   'screened'  screening as masks on the dense closed form,
   'pallas'    the screened kernels: K1 (screen) then K2 or K3 (gradient),
-              the counterpart of the JAX Pallas backend of the same name.
+              the counterpart of the JAX Pallas backend of the same name,
+  'fused'     the fused oracle: verdicts and gradient in one launch (K7,
+              or K8 on the factorized cost), bitwise equal to 'pallas'.
 
 By Theorem 2 all backends return the same objective up to summation order.
 
-Cost operand: a dense ``(B, m_pad, n)`` tensor, or for ``'pallas'`` a
-:class:`~repro_torch.kernels.ops.FactorizedCost` (the materialization-free
-squared-l2 route: K4 snapshots, K5/K6 gradients, no (m, n) array).  The
-factorized route gives the dense route's bits on the cost materialized
-with the same recipe.
+Cost operand: a dense ``(B, m_pad, n)`` tensor, or for the kernel
+backends a :class:`~repro_torch.kernels.ops.FactorizedCost` (the
+materialization-free squared-l2 route: K4 snapshots, K5/K6/K8 gradients,
+no (m, n) array).  The factorized route gives the dense route's bits on the
+cost materialized with the same recipe.  ``precision='bf16'`` stores the
+kernel backends' prepared cost in bfloat16 (computed on in float32).
 
 Batching: every tensor carries a leading problem axis B; :func:`solve_dual`
 is the B = 1 slice of :func:`solve_dual_batch` and runs the same op
@@ -38,7 +41,8 @@ from repro_torch.core.lbfgs import LbfgsOptions, LbfgsState, init_state_batched,
 from repro_torch.core.regularizers import Regularizer
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 
-GRAD_IMPLS = ("dense", "screened", "pallas")
+GRAD_IMPLS = ("dense", "screened", "pallas", "fused")
+KERNEL_IMPLS = ("pallas", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,15 +55,20 @@ class SolveOptions:
         ``r`` in Algorithm 1 — L-BFGS iterations per screening round.
     max_rounds : int
         Cap on the number of rounds.
-    grad_impl : {'dense', 'screened', 'pallas'}
-        Gradient oracle backend.  ``'fused'`` is not ported yet
-        (ROADMAP queue A item 5).
+    grad_impl : {'dense', 'screened', 'pallas', 'fused'}
+        Gradient oracle backend.
     pallas_impl : {'grid', 'compact', 'auto'}
-        Gradient kernel mode for ``grad_impl='pallas'``.
+        Gradient kernel mode for ``grad_impl='pallas'`` / ``'fused'``
+        (for ``'fused'``: 'grid' is the one-launch kernel, 'compact' the
+        two-launch K1 + K3/K6, 'auto' picks one per round).
     tight_active_refresh : bool
         Beyond-paper tighter active-set refresh (off for paper fidelity).
-    precision : {'f32'}
-        Cost storage; ``'bf16'`` is ROADMAP queue A item 7.
+    precision : {'f32', 'bf16'}
+        Cost storage of the kernel backends: ``'bf16'`` stores the prepared
+        cost (``Cp``, or the factorized ``x, x_sq, y, y_sq``) in bfloat16
+        once per solve; every kernel upcasts on load and accumulates in
+        float32, and the snapshots bound the rounded cost exactly.  The
+        plain backends take ``'f32'`` only.
     lbfgs : LbfgsOptions
         Inner optimizer configuration.
     """
@@ -73,18 +82,15 @@ class SolveOptions:
     lbfgs: LbfgsOptions = dataclasses.field(default_factory=LbfgsOptions)
 
     def __post_init__(self):
-        if self.grad_impl == "fused":
-            raise NotImplementedError(
-                "grad_impl='fused' is not ported yet (ROADMAP queue A item 5)")
         if self.grad_impl not in GRAD_IMPLS:
             raise ValueError(f"unknown grad_impl: {self.grad_impl}")
         if self.pallas_impl not in ("grid", "compact", "auto"):
             raise ValueError(f"unknown pallas_impl: {self.pallas_impl}")
-        if self.precision == "bf16":
-            raise NotImplementedError(
-                "precision='bf16' is not ported yet (ROADMAP queue A item 7)")
-        if self.precision != "f32":
+        if self.precision not in ("f32", "bf16"):
             raise ValueError(f"unknown precision: {self.precision}")
+        if self.precision == "bf16" and self.grad_impl not in KERNEL_IMPLS:
+            raise ValueError(f"precision='bf16' requires grad_impl='pallas' or 'fused' (got "
+                             f"grad_impl={self.grad_impl!r}); the plain backends are f32-only")
 
 
 class OTResult:
@@ -103,8 +109,8 @@ class OTResult:
     stats : dict
         Accumulated verdict counts ``{'zero','check','active'}``.
     live_tile_share : float or None
-        Mean share of live tiles over the kernel evaluations
-        (``grad_impl='pallas'`` only).
+        Mean share of live tiles over the kernel evaluations (kernel
+        backends only).
     """
 
     def __init__(self, alpha, beta, value, state, screen_state, rounds, stats,
@@ -197,10 +203,12 @@ def make_value_and_grad_batched(C, a, b, prob: DualProblem, sqrt_g, grad_impl: s
                                 tile_stats: Optional[TileStats] = None):
     """Batched oracle: x (B, m_pad + n) -> ((B,) value, (B, d) grad), negated.
 
-    For the kernel backend the screening state is padded to the kernel grid
-    HERE, once per snapshot round; each evaluation computes only the delta
-    norms, runs K1 for the tile flags and K2/K3 (dense cost) or K5/K6
-    (factorized cost) for the gradient.
+    For the kernel backends the screening state is padded to the kernel
+    grid HERE, once per snapshot round; each evaluation computes only the
+    delta norms, then runs K1 for the tile flags and K2/K3 (dense cost) or
+    K5/K6 (factorized cost) for the gradient ('pallas'), or K7/K8 for both
+    ('fused').  The fused route takes its 'auto' decision here too, from one
+    host read of ``snapshot_live_tiles``, so once per round.
     """
     m_pad = prob.m_pad
     tau = prob.tau_vec(C.device)
@@ -227,7 +235,7 @@ def make_value_and_grad_batched(C, a, b, prob: DualProblem, sqrt_g, grad_impl: s
 
         return vag
 
-    if grad_impl == "pallas":
+    if grad_impl in KERNEL_IMPLS:
         from repro_torch.kernels import ops as kops
 
         B = C.shape[0]
@@ -235,6 +243,20 @@ def make_value_and_grad_batched(C, a, b, prob: DualProblem, sqrt_g, grad_impl: s
         sqb = torch.broadcast_to(sqrt_g, (B, prob.num_groups))
         pstate = kops.pad_screen_state_batched(screen_state, sqb, pp)
         tau_p = kops._pad_tau(tau, pp.L, pp.tile_l, C.device)
+
+        if grad_impl == "fused":
+            impl = kops.fused_impl(pstate, pp, tau, pallas_impl)
+
+            def vag(x):
+                alpha, beta = _split(x, m_pad)
+                v, ga, gb, flags = kops.dual_value_and_grad_fused_batched(
+                    alpha, beta, a, b, pstate, pp, prob, impl=impl, tau_p=tau_p)
+                if tile_stats is not None:
+                    tile_stats.add(flags)
+                return -v, -torch.cat([ga, gb], dim=-1)
+
+            return vag
+
         grad_fn = (kops.dual_value_and_grad_factorized_batched
                    if isinstance(pp, kops.FactorizedProblem)
                    else kops.dual_value_and_grad_padded_batched)
@@ -265,7 +287,7 @@ def _reject_factorized(C, grad_impl: str) -> None:
     if _is_factorized(C):
         raise TypeError(
             f"grad_impl='{grad_impl}' cannot take a FactorizedCost; use grad_impl='pallas' "
-            "or materialize the geometry first (SquaredL2Geometry.materialize)")
+            "or 'fused', or materialize the geometry first (SquaredL2Geometry.materialize)")
 
 
 def _kernel_problem(C, prob: DualProblem):
@@ -283,17 +305,32 @@ def _kernel_problem(C, prob: DualProblem):
 
 
 def _prepare_padded(C, prob: DualProblem, opts: SolveOptions):
-    """One-time preparation for the kernel backend (None for the plain backends)."""
-    return _kernel_problem(C, prob) if opts.grad_impl == "pallas" else None
+    """One-time preparation for the kernel backends (None for the plain backends).
+
+    With ``precision='bf16'`` the prepared cost operands (``Cp``, or the
+    factorized ``x, x_sq, y, y_sq``) are cast to bfloat16 HERE, once, so the
+    snapshot norms, the screening bounds and the gradient kernels all see
+    the same rounded cost.
+    """
+    if opts.grad_impl not in KERNEL_IMPLS:
+        return None
+    pp = _kernel_problem(C, prob)
+    if opts.precision == "bf16":
+        pp = dataclasses.replace(pp, **{
+            name: getattr(pp, name).to(torch.bfloat16)
+            for name in (("x", "x_sq", "y", "y_sq") if _is_factorized(C) else ("Cp",))})
+    return pp
 
 
 def _snapshot_norms_any(alpha, beta, C, prob: DualProblem, row_mask, padded):
     """Eq. 6 snapshot norms for either cost form.
 
-    With the kernel backend's prepared problem: K4's body, on the
-    factorized cost or on the padded dense one; without (the plain
-    backends): ``dual.snapshot_norms``.  All three sum the group members in
-    the same order, so they give the same bits on the same cost.
+    With the kernel backends' prepared problem: K4's body, on the
+    factorized cost or on the padded dense one, as stored (bf16 too, so
+    the bounds are exact for the rounded cost the gradient integrates);
+    without (the plain backends): ``dual.snapshot_norms``.  All three sum
+    the group members in the same order, so they give the same bits on the
+    same cost.
     """
     from repro_torch.kernels import ops as kops
 
@@ -395,7 +432,7 @@ def solve_dual_batch(C, a, b, spec: GroupSpec, reg: Regularizer,
     """Solve B same-shape problems together (``C`` (B, m_pad, n), ``a`` (B, m_pad), ``b`` (B, n)).
 
     ``C`` may be a :class:`~repro_torch.kernels.ops.FactorizedCost` with a
-    leading B axis on its leaves (``grad_impl='pallas'`` only).  Per
+    leading B axis on its leaves (kernel backends only).  Per
     problem bitwise-identical to :func:`solve_dual` on the same inputs.
     Runs on ``cuda`` unless ``device='cpu'`` is passed.
     """
@@ -403,10 +440,10 @@ def solve_dual_batch(C, a, b, spec: GroupSpec, reg: Regularizer,
     C, a, b, row_mask, sqrt_g = _operands(C, a, b, spec, dev)
     if len(C.shape) != 3:
         raise ValueError(f"expected (B, m_pad, n) costs, got {tuple(C.shape)}")
-    if opts.grad_impl != "pallas":
+    if opts.grad_impl not in KERNEL_IMPLS:
         _reject_factorized(C, opts.grad_impl)
     prob = DualProblem(spec.num_groups, spec.group_size, int(C.shape[2]), reg)
-    ts = TileStats() if opts.grad_impl == "pallas" else None
+    ts = TileStats() if opts.grad_impl in KERNEL_IMPLS else None
     lb, scr, rounds, stats = _solve_batch_impl(C, a, b, row_mask, sqrt_g, prob, opts, ts)
     alpha, beta = _split(lb.x, prob.m_pad)
     return BatchOTResult(alpha, beta, -lb.f, lb, scr, rounds, stats,
@@ -423,7 +460,8 @@ def solve_dual(C, a, b, spec: GroupSpec, reg: Regularizer,
     ----------
     C : array, tensor or FactorizedCost
         ``(m_pad, n)`` float32 padded cost (``groups.pad_cost_matrix``), or
-        a factorized cost whose leaves have no batch axis (``'pallas'``).
+        a factorized cost whose leaves have no batch axis (``'pallas'``,
+        ``'fused'``).
     a, b : array or tensor
         ``(m_pad,)`` padded source marginal / ``(n,)`` target marginal.
     spec : GroupSpec

@@ -60,13 +60,15 @@ SOURCES: Dict[str, List[str]] = {
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "screen_launch": [_P] * 12 + [_I] * 5 + [_P],
-    "gradpsi_grid_launch": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
-    "gradpsi_compact_launch": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
-    "gradpsi_fact_grid_launch": [_P] * 11 + [_I] * 8 + [_F, _F, _P],
-    "gradpsi_fact_compact_launch": [_P] * 12 + [_I] * 8 + [_F, _F, _P],
+    "gradpsi_grid_launch": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
+    "gradpsi_compact_launch": [_P] * 9 + [_I] * 7 + [_F, _F, _P],
+    "gradpsi_fact_grid_launch": [_P] * 11 + [_I] * 9 + [_F, _F, _P],
+    "gradpsi_fact_compact_launch": [_P] * 12 + [_I] * 9 + [_F, _F, _P],
+    "gradpsi_fused_launch": [_P] * 17 + [_I] * 7 + [_F, _F, _P],
+    "gradpsi_fused_fact_launch": [_P] * 20 + [_I] * 9 + [_F, _F, _P],
     "slot_sum_launch": [_P, _P, _I, _I, _I, _P],
-    "snapshot_fact_launch": [_P] * 10 + [_I] * 8 + [_P],
-    "snapshot_dense_launch": [_P] * 7 + [_I] * 6 + [_P],
+    "snapshot_fact_launch": [_P] * 10 + [_I] * 9 + [_P],
+    "snapshot_dense_launch": [_P] * 7 + [_I] * 7 + [_P],
     "row_sum_launch": [_P, _P, _I, _I, _I, _P],
 }
 

@@ -6,7 +6,7 @@
 // (block-uniform: it may hold __syncthreads), then `at(row0, i)` for the
 // cost of group member i in this thread's column j.
 //
-//   DenseCost  reads a (B, m_pad, n_pad) f32 array (K1-K3's route);
+//   DenseCost  reads a (B, m_pad, n_pad) array (K2/K3/K7's route);
 //   FactCost   rebuilds the squared-l2 cost from samples (the factorized
 //              route, replacing `factorized_cost_tile` in the Pallas
 //              kernels of src/repro/kernels/gradpsi.py):
@@ -20,6 +20,11 @@
 //              op, so a cost rebuilt here equals the device-materialized
 //              cost bit for bit.
 //
+// Both are templates over the stored element type `T`: float, or
+// __nv_bfloat16 for `precision='bf16'`.  Each value is upcast as it is
+// loaded (__bfloat162float is exact), so every consumer computes in f32 on
+// the rounded cost, as the JAX kernels do with `.astype(jnp.float32)`.
+//
 // FactCost streams x and y through shared memory in chunks of `dc` feature
 // columns, so any d keeps the dense route's tile_l and tile_n: per group it
 // stages the g rows of x and the tile's tile_n rows of y (y only once when
@@ -28,14 +33,38 @@
 #pragma once
 
 #include <cstddef>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace rt {
 
+static __device__ __forceinline__ float to_f32(float v) { return v; }
+static __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Storage codes of the launch functions' `cost_dtype` argument.
+constexpr int STORE_F32 = 0;
+constexpr int STORE_BF16 = 1;
+
+template <class T>
+struct Store {
+  using type = T;
+};
+
+// Calls fn(Store<T>{}) with T the cost storage type that `code` names;
+// an unknown code is cudaErrorInvalidValue.
+template <class F>
+int with_storage(int code, F&& fn) {
+  if (code == STORE_F32) return fn(Store<float>{});
+  if (code == STORE_BF16) return fn(Store<__nv_bfloat16>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <class T>
 struct DenseCost {
-  const float* C;       // (B, m_pad, n_pad)
+  const T* C;           // (B, m_pad, n_pad)
   size_t m_pad;
   int n_pad;
-  const float* col;
+  const T* col;
 
   __device__ __forceinline__ void setup(float*, float*) {}
   __device__ __forceinline__ void begin(int b, int, int j) {
@@ -43,7 +72,7 @@ struct DenseCost {
   }
   __device__ __forceinline__ void load_group(size_t) {}
   __device__ __forceinline__ float at(size_t row0, int i) const {
-    return col[(row0 + i) * (size_t)n_pad];
+    return to_f32(col[(row0 + i) * (size_t)n_pad]);
   }
 };
 
@@ -53,16 +82,17 @@ inline size_t fact_extra_floats(int g, int dc, int tile_n) {
   return (size_t)g * dc + g + (size_t)dc * tile_n;
 }
 
+template <class T>
 struct FactCost {
-  const float* x;       // (B, m_pad, d)
-  const float* x_sq;    // (B, m_pad)
-  const float* y;       // (B, n_pad, d)
-  const float* y_sq;    // (B, n_pad)
+  const T* x;           // (B, m_pad, d)
+  const T* x_sq;        // (B, m_pad)
+  const T* y;           // (B, n_pad, d)
+  const T* y_sq;        // (B, n_pad)
   size_t m_pad;
   int n_pad, d, dc, g, tile_n;
-  // per CTA
+  // per CTA; the staged chunks are upcast to f32
   float *acc, *xs, *xsq, *ys;
-  const float *xb, *xsqb, *yb;
+  const T *xb, *xsqb, *yb;
   float ysq_j;
   int j0;
   bool y_ready;
@@ -79,7 +109,7 @@ struct FactCost {
     xb = x + (size_t)b * m_pad * d;
     xsqb = x_sq + (size_t)b * m_pad;
     yb = y + (size_t)b * n_pad * d;
-    ysq_j = y_sq[(size_t)b * n_pad + j];
+    ysq_j = to_f32(y_sq[(size_t)b * n_pad + j]);
     y_ready = false;
   }
 
@@ -91,15 +121,15 @@ struct FactCost {
       __syncthreads();                       // earlier readers of xs / ys are done
       for (int q = tid; q < g * w; q += nt) {
         const int i = q / w, k = q % w;
-        xs[i * w + k] = xb[(row0 + i) * d + c0 + k];
+        xs[i * w + k] = to_f32(xb[(row0 + i) * d + c0 + k]);
       }
       if (c0 == 0) {
-        for (int i = tid; i < g; i += nt) xsq[i] = xsqb[row0 + i];
+        for (int i = tid; i < g; i += nt) xsq[i] = to_f32(xsqb[row0 + i]);
       }
       if (load_y) {
         for (int q = tid; q < tile_n * w; q += nt) {
           const int t = q / w, k = q % w;
-          ys[k * tile_n + t] = yb[(size_t)(j0 + t) * d + c0 + k];
+          ys[k * tile_n + t] = to_f32(yb[(size_t)(j0 + t) * d + c0 + k]);
         }
       }
       __syncthreads();
@@ -129,22 +159,23 @@ struct FactCost {
 
 // The loaders of a launch: C (B, L_pad*g, n_pad); x (B, L_pad*g, d), x_sq
 // (B, L_pad*g), y (B, n_pad, d), y_sq (B, n_pad), staged `dc` columns at a time.
-inline DenseCost make_dense_cost(const void* C, int L_pad, int g, int n_pad) {
-  DenseCost c = {};
-  c.C = static_cast<const float*>(C);
+template <class T>
+DenseCost<T> make_dense_cost(const void* C, int L_pad, int g, int n_pad) {
+  DenseCost<T> c = {};
+  c.C = static_cast<const T*>(C);
   c.m_pad = (size_t)L_pad * g;
   c.n_pad = n_pad;
   return c;
 }
 
-inline FactCost make_fact_cost(const void* x, const void* x_sq, const void* y,
-                               const void* y_sq, int L_pad, int g, int n_pad, int d, int dc,
-                               int tile_n) {
-  FactCost c = {};
-  c.x = static_cast<const float*>(x);
-  c.x_sq = static_cast<const float*>(x_sq);
-  c.y = static_cast<const float*>(y);
-  c.y_sq = static_cast<const float*>(y_sq);
+template <class T>
+FactCost<T> make_fact_cost(const void* x, const void* x_sq, const void* y, const void* y_sq,
+                           int L_pad, int g, int n_pad, int d, int dc, int tile_n) {
+  FactCost<T> c = {};
+  c.x = static_cast<const T*>(x);
+  c.x_sq = static_cast<const T*>(x_sq);
+  c.y = static_cast<const T*>(y);
+  c.y_sq = static_cast<const T*>(y_sq);
   c.m_pad = (size_t)L_pad * g;
   c.n_pad = n_pad;
   c.d = d;

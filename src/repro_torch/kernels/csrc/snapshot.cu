@@ -9,7 +9,9 @@
 //   fm_i = f_i on real rows, 0 on padded rows (masked BEFORE the sums),
 //   z~ = ||[fm]_+||,  k~ = ||fm||,  o~ = ||[fm]_-||,
 //
-// each sum taken over the members in order, i = 0 .. g-1.  Built with
+// each sum taken over the members in order, i = 0 .. g-1, on the cost as
+// stored (f32, or bf16 upcast on load for `precision='bf16'`, so the
+// snapshots bound exactly the cost the gradient kernels integrate).  Built with
 // -fmad=false, so both routes give the bits of the plain version
 // (`core.dual.snapshot_norms`, which sums the members in the same order),
 // and the factorized route's norms equal the dense route's on the
@@ -105,26 +107,31 @@ int launch(const SnapArgs& A, const Cost& cost, int B, size_t smem, void* stream
 
 // K4 on the factorized cost.  alpha: (B, L_pad*g), beta: (B, n_pad), x:
 // (B, L_pad*g, d), x_sq: (B, L_pad*g), y: (B, n_pad, d), y_sq: (B, n_pad),
-// mask: (L_pad*g,) int8; z, k, o: (B, L_pad, n_pad).  Returns
-// cudaGetLastError().
+// the four stored as `cost_dtype` (cost.cuh); mask: (L_pad*g,) int8; z, k,
+// o: (B, L_pad, n_pad).  Returns cudaGetLastError().
 extern "C" int snapshot_fact_launch(const void* alpha, const void* beta, const void* x,
                                     const void* x_sq, const void* y, const void* y_sq,
                                     const void* mask, void* z, void* k, void* o, int B,
                                     int L_pad, int g, int n_pad, int d, int dc, int tile_l,
-                                    int tile_n, void* stream) {
-  const rt::FactCost cost =
-      rt::make_fact_cost(x, x_sq, y, y_sq, L_pad, g, n_pad, d, dc, tile_n);
+                                    int tile_n, int cost_dtype, void* stream) {
   const size_t smem =
       sizeof(float) * ((size_t)g * tile_n + rt::fact_extra_floats(g, dc, tile_n));
-  return launch(make_args(alpha, beta, mask, z, k, o, L_pad, g, n_pad, tile_l, tile_n), cost,
-                B, smem, stream);
+  const SnapArgs A = make_args(alpha, beta, mask, z, k, o, L_pad, g, n_pad, tile_l, tile_n);
+  return rt::with_storage(cost_dtype, [&](auto st) {
+    using T = typename decltype(st)::type;
+    return launch(A, rt::make_fact_cost<T>(x, x_sq, y, y_sq, L_pad, g, n_pad, d, dc, tile_n),
+                  B, smem, stream);
+  });
 }
 
-// The same norms on a dense (B, L_pad*g, n_pad) cost C.
+// The same norms on a dense (B, L_pad*g, n_pad) cost C stored as `cost_dtype`.
 extern "C" int snapshot_dense_launch(const void* alpha, const void* beta, const void* C,
                                      const void* mask, void* z, void* k, void* o, int B,
                                      int L_pad, int g, int n_pad, int tile_l, int tile_n,
-                                     void* stream) {
-  return launch(make_args(alpha, beta, mask, z, k, o, L_pad, g, n_pad, tile_l, tile_n),
-                rt::make_dense_cost(C, L_pad, g, n_pad), B, 0, stream);
+                                     int cost_dtype, void* stream) {
+  const SnapArgs A = make_args(alpha, beta, mask, z, k, o, L_pad, g, n_pad, tile_l, tile_n);
+  return rt::with_storage(cost_dtype, [&](auto st) {
+    using T = typename decltype(st)::type;
+    return launch(A, rt::make_dense_cost<T>(C, L_pad, g, n_pad), B, 0, stream);
+  });
 }

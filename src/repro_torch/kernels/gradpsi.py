@@ -1,4 +1,4 @@
-"""Screened dual gradient of group-sparse OT: CUDA kernels K2/K3/K5/K6 + plain versions.
+"""Screened dual gradient of group-sparse OT: CUDA kernels K2/K3/K5-K8 + plain versions.
 
 Counterpart of the batched half of ``repro.kernels.gradpsi``:
 
@@ -14,13 +14,23 @@ Counterpart of the batched half of ``repro.kernels.gradpsi``:
 ``gradpsi_fact_compact_batched``
                              K6, replaces ``gradpsi_fact_pallas_compact_batched``:
                              K3 on the factorized cost.
+``gradpsi_fused_batched``    K7, replaces ``gradpsi_fused_pallas_batched``: K1's
+                             verdicts in registers, then K2's body on the live
+                             tiles, in one launch; also returns the flags.
+``gradpsi_fused_fact_batched``
+                             K8, replaces ``gradpsi_fused_fact_pallas_batched``:
+                             K7 on the factorized cost.
 
-All four write per-tile partial slots (row sums ``(B, Nt, L_pad*g)``, column
+All six write per-tile partial slots (row sums ``(B, Nt, L_pad*g)``, column
 sums ``(B, Lt, n_pad)``, psi ``(B, Lt, Nt)``) that a fixed-order reduction
 over the slot axis turns into ``(rowsum (B, L_pad*g), colsum (B, n_pad),
-psi (B,))``.  Grid and compact therefore agree bit for bit, on the card
-and in their plain versions, and the factorized kernels equal the dense
-ones on the cost materialized with :func:`factorized_cost_tile`.
+psi (B,))``.  Grid, compact and fused therefore agree bit for bit, on the
+card and in their plain versions, and the factorized kernels equal the
+dense ones on the cost materialized with :func:`factorized_cost_tile`.
+
+The cost operands (``C``, or ``x, x_sq, y, y_sq``) may be stored in
+float32 or bfloat16 (``precision='bf16'``); the kernels upcast each value
+as they load it and compute in float32, and so do the plain versions.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
 plain version, ``*_ref``, only for CPU tensors.  The CUDA sources are in
@@ -90,8 +100,9 @@ def factorized_cost_tile(x: torch.Tensor, x_sq: torch.Tensor, y: torch.Tensor,
     ``__fmul_rn`` / ``__fadd_rn``; materialization, the plain versions and
     the kernels therefore agree bit for bit.  Counterpart of the JAX
     ``factorized_cost_tile``, whose ``jnp.sum`` over d may sum in another
-    order (agreement to f32 tolerance).
+    order (agreement to f32 tolerance).  bf16 operands are upcast first.
     """
+    x, x_sq, y, y_sq = (t.float() for t in (x, x_sq, y, y_sq))
     xy = x[..., 0][..., :, None] * y[..., 0][..., None, :]
     for k in range(1, x.shape[-1]):
         xy = xy + x[..., k][..., :, None] * y[..., k][..., None, :]
@@ -174,6 +185,7 @@ def gradpsi_batched_ref(alpha, beta, C, flags, *, num_groups, group_size, tau, g
     """Plain version of K2: every tile computed, dead tiles zeroed, same slots."""
     B, L_pad, g, n_pad, Lt, Nt = _geometry(alpha, beta, C.shape, tile_l, tile_n,
                                            num_groups, group_size)
+    C = C.float()
     S = B * Lt * Nt
     tau_g = tau_row(tau, L_pad, alpha.device)
     a_t = alpha.reshape(B, Lt, 1, tile_l, g).expand(B, Lt, Nt, tile_l, g).reshape(S, tile_l, g)
@@ -219,7 +231,7 @@ def gradpsi_compact_batched_ref(alpha, beta, C, sched, num_active, *, num_groups
     B, L_pad, g, n_pad, Lt, Nt = _geometry(alpha, beta, C.shape, tile_l, tile_n,
                                            num_groups, group_size)
     Ct = C.reshape(B, Lt, tile_l, g, Nt, tile_n)
-    return _compact_ref(alpha, beta, lambda bi, li, ji: Ct[bi, li, :, :, ji], sched,
+    return _compact_ref(alpha, beta, lambda bi, li, ji: Ct[bi, li, :, :, ji].float(), sched,
                         num_active, B, L_pad, g, n_pad, Lt, Nt, tau=tau, gamma=gamma,
                         tile_l=tile_l, tile_n=tile_n)
 
@@ -295,20 +307,31 @@ def build_batch_tile_schedule(flags: torch.Tensor) -> Tuple[torch.Tensor, torch.
 
 # -- CUDA wrappers -----------------------------------------------------------
 
-def _check_cuda_inputs(dev, floats, ints=()):
-    """Every operand on ``dev``, contiguous, float32 (``floats``) or int32 (``ints``)."""
-    for name, t in floats:
+# Codes of the launch functions' ``cost_dtype`` argument (csrc/cost.cuh).
+COST_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_cuda_inputs(dev, floats, ints=(), costs=()):
+    """Every operand on ``dev`` and contiguous: ``floats`` float32, ``ints`` int32,
+    ``costs`` all float32 or all bfloat16.  Returns the cost storage code
+    (:data:`COST_DTYPES`) of ``costs``."""
+    for name, t in floats + costs:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, alpha on {dev}")
-        if t.dtype != torch.float32:
-            raise NotImplementedError(
-                f"{name} is {t.dtype}: the kernels take float32 only "
-                "(bf16 cost storage is ROADMAP queue A item 7)")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in floats:
+        if t.dtype != torch.float32:
+            raise NotImplementedError(f"{name} is {t.dtype}: the kernels take it in float32")
+    dtypes = {t.dtype for _, t in costs}
+    if len(dtypes) > 1 or not dtypes <= set(COST_DTYPES):
+        raise NotImplementedError(
+            f"cost operands {[(n, t.dtype) for n, t in costs]}: the kernels take them all "
+            "in float32 or all in bfloat16")
     for name, t in ints:
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int32 tensor on {dev}")
+    return COST_DTYPES[dtypes.pop()] if dtypes else COST_DTYPES[torch.float32]
 
 
 def _slots(B, Lt, Nt, L_pad, g, n_pad, device):
@@ -349,12 +372,34 @@ def _check_sched(sched, B, Lt, Nt):
         raise ValueError(f"sched {tuple(sched.shape)} != {(3, B * Lt * Nt)}")
 
 
+def _check_screen_operands(z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g, tau_g):
+    """The screening operands of K1/K7/K8: contiguous, on z's device, as screen_launch takes."""
+    B, L_pad, n_pad = z.shape
+    expect = {
+        "z": (z, torch.float32, (B, L_pad, n_pad)),
+        "k": (k, torch.float32, (B, L_pad, n_pad)),
+        "o": (o, torch.float32, (B, L_pad, n_pad)),
+        "act": (act, torch.int8, (B, L_pad, n_pad)),
+        "da_plus": (da_plus, torch.float32, (B, L_pad)),
+        "da_full": (da_full, torch.float32, (B, L_pad)),
+        "da_neg": (da_neg, torch.float32, (B, L_pad)),
+        "db": (db, torch.float32, (B, n_pad)),
+        "sqrt_g": (sqrt_g, torch.float32, (B, L_pad)),
+        "tau": (tau_g, torch.float32, (L_pad,)),
+    }
+    for name, (t, dtype, shape) in expect.items():
+        if t.device != z.device or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {dtype} {shape} on {z.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def gradpsi_batched(alpha, beta, C, flags, *, num_groups, group_size, tau, gamma,
                     tile_l, tile_n=DEFAULT_TILE_N):
     """K2: grid gradient kernel over (B, Lt, Nt) tiles.
 
-    alpha (B, L_pad*g), beta (B, n_pad), C (B, L_pad*g, n_pad) f32, flags
-    (B, Lt, Nt) int32 -> (rowsum (B, L_pad*g), colsum (B, n_pad), psi (B,)).
+    alpha (B, L_pad*g), beta (B, n_pad), C (B, L_pad*g, n_pad) f32 or bf16,
+    flags (B, Lt, Nt) int32 -> (rowsum (B, L_pad*g), colsum (B, n_pad), psi (B,)).
     """
     if not alpha.is_cuda:
         return gradpsi_batched_ref(alpha, beta, C, flags, num_groups=num_groups,
@@ -363,15 +408,15 @@ def gradpsi_batched(alpha, beta, C, flags, *, num_groups, group_size, tau, gamma
     B, L_pad, g, n_pad, Lt, Nt = _geometry(alpha, beta, C.shape, tile_l, tile_n,
                                            num_groups, group_size)
     tau_g = tau_row(tau, L_pad, alpha.device)
-    _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta), ("C", C),
-                                      ("tau", tau_g)), (("flags", flags),))
+    code = _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta), ("tau", tau_g)),
+                              (("flags", flags),), (("C", C),))
     _check_flags(flags, B, Lt, Nt)
     _check_tile_n(tile_n)
     ga_part, gb_part, psi_part = _slots(B, Lt, Nt, L_pad, g, n_pad, alpha.device)
     err = _build.library().gradpsi_grid_launch(
         flags.data_ptr(), alpha.data_ptr(), beta.data_ptr(), C.data_ptr(), tau_g.data_ptr(),
         ga_part.data_ptr(), gb_part.data_ptr(), psi_part.data_ptr(),
-        B, L_pad, g, n_pad, tile_l, tile_n, float(gamma), float(1.0 / gamma),
+        B, L_pad, g, n_pad, tile_l, tile_n, code, float(gamma), float(1.0 / gamma),
         _build.stream_handle(alpha.device))
     _build.check(err, "gradpsi_grid_launch")
     _build.record_launch("gradpsi_batched")
@@ -394,16 +439,15 @@ def gradpsi_compact_batched(alpha, beta, C, sched, num_active, *, num_groups, gr
                                            num_groups, group_size)
     tau_g = tau_row(tau, L_pad, alpha.device)
     nact = num_active.reshape(1)
-    _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta), ("C", C),
-                                      ("tau", tau_g)),
-                       (("sched", sched), ("num_active", nact)))
+    code = _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta), ("tau", tau_g)),
+                              (("sched", sched), ("num_active", nact)), (("C", C),))
     _check_sched(sched, B, Lt, Nt)
     _check_tile_n(tile_n)
     ga_part, gb_part, psi_part = _slots(B, Lt, Nt, L_pad, g, n_pad, alpha.device)
     err = _build.library().gradpsi_compact_launch(
         sched.data_ptr(), nact.data_ptr(), alpha.data_ptr(), beta.data_ptr(), C.data_ptr(),
         tau_g.data_ptr(), ga_part.data_ptr(), gb_part.data_ptr(), psi_part.data_ptr(),
-        B, L_pad, g, n_pad, tile_l, tile_n, float(gamma), float(1.0 / gamma),
+        B, L_pad, g, n_pad, tile_l, tile_n, code, float(gamma), float(1.0 / gamma),
         _build.stream_handle(alpha.device))
     _build.check(err, "gradpsi_compact_launch")
     _build.record_launch("gradpsi_compact_batched")
@@ -411,9 +455,10 @@ def gradpsi_compact_batched(alpha, beta, C, sched, num_active, *, num_groups, gr
 
 
 def _fact_cuda_checks(alpha, beta, x, x_sq, y, y_sq, tau_g, ints):
-    _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta), ("x", x),
-                                      ("x_sq", x_sq), ("y", y), ("y_sq", y_sq),
-                                      ("tau", tau_g)), ints)
+    """Device, dtype and layout checks of a factorized launch; returns the cost storage code."""
+    return _check_cuda_inputs(alpha.device,
+                              (("alpha", alpha), ("beta", beta), ("tau", tau_g)), ints,
+                              (("x", x), ("x_sq", x_sq), ("y", y), ("y_sq", y_sq)))
 
 
 def gradpsi_fact_batched(alpha, beta, x, x_sq, y, y_sq, flags, *, num_groups, group_size,
@@ -421,8 +466,8 @@ def gradpsi_fact_batched(alpha, beta, x, x_sq, y, y_sq, flags, *, num_groups, gr
     """K5: grid gradient kernel on the factorized cost.
 
     alpha (B, L_pad*g), beta (B, n_pad), x (B, L_pad*g, d), x_sq (B, L_pad*g),
-    y (B, n_pad, d), y_sq (B, n_pad) f32, flags (B, Lt, Nt) int32 -> as K2.
-    A flag-0 tile reads neither x nor y.
+    y (B, n_pad, d), y_sq (B, n_pad) f32 or bf16, flags (B, Lt, Nt) int32 ->
+    as K2.  A flag-0 tile reads neither x nor y.
     """
     if not alpha.is_cuda:
         return gradpsi_fact_batched_ref(alpha, beta, x, x_sq, y, y_sq, flags,
@@ -431,7 +476,7 @@ def gradpsi_fact_batched(alpha, beta, x, x_sq, y, y_sq, flags, *, num_groups, gr
     B, L_pad, g, n_pad, Lt, Nt, d = _fact_geometry(alpha, beta, x, x_sq, y, y_sq, tile_l,
                                                    tile_n, num_groups, group_size)
     tau_g = tau_row(tau, L_pad, alpha.device)
-    _fact_cuda_checks(alpha, beta, x, x_sq, y, y_sq, tau_g, (("flags", flags),))
+    code = _fact_cuda_checks(alpha, beta, x, x_sq, y, y_sq, tau_g, (("flags", flags),))
     _check_flags(flags, B, Lt, Nt)
     _check_tile_n(tile_n)
     ga_part, gb_part, psi_part = _slots(B, Lt, Nt, L_pad, g, n_pad, alpha.device)
@@ -439,8 +484,8 @@ def gradpsi_fact_batched(alpha, beta, x, x_sq, y, y_sq, flags, *, num_groups, gr
         flags.data_ptr(), alpha.data_ptr(), beta.data_ptr(), x.data_ptr(), x_sq.data_ptr(),
         y.data_ptr(), y_sq.data_ptr(), tau_g.data_ptr(), ga_part.data_ptr(),
         gb_part.data_ptr(), psi_part.data_ptr(), B, L_pad, g, n_pad, d,
-        d_chunk(tile_l, g, tile_n, d), tile_l, tile_n, float(gamma), float(1.0 / gamma),
-        _build.stream_handle(alpha.device))
+        d_chunk(tile_l, g, tile_n, d), tile_l, tile_n, code, float(gamma),
+        float(1.0 / gamma), _build.stream_handle(alpha.device))
     _build.check(err, "gradpsi_fact_grid_launch")
     _build.record_launch("gradpsi_fact_batched")
     return _reduce_slots_cuda(ga_part, gb_part, psi_part)
@@ -459,8 +504,8 @@ def gradpsi_fact_compact_batched(alpha, beta, x, x_sq, y, y_sq, sched, num_activ
                                                    tile_n, num_groups, group_size)
     tau_g = tau_row(tau, L_pad, alpha.device)
     nact = num_active.reshape(1)
-    _fact_cuda_checks(alpha, beta, x, x_sq, y, y_sq, tau_g,
-                      (("sched", sched), ("num_active", nact)))
+    code = _fact_cuda_checks(alpha, beta, x, x_sq, y, y_sq, tau_g,
+                             (("sched", sched), ("num_active", nact)))
     _check_sched(sched, B, Lt, Nt)
     _check_tile_n(tile_n)
     ga_part, gb_part, psi_part = _slots(B, Lt, Nt, L_pad, g, n_pad, alpha.device)
@@ -468,8 +513,107 @@ def gradpsi_fact_compact_batched(alpha, beta, x, x_sq, y, y_sq, sched, num_activ
         sched.data_ptr(), nact.data_ptr(), alpha.data_ptr(), beta.data_ptr(), x.data_ptr(),
         x_sq.data_ptr(), y.data_ptr(), y_sq.data_ptr(), tau_g.data_ptr(), ga_part.data_ptr(),
         gb_part.data_ptr(), psi_part.data_ptr(), B, L_pad, g, n_pad, d,
-        d_chunk(tile_l, g, tile_n, d), tile_l, tile_n, float(gamma), float(1.0 / gamma),
-        _build.stream_handle(alpha.device))
+        d_chunk(tile_l, g, tile_n, d), tile_l, tile_n, code, float(gamma),
+        float(1.0 / gamma), _build.stream_handle(alpha.device))
     _build.check(err, "gradpsi_fact_compact_launch")
     _build.record_launch("gradpsi_fact_compact_batched")
     return _reduce_slots_cuda(ga_part, gb_part, psi_part) + (num_active,)
+
+
+# -- K7 / K8: fused screen + gradient ------------------------------------------
+
+def _screen_flags_ref(screen, tau, tile_l, tile_n):
+    from repro_torch.kernels.screen import screen_batched_ref
+
+    return screen_batched_ref(*screen, tau=tau, tile_l=tile_l, tile_n=tile_n,
+                              emit_verdict=False)[1]
+
+
+def gradpsi_fused_batched_ref(alpha, beta, C, z, k, o, act, da_plus, da_full, da_neg, db,
+                              sqrt_g, *, num_groups, group_size, tau, gamma, tile_l,
+                              tile_n=DEFAULT_TILE_N):
+    """Plain version of K7: K1's plain flags, then K2's plain version on them."""
+    flags = _screen_flags_ref((z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g), tau,
+                              tile_l, tile_n)
+    return gradpsi_batched_ref(alpha, beta, C, flags, num_groups=num_groups,
+                               group_size=group_size, tau=tau, gamma=gamma, tile_l=tile_l,
+                               tile_n=tile_n) + (flags,)
+
+
+def gradpsi_fused_fact_batched_ref(alpha, beta, x, x_sq, y, y_sq, z, k, o, act, da_plus,
+                                   da_full, da_neg, db, sqrt_g, *, num_groups, group_size,
+                                   tau, gamma, tile_l, tile_n=DEFAULT_TILE_N):
+    """Plain version of K8: K1's plain flags, then K5's plain version on them."""
+    flags = _screen_flags_ref((z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g), tau,
+                              tile_l, tile_n)
+    return gradpsi_fact_batched_ref(alpha, beta, x, x_sq, y, y_sq, flags,
+                                    num_groups=num_groups, group_size=group_size, tau=tau,
+                                    gamma=gamma, tile_l=tile_l, tile_n=tile_n) + (flags,)
+
+
+def _fused_prelude(alpha, beta, screen, tau, tile_l, tile_n, Lt, Nt, L_pad):
+    tau_g = tau_row(tau, L_pad, alpha.device)
+    _check_screen_operands(*screen, tau_g)
+    if tuple(screen[0].shape) != (alpha.shape[0], L_pad, beta.shape[1]):
+        raise ValueError(f"z {tuple(screen[0].shape)} != "
+                         f"{(alpha.shape[0], L_pad, beta.shape[1])}")
+    _check_tile_n(tile_n)
+    flags = torch.empty((alpha.shape[0], Lt, Nt), dtype=torch.int32, device=alpha.device)
+    return tau_g, flags
+
+
+def gradpsi_fused_batched(alpha, beta, C, z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g,
+                          *, num_groups, group_size, tau, gamma, tile_l,
+                          tile_n=DEFAULT_TILE_N):
+    """K7: the fused oracle on the dense cost, one launch.
+
+    K2's operands plus K1's (z, k, o (B, L_pad, n_pad) f32, act int8 of the
+    same shape, da_plus, da_full, da_neg, sqrt_g (B, L_pad), db (B, n_pad))
+    -> ``(rowsum, colsum, psi, flags (B, Lt, Nt) int32)``: K1's flags, and
+    K2's sums on them, bit for bit.
+    """
+    screen = (z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g)
+    if not alpha.is_cuda:
+        return gradpsi_fused_batched_ref(alpha, beta, C, *screen, num_groups=num_groups,
+                                         group_size=group_size, tau=tau, gamma=gamma,
+                                         tile_l=tile_l, tile_n=tile_n)
+    B, L_pad, g, n_pad, Lt, Nt = _geometry(alpha, beta, C.shape, tile_l, tile_n,
+                                           num_groups, group_size)
+    tau_g, flags = _fused_prelude(alpha, beta, screen, tau, tile_l, tile_n, Lt, Nt, L_pad)
+    code = _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta)), (),
+                              (("C", C),))
+    ga_part, gb_part, psi_part = _slots(B, Lt, Nt, L_pad, g, n_pad, alpha.device)
+    err = _build.library().gradpsi_fused_launch(
+        alpha.data_ptr(), beta.data_ptr(), C.data_ptr(), tau_g.data_ptr(),
+        *(t.data_ptr() for t in screen), flags.data_ptr(), ga_part.data_ptr(),
+        gb_part.data_ptr(), psi_part.data_ptr(), B, L_pad, g, n_pad, tile_l, tile_n, code,
+        float(gamma), float(1.0 / gamma), _build.stream_handle(alpha.device))
+    _build.check(err, "gradpsi_fused_launch")
+    _build.record_launch("gradpsi_fused_batched")
+    return _reduce_slots_cuda(ga_part, gb_part, psi_part) + (flags,)
+
+
+def gradpsi_fused_fact_batched(alpha, beta, x, x_sq, y, y_sq, z, k, o, act, da_plus, da_full,
+                               da_neg, db, sqrt_g, *, num_groups, group_size, tau, gamma,
+                               tile_l, tile_n=DEFAULT_TILE_N):
+    """K8: the fused oracle on the factorized cost; K5's cost operands, returns as K7."""
+    screen = (z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g)
+    if not alpha.is_cuda:
+        return gradpsi_fused_fact_batched_ref(alpha, beta, x, x_sq, y, y_sq, *screen,
+                                              num_groups=num_groups, group_size=group_size,
+                                              tau=tau, gamma=gamma, tile_l=tile_l,
+                                              tile_n=tile_n)
+    B, L_pad, g, n_pad, Lt, Nt, d = _fact_geometry(alpha, beta, x, x_sq, y, y_sq, tile_l,
+                                                   tile_n, num_groups, group_size)
+    tau_g, flags = _fused_prelude(alpha, beta, screen, tau, tile_l, tile_n, Lt, Nt, L_pad)
+    code = _fact_cuda_checks(alpha, beta, x, x_sq, y, y_sq, tau_g, ())
+    ga_part, gb_part, psi_part = _slots(B, Lt, Nt, L_pad, g, n_pad, alpha.device)
+    err = _build.library().gradpsi_fused_fact_launch(
+        alpha.data_ptr(), beta.data_ptr(), x.data_ptr(), x_sq.data_ptr(), y.data_ptr(),
+        y_sq.data_ptr(), tau_g.data_ptr(), *(t.data_ptr() for t in screen), flags.data_ptr(),
+        ga_part.data_ptr(), gb_part.data_ptr(), psi_part.data_ptr(), B, L_pad, g, n_pad, d,
+        d_chunk(tile_l, g, tile_n, d), tile_l, tile_n, code, float(gamma),
+        float(1.0 / gamma), _build.stream_handle(alpha.device))
+    _build.check(err, "gradpsi_fused_fact_launch")
+    _build.record_launch("gradpsi_fused_fact_batched")
+    return _reduce_slots_cuda(ga_part, gb_part, psi_part) + (flags,)

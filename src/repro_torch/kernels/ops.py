@@ -19,6 +19,17 @@ the same bits, so the switch changes only time; the factorized kernels
 give the dense ones' bits on the materialized cost.  The snapshot norms
 of both routes come from K4's body (:func:`snapshot_norms_padded`,
 :func:`snapshot_norms_factorized`).
+
+The fused oracle (``grad_impl='fused'``),
+:func:`dual_value_and_grad_fused_batched`, screens and computes the
+gradient in one launch (K7, or K8 on the factorized cost); its
+``'compact'`` mode is the two-launch K1 + K3 / K6, and ``'auto'`` decides
+between the two on :func:`snapshot_live_tiles`, a count the caller takes
+once per snapshot round.  Every mode writes the same slots, so the fused
+oracle equals the two-launch one bit for bit.
+
+The prepared cost may be stored in bf16 (``precision='bf16'``): the
+kernels and their plain versions upcast it on load.
 """
 from __future__ import annotations
 
@@ -41,6 +52,8 @@ from repro_torch.kernels.gradpsi import (
     gradpsi_compact_batched,
     gradpsi_fact_batched,
     gradpsi_fact_compact_batched,
+    gradpsi_fused_batched,
+    gradpsi_fused_fact_batched,
     resolve_tile_l,
     tau_row,
 )
@@ -97,6 +110,10 @@ class PaddedProblem:
     def num_tiles(self) -> int:
         lt, nt = self.grid
         return lt * nt
+
+    def leaves(self) -> Tuple[torch.Tensor, ...]:
+        """The cost operands of the kernels: ``(Cp,)``."""
+        return (self.Cp,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +179,24 @@ def pad_screen_state_batched(state: ScreenState, sqrt_g: torch.Tensor,
     )
 
 
+def _delta_norms(pstate: PaddedScreenState, alpha: torch.Tensor, beta: torch.Tensor, pp):
+    """Per-evaluation screening deltas on the tile grid: (da_plus, da_full, da_neg, db).
+
+    The grouped norms of alpha - alpha~ (B, L_pad) and beta - beta~
+    (B, n_pad), zero on padded groups and columns, in plain torch.
+    """
+    da = screening.grouped_norms(alpha - pstate.alpha_snap, pp.L)
+    db = beta - pstate.beta_snap
+    return tuple(_pad_axis(x, -1, pp.tile_l, 0.0).contiguous() for x in da) + (
+        _pad_axis(db, -1, pp.tile_n, 0.0).contiguous(),)
+
+
+def _screen_operands(pstate: PaddedScreenState, alpha, beta, pp):
+    """K1's operands in launch order: the snapshots, the deltas and sqrt_g."""
+    return (pstate.z, pstate.k, pstate.o, pstate.act) + _delta_norms(pstate, alpha, beta, pp) \
+        + (pstate.sqrt_g,)
+
+
 def screen_tile_flags_batched(pstate: PaddedScreenState, alpha: torch.Tensor,
                               beta: torch.Tensor, pp: PaddedProblem, tau,
                               tau_p: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -172,18 +207,8 @@ def screen_tile_flags_batched(pstate: PaddedScreenState, alpha: torch.Tensor,
     """
     if tau_p is None:
         tau_p = _pad_tau(tau, pp.L, pp.tile_l, alpha.device)
-    da_plus, da_full, da_neg = screening.grouped_norms(alpha - pstate.alpha_snap, pp.L)
-    db = beta - pstate.beta_snap
-
-    def padL(x):
-        return _pad_axis(x, -1, pp.tile_l, 0.0).contiguous()
-
-    _, flags = screen_batched(
-        pstate.z, pstate.k, pstate.o, pstate.act,
-        padL(da_plus), padL(da_full), padL(da_neg),
-        _pad_axis(db, -1, pp.tile_n, 0.0).contiguous(), pstate.sqrt_g,
-        tau=tau_p, tile_l=pp.tile_l, tile_n=pp.tile_n, emit_verdict=False,
-    )
+    _, flags = screen_batched(*_screen_operands(pstate, alpha, beta, pp), tau=tau_p,
+                              tile_l=pp.tile_l, tile_n=pp.tile_n, emit_verdict=False)
     return flags
 
 
@@ -197,26 +222,47 @@ def use_compact(flags: torch.Tensor, pp, impl: str) -> bool:
     return live <= COMPACT_DENSITY_THRESHOLD * flags.shape[0] * pp.num_tiles
 
 
-def _value_and_grad(alpha, beta, a, b, flags, pp, prob, impl, tau_p, run_grid, run_compact):
-    """The shared tail of both routes: pad, pick grid or compact, un-pad, add the value."""
-    B = alpha.shape[0]
-    L, g = pp.L, pp.g
-    if tuple(flags.shape) != (B,) + pp.grid:
-        raise ValueError(f"flags {tuple(flags.shape)} != {(B,) + pp.grid}")
+def _kernels(pp):
+    """(grid, compact, fused) gradient kernels of the prepared problem's cost form."""
+    if isinstance(pp, FactorizedProblem):
+        return gradpsi_fact_batched, gradpsi_fact_compact_batched, gradpsi_fused_fact_batched
+    return gradpsi_batched, gradpsi_compact_batched, gradpsi_fused_batched
+
+
+def _kernel_kw(pp, prob: DualProblem, tau_p, device) -> dict:
     if tau_p is None:
-        tau_p = _pad_tau(prob.tau_vec(), pp.L, pp.tile_l, alpha.device)
-    alphap, betap = pad_tile_inputs(alpha, beta, pp)
-    kw = dict(num_groups=pp.L_pad, group_size=g, tau=tau_p, gamma=prob.reg.gamma,
-              tile_l=pp.tile_l, tile_n=pp.tile_n)
-    if use_compact(flags, pp, impl):
-        sched, nact = build_batch_tile_schedule(flags)
-        rowsum, colsum, psi, _ = run_compact(alphap, betap, sched, nact, kw)
-    else:
-        rowsum, colsum, psi = run_grid(alphap, betap, flags, kw)
-    rowsum = rowsum.reshape(B, pp.L_pad, g)[:, :L].reshape(B, -1)
+        tau_p = _pad_tau(prob.tau_vec(), pp.L, pp.tile_l, device)
+    return dict(num_groups=pp.L_pad, group_size=pp.g, tau=tau_p, gamma=prob.reg.gamma,
+                tile_l=pp.tile_l, tile_n=pp.tile_n)
+
+
+def _compact(alphap, betap, flags, pp, kw):
+    sched, nact = build_batch_tile_schedule(flags)
+    return _kernels(pp)[1](alphap, betap, *pp.leaves(), sched, nact, **kw)[:3]
+
+
+def _finish(alpha, beta, a, b, sums, pp):
+    """Un-pad the kernel's (rowsum, colsum, psi) and add the dual value."""
+    rowsum, colsum, psi = sums
+    B = alpha.shape[0]
+    rowsum = rowsum.reshape(B, pp.L_pad, pp.g)[:, : pp.L].reshape(B, -1)
     colsum = colsum[:, : pp.n]
     value = row_sum(alpha * a) + row_sum(beta * b) - psi
     return value, a - rowsum, b - colsum
+
+
+def _value_and_grad(alpha, beta, a, b, flags, pp, prob, impl, tau_p):
+    """The two-launch oracle on either route: pad, pick grid or compact, un-pad."""
+    B = alpha.shape[0]
+    if tuple(flags.shape) != (B,) + pp.grid:
+        raise ValueError(f"flags {tuple(flags.shape)} != {(B,) + pp.grid}")
+    kw = _kernel_kw(pp, prob, tau_p, alpha.device)
+    alphap, betap = pad_tile_inputs(alpha, beta, pp)
+    if use_compact(flags, pp, impl):
+        sums = _compact(alphap, betap, flags, pp, kw)
+    else:
+        sums = _kernels(pp)[0](alphap, betap, *pp.leaves(), flags, **kw)
+    return _finish(alpha, beta, a, b, sums, pp)
 
 
 def dual_value_and_grad_padded_batched(
@@ -236,10 +282,7 @@ def dual_value_and_grad_padded_batched(
     MAXIMIZATION dual.  Equal to ``dual.dual_value_and_grad`` with the
     screened mask, up to summation order (Theorem 2).
     """
-    return _value_and_grad(
-        alpha, beta, a, b, flags, pp, prob, impl, tau_p,
-        lambda al, be, fl, kw: gradpsi_batched(al, be, pp.Cp, fl, **kw),
-        lambda al, be, sc, na, kw: gradpsi_compact_batched(al, be, pp.Cp, sc, na, **kw))
+    return _value_and_grad(alpha, beta, a, b, flags, pp, prob, impl, tau_p)
 
 
 def _padded_mask(row_mask: torch.Tensor, pp) -> torch.Tensor:
@@ -389,11 +432,7 @@ def dual_value_and_grad_factorized_batched(
     Bitwise equal to the dense route on the cost materialized with
     ``factorized_cost_tile``.
     """
-    return _value_and_grad(
-        alpha, beta, a, b, flags, fp, prob, impl, tau_p,
-        lambda al, be, fl, kw: gradpsi_fact_batched(al, be, *fp.leaves(), fl, **kw),
-        lambda al, be, sc, na, kw: gradpsi_fact_compact_batched(al, be, *fp.leaves(), sc, na,
-                                                                **kw))
+    return _value_and_grad(alpha, beta, a, b, flags, fp, prob, impl, tau_p)
 
 
 def snapshot_norms_factorized(alpha: torch.Tensor, beta: torch.Tensor, fp: FactorizedProblem,
@@ -407,3 +446,66 @@ def snapshot_norms_factorized(alpha: torch.Tensor, beta: torch.Tensor, fp: Facto
         alphap, betap, *fp.leaves(), _padded_mask(row_mask, fp), num_groups=fp.L_pad,
         group_size=fp.g, tile_l=fp.tile_l, tile_n=fp.tile_n)
     return z[:, : fp.L, : fp.n], k[:, : fp.L, : fp.n], o[:, : fp.L, : fp.n]
+
+
+# -- the fused oracle (grad_impl='fused') ---------------------------------------
+
+def snapshot_live_tiles(pstate: PaddedScreenState, pp, tau) -> torch.Tensor:
+    """Live-tile count at the snapshot point (deltas = 0), summed over the batch.
+
+    There the Eq. 6 upper bound is z~ itself, so a tile is live iff one of
+    its entries is ACTIVE or has z~ > tau.  Plain torch, no kernel; a 0-d
+    int64 tensor on the snapshots' device.  The input of the fused route's
+    ``'auto'`` decision, taken once per snapshot round.
+    """
+    tau_p = _pad_tau(tau, pp.L, pp.tile_l, pstate.z.device)
+    nz = torch.logical_or(pstate.act != 0, pstate.z > tau_p[:, None])
+    lt, nt = pp.grid
+    tiles = nz.reshape(nz.shape[:-2] + (lt, pp.tile_l, nt, pp.tile_n))
+    return torch.sum(torch.any(torch.any(tiles, dim=-1), dim=-2))
+
+
+def fused_impl(pstate: PaddedScreenState, pp, tau, impl: str) -> str:
+    """Resolve the fused route's mode: ``'auto'`` becomes ``'compact'`` at or below
+    ``COMPACT_DENSITY_THRESHOLD`` of live tiles at the snapshot point, else
+    ``'grid'``; one host read of :func:`snapshot_live_tiles`."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown pallas impl: {impl}")
+    if impl != "auto":
+        return impl
+    live0 = int(snapshot_live_tiles(pstate, pp, tau))
+    B = pstate.z.shape[0]
+    return "compact" if live0 <= COMPACT_DENSITY_THRESHOLD * B * pp.num_tiles else "grid"
+
+
+def dual_value_and_grad_fused_batched(
+    alpha: torch.Tensor,               # (B, m_pad)
+    beta: torch.Tensor,                # (B, n)
+    a: torch.Tensor,                   # (B, m_pad)
+    b: torch.Tensor,                   # (B, n)
+    pstate: PaddedScreenState,
+    pp,
+    prob: DualProblem,
+    impl: str = "auto",
+    tau_p: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused screened oracle of B problems, on a PaddedProblem or a FactorizedProblem.
+
+    ``impl``: ``'grid'`` runs K7 / K8, verdicts and gradient in one launch;
+    ``'compact'`` the two-launch reference (K1 flags, the schedule, K3 /
+    K6); ``'auto'`` picks one by :func:`fused_impl` (a solver resolves it
+    once per round instead).  Returns ``(value (B,), grad_alpha (B, m_pad),
+    grad_beta (B, n), flags (B, L_tiles, N_tiles))``: the first three bitwise
+    equal to the two-launch oracle on K1's flags, which are the fourth.
+    """
+    impl = fused_impl(pstate, pp, prob.tau_vec(), impl)
+    kw = _kernel_kw(pp, prob, tau_p, alpha.device)
+    alphap, betap = pad_tile_inputs(alpha, beta, pp)
+    screen = _screen_operands(pstate, alpha, beta, pp)
+    if impl == "compact":
+        _, flags = screen_batched(*screen, tau=kw["tau"], tile_l=pp.tile_l,
+                                  tile_n=pp.tile_n, emit_verdict=False)
+        sums = _compact(alphap, betap, flags, pp, kw)
+    else:
+        *sums, flags = _kernels(pp)[2](alphap, betap, *pp.leaves(), *screen, **kw)
+    return _finish(alpha, beta, a, b, sums, pp) + (flags,)

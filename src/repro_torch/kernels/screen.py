@@ -20,7 +20,10 @@ from samples and padded group members masked before the sums.  The same
 kernel body over the dense cost, :func:`snapshot_norms_dense_batched`,
 takes the dense route's snapshots.  Both sum the members in order, as the
 plain ``core.dual.snapshot_norms``, so the two routes and the plain
-versions give the same bits (``csrc/snapshot.cu``).
+versions give the same bits (``csrc/snapshot.cu``).  The cost may be
+stored in bf16 (``precision='bf16'``): the kernel upcasts each value on
+load, the plain versions with ``.float()``, so the snapshots bound exactly
+the rounded cost the gradient kernels integrate.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from repro_torch.core.screening import ACTIVE, CHECK, ZERO
 from repro_torch.kernels import _build
 from repro_torch.kernels.gradpsi import (
     _check_cuda_inputs,
+    _check_screen_operands,
     d_chunk,
     factorized_cost_tile,
     tau_row,
@@ -76,23 +80,7 @@ def screen_batched(z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g, *, tau,
     if not 1 <= tile_n <= 1024:
         raise ValueError(f"tile_n={tile_n}: one thread per column, at most 1024")
     tau_g = tau_row(tau, L_pad, z.device)
-    expect = {
-        "z": (z, torch.float32, (B, L_pad, n_pad)),
-        "k": (k, torch.float32, (B, L_pad, n_pad)),
-        "o": (o, torch.float32, (B, L_pad, n_pad)),
-        "act": (act, torch.int8, (B, L_pad, n_pad)),
-        "da_plus": (da_plus, torch.float32, (B, L_pad)),
-        "da_full": (da_full, torch.float32, (B, L_pad)),
-        "da_neg": (da_neg, torch.float32, (B, L_pad)),
-        "db": (db, torch.float32, (B, n_pad)),
-        "sqrt_g": (sqrt_g, torch.float32, (B, L_pad)),
-        "tau": (tau_g, torch.float32, (L_pad,)),
-    }
-    for name, (t, dtype, shape) in expect.items():
-        if t.device != z.device or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous {dtype} {shape} on {z.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_screen_operands(z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g, tau_g)
     flags = torch.empty((B, L_pad // tile_l, n_pad // tile_n), dtype=torch.int32,
                         device=z.device)
     verdict = (torch.empty((B, L_pad, n_pad), dtype=torch.int32, device=z.device)
@@ -113,10 +101,11 @@ def screen_batched(z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g, *, tau,
 def snapshot_norms_dense_ref(alpha, beta, C, mask, *, num_groups: int, group_size: int):
     """Plain snapshot norms on a dense cost.
 
-    alpha (B, L_pad*g), beta (B, n_pad), C (B, L_pad*g, n_pad) f32, mask
-    (L_pad*g,) nonzero on real rows -> (z~, k~, o~) each (B, L_pad, n_pad).
+    alpha (B, L_pad*g), beta (B, n_pad), C (B, L_pad*g, n_pad) f32 or bf16
+    (upcast first), mask (L_pad*g,) nonzero on real rows -> (z~, k~, o~) each
+    (B, L_pad, n_pad).
     """
-    F = alpha[..., :, None] + beta[..., None, :] - C
+    F = alpha[..., :, None] + beta[..., None, :] - C.float()
     return member_norms(F, mask != 0, num_groups, group_size)
 
 
@@ -146,7 +135,7 @@ def _snapshot_checks(alpha, beta, mask, num_groups, group_size, tile_l, tile_n):
 
 def snapshot_norms_dense_batched(alpha, beta, C, mask, *, num_groups: int, group_size: int,
                                  tile_l: int, tile_n: int):
-    """K4's body on the dense cost: (z~, k~, o~) each (B, L_pad, n_pad)."""
+    """K4's body on the dense cost (f32 or bf16): (z~, k~, o~) each (B, L_pad, n_pad)."""
     if not alpha.is_cuda:
         return snapshot_norms_dense_ref(alpha, beta, C, mask, num_groups=num_groups,
                                         group_size=group_size)
@@ -154,10 +143,11 @@ def snapshot_norms_dense_batched(alpha, beta, C, mask, *, num_groups: int, group
                                            tile_l, tile_n)
     if tuple(C.shape) != (B, num_groups * group_size, n_pad):
         raise ValueError(f"C {tuple(C.shape)} != {(B, num_groups * group_size, n_pad)}")
-    _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta), ("C", C)))
+    code = _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta)), (),
+                              (("C", C),))
     err = _build.library().snapshot_dense_launch(
         alpha.data_ptr(), beta.data_ptr(), C.data_ptr(), mask.data_ptr(), z.data_ptr(),
-        k.data_ptr(), o.data_ptr(), B, num_groups, group_size, n_pad, tile_l, tile_n,
+        k.data_ptr(), o.data_ptr(), B, num_groups, group_size, n_pad, tile_l, tile_n, code,
         _build.stream_handle(alpha.device))
     _build.check(err, "snapshot_dense_launch")
     _build.record_launch("snapshot_norms_dense_batched")
@@ -168,7 +158,8 @@ def snapshot_norms_fact_batched(alpha, beta, x, x_sq, y, y_sq, mask, *, num_grou
                                 group_size: int, tile_l: int, tile_n: int):
     """K4: snapshot norms on the factorized cost, (z~, k~, o~) each (B, L_pad, n_pad).
 
-    x (B, L_pad*g, d), x_sq (B, L_pad*g), y (B, n_pad, d), y_sq (B, n_pad).
+    x (B, L_pad*g, d), x_sq (B, L_pad*g), y (B, n_pad, d), y_sq (B, n_pad),
+    all f32 or all bf16.
     """
     if not alpha.is_cuda:
         return snapshot_norms_fact_ref(alpha, beta, x, x_sq, y, y_sq, mask,
@@ -180,13 +171,13 @@ def snapshot_norms_fact_batched(alpha, beta, x, x_sq, y, y_sq, mask, *, num_grou
     for name, t in (("x", x), ("x_sq", x_sq), ("y", y), ("y_sq", y_sq)):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} {tuple(t.shape)} != {want[name]}")
-    _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta), ("x", x),
-                                      ("x_sq", x_sq), ("y", y), ("y_sq", y_sq)))
+    code = _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta)), (),
+                              (("x", x), ("x_sq", x_sq), ("y", y), ("y_sq", y_sq)))
     err = _build.library().snapshot_fact_launch(
         alpha.data_ptr(), beta.data_ptr(), x.data_ptr(), x_sq.data_ptr(), y.data_ptr(),
         y_sq.data_ptr(), mask.data_ptr(), z.data_ptr(), k.data_ptr(), o.data_ptr(), B,
         num_groups, group_size, n_pad, d, d_chunk(tile_l, group_size, tile_n, d), tile_l,
-        tile_n, _build.stream_handle(alpha.device))
+        tile_n, code, _build.stream_handle(alpha.device))
     _build.check(err, "snapshot_fact_launch")
     _build.record_launch("snapshot_norms_fact_batched")
     return z, k, o

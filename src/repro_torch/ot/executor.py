@@ -107,7 +107,7 @@ class Executor:
             f"tiles:    ({tile_l} groups x {DEFAULT_TILE_N} cols) grid {lt} x {nt} = "
             f"{lt * nt} tiles",
             f"backend:  grad_impl={self._opts.grad_impl} pallas_impl={self._opts.pallas_impl} "
-            f"device={self._device}",
+            f"precision={self._opts.precision} device={self._device}",
         ]
         if self._template is not None:
             lines.append(f"geometry: plan={self._plan.geometry} -> route="
@@ -216,7 +216,9 @@ class Executor:
 
                 result = slv.solve_dual(FactorizedCost(*geom.operands()), a, b, spec,
                                         self._reg, self._opts, dev)
-                C_t = geom.materialize()     # the dense cost exists only from here on
+                # the dense cost exists only from here on, in f32 whatever the
+                # precision: the plan is recovered on the cost as given
+                C_t = geom.materialize()
             else:
                 C_t = geom.materialize()
                 result = slv.solve_dual(C_t, a, b, spec, self._reg, self._opts, dev)

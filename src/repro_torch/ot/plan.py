@@ -31,10 +31,12 @@ class ExecutionPlan:
     """Static execution policy (fields as in ``repro.ot.ExecutionPlan``).
 
     Supported in this port: ``grad_impl`` in {'dense', 'screened',
-    'pallas'}, ``pallas_impl`` in {'grid', 'compact', 'auto'},
+    'pallas', 'fused'}, ``pallas_impl`` in {'grid', 'compact', 'auto'},
     ``geometry`` in {'auto', 'dense', 'on_the_fly'} (the factorized
     squared-l2 route, resolved per problem by ``Executor._route``),
-    ``precision='f32'``, ``devices='single'``, ``solver='lbfgs'``.
+    ``precision`` in {'f32', 'bf16'} ('bf16' on the kernel backends
+    'pallas' / 'fused' only, as in the JAX package), ``devices='single'``,
+    ``solver='lbfgs'``.
     """
 
     grad_impl: str = "screened"
@@ -79,10 +81,9 @@ class ExecutionPlan:
                      "max_linesearch"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
-        if self.grad_impl == "fused":
-            raise _not_ported("grad_impl='fused'", "5")
-        if self.precision == "bf16":
-            raise _not_ported("precision='bf16'", "7")
+        if self.precision == "bf16" and self.grad_impl not in ("pallas", "fused"):
+            raise ValueError("precision='bf16' requires grad_impl='pallas' or 'fused' "
+                             f"(got grad_impl={self.grad_impl!r})")
         if self.solver == "stochastic":
             raise _not_ported("solver='stochastic'", "8")
         if self.devices != "single":

@@ -17,11 +17,17 @@ Tolerances:
   * K5 / K6 against their plain versions: rtol 1e-5 / atol 1e-6, as K2;
     K5 == K2 and K6 == K3 bitwise on the cost materialized with the same
     recipe (the factorized loader rounds every step on its own);
+  * K7 / K8 (fused): flags exactly equal to K1's, sums bitwise equal to
+    K2's / K5's on those flags (the same per-tile body and slots), and
+    within rtol 1e-5 / atol 1e-6 of their plain versions;
+  * bf16 cost storage: the same tolerances as f32, each kernel against its
+    plain version on the same bf16 operands (both upcast exactly);
   * row sums: rtol 1e-5 / atol 1e-4 against the plain torch.sum (another
     order), and batch-invariant bitwise;
   * whole solves on the card against the same solve on the CPU:
     objective rtol 2e-5, the repo's cross-backend tolerance; factorized ==
-    dense on the materialized problem, and solo == batched, bitwise.
+    dense on the materialized problem, solo == batched, and fused ==
+    pallas, bitwise.
 """
 import numpy as np
 import pytest
@@ -112,8 +118,11 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     alpha, beta, C, flags, tau = _grad_inputs(6)
     a, b, c, f, t = _to(cuda_device, alpha, beta, C, flags, tau)
     kw = dict(num_groups=16, group_size=8, tau=t, gamma=0.25, tile_l=8, tile_n=128)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(NotImplementedError):
+            tgp.gradpsi_batched(a, b, c.to(dtype), f, **kw)
     with pytest.raises(NotImplementedError):
-        tgp.gradpsi_batched(a, b, c.to(torch.bfloat16), f, **kw)
+        tgp.gradpsi_batched(a.to(torch.bfloat16), b, c, f, **kw)
     with pytest.raises(ValueError):
         tgp.gradpsi_batched(a, b, c, f.to(torch.int64), **kw)
     with pytest.raises(ValueError):
@@ -261,3 +270,95 @@ def test_solo_equals_batched_on_the_card(cuda_device):
                 assert torch.equal(solo.value, batch.values[i]), (route, impl, i)
                 assert solo.rounds == int(batch.rounds[i])
                 assert solo.stats == batch[i].stats
+
+
+def _fused_inputs(dev, seed, live_share, d=None, B=2, L=16, g=6, n=256):
+    """Screening state + duals + a cost (dense, or factorized at d) on ``dev``."""
+    z, k, o, act, da, db, sqrt_g = _screen_inputs(seed, B=B, L=L, n=n)
+    rng = np.random.default_rng(seed + 100)
+    dead = np.repeat(np.repeat(rng.random((B, L // 8, n // 128)) >= live_share, 8, axis=1),
+                     128, axis=2)
+    z = np.where(dead, 0.0, z).astype(np.float32)
+    act = np.where(dead, 0, act).astype(np.int8)
+    screen = _to(dev, z, k, o, act, *da, db, sqrt_g)
+    alpha, beta, x, x_sq, y, y_sq, _, tau, _ = _fact_inputs(seed, d or 2, B=B, L=L, g=g, n=n)
+    a, b, xx, xs, yy, ys, t = _to(dev, alpha, beta, x, x_sq, y, y_sq, tau)
+    t = t * 0.2 + 0.05
+    return screen, a, b, (xx, xs, yy, ys), t
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("live_share", [0.0, 0.5, 1.0])
+def test_fused_kernels_match_k1_k2_k5_and_plain(cuda_device, live_share, storage):
+    screen, a, b, leaves, t = _fused_inputs(cuda_device, 11, live_share)
+    if storage == "bf16":
+        leaves = tuple(v.to(torch.bfloat16) for v in leaves)
+    C = tgp.factorized_cost_tile(*leaves)
+    if storage == "bf16":
+        C = C.to(torch.bfloat16)
+    kw = dict(num_groups=16, group_size=6, tau=t, gamma=0.25, tile_l=8, tile_n=128)
+    before = _build.launch_counts()
+    _, k1 = tsc.screen_batched(*screen, tau=t, tile_l=8, tile_n=128, emit_verdict=False)
+    k7 = tgp.gradpsi_fused_batched(a, b, C, *screen, **kw)
+    k8 = tgp.gradpsi_fused_fact_batched(a, b, *leaves, *screen, **kw)
+    k2 = tgp.gradpsi_batched(a, b, C, k1, **kw)
+    k5 = tgp.gradpsi_fact_batched(a, b, *leaves, k1, **kw)
+    assert torch.equal(k7[3], k1) and torch.equal(k8[3], k1)
+    for x7, x2, x8, x5 in zip(k7[:3], k2, k8[:3], k5):
+        assert torch.equal(x7, x2) and torch.equal(x8, x5)
+    r7 = tgp.gradpsi_fused_batched_ref(a, b, C, *screen, **kw)
+    r8 = tgp.gradpsi_fused_fact_batched_ref(a, b, *leaves, *screen, **kw)
+    assert torch.equal(r7[3], k1) and torch.equal(r8[3], k1)
+    for got, want in zip(k7[:3] + k8[:3], r7[:3] + r8[:3]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    if storage == "f32":                              # the materialized cost: K8 == K7
+        for x7, x8 in zip(k7, k8):
+            assert torch.equal(x7, x8)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for name in ("gradpsi_fused_batched", "gradpsi_fused_fact_batched"):
+        assert after.get(name, 0) == before.get(name, 0) + 1, name
+
+
+def test_bf16_kernels_match_plain(cuda_device):
+    alpha, beta, x, x_sq, y, y_sq, flags, tau, mask = _fact_inputs(12, 2, live_share=0.6)
+    a, b, f, t, mk = _to(cuda_device, alpha, beta, flags, tau, mask)
+    leaves = tuple(v.to(torch.bfloat16) for v in _to(cuda_device, x, x_sq, y, y_sq))
+    C = tgp.factorized_cost_tile(*leaves).to(torch.bfloat16)
+    kw = dict(num_groups=16, group_size=6, tau=t, gamma=0.25, tile_l=8, tile_n=128)
+    sched, nact = tgp.build_batch_tile_schedule(f)
+    pairs = [
+        (tgp.gradpsi_batched(a, b, C, f, **kw), tgp.gradpsi_batched_ref(a, b, C, f, **kw)),
+        (tgp.gradpsi_compact_batched(a, b, C, sched, nact, **kw)[:3],
+         tgp.gradpsi_compact_batched_ref(a, b, C, sched, nact, **kw)),
+        (tgp.gradpsi_fact_batched(a, b, *leaves, f, **kw),
+         tgp.gradpsi_fact_batched_ref(a, b, *leaves, f, **kw)),
+        (tgp.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw)[:3],
+         tgp.gradpsi_fact_compact_batched_ref(a, b, *leaves, sched, nact, **kw)),
+    ]
+    for got, want in pairs:
+        for x_, y_ in zip(got, want):
+            torch.testing.assert_close(x_, y_, rtol=1e-5, atol=1e-6)
+    skw = dict(num_groups=16, group_size=6, tile_l=8, tile_n=128)
+    k4 = tsc.snapshot_norms_fact_batched(a, b, *leaves, mk, **skw)
+    k4d = tsc.snapshot_norms_dense_batched(a, b, C, mk, **skw)
+    plain = tsc.snapshot_norms_fact_ref(a, b, *leaves, mk, num_groups=16, group_size=6)
+    plain_d = tsc.snapshot_norms_dense_ref(a, b, C.float(), mk, num_groups=16, group_size=6)
+    for x4, xd, p, pd in zip(k4, k4d, plain, plain_d):
+        assert torch.equal(x4, p) and torch.equal(xd, pd)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_fused_solve_equals_pallas_on_the_card(cuda_device, precision):
+    prob = _sample_problem(3)
+    for geometry in ("dense", "on_the_fly"):
+        for impl in ("grid", "compact", "auto"):
+            sols = {gi: tot.solve(prob, tot.ExecutionPlan(grad_impl=gi, pallas_impl=impl,
+                                                          geometry=geometry,
+                                                          precision=precision),
+                                  device=cuda_device)
+                    for gi in ("pallas", "fused")}
+            p, f = sols["pallas"], sols["fused"]
+            assert f.value == p.value and f.stats == p.stats and f.rounds == p.rounds
+            for name in ("alpha", "beta", "plan"):
+                assert torch.equal(getattr(f, name), getattr(p, name)), (geometry, impl, name)

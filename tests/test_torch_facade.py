@@ -109,9 +109,6 @@ def test_plan_config_crosses_packages():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(grad_impl="fused"), "item 5"),
-    (dict(grad_impl="fused", geometry="on_the_fly"), "item 5"),
-    (dict(grad_impl="pallas", precision="bf16"), "item 7"),
     (dict(solver="stochastic"), "item 8"),
     (dict(devices="all"), "item 9"),
     (dict(devices=2), "item 9"),
@@ -121,6 +118,29 @@ def test_unported_plan_options_raise(kw, item):
         tot.ExecutionPlan(**kw)
     with pytest.raises(ValueError):
         tot.ExecutionPlan(grad_impl="unknown")
+
+
+@pytest.mark.parametrize("kw,accepted", [
+    (dict(grad_impl="fused"), True),
+    (dict(grad_impl="fused", geometry="on_the_fly"), True),
+    (dict(grad_impl="pallas", precision="bf16"), True),
+    (dict(grad_impl="fused", precision="bf16"), True),
+    (dict(grad_impl="screened", precision="bf16"), False),
+    (dict(grad_impl="dense", precision="bf16"), False),
+])
+def test_fused_and_bf16_plan_options(kw, accepted):
+    """grad_impl='fused' and precision='bf16' are ported; bf16 stays off the plain
+    backends with a ValueError, as in the JAX package."""
+    if not accepted:
+        with pytest.raises(ValueError, match="bf16"):
+            tot.ExecutionPlan(**kw)
+        with pytest.raises(ValueError, match="bf16"):
+            jot.ExecutionPlan(**kw)
+        return
+    plan = tot.ExecutionPlan(**kw)
+    opts = plan.solve_options()
+    assert (opts.grad_impl, opts.precision) == (plan.grad_impl, plan.precision)
+    assert plan.config() == jot.ExecutionPlan(**kw).config()
 
 
 def test_unported_entry_points_raise():

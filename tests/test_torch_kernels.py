@@ -208,3 +208,28 @@ def test_cpu_wrappers_count_no_launches():
     tgp.gradpsi_compact_batched(_t(alpha), _t(beta), _t(C), sched, nact, **kw)
     assert _build.launch_counts() == {}
 
+
+
+def test_launch_signatures_match_the_c_declarations():
+    """_build.SIGNATURES declares every extern "C" entry of csrc/*.cu, argument for argument.
+
+    ctypes passes what the declaration says; a pointer declared as an int
+    would be cut to 32 bits, so the two must agree where no compiler can
+    check them (the kernels build only where nvcc is).
+    """
+    import ctypes
+    import re
+
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+    found = {}
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', path.read_text()):
+            types = []
+            for param in m.group(2).split(","):
+                words = param.replace("const ", "").replace("*", "* ").split()
+                types.append(kinds["".join(words[:-1])])
+            found[m.group(1)] = types
+    assert set(found) == set(_build.SIGNATURES)
+    for name, types in found.items():
+        assert types == _build.SIGNATURES[name], name
+    assert set(_build.SOURCES) == {p.name for p in _build.CSRC.glob("*.cu")}

@@ -174,9 +174,15 @@ def test_round_from_jax_state_matches_jax(grad_impl):
 
 
 def test_solve_options_reject_unported():
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        ts.SolveOptions(grad_impl="fused")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        ts.SolveOptions(grad_impl="pallas", precision="bf16")
+    """Every grad_impl and precision of the JAX package is ported; what the JAX
+    package rejects (bf16 off the kernel backends, unknown names) raises."""
+    for grad_impl in ("fused", "pallas"):
+        for precision in ("f32", "bf16"):
+            ts.SolveOptions(grad_impl=grad_impl, precision=precision)
+    for grad_impl in ("dense", "screened"):
+        with pytest.raises(ValueError, match="bf16"):
+            ts.SolveOptions(grad_impl=grad_impl, precision="bf16")
     with pytest.raises(ValueError):
         ts.SolveOptions(grad_impl="nope")
+    with pytest.raises(ValueError):
+        ts.SolveOptions(grad_impl="pallas", precision="f16")
