@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py      # needs one CUDA card; takes four to five minutes
+    python3 chip_smoke.py      # needs one CUDA card; takes five to six minutes
 
 The main path is the default plan at the paper's largest scale:
 ``repro_torch.ot.compile(Problem.from_samples(...), ExecutionPlan(grad_impl=
@@ -32,9 +32,12 @@ Phases:
      with grid / compact / auto, the dense route on
      ``problem.materialized()`` with grid / compact / auto, the fused
      oracle on both routes with grid / compact / auto, bf16 with pallas and
-     fused, grid / compact / auto, on both routes, and the plain 'screened'
-     and 'dense' backends.  Factorized equals dense-on-materialized bit for bit
-     (duals, value, plan, rounds, stats); grid == compact == auto bitwise
+     fused, grid / compact / auto, on both routes (the factorized bf16
+     solves stopped at 12 rounds: they take 108 to converge), and the plain
+     'screened' and 'dense' backends.  Factorized equals
+     dense-on-materialized bit for bit (duals, value, plan, rounds,
+     stats); the main path keeps the value, plan and dual fingerprints the
+     parent kernels gave it; grid == compact == auto bitwise
      per route; fused == pallas bitwise per route, impl and precision (the
      plan by an exact integer fingerprint of its bits); every f32
      objective within rtol 2e-5 of 'dense', every bf16 one printed beside
@@ -60,8 +63,30 @@ Phases:
      K2/K3/K5-K8 times across live shares, and K2/K5/K7/K8 on bf16 costs;
   6. solo vs batched (B = 2) at L = 64, n = 1024, dense and factorized,
      pallas and fused, grid and compact: bitwise equal (duals, value,
-     rounds, stats), or the smoke fails.
-The second-to-last line is the kernel table as JSON, the last line
+     rounds, stats), or the smoke fails;
+  7. the solo oracle layer (B9-B14) at the state of phase 5: each solo
+     wrapper (K2/K3/K7/K5/K6/K8 launched at B = 1), each solo oracle of
+     kernels/ops.py and ``make_value_and_grad`` on both routes bitwise
+     equal to the batched ones at B = 1 (sums, flags, value, gradient);
+     the solo path (``make_value_and_grad`` once per route and oracle)
+     counted, each solo wrapper timed beside its twin's bound;
+  8. training-time OT at full width: ``OTLayer.from_samples`` with
+     ``normalize_cost`` under grad_impl 'pallas' and 'fused' (value bitwise
+     ``solve_dual``'s on the same FactorizedCost; forward + backward with
+     one solve, exact zero gradients on padded rows, the translation
+     invariance of the squared-l2 cost, peak memory under the 1.05 GB dense
+     cost; times), ``grad_refine=20`` through B12, and five Adam steps of a
+     Linear(2, 2) map under ``ot_alignment_loss`` (g = 10, unpadded) with a
+     loss that must fall;
+  9. ``solver='stochastic'`` at full width (sgd_block_cols=128, the default
+     60 epochs, not cut): reruns, fused == pallas and 'grid' == 'auto'
+     bitwise (the pair prices 'auto''s host read per step), the value at
+     most the L-BFGS one, times and launches per step, a profile of 5
+     epochs; and on the golden problem at sgd_block_cols=4 (tile_n = 4).
+Phase 3 also runs K2/K3/K5-K8 at tile_n 4, 20, 40 and 128 on a narrow
+problem, and phase 4 holds the main path's solve to the fingerprint it had
+before the kernels took any tile width.
+The second-to-last line is the kernel table as JSON (K1-K8, B9-B14), the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 from __future__ import annotations
@@ -84,7 +109,20 @@ K4, K5, K6 = "snapshot_norms_fact_batched", "gradpsi_fact_batched", "gradpsi_fac
 K7, K8 = "gradpsi_fused_batched", "gradpsi_fused_fact_batched"
 K4D = "snapshot_norms_dense_batched"          # K4's body on the dense cost
 KERNELS = (K1, K2, K3, K4, K5, K6, K7, K8)
+# the solo wrappers (ROADMAP B9-B14): the batched kernel of their twin at B = 1
+B9, B10, B11 = "gradpsi", "gradpsi_compact", "gradpsi_fused"
+B12, B13, B14 = "gradpsi_fact", "gradpsi_fact_compact", "gradpsi_fused_fact"
+SOLO_KERNELS = (B9, B10, B11, B12, B13, B14)
+TWIN = {B9: K2, B10: K3, B11: K7, B12: K5, B13: K6, B14: K8}
 MAIN_PATH = "factorized/auto"
+# The main path's (value, plan fingerprint, (alpha, beta) fingerprints) as the
+# kernels gave them before they took any tile width (the parent commit's
+# kernels on an H100): the tile-width change must leave them unchanged.
+MAIN_PATH_PRINTS = (0.02530081570148468, 4167098694829814692,
+                    (132603576222989663, 82920091132708291))
+# bf16 solves on the factorized route take 108 rounds to converge (PERF.md);
+# the smoke stops them here, which keeps every bitwise check among them
+BF16_FACT_ROUNDS = 12
 DENSE_PATH = "dense/auto"
 FUSED_PATH = "factorized/fused-auto"          # ExecutionPlan(grad_impl='fused')
 # 'auto' on the fused route decides once per round at the snapshot point;
@@ -104,6 +142,12 @@ SOURCES = {
     K6: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:1205"),
     K7: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:1485"),
     K8: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:1751"),
+    B9: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:276"),
+    B10: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:397"),
+    B11: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:1362"),
+    B12: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:845"),
+    B13: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:958"),
+    B14: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:1615"),
 }
 
 
@@ -445,6 +489,82 @@ def phase_row_sum(device):
           f"each row's bits the same alone and in a batch of 3", flush=True)
 
 
+def phase_tile_widths(device):
+    """K2/K3/K5-K8 at tile widths that are not whole warps (4, 20, 40), and at 128.
+
+    The stochastic solver runs the kernels with tile_n = its column block,
+    so a CTA rounds tile_n up to whole warps and the extra lanes add zeros.
+    B = 2, L_pad = 64, g = 16, tile_l = 8, d = 2, n_pad about 1000.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import gradpsi as kg
+    from repro_torch.kernels import screen as ks
+
+    for tile_n in (4, 20, 40, 128):
+        rng = np.random.default_rng(tile_n)
+        B, L_pad, g, d, tile_l = 2, 64, 16, 2, 8
+        Nt = -(-1000 // tile_n)
+        n_pad, m_pad = Nt * tile_n, L_pad * g
+        x = (rng.normal(size=(B, m_pad, d)) * 0.3).astype(np.float32)
+        y = (rng.normal(size=(B, n_pad, d)) * 0.3).astype(np.float32)
+        t = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        leaves = tuple(t(v) for v in (x, (x * x).sum(-1), y, (y * y).sum(-1)))
+        C = kg.factorized_cost_tile(*leaves)
+        a = t(rng.uniform(0.1, 0.6, (B, m_pad)).astype(np.float32))
+        b = t(rng.uniform(0.1, 0.6, (B, n_pad)).astype(np.float32))
+        flags = t((rng.random((B, L_pad // tile_l, Nt)) < 0.5).astype(np.int32))
+        tau = torch.linspace(0.05, 0.5, L_pad, device=device)
+        kw = dict(num_groups=L_pad, group_size=g, tau=tau, gamma=0.25, tile_l=tile_l,
+                  tile_n=tile_n)
+        sched, nact = kg.build_batch_tile_schedule(flags)
+        k2 = kg.gradpsi_batched(a, b, C, flags, **kw)
+        k5 = kg.gradpsi_fact_batched(a, b, *leaves, flags, **kw)
+        err = 0.0
+        for got, want in ((k2, kg.gradpsi_batched_ref(a, b, C, flags, **kw)),
+                          (k5, kg.gradpsi_fact_batched_ref(a, b, *leaves, flags, **kw))):
+            check(all(torch.allclose(p, q, rtol=1e-5, atol=1e-6) for p, q in zip(got, want)),
+                  f"K2/K5 at tile_n = {tile_n} off their plain versions")
+            err = max(err, max_errs(got, want)[0])
+        check(same(kg.gradpsi_compact_batched(a, b, C, sched, nact, **kw)[:3], k2)
+              and same(kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw)[:3],
+                       k5) and same(k5, k2),
+              f"K3/K6/K5 not bitwise K2 at tile_n = {tile_n}")
+        sargs = _narrow_screen_args(rng, B, L_pad, n_pad, device)
+        _, f1 = ks.screen_batched(*sargs, tau=tau, tile_l=tile_l, tile_n=tile_n,
+                                  emit_verdict=False)
+        k7 = kg.gradpsi_fused_batched(a, b, C, *sargs, **kw)
+        k8 = kg.gradpsi_fused_fact_batched(a, b, *leaves, *sargs, **kw)
+        check(torch.equal(k7[3], f1) and torch.equal(k8[3], f1)
+              and same(k7[:3], kg.gradpsi_batched(a, b, C, f1, **kw))
+              and same(k8[:3], kg.gradpsi_fact_batched(a, b, *leaves, f1, **kw)),
+              f"K7/K8 at tile_n = {tile_n} not K1's flags and K2's / K5's sums")
+        print(f"tile width {tile_n} (B = 2, L_pad = 64, g = 16, n_pad = {n_pad}, "
+              f"{-(-tile_n // 32) * 32} threads per CTA): K2, K5 within rtol 1e-5 / atol 1e-6 "
+              f"of plain (max abs err {err:.3e}); K3 == K2, K5 == K2, K6 == K5, K7/K8 == K1's "
+              f"flags (live share {int(f1.count_nonzero()) / f1.numel():.3f}) and K2's / K5's "
+              f"sums, bitwise", flush=True)
+
+
+def _narrow_screen_args(rng, B, L_pad, n_pad, device):
+    """K1's operands with about half the entries above tau = 0.05-0.5 (narrow tiles)."""
+    import numpy as np
+    import torch
+
+    f32 = np.float32
+    shape = (B, L_pad, n_pad)
+    live = rng.random(shape) < 0.05
+    z = np.where(live, rng.uniform(0.0, 1.2, shape), rng.uniform(0.0, 0.04, shape)).astype(f32)
+    t = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return (t(z), t((z + rng.uniform(0, 0.5, shape)).astype(f32)),
+            t(rng.uniform(0, 0.2, shape).astype(f32)), t((rng.random(shape) < 0.01)
+                                                         .astype(np.int8)),
+            *(t(rng.uniform(0, 0.01, (B, L_pad)).astype(f32)) for _ in range(3)),
+            t(rng.uniform(-0.01, 0.01, (B, n_pad)).astype(f32)),
+            t(np.full((B, L_pad), 4.0, f32)))
+
+
 # -- phase 4 -------------------------------------------------------------------
 
 # per route: (grid kernel, compact kernel, snapshot kernel, fused kernel)
@@ -540,6 +660,8 @@ def phase_end_to_end(problem, mat_problem, device):
                 kw = {"grad_impl": gi, "precision": "bf16", **geo}
                 if impl != "auto":
                     kw["pallas_impl"] = impl
+                if route == "factorized":
+                    kw["max_rounds"] = BF16_FACT_ROUNDS
                 runs.append((f"{route}/bf16-{gi}{'' if impl == 'auto' else '-' + impl}",
                              problem, kw))
     runs += [("screened", problem, {"grad_impl": "screened", "geometry": "dense"}),
@@ -608,6 +730,8 @@ def phase_end_to_end(problem, mat_problem, device):
               f"{ {k: v for k, v in launches[name].items() if k != 'row_sum'} }", flush=True)
         check_path_launches(name, launches[name], sol)
         prints[name] = fingerprint(sol.plan)
+        if name == MAIN_PATH:
+            main_duals = (fingerprint(sol.alpha), fingerprint(sol.beta))
         _, grad_impl, impl, precision = path_parts(name)
         if route in ("factorized", "materialized") and (grad_impl, precision) == ("pallas",
                                                                                   "f32"):
@@ -622,6 +746,13 @@ def phase_end_to_end(problem, mat_problem, device):
         sol.plan = sol.plan_padded = None        # keep only duals and scalars
         sols[name] = sol
 
+    main_prints = (sols[MAIN_PATH].value, prints[MAIN_PATH], main_duals)
+    print(f"main path {MAIN_PATH}: value {main_prints[0]!r}, plan fingerprint {main_prints[1]}, "
+          f"duals fingerprints {main_prints[2]} (the parent kernels': {MAIN_PATH_PRINTS})",
+          flush=True)
+    check(main_prints == MAIN_PATH_PRINTS,
+          "the main path's solve does not keep the fingerprint it had before the tile-width "
+          "change")
     ref = sols["dense"].value
     for name, sol in sols.items():
         rel = abs(sol.value - ref) / abs(ref)
@@ -1003,6 +1134,9 @@ def phase_times(sol, ops, reg, launches, device):
     if not all(ok.values()):
         print(json.dumps({"kernels": rows}), flush=True)
         fail("a kernel disagrees with its plain version at the main path's final state")
+    st["work"] = work
+    st["batched"] = {K2: out[K2][0], K3: out[K3][0], K5: out[K5][0], K6: out[K6][0],
+                     K7: out[K7][0] + (fused_flags[K7][0],), K8: out[K8][0] + (fused_flags[K8][0],)}
     return rows, st
 
 
@@ -1160,6 +1294,428 @@ def phase_solo_vs_batched(device):
                     check(bitwise, f"solo != batched on {tag}, problem {i}")
 
 
+# -- phase 7: the solo oracle layer (B9-B14) --------------------------------------
+
+def _unbatched(ops):
+    """The main problem's prepared cost forms without their B axis (solo route)."""
+    import dataclasses
+
+    pp, fp = ops.pp, ops.fp
+    return (dataclasses.replace(pp, Cp=pp.Cp[0]),
+            dataclasses.replace(fp, **{k: getattr(fp, k)[0] for k in ("x", "x_sq", "y",
+                                                                     "y_sq")}))
+
+
+def phase_solo(sol, st, ops, problem, reg, device):
+    """B9-B14 at the main path's final state, against their batched twins at B = 1.
+
+    Each solo kernel wrapper, each solo oracle of kernels/ops.py and
+    ``make_value_and_grad`` on both routes must give the bits of the batched
+    kernel / oracle at B = 1 (sums, flags, value); the solo wrappers are
+    timed beside the bound of their twin's work and their plain versions.
+    The solo path: ``make_value_and_grad`` once per (route, oracle, impl),
+    counters reset just before and read just after.  Returns the kernel rows.
+    """
+    import torch
+
+    import repro_torch.ot as ot
+    from repro_torch.core import screening
+    from repro_torch.core import solver as slv
+    from repro_torch.kernels import _build as kbuild
+    from repro_torch.kernels import gradpsi as kg
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ops import FactorizedCost
+
+    pps, fps = _unbatched(ops)
+    gkw = st["gkw"]
+    a1, b1, flags = st["alphap"][0], st["betap"][0], st["flags"][0]
+    scr_args = tuple(t[0] for t in st["sargs"])
+    sched, nact = kg.build_tile_schedule(flags)
+    leaves = fps.leaves()
+    A, Bt, F, Cb, Lb = st["alphap"], st["betap"], st["flags"], ops.pp.Cp, ops.fp.leaves()
+    fns = {
+        B9: (lambda: kg.gradpsi(a1, b1, pps.Cp, flags, **gkw),
+             lambda: kg.gradpsi_batched_ref(A, Bt, Cb, F, **gkw)),
+        B10: (lambda: kg.gradpsi_compact(a1, b1, pps.Cp, sched, nact, **gkw),
+              lambda: kg.gradpsi_compact_batched_ref(A, Bt, Cb, st["sched"], st["nact"],
+                                                     **gkw)),
+        B11: (lambda: kg.gradpsi_fused(a1, b1, pps.Cp, *scr_args, **gkw),
+              lambda: kg.gradpsi_fused_batched_ref(A, Bt, Cb, *st["sargs"], **gkw)),
+        B12: (lambda: kg.gradpsi_fact(a1, b1, *leaves, flags, **gkw),
+              lambda: kg.gradpsi_fact_batched_ref(A, Bt, *Lb, F, **gkw)),
+        B13: (lambda: kg.gradpsi_fact_compact(a1, b1, *leaves, sched, nact, **gkw),
+              lambda: kg.gradpsi_fact_compact_batched_ref(A, Bt, *Lb, st["sched"], st["nact"],
+                                                          **gkw)),
+        B14: (lambda: kg.gradpsi_fused_fact(a1, b1, *leaves, *scr_args, **gkw),
+              lambda: kg.gradpsi_fused_fact_batched_ref(A, Bt, *Lb, *st["sargs"], **gkw)),
+    }
+    outs = {}
+    for name, (fn, plain) in fns.items():
+        got = fn()
+        twin = st["batched"][TWIN[name]]
+        want = tuple(t[0] for t in twin[:3]) + ((twin[3][0],) if len(twin) == 4 else ())
+        check(same(tuple(got[:3]) + ((got[3],) if name in (B11, B14) else ()), want),
+              f"{name} not bitwise equal to {TWIN[name]} at B = 1")
+        if name in (B10, B13):
+            check(int(got[3]) == int(st["nact"]), f"{name} steps != live tiles")
+        outs[name] = (got[:3], tuple(t[0] for t in plain()[:3]))
+
+    # the solo oracles of kernels/ops.py against the batched ones at B = 1
+    ex = ot.compile(problem, ot.ExecutionPlan(grad_impl="pallas"), device=device)
+    a_np, b_np, _ = ex._marginals(problem)
+    a, b = torch.from_numpy(a_np).to(device), torch.from_numpy(b_np).to(device)
+    alpha, beta, prob = sol.alpha, sol.beta, ops.prob
+    scr_b, sqb, tau = st["scr"], st["sqrt_g"], st["tau"]
+    scr1 = screening.ScreenState(**{f: getattr(scr_b, f)[0] for f in scr_b.__dataclass_fields__})
+    lift = lambda *ts: tuple(t[None] for t in ts)
+    for route, (pp1, ppb) in (("dense", (pps, ops.pp)), ("factorized", (fps, ops.fp))):
+        ps1 = kops.pad_screen_state(scr1, sqb[0], pp1)
+        psb = kops.pad_screen_state_batched(scr_b, sqb, ppb)
+        f1 = kops.screen_tile_flags(ps1, alpha, beta, pp1, tau)
+        fb = kops.screen_tile_flags_batched(psb, *lift(alpha, beta), ppb, tau)
+        check(torch.equal(f1, fb[0]), f"solo screen_tile_flags != batched ({route})")
+        fn1, fnb = ((kops.dual_value_and_grad_factorized,
+                     kops.dual_value_and_grad_factorized_batched) if route == "factorized"
+                    else (kops.dual_value_and_grad_padded,
+                          kops.dual_value_and_grad_padded_batched))
+        for impl in ("grid", "compact"):
+            got = fn1(alpha, beta, a, b, f1, pp1, prob, impl=impl)
+            want = fnb(*lift(alpha, beta, a, b), fb, ppb, prob, impl=impl)
+            check(same(got, tuple(t[0] for t in want)),
+                  f"solo {fn1.__name__}({impl}) != batched at B = 1 ({route})")
+        got = kops.dual_value_and_grad_fused(alpha, beta, a, b, ps1, pp1, prob, impl="grid")
+        want = kops.dual_value_and_grad_fused_batched(*lift(alpha, beta, a, b), psb, ppb, prob,
+                                                      impl="grid")
+        check(same(got, tuple(t[0] for t in want)),
+              f"solo dual_value_and_grad_fused(grid) != batched at B = 1 ({route})")
+
+    # the solo path: make_value_and_grad on both routes, counted
+    x = torch.cat([alpha, beta])
+    costs = {"dense": (ops.pp.Cp[0, : prob.m_pad, : prob.n], pps, ops.pp),
+             "factorized": (FactorizedCost(*(t[0] for t in ops.fc.leaves())), fps, ops.fp)}
+    runs = [(route, gi, impl) for route in ("dense", "factorized")
+            for gi, impl in (("pallas", "grid"), ("pallas", "compact"), ("fused", "grid"))]
+    sync()
+    kbuild.reset_launch_counts()
+    solo = {r: slv.make_value_and_grad(costs[r[0]][0], a, b, prob, sqb[0], r[1], scr1,
+                                       padded=costs[r[0]][1], pallas_impl=r[2])(x) for r in runs}
+    sync()
+    launches = kbuild.launch_counts()
+    for r in runs:
+        cost_b = costs[r[0]][0]
+        cost_b = cost_b.map(lambda t: t[None]) if r[0] == "factorized" else cost_b[None]
+        bv, bg = slv.make_value_and_grad_batched(cost_b, a[None], b[None], prob, sqb, r[1],
+                                                 scr_b, padded=costs[r[0]][2],
+                                                 pallas_impl=r[2])(x[None])
+        check(torch.equal(solo[r][0], bv[0]) and torch.equal(solo[r][1], bg[0]),
+              f"make_value_and_grad {r} != the batched oracle at B = 1")
+    for name in SOLO_KERNELS:
+        check(launches.get(name, 0) == 1, f"the solo path launched {name} "
+              f"{launches.get(name, 0)} times, not once: {launches}")
+    print(f"solo path at the main path's final state: B9-B14 == K2/K3/K7/K5/K6/K8 at B = 1 "
+          f"bitwise (sums, flags, steps); the solo oracles of kernels/ops.py (grid, compact, "
+          f"fused grid) and make_value_and_grad on both routes == the batched ones at B = 1 "
+          f"bitwise (value, gradient, flags); launches {launches}", flush=True)
+
+    rows = []
+    for name, (fn, plain) in fns.items():
+        err, rel = max_errs(*outs[name])
+        ms = median_ms(fn, 50)
+        plain_ms = median_ms(plain, 5, warmup=1)
+        bms, by = bound(*st["work"][TWIN[name]])
+        source, replaces = SOURCES[name]
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches.get(name, 0), "launches_path": "solo/make_value_and_grad",
+                     "max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     "check": f"bitwise == {TWIN[name]} at B = 1", "result": "pass"})
+        print(f"time {name} ({TWIN[name]} at B = 1): {ms:.4f} ms (bound {bms:.4f} ms by {by}), "
+              f"plain {plain_ms:.4f} ms, max abs err vs plain {err:.3e}", flush=True)
+    return rows
+
+
+# -- phase 8: the differentiable layer, forward and backward, and training ------------
+
+def phase_train(problem, reg, device):
+    """The samples layer at full width: value, forward + backward, refinement, training.
+
+    Returns the launches of the refine run.
+    """
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import repro_torch.ot as ot
+    from repro_torch.core import groups as G
+    from repro_torch.core import solver as slv
+    from repro_torch.kernels import _build as kbuild
+    from repro_torch.kernels.ops import FactorizedCost
+    from repro_torch.ot import diff
+    from repro_torch.training import losses
+
+    spec = problem.group_spec()
+    L, g, n = spec.num_groups, spec.group_size, problem.num_target
+    Xp, _, mask = G.pad_sources(np.asarray(problem.X_S, np.float32), problem.labels, spec)
+    x = torch.from_numpy(Xp).to(device)
+    y = torch.from_numpy(np.asarray(problem.X_T, np.float32)).to(device)
+    pad_rows = torch.from_numpy(~mask).to(device)
+    dense_bytes = spec.m_pad * n * 4
+    # the first matmul and the first backward on the card start cuBLAS and
+    # the autograd engine's device thread (about a second): not the layer's time
+    w = torch.ones((8, 8), device=device, requires_grad=True)
+    torch.autograd.grad(torch.sum(w @ torch.ones((8, 2), device=device)), w)
+    sync()
+    for gi in ("pallas", "fused"):
+        plan = ot.ExecutionPlan(grad_impl=gi)
+        layer = diff.OTLayer(L, g, n, reg, plan=plan, sizes=spec.sizes, normalize_cost=True,
+                             device=device)
+        with torch.no_grad():
+            xs, x_sq, ys, y_sq, scale = diff._scaled_factors(layer, x, y)
+            a, b = layer._marginals(None, None)
+            ref = slv.solve_dual(FactorizedCost(xs, x_sq, ys, y_sq), a, b, spec, reg,
+                                 plan.solve_options(), device)
+            v0 = layer.from_samples(x, y)
+        check(torch.equal(v0, ref.value), f"layer ({gi}) value {float(v0)!r} != solve_dual on "
+              f"the same FactorizedCost {float(ref.value)!r}")
+        del ref, xs, x_sq, ys, y_sq
+        xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        diff.reset_solve_count()
+        kbuild.reset_launch_counts()
+        t0 = time.perf_counter()
+        v = layer.from_samples(xg, yg)
+        sync()
+        t_fwd = time.perf_counter() - t0
+        peak_fwd = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        torch.autograd.grad(v, (xg, yg), retain_graph=True)
+        sync()
+        t_bwd0 = time.perf_counter() - t0          # the first: the allocator grows
+        t0 = time.perf_counter()
+        gx, gy = torch.autograd.grad(v, (xg, yg))
+        sync()
+        t_bwd = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = kbuild.launch_counts()
+        check(diff.solve_count() == 1, f"forward + backward ran {diff.solve_count()} solves")
+        check(torch.equal(v.detach(), v0), f"layer ({gi}) value differs with grad enabled")
+        check(bool(torch.isfinite(gx).all() and torch.isfinite(gy).all()),
+              "layer gradients not finite")
+        check(bool((gx[pad_rows] == 0).all()), "padded rows' gradients are not exact zeros")
+        total = float((gx.sum(0) + gy.sum(0)).abs().max())
+        mass = float(gx.abs().sum() + gy.abs().sum())
+        check(total <= 1e-3 * mass, f"translation invariance: |sum gx + sum gy| {total:.3e} > "
+              f"1e-3 * {mass:.3e}")
+        check(peak < dense_bytes, f"forward + backward peaked at {peak} B, not below the "
+              f"{dense_bytes} B of the dense cost")
+        kernels_run = {k: c for k, c in launches.items() if k != "row_sum"}
+        check(launches.get(K1, 0) > 0 and launches.get(K4, 0) > 0
+              and (launches.get(K5, 0) + launches.get(K6, 0) + launches.get(K8, 0)) > 0,
+              f"layer ({gi}) forward did not run K1, K4 and a factorized gradient kernel: "
+              f"{launches}")
+        print(f"layer from_samples ({gi}, L = {L}, g = {g}, m_pad = {spec.m_pad}, n = {n}, "
+              f"d = 2, normalize_cost): value {float(v0)!r} == solve_dual on the same "
+              f"FactorizedCost bitwise; forward {t_fwd:.4f} s, backward {t_bwd0:.4f} s, again "
+              f"{t_bwd:.4f} s; one "
+              f"solve; padded rows' gradients exact zeros; |sum gx + sum gy| {total:.3e} "
+              f"(<= 1e-3 * {mass:.3e}); peak device memory {peak} B (forward {peak_fwd} B, "
+              f"{base} B held before) vs the dense cost {dense_bytes} B; launches "
+              f"{kernels_run}", flush=True)
+        del v, gx, gy, xg, yg
+
+    # refinement: grad_refine steps of the solo factorized oracle (B12)
+    steps = 20
+    layer = diff.OTLayer(L, g, n, reg, plan=ot.ExecutionPlan(grad_impl="pallas"),
+                         sizes=spec.sizes, normalize_cost=True, device=device)
+    refined = dataclasses.replace(layer, grad_refine=steps)
+    with torch.no_grad():
+        sync()
+        kbuild.reset_launch_counts()
+        t0 = time.perf_counter()
+        v_r = refined.from_samples(x, y)
+        sync()
+        t_ref = time.perf_counter() - t0
+        refine_launches = kbuild.launch_counts()
+        t0 = time.perf_counter()
+        v_0 = layer.from_samples(x, y)
+        sync()
+        t_plain = time.perf_counter() - t0
+    check(refine_launches.get(B12, 0) == steps + 1, f"grad_refine={steps} launched {B12} "
+          f"{refine_launches.get(B12, 0)} times, not {steps + 1}: {refine_launches}")
+    check(bool(torch.isfinite(v_r)), "refined value not finite")
+    # one refine step alone: the solo factorized oracle (B12) and the ascent step
+    with torch.no_grad():
+        xs, x_sq, ys, y_sq, _ = diff._scaled_factors(layer, x, y)
+        a, b = layer._marginals(None, None)
+        oracle = diff._exact_oracle(FactorizedCost(xs, x_sq, ys, y_sq), a, b,
+                                    layer.dual_problem())
+        res = slv.solve_dual(FactorizedCost(xs, x_sq, ys, y_sq), a, b, spec, reg,
+                             layer.plan.solve_options(), device)
+        lr = float(reg.gamma) / float(max(spec.m_pad, n))
+
+        def refine_step():
+            _, ga, gb = oracle(res.alpha, res.beta)
+            return res.alpha + lr * ga, res.beta + lr * gb
+
+        per_step = median_ms(refine_step, 20) / 1e3
+    print(f"layer grad_refine={steps}: value {float(v_r)!r} (unrefined {float(v_0)!r}); "
+          f"{B12} launches {refine_launches.get(B12, 0)}; forward {t_ref:.4f} s against "
+          f"{t_plain:.4f} s unrefined; one refine step (B12 with every tile live, then the "
+          f"ascent step) {per_step * 1e3:.3f} ms (median of 20, CUDA events)", flush=True)
+
+    # training: Adam steps of a Linear(2, 2) map on the source clouds (g = 10, unpadded)
+    Xs = torch.from_numpy(np.asarray(problem.X_S, np.float32)).to(device)
+    order = np.argsort(problem.labels, kind="stable")
+    Xs = Xs[torch.from_numpy(order).to(device)]
+    torch.manual_seed(0)
+    lin = torch.nn.Linear(2, 2).to(device)
+    with torch.no_grad():
+        lin.weight.copy_(torch.eye(2))
+        lin.bias.copy_(torch.tensor([0.0, 1.0]))
+    # the shift carries the domain gap; the samples reach x = 6400, so the
+    # weight takes small steps (Adam moves every entry by about its rate)
+    opt = torch.optim.Adam([{"params": [lin.weight], "lr": 1e-5},
+                            {"params": [lin.bias], "lr": 0.5}])
+    hist, times = [], []
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss, _ = losses.ot_alignment_loss(lin(Xs), y, num_classes=L,
+                                           group_size=problem.num_source // L,
+                                           grad_impl="pallas", device=device)
+        loss.backward()
+        opt.step()
+        sync()
+        times.append(time.perf_counter() - t0)
+        hist.append(float(loss.detach()))
+    check(hist[-1] < hist[0], f"the training loss did not fall from the first step to the "
+          f"last: {hist}")
+    print(f"training: 5 Adam steps (rates 1e-5 weight, 0.5 bias) of Linear(2, 2) (identity, "
+          f"bias (0, 1)) on the "
+          f"source clouds, ot_alignment_loss(grad_impl='pallas', L = {L}, g = "
+          f"{problem.num_source // L}, n = {n}): loss {hist} (strictly falling at every step: "
+          f"{all(q < p for p, q in zip(hist, hist[1:]))}); step times "
+          f"{[round(t, 4) for t in times]} s; bias now {lin.bias.detach().tolist()}",
+          flush=True)
+    return refine_launches
+
+
+# -- phase 9: the stochastic solver ------------------------------------------------
+
+def phase_stochastic(problem, reg, lbfgs_value, device):
+    """solver='stochastic' at full width (sgd_block_cols=128) and on the golden problem
+    (sgd_block_cols=4, tile_n = 4).  Returns the launches of the full-width pallas run."""
+    import numpy as np
+    import torch
+
+    import repro_torch.ot as ot
+    from repro_torch.core import groups as G
+    from repro_torch.core import stochastic as sgd
+    from repro_torch.core.regularizers import GroupSparseReg
+    from repro_torch.kernels import _build as kbuild
+    from repro_torch.kernels.ops import FactorizedCost
+
+    P = ot.ExecutionPlan
+    kw = dict(solver="stochastic", sgd_block_cols=128)
+    ex = ot.compile(problem, P(grad_impl="pallas", **kw), device=device)
+    check(ex._route(problem) == "factorized", "the stochastic plan did not take the factorized "
+          "route")
+    fc = FactorizedCost(*ex.geometry(problem).operands())
+    a, b, _ = ex._marginals(problem)
+    spec = problem.group_spec()
+    sopts = ex.plan.stochastic_options()
+    w, nt = sgd._num_blocks(problem.num_target, sopts.block_cols)
+    steps = sopts.epochs * max(nt // min(sopts.batch_blocks, nt), 1)
+    res, launches = {}, {}
+    walls = {}
+    # 'auto' (the default) reads the live-tile count on the host every step;
+    # 'grid' reads nothing and gives the same bits: the pair prices the read
+    for label, gi, impl in (("pallas", "pallas", "auto"), ("pallas grid", "pallas", "grid"),
+                            ("pallas again", "pallas", "auto"), ("fused", "fused", "auto")):
+        opts = P(grad_impl=gi, pallas_impl=impl, **kw).solve_options()
+        sync()
+        kbuild.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = sgd.solve_solo(fc, a, b, spec, reg, opts, sopts, device)
+        sync()
+        wall = time.perf_counter() - t0
+        launches[label] = kbuild.launch_counts()
+        res[label], walls[label] = r, wall
+        n_launch = sum(launches[label].values())
+        print(f"stochastic {label} (epochs {sopts.epochs}, not cut; {nt} blocks of {w} columns, "
+              f"{sopts.batch_blocks} per step, {steps} steps): wall {wall:.3f} s, "
+              f"{wall / steps * 1e3:.3f} ms per step, {n_launch / steps:.2f} counted launches "
+              f"per step ({launches[label]}); value {float(r.value)!r}", flush=True)
+    bits = lambda r: (r.alpha, r.beta, r.value)
+    check(same(bits(res["pallas"]), bits(res["pallas again"])),
+          "two stochastic runs with the same seed differ")
+    check(same(bits(res["fused"]), bits(res["pallas"])), "stochastic fused != pallas bitwise")
+    check(same(bits(res["pallas grid"]), bits(res["pallas"])),
+          "stochastic pallas_impl='grid' != 'auto' bitwise")
+    read = ((walls["pallas"] + walls["pallas again"]) / 2 - walls["pallas grid"]) / steps
+    print(f"stochastic 'auto' (a host read of the live count, the schedule, K6 on the live "
+          f"tiles) against 'grid' (K5 over every tile, the dead ones returning at once), "
+          f"bitwise equal: {read * 1e3:+.3f} ms per step", flush=True)
+    v = float(res["pallas"].value)
+    check(np.isfinite(v) and v <= lbfgs_value * (1 + 2e-5), f"stochastic value {v!r} not "
+          f"finite or above the L-BFGS value {lbfgs_value!r}")
+    check(launches["pallas"].get(K6, 0) + launches["pallas"].get(K5, 0) >= steps,
+          f"the stochastic path did not run a factorized gradient kernel per step")
+    sol = ex.solve()
+    check(sol.value == v, f"Executor.solve (stochastic) {sol.value!r} != solve_solo {v!r}")
+    print(f"stochastic at full width: reruns bitwise, fused == pallas bitwise, value {v!r} <= "
+          f"the L-BFGS value {lbfgs_value!r} (gap {(lbfgs_value - v) / lbfgs_value:.3e}); "
+          f"Executor.solve gives the same value", flush=True)
+
+    # the idle card: one profiled stochastic call of 5 epochs
+    from torch.profiler import ProfilerActivity, profile
+
+    short = P(grad_impl="pallas", **kw, sgd_epochs=5)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sgd.solve_solo(fc, a, b, spec, reg, short.solve_options(), short.stochastic_options(),
+                       device)
+        sync()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, device_us(e), e.count) for e in prof.key_averages()]
+    kern = [r for r in rows if r[1] > 0 and not r[0].startswith(("aten::", "cuda"))]
+    busy = sum(r[1] for r in kern) / 1e6
+    n_dev = sum(r[2] for r in kern)
+    st5 = 5 * max(nt // min(sopts.batch_blocks, nt), 1)
+    print(f"profile stochastic (5 epochs, {st5} steps): wall {wall:.4f} s, device busy "
+          f"{busy:.4f} s, idle share {1.0 - busy / wall:.4f}, {n_dev} device launches "
+          f"({n_dev / st5:.1f} per step)", flush=True)
+    for key, us, count in sorted(kern, key=lambda r: -r[1])[:8]:
+        print(f"  {us / 1e3:10.3f} ms  x{count:<6d} {key[:100]}", flush=True)
+
+    # the golden-sized problem at sgd_block_cols=4: tile_n = 4 on the card
+    C = np.random.default_rng(0).random((24, 20), dtype=np.float32)
+    gspec = G.GroupSpec(num_groups=3, group_size=8, sizes=(8,) * 3, m=24)
+    gprob = ot.Problem.from_padded(C, np.full(24, 1 / 24, np.float32),
+                                   np.full(20, 1 / 20, np.float32), gspec,
+                                   GroupSparseReg.from_rho(1.0, 0.6))
+    gkw = dict(solver="stochastic", sgd_epochs=200, sgd_block_cols=4, pallas_impl="grid")
+    exact = ot.compile(gprob, P(grad_impl="dense", gtol=1e-7, max_iters=2000), device=device)
+    exact = exact.solve().value
+    kbuild.reset_launch_counts()
+    gp = ot.compile(gprob, P(grad_impl="pallas", **gkw), device=device).solve()
+    glaunch = kbuild.launch_counts()
+    gf = ot.compile(gprob, P(grad_impl="fused", **gkw), device=device).solve()
+    check(glaunch.get(K2, 0) >= 400, f"sgd_block_cols=4 did not run K2 per step: {glaunch}")
+    check(gp.value == gf.value and torch.equal(gp.alpha, gf.alpha),
+          "golden stochastic fused != pallas")
+    check(abs(gp.value - exact) <= 1e-3, f"golden stochastic {gp.value} vs exact {exact}")
+    print(f"stochastic on the golden problem (24 x 20, sgd_block_cols=4: tile_n = 4, 28 of a "
+          f"CTA's 32 lanes idle): value {gp.value!r} vs exact {exact!r} (gap "
+          f"{abs(gp.value - exact):.3e} <= 1e-3), fused == pallas bitwise, launches {glaunch}",
+          flush=True)
+    return launches["pallas"]
+
+
 def main() -> None:
     import torch
 
@@ -1208,22 +1764,44 @@ def main() -> None:
           f"operands {sum(t.numel() for t in ops.fp.leaves()) * 4} B on the card; "
           f"problem.materialized() in {t_mat:.3f} s", flush=True)
 
+    def lap(what):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {what}", flush=True)
+
     # 3. kernels vs plain versions
+    lap("phase 3")
     phase_kernels(ops, reg, device)
     phase_kernels_wide_d(device)
     phase_row_sum(device)
+    phase_tile_widths(device)
     ops.drop_dense()
     # 4. the solver calls alone (memory, profile), then every path end to end
+    lap("phase 4")
     phase_memory_and_profile(ops, problem, reg, device)
     sols, launches = phase_end_to_end(problem, mat_problem, device)
     del mat_problem
     # 5. checks and times at the main path's final state
+    lap("phase 5")
     rows, st = phase_times(sols[MAIN_PATH], ops, reg, launches, device)
     phase_round_boundary(st, ops)
     phase_density_times(ops, reg, device)
-    del ops, st
-    # 6. solo vs batched
+    # 7. the solo oracle layer at the same state
+    lap("phase 7")
+    solo_rows = phase_solo(sols[MAIN_PATH], st, ops, problem, reg, device)
+    lbfgs_value = sols[MAIN_PATH].value
+    del ops, st, sols
+    # 6. solo vs batched solves
+    lap("phase 6")
     phase_solo_vs_batched(device)
+    # 8. the differentiable layer and training; 9. the stochastic solver
+    lap("phase 8")
+    refine_launches = phase_train(problem, reg, device)
+    lap("phase 9")
+    phase_stochastic(problem, reg, lbfgs_value, device)
+    for row in solo_rows:
+        if row["name"] == B12:          # the layer's grad_refine path runs it
+            row["launches"] = refine_launches[B12]
+            row["launches_path"] = "layer from_samples, grad_refine=20"
+    rows += solo_rows
 
     print(f"{smi_line}; smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

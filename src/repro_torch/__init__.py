@@ -11,5 +11,6 @@ without a CUDA device they raise ``RuntimeError`` instead of quietly
 running on the host.
 """
 from repro_torch.device import resolve_device
+from repro_torch.ot.diff import OTLayer, ot_loss
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "OTLayer", "ot_loss"]

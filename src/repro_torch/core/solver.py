@@ -198,6 +198,71 @@ def _split(x: torch.Tensor, m_pad: int):
     return x[..., :m_pad], x[..., m_pad:]
 
 
+def make_value_and_grad(C, a, b, prob: DualProblem, sqrt_g, grad_impl: str, screen_state,
+                        padded=None, pallas_impl: str = "auto"):
+    """Solo oracle: x (m_pad + n,) -> (value (), grad (m_pad + n,)), negated (minimized).
+
+    Counterpart of the JAX ``make_value_and_grad`` (the distributed driver's
+    and the roofline tools' oracle); the solver's own loop runs
+    :func:`make_value_and_grad_batched`.  ``C`` is one (m_pad, n) cost or one
+    FactorizedCost (kernel backends).  On the kernel backends it pads the
+    screening state here, then per evaluation runs K1 and a solo gradient
+    kernel (B9/B10 on a dense cost, B12/B13 on a factorized one; 'pallas'),
+    or the solo fused kernel (B11/B14; 'fused', whose 'auto' is decided here
+    once).  Each equals the batched oracle at B = 1 bit for bit.
+    """
+    m_pad = prob.m_pad
+
+    if grad_impl in ("dense", "screened"):
+        _reject_factorized(C, grad_impl)
+        tau = prob.tau_vec(C.device)
+
+        def vag(x):
+            alpha, beta = _split(x, m_pad)
+            zero_mask = None
+            if grad_impl == "screened":
+                verdict = screening.verdicts(screen_state, alpha, beta, sqrt_g, tau)
+                zero_mask = verdict == screening.ZERO
+            v, (ga, gb) = dual_value_and_grad(alpha, beta, C, a, b, prob, zero_mask=zero_mask)
+            return -v, -torch.cat([ga, gb], dim=-1)
+
+        return vag
+
+    if grad_impl not in KERNEL_IMPLS:
+        raise ValueError(f"unknown grad_impl: {grad_impl}")
+    from repro_torch.kernels import ops as kops
+
+    pp = padded
+    if pp is None:
+        pp = (kops.prepare_factorized_problem(C, prob) if _is_factorized(C)
+              else kops.prepare_padded_problem(C, prob))
+    pstate = kops.pad_screen_state(screen_state, sqrt_g, pp)
+    tau = prob.tau_vec(C.device)
+    tau_p = kops._pad_tau(tau, pp.L, pp.tile_l, C.device)
+
+    if grad_impl == "fused":
+        impl = kops.fused_impl(pstate, pp, tau, pallas_impl)
+
+        def vag(x):
+            alpha, beta = _split(x, m_pad)
+            v, ga, gb, _ = kops.dual_value_and_grad_fused(alpha, beta, a, b, pstate, pp, prob,
+                                                          impl=impl, tau_p=tau_p)
+            return -v, -torch.cat([ga, gb], dim=-1)
+
+        return vag
+
+    grad_fn = (kops.dual_value_and_grad_factorized if isinstance(pp, kops.FactorizedProblem)
+               else kops.dual_value_and_grad_padded)
+
+    def vag(x):
+        alpha, beta = _split(x, m_pad)
+        flags = kops.screen_tile_flags(pstate, alpha, beta, pp, tau, tau_p=tau_p)
+        v, ga, gb = grad_fn(alpha, beta, a, b, flags, pp, prob, impl=pallas_impl, tau_p=tau_p)
+        return -v, -torch.cat([ga, gb], dim=-1)
+
+    return vag
+
+
 def make_value_and_grad_batched(C, a, b, prob: DualProblem, sqrt_g, grad_impl: str,
                                 screen_state, padded=None, pallas_impl: str = "auto",
                                 tile_stats: Optional[TileStats] = None):

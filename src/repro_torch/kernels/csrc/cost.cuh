@@ -1,10 +1,13 @@
 // Cost loaders of the port's tile kernels: where a tile's cost entries come from.
 //
 // A tile kernel is a template over one of these.  Per CTA it calls
-// `setup(acc, extra)` with its shared-memory buffers and `begin(b, jt, j)`
-// for its problem and column; per group of the tile `load_group(row0)`
-// (block-uniform: it may hold __syncthreads), then `at(row0, i)` for the
-// cost of group member i in this thread's column j.
+// `setup(acc, extra)` with its shared-memory buffers and `begin(b, jt, j,
+// col)` for its problem and column; per group of the tile
+// `load_group(row0, col)` (block-uniform: it may hold __syncthreads), then
+// `at(row0, i)` for the cost of group member i in this thread's column j.
+// `col` is false on the lanes past the tile's last column (a CTA of whole
+// warps over a narrower tile): they take part in the staging and read
+// nothing of their own.
 //
 //   DenseCost  reads a (B, m_pad, n_pad) array (K2/K3/K7's route);
 //   FactCost   rebuilds the squared-l2 cost from samples (the factorized
@@ -67,10 +70,10 @@ struct DenseCost {
   const T* col;
 
   __device__ __forceinline__ void setup(float*, float*) {}
-  __device__ __forceinline__ void begin(int b, int, int j) {
+  __device__ __forceinline__ void begin(int b, int, int j, bool = true) {
     col = C + (size_t)b * m_pad * n_pad + j;
   }
-  __device__ __forceinline__ void load_group(size_t) {}
+  __device__ __forceinline__ void load_group(size_t, bool = true) {}
   __device__ __forceinline__ float at(size_t row0, int i) const {
     return to_f32(col[(row0 + i) * (size_t)n_pad]);
   }
@@ -104,16 +107,16 @@ struct FactCost {
     ys = xsq + g;
   }
 
-  __device__ __forceinline__ void begin(int b, int jt, int j) {
+  __device__ __forceinline__ void begin(int b, int jt, int j, bool col = true) {
     j0 = jt * tile_n;
     xb = x + (size_t)b * m_pad * d;
     xsqb = x_sq + (size_t)b * m_pad;
     yb = y + (size_t)b * n_pad * d;
-    ysq_j = to_f32(y_sq[(size_t)b * n_pad + j]);
+    ysq_j = col ? to_f32(y_sq[(size_t)b * n_pad + j]) : 0.0f;
     y_ready = false;
   }
 
-  __device__ void load_group(size_t row0) {
+  __device__ void load_group(size_t row0, bool col = true) {
     const int tid = threadIdx.x, nt = blockDim.x;
     for (int c0 = 0; c0 < d; c0 += dc) {
       const int w = min(dc, d - c0);
@@ -133,7 +136,7 @@ struct FactCost {
         }
       }
       __syncthreads();
-      for (int i = 0; i < g; ++i) {
+      for (int i = 0; col && i < g; ++i) {
         const float* xi = xs + i * w;
         float a;
         int k = 0;

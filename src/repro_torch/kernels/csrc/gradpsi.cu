@@ -38,7 +38,11 @@
 // operands (213 MB, 0.064 ms), plus K2's or K5's work on the live tiles.
 //
 // Design:
-//  * One CTA per tile, one thread per column.  A CTA whose flag is 0 (grid,
+//  * One CTA per tile, one thread per column, any tile_n in [1, 1024]: the
+//    CTA takes tile_n rounded up to whole warps, and the lanes past the
+//    last column load nothing and add exact zeros to the warp sums (for a
+//    tile_n that is a multiple of 32 every lane is a column, as before).
+//    A CTA whose flag is 0 (grid,
 //    fused) or whose schedule slot lies past `num_active` (compact) returns
 //    before it touches the cost, the samples included, so dead tiles cost
 //    no cost bytes.
@@ -86,6 +90,9 @@ __device__ __forceinline__ void gradpsi_tile(const TileArgs& A, Cost cost, int b
   const int nwarps = blockDim.x >> 5;
   const int g = A.g, tile_n = A.tile_n;
   const int rows = A.tile_l * g;
+  // blockDim.x is tile_n rounded up to whole warps: lanes past the tile's
+  // last column read nothing and add exact zeros to the warp partials
+  const bool col = tid < tile_n;
   float* fbuf = smem;                       // (g, tile_n): this thread's column
   float* red = smem + g * tile_n;           // (rows, nwarps) warp partials
   float* pred = red + rows * nwarps;        // (nwarps,) psi partials
@@ -93,38 +100,41 @@ __device__ __forceinline__ void gradpsi_tile(const TileArgs& A, Cost cost, int b
 
   const size_t m_pad = (size_t)A.L_pad * g;
   const int j = jt * tile_n + tid;
-  cost.begin(b, jt, j);
-  const float bj = A.beta[(size_t)b * A.n_pad + j];
+  cost.begin(b, jt, j, col);
+  const float bj = col ? A.beta[(size_t)b * A.n_pad + j] : 0.0f;
   const float* ab = A.alpha + (size_t)b * m_pad;
 
   float colsum = 0.0f, psi = 0.0f;
   for (int r = 0; r < A.tile_l; ++r) {
     const int l = lt * A.tile_l + r;
     const size_t row0 = (size_t)l * g;
-    cost.load_group(row0);
-    float zsq = 0.0f;
-    for (int i = 0; i < g; ++i) {
-      const float f = (ab[row0 + i] + bj) - cost.at(row0, i);
-      const float fp = fmaxf(f, 0.0f);
-      fbuf[i * tile_n + tid] = fp;
-      zsq += fp * fp;
+    cost.load_group(row0, col);
+    float s = 0.0f;
+    if (col) {
+      float zsq = 0.0f;
+      for (int i = 0; i < g; ++i) {
+        const float f = (ab[row0 + i] + bj) - cost.at(row0, i);
+        const float fp = fmaxf(f, 0.0f);
+        fbuf[i * tile_n + tid] = fp;
+        zsq += fp * fp;
+      }
+      const float z = sqrtf(zsq);
+      const float t_l = A.tau[l];
+      const bool on = z > t_l;
+      const float zs = on ? z : 1.0f;
+      s = on ? 1.0f - t_l / zs : 0.0f;
+      if (on) {
+        psi += ((s * zs) * zs) / A.gamma * (1.0f - 0.5f * s) - ((t_l / A.gamma) * s) * zs;
+      }
     }
-    const float z = sqrtf(zsq);
-    const float t_l = A.tau[l];
-    const bool on = z > t_l;
-    const float zs = on ? z : 1.0f;
-    const float s = on ? 1.0f - t_l / zs : 0.0f;
-    if (on) {
-      psi += ((s * zs) * zs) / A.gamma * (1.0f - 0.5f * s) - ((t_l / A.gamma) * s) * zs;
-    }
     for (int i = 0; i < g; ++i) {
-      const float t = (s * fbuf[i * tile_n + tid]) * A.inv_gamma;
+      const float t = col ? (s * fbuf[i * tile_n + tid]) * A.inv_gamma : 0.0f;
       colsum += t;
       const float w = rt::warp_sum(t);
       if (lane == 0) red[(r * g + i) * nwarps + warp] = w;
     }
   }
-  A.gb_part[((size_t)b * A.Lt + lt) * A.n_pad + j] = colsum;
+  if (col) A.gb_part[((size_t)b * A.Lt + lt) * A.n_pad + j] = colsum;
   const float p = rt::warp_sum(psi);
   if (lane == 0) pred[warp] = p;
   __syncthreads();
@@ -176,9 +186,10 @@ template <class Cost>
 __global__ void gradpsi_fused_kernel(ScreenArgs S, TileArgs A, Cost cost) {
   const int jt = blockIdx.x, lt = blockIdx.y, b = blockIdx.z;
   const int j = jt * A.tile_n + threadIdx.x;
-  const float dbj = S.db[(size_t)b * A.n_pad + j];
+  const bool col = threadIdx.x < A.tile_n;   // lanes past the last column vote 0
+  const float dbj = col ? S.db[(size_t)b * A.n_pad + j] : 0.0f;
   int any = 0;
-  for (int r = 0; r < A.tile_l; ++r) {
+  for (int r = 0; col && r < A.tile_l; ++r) {
     const int l = lt * A.tile_l + r;
     const size_t row = (size_t)b * A.L_pad + l;
     const size_t e = row * A.n_pad + j;
@@ -204,8 +215,11 @@ __global__ void slot_sum_kernel(const float* __restrict__ part, float* __restric
   out[idx] = acc;
 }
 
+// Threads of a CTA: tile_n rounded up to whole warps.
+int cta_threads(int tile_n) { return (tile_n + 31) / 32 * 32; }
+
 size_t smem_bytes(int tile_l, int g, int tile_n) {
-  const int nwarps = tile_n / 32;
+  const int nwarps = cta_threads(tile_n) / 32;
   return sizeof(float) * ((size_t)g * tile_n + (size_t)tile_l * g * nwarps + nwarps);
 }
 
@@ -265,7 +279,8 @@ int launch_grid(const void* flags, const TileArgs& A, const Cost& cost, int B, s
   const int err = allow_smem(gradpsi_grid_kernel<Cost>, smem);
   if (err != 0) return err;
   const dim3 grid(A.Nt, A.Lt, B);
-  gradpsi_grid_kernel<Cost><<<grid, A.tile_n, smem, static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gradpsi_grid_kernel<Cost><<<grid, cta_threads(A.tile_n), smem, st>>>(
       static_cast<const int32_t*>(flags), A, cost);
   return static_cast<int>(cudaGetLastError());
 }
@@ -276,7 +291,8 @@ int launch_compact(const void* sched, const void* num_active, const TileArgs& A,
   const int err = allow_smem(gradpsi_compact_kernel<Cost>, smem);
   if (err != 0) return err;
   const int BT = B * A.Lt * A.Nt;
-  gradpsi_compact_kernel<Cost><<<BT, A.tile_n, smem, static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gradpsi_compact_kernel<Cost><<<BT, cta_threads(A.tile_n), smem, st>>>(
       static_cast<const int32_t*>(sched), static_cast<const int32_t*>(num_active), BT, A,
       cost);
   return static_cast<int>(cudaGetLastError());
@@ -288,8 +304,8 @@ int launch_fused(const ScreenArgs& S, const TileArgs& A, const Cost& cost, int B
   const int err = allow_smem(gradpsi_fused_kernel<Cost>, smem);
   if (err != 0) return err;
   const dim3 grid(A.Nt, A.Lt, B);
-  gradpsi_fused_kernel<Cost><<<grid, A.tile_n, smem, static_cast<cudaStream_t>(stream)>>>(
-      S, A, cost);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gradpsi_fused_kernel<Cost><<<grid, cta_threads(A.tile_n), smem, st>>>(S, A, cost);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 """Screened dual gradient of group-sparse OT: CUDA kernels K2/K3/K5-K8 + plain versions.
 
-Counterpart of the batched half of ``repro.kernels.gradpsi``:
+Counterpart of ``repro.kernels.gradpsi``; the batched kernels:
 
 ``gradpsi_batched``          K2, replaces ``gradpsi_pallas_batched``: one CTA
                              per (b, l-tile, j-tile); flag-0 tiles return
@@ -20,6 +20,17 @@ Counterpart of the batched half of ``repro.kernels.gradpsi``:
 ``gradpsi_fused_fact_batched``
                              K8, replaces ``gradpsi_fused_fact_pallas_batched``:
                              K7 on the factorized cost.
+
+The solo wrappers (``gradpsi``, ``gradpsi_compact``, ``gradpsi_fused``,
+``gradpsi_fact``, ``gradpsi_fact_compact``, ``gradpsi_fused_fact``, the
+counterparts of the JAX kernels without a B axis, ROADMAP B9-B14) launch
+the batched kernel of their twin at B = 1 and count their launches under
+their own names; a solo Pallas kernel computes its batched twin's function
+per problem.  :func:`build_tile_schedule` is the solo ``(2, T)`` schedule.
+
+Every kernel takes any ``tile_n`` in [1, 1024] (a CTA of ``tile_n``
+threads rounded up to whole warps), so the stochastic solver's narrow
+column blocks run on the card too.
 
 All six write per-tile partial slots (row sums ``(B, Nt, L_pad*g)``, column
 sums ``(B, Lt, n_pad)``, psi ``(B, Lt, Nt)``) that a fixed-order reduction
@@ -59,9 +70,10 @@ def cta_smem_bytes(tile_l: int, g: int, tile_n: int) -> int:
     """Dynamic shared memory of one gradient CTA (mirrors ``smem_bytes`` in gradpsi.cu).
 
     The [f]_+ column buffer ``(g, tile_n)``, the warp partials of the row
-    sums ``(tile_l * g, tile_n / 32)`` and the psi warp partials, in f32.
+    sums ``(tile_l * g, nwarps)`` and the psi warp partials, in f32, with
+    ``nwarps`` the warps of ``tile_n`` threads rounded up to whole warps.
     """
-    nwarps = max(tile_n // 32, 1)
+    nwarps = -(-tile_n // 32)
     return 4 * (g * tile_n + tile_l * g * nwarps + nwarps)
 
 
@@ -358,8 +370,8 @@ def _reduce_slots_cuda(ga_part, gb_part, psi_part):
 
 
 def _check_tile_n(tile_n: int) -> None:
-    if tile_n % 32 or not 32 <= tile_n <= 1024:
-        raise ValueError(f"tile_n={tile_n}: the kernels need a multiple of 32 in [32, 1024]")
+    if not 1 <= tile_n <= 1024:
+        raise ValueError(f"tile_n={tile_n}: one thread per column, at most 1024")
 
 
 def _check_flags(flags, B, Lt, Nt):
@@ -395,11 +407,13 @@ def _check_screen_operands(z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g, t
 
 
 def gradpsi_batched(alpha, beta, C, flags, *, num_groups, group_size, tau, gamma,
-                    tile_l, tile_n=DEFAULT_TILE_N):
+                    tile_l, tile_n=DEFAULT_TILE_N, launch_name="gradpsi_batched"):
     """K2: grid gradient kernel over (B, Lt, Nt) tiles.
 
     alpha (B, L_pad*g), beta (B, n_pad), C (B, L_pad*g, n_pad) f32 or bf16,
     flags (B, Lt, Nt) int32 -> (rowsum (B, L_pad*g), colsum (B, n_pad), psi (B,)).
+    ``launch_name`` is the counter the launch is recorded under (the solo
+    wrappers count theirs apart); every wrapper here takes it.
     """
     if not alpha.is_cuda:
         return gradpsi_batched_ref(alpha, beta, C, flags, num_groups=num_groups,
@@ -419,12 +433,13 @@ def gradpsi_batched(alpha, beta, C, flags, *, num_groups, group_size, tau, gamma
         B, L_pad, g, n_pad, tile_l, tile_n, code, float(gamma), float(1.0 / gamma),
         _build.stream_handle(alpha.device))
     _build.check(err, "gradpsi_grid_launch")
-    _build.record_launch("gradpsi_batched")
+    _build.record_launch(launch_name)
     return _reduce_slots_cuda(ga_part, gb_part, psi_part)
 
 
 def gradpsi_compact_batched(alpha, beta, C, sched, num_active, *, num_groups, group_size,
-                            tau, gamma, tile_l, tile_n=DEFAULT_TILE_N):
+                            tau, gamma, tile_l, tile_n=DEFAULT_TILE_N,
+                            launch_name="gradpsi_compact_batched"):
     """K3: compact gradient kernel over the schedule's live tiles.
 
     Returns ``(rowsum, colsum, psi, steps)``; ``steps`` is ``num_active``,
@@ -450,7 +465,7 @@ def gradpsi_compact_batched(alpha, beta, C, sched, num_active, *, num_groups, gr
         B, L_pad, g, n_pad, tile_l, tile_n, code, float(gamma), float(1.0 / gamma),
         _build.stream_handle(alpha.device))
     _build.check(err, "gradpsi_compact_launch")
-    _build.record_launch("gradpsi_compact_batched")
+    _build.record_launch(launch_name)
     return _reduce_slots_cuda(ga_part, gb_part, psi_part) + (num_active,)
 
 
@@ -462,7 +477,8 @@ def _fact_cuda_checks(alpha, beta, x, x_sq, y, y_sq, tau_g, ints):
 
 
 def gradpsi_fact_batched(alpha, beta, x, x_sq, y, y_sq, flags, *, num_groups, group_size,
-                         tau, gamma, tile_l, tile_n=DEFAULT_TILE_N):
+                         tau, gamma, tile_l, tile_n=DEFAULT_TILE_N,
+                         launch_name="gradpsi_fact_batched"):
     """K5: grid gradient kernel on the factorized cost.
 
     alpha (B, L_pad*g), beta (B, n_pad), x (B, L_pad*g, d), x_sq (B, L_pad*g),
@@ -487,13 +503,13 @@ def gradpsi_fact_batched(alpha, beta, x, x_sq, y, y_sq, flags, *, num_groups, gr
         d_chunk(tile_l, g, tile_n, d), tile_l, tile_n, code, float(gamma),
         float(1.0 / gamma), _build.stream_handle(alpha.device))
     _build.check(err, "gradpsi_fact_grid_launch")
-    _build.record_launch("gradpsi_fact_batched")
+    _build.record_launch(launch_name)
     return _reduce_slots_cuda(ga_part, gb_part, psi_part)
 
 
 def gradpsi_fact_compact_batched(alpha, beta, x, x_sq, y, y_sq, sched, num_active, *,
                                  num_groups, group_size, tau, gamma, tile_l,
-                                 tile_n=DEFAULT_TILE_N):
+                                 tile_n=DEFAULT_TILE_N, launch_name="gradpsi_fact_compact_batched"):
     """K6: compact gradient kernel on the factorized cost; returns as K3."""
     if not alpha.is_cuda:
         out = gradpsi_fact_compact_batched_ref(
@@ -516,7 +532,7 @@ def gradpsi_fact_compact_batched(alpha, beta, x, x_sq, y, y_sq, sched, num_activ
         d_chunk(tile_l, g, tile_n, d), tile_l, tile_n, code, float(gamma),
         float(1.0 / gamma), _build.stream_handle(alpha.device))
     _build.check(err, "gradpsi_fact_compact_launch")
-    _build.record_launch("gradpsi_fact_compact_batched")
+    _build.record_launch(launch_name)
     return _reduce_slots_cuda(ga_part, gb_part, psi_part) + (num_active,)
 
 
@@ -564,7 +580,7 @@ def _fused_prelude(alpha, beta, screen, tau, tile_l, tile_n, Lt, Nt, L_pad):
 
 def gradpsi_fused_batched(alpha, beta, C, z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g,
                           *, num_groups, group_size, tau, gamma, tile_l,
-                          tile_n=DEFAULT_TILE_N):
+                          tile_n=DEFAULT_TILE_N, launch_name="gradpsi_fused_batched"):
     """K7: the fused oracle on the dense cost, one launch.
 
     K2's operands plus K1's (z, k, o (B, L_pad, n_pad) f32, act int8 of the
@@ -589,13 +605,14 @@ def gradpsi_fused_batched(alpha, beta, C, z, k, o, act, da_plus, da_full, da_neg
         gb_part.data_ptr(), psi_part.data_ptr(), B, L_pad, g, n_pad, tile_l, tile_n, code,
         float(gamma), float(1.0 / gamma), _build.stream_handle(alpha.device))
     _build.check(err, "gradpsi_fused_launch")
-    _build.record_launch("gradpsi_fused_batched")
+    _build.record_launch(launch_name)
     return _reduce_slots_cuda(ga_part, gb_part, psi_part) + (flags,)
 
 
 def gradpsi_fused_fact_batched(alpha, beta, x, x_sq, y, y_sq, z, k, o, act, da_plus, da_full,
                                da_neg, db, sqrt_g, *, num_groups, group_size, tau, gamma,
-                               tile_l, tile_n=DEFAULT_TILE_N):
+                               tile_l, tile_n=DEFAULT_TILE_N,
+                               launch_name="gradpsi_fused_fact_batched"):
     """K8: the fused oracle on the factorized cost; K5's cost operands, returns as K7."""
     screen = (z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g)
     if not alpha.is_cuda:
@@ -615,5 +632,103 @@ def gradpsi_fused_fact_batched(alpha, beta, x, x_sq, y, y_sq, z, k, o, act, da_p
         d_chunk(tile_l, g, tile_n, d), tile_l, tile_n, code, float(gamma),
         float(1.0 / gamma), _build.stream_handle(alpha.device))
     _build.check(err, "gradpsi_fused_fact_launch")
-    _build.record_launch("gradpsi_fused_fact_batched")
+    _build.record_launch(launch_name)
     return _reduce_slots_cuda(ga_part, gb_part, psi_part) + (flags,)
+
+
+# -- solo wrappers: the batched kernels at B = 1 ---------------------------------
+
+def build_tile_schedule(flags: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compact (Lt, Nt) flags into ``(sched (2, T) int32, num_active () int32)``.
+
+    ``sched[:, s] = (l, j)`` of the s-th live tile in row-major order, entries
+    past ``num_active`` repeating the last live coordinate: the JAX
+    ``build_tile_schedule``, and rows 1-2 of :func:`build_batch_tile_schedule`
+    at B = 1.
+    """
+    sched, num_active = build_batch_tile_schedule(flags[None])
+    return sched[1:].contiguous(), num_active
+
+
+def _widen(sched: torch.Tensor) -> torch.Tensor:
+    """A solo ``(2, T)`` schedule as the batched kernels' ``(3, T)``, with b = 0."""
+    return torch.cat([torch.zeros_like(sched[:1]), sched]).contiguous()
+
+
+def _unbatch(out):
+    """Drop the B = 1 axis of a batched wrapper's outputs (``num_active`` is 0-d)."""
+    return tuple(t if t.ndim == 0 else t[0] for t in out)
+
+
+def _lift(*ts):
+    return tuple(t[None] for t in ts)
+
+
+def gradpsi(alpha, beta, C, flags, *, num_groups, group_size, tau, gamma, tile_l,
+            tile_n=DEFAULT_TILE_N):
+    """B9, replaces ``gradpsi_pallas``: K2 at B = 1.
+
+    alpha (L_pad*g,), beta (n_pad,), C (L_pad*g, n_pad), flags (Lt, Nt) ->
+    (rowsum (L_pad*g,), colsum (n_pad,), psi ()).
+    """
+    return _unbatch(gradpsi_batched(*_lift(alpha, beta, C, flags), num_groups=num_groups,
+                                    group_size=group_size, tau=tau, gamma=gamma,
+                                    tile_l=tile_l, tile_n=tile_n, launch_name="gradpsi"))
+
+
+def gradpsi_compact(alpha, beta, C, sched, num_active, *, num_groups, group_size, tau, gamma,
+                    tile_l, tile_n=DEFAULT_TILE_N):
+    """B10, replaces ``gradpsi_pallas_compact``: K3 at B = 1 over a (2, T) schedule.
+
+    Returns ``(rowsum, colsum, psi, steps)`` as :func:`gradpsi_compact_batched`.
+    """
+    return _unbatch(gradpsi_compact_batched(
+        *_lift(alpha, beta, C), _widen(sched), num_active, num_groups=num_groups,
+        group_size=group_size, tau=tau, gamma=gamma, tile_l=tile_l, tile_n=tile_n,
+        launch_name="gradpsi_compact"))
+
+
+def gradpsi_fact(alpha, beta, x, x_sq, y, y_sq, flags, *, num_groups, group_size, tau, gamma,
+                 tile_l, tile_n=DEFAULT_TILE_N):
+    """B12, replaces ``gradpsi_fact_pallas``: K5 at B = 1.
+
+    x (L_pad*g, d), x_sq (L_pad*g,), y (n_pad, d), y_sq (n_pad,); otherwise
+    as :func:`gradpsi`.
+    """
+    return _unbatch(gradpsi_fact_batched(
+        *_lift(alpha, beta, x, x_sq, y, y_sq, flags), num_groups=num_groups,
+        group_size=group_size, tau=tau, gamma=gamma, tile_l=tile_l, tile_n=tile_n,
+        launch_name="gradpsi_fact"))
+
+
+def gradpsi_fact_compact(alpha, beta, x, x_sq, y, y_sq, sched, num_active, *, num_groups,
+                         group_size, tau, gamma, tile_l, tile_n=DEFAULT_TILE_N):
+    """B13, replaces ``gradpsi_fact_pallas_compact``: K6 at B = 1 over a (2, T) schedule."""
+    return _unbatch(gradpsi_fact_compact_batched(
+        *_lift(alpha, beta, x, x_sq, y, y_sq), _widen(sched), num_active,
+        num_groups=num_groups, group_size=group_size, tau=tau, gamma=gamma, tile_l=tile_l,
+        tile_n=tile_n, launch_name="gradpsi_fact_compact"))
+
+
+def gradpsi_fused(alpha, beta, C, z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g, *,
+                  num_groups, group_size, tau, gamma, tile_l, tile_n=DEFAULT_TILE_N):
+    """B11, replaces ``gradpsi_fused_pallas``: K7 at B = 1.
+
+    z, k, o, act (L_pad, n_pad), da_* and sqrt_g (L_pad,), db (n_pad,) ->
+    ``(rowsum, colsum, psi, flags (Lt, Nt))``.
+    """
+    return _unbatch(gradpsi_fused_batched(
+        *_lift(alpha, beta, C, z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g),
+        num_groups=num_groups, group_size=group_size, tau=tau, gamma=gamma, tile_l=tile_l,
+        tile_n=tile_n, launch_name="gradpsi_fused"))
+
+
+def gradpsi_fused_fact(alpha, beta, x, x_sq, y, y_sq, z, k, o, act, da_plus, da_full, da_neg,
+                       db, sqrt_g, *, num_groups, group_size, tau, gamma, tile_l,
+                       tile_n=DEFAULT_TILE_N):
+    """B14, replaces ``gradpsi_fused_fact_pallas``: K8 at B = 1, returns as
+    :func:`gradpsi_fused`."""
+    return _unbatch(gradpsi_fused_fact_batched(
+        *_lift(alpha, beta, x, x_sq, y, y_sq, z, k, o, act, da_plus, da_full, da_neg, db,
+               sqrt_g), num_groups=num_groups, group_size=group_size, tau=tau, gamma=gamma,
+        tile_l=tile_l, tile_n=tile_n, launch_name="gradpsi_fused_fact"))

@@ -30,6 +30,15 @@ oracle equals the two-launch one bit for bit.
 
 The prepared cost may be stored in bf16 (``precision='bf16'``): the
 kernels and their plain versions upcast it on load.
+
+The solo half (one problem, no B axis; the counterpart of the JAX
+package's solo entry points): :func:`prepare_padded_problem`,
+:func:`pad_screen_state`, :func:`screen_tile_flags`,
+:func:`dual_value_and_grad_padded`, :func:`dual_value_and_grad`,
+:func:`screen_verdicts`, :func:`dual_value_and_grad_factorized` and
+:func:`dual_value_and_grad_fused`.  Each is the B = 1 slice of its batched
+counterpart, with the kernels launched through the solo wrappers (B9-B14),
+so a problem evaluated solo and in a batch gives the same bits.
 """
 from __future__ import annotations
 
@@ -47,12 +56,19 @@ from repro_torch.kernels.gradpsi import (
     CTA_SMEM_BUDGET_BYTES,
     DEFAULT_TILE_N,
     build_batch_tile_schedule,
+    build_tile_schedule,
     fact_smem_bytes,
+    gradpsi,
     gradpsi_batched,
+    gradpsi_compact,
     gradpsi_compact_batched,
+    gradpsi_fact,
     gradpsi_fact_batched,
+    gradpsi_fact_compact,
     gradpsi_fact_compact_batched,
+    gradpsi_fused,
     gradpsi_fused_batched,
+    gradpsi_fused_fact,
     gradpsi_fused_fact_batched,
     resolve_tile_l,
     tau_row,
@@ -87,6 +103,8 @@ def _pad_tau(tau, L: int, tile_l: int, device) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class PaddedProblem:
     """Tile-padded cost ``Cp`` (B, L_pad * g, n_pad) + static geometry.
+
+    On the solo route (:func:`prepare_padded_problem`) ``Cp`` has no B axis.
 
     The padded area holds ``PAD_COST``, so f < 0 there and padded entries
     contribute exact zeros even inside partially-real tiles.
@@ -219,7 +237,7 @@ def use_compact(flags: torch.Tensor, pp, impl: str) -> bool:
     if impl != "auto":
         return impl == "compact"
     live = int(torch.count_nonzero(flags))
-    return live <= COMPACT_DENSITY_THRESHOLD * flags.shape[0] * pp.num_tiles
+    return live <= COMPACT_DENSITY_THRESHOLD * flags.numel()
 
 
 def _kernels(pp):
@@ -360,7 +378,7 @@ class FactorizedProblem:
     there and padded entries contribute exact zeros.
     """
 
-    x: torch.Tensor      # (B, L_pad*g, d)
+    x: torch.Tensor      # (B, L_pad*g, d), no B axis on the solo route
     x_sq: torch.Tensor   # (B, L_pad*g)
     y: torch.Tensor      # (B, n_pad, d)
     y_sq: torch.Tensor   # (B, n_pad)
@@ -389,7 +407,7 @@ class FactorizedProblem:
 
 def prepare_factorized_problem(fc: FactorizedCost, prob: DualProblem, tile_l: int = 0,
                                tile_n: int = DEFAULT_TILE_N) -> FactorizedProblem:
-    """Tile-pad a (B, ...) factorized cost once per solve.
+    """Tile-pad a factorized cost once per solve (leaves with or without a batch axis).
 
     The default TILE_L is the dense route's: x and y stream through shared
     memory in chunks of feature columns, so d does not enter the fit, and
@@ -405,9 +423,10 @@ def prepare_factorized_problem(fc: FactorizedCost, prob: DualProblem, tile_l: in
         raise ValueError(f"a factorized CTA (tile_l={tile_l}, g={g}, tile_n={tile_n}) "
                          f"needs more shared memory than {CTA_SMEM_BUDGET_BYTES} bytes")
     L_pad, n_pad = prob.tile_padded_shape(tile_l, tile_n)
-    B = fc.x.shape[0]
-    x = _pad_axis(fc.x.reshape(B, L, g, d), -3, tile_l, 0.0).reshape(B, L_pad * g, d)
-    x_sq = _pad_axis(fc.x_sq.reshape(B, L, g), -2, tile_l, PAD_COST).reshape(B, L_pad * g)
+    lead = tuple(fc.x.shape[:-2])
+    x = _pad_axis(fc.x.reshape(lead + (L, g, d)), -3, tile_l, 0.0).reshape(lead + (L_pad * g, d))
+    x_sq = _pad_axis(fc.x_sq.reshape(lead + (L, g)), -2, tile_l, PAD_COST).reshape(
+        lead + (L_pad * g,))
     y = _pad_axis(fc.y, -2, tile_n, 0.0)
     y_sq = _pad_axis(fc.y_sq, -1, tile_n, PAD_COST)
     return FactorizedProblem(
@@ -474,8 +493,8 @@ def fused_impl(pstate: PaddedScreenState, pp, tau, impl: str) -> str:
     if impl != "auto":
         return impl
     live0 = int(snapshot_live_tiles(pstate, pp, tau))
-    B = pstate.z.shape[0]
-    return "compact" if live0 <= COMPACT_DENSITY_THRESHOLD * B * pp.num_tiles else "grid"
+    tiles = pstate.z.numel() // (pp.tile_l * pp.tile_n)      # B * num_tiles, or num_tiles solo
+    return "compact" if live0 <= COMPACT_DENSITY_THRESHOLD * tiles else "grid"
 
 
 def dual_value_and_grad_fused_batched(
@@ -509,3 +528,164 @@ def dual_value_and_grad_fused_batched(
     else:
         *sums, flags = _kernels(pp)[2](alphap, betap, *pp.leaves(), *screen, **kw)
     return _finish(alpha, beta, a, b, sums, pp) + (flags,)
+
+
+# -- the solo half: one problem, no B axis ----------------------------------------
+
+def prepare_padded_problem(C: torch.Tensor, prob: DualProblem, tile_l: int = 0,
+                           tile_n: int = DEFAULT_TILE_N) -> PaddedProblem:
+    """Pad one (m_pad, n) cost to tile multiples: ``Cp`` (L_pad * g, n_pad)."""
+    pp = prepare_padded_problem_batched(C[None], prob, tile_l, tile_n)
+    return dataclasses.replace(pp, Cp=pp.Cp[0])
+
+
+def pad_screen_state(state: ScreenState, sqrt_g: torch.Tensor, pp) -> PaddedScreenState:
+    """Pad one problem's (L, n) snapshots and (L,) ``sqrt_g`` to the kernel grid."""
+    return pad_screen_state_batched(state, sqrt_g, pp)
+
+
+def _solo_kernels(pp):
+    """(grid, compact, fused) solo kernel wrappers of the prepared problem's cost form."""
+    if isinstance(pp, FactorizedProblem):
+        return gradpsi_fact, gradpsi_fact_compact, gradpsi_fused_fact
+    return gradpsi, gradpsi_compact, gradpsi_fused
+
+
+def _screen_flags_solo(screen, pp, tau_p) -> torch.Tensor:
+    """K1 at B = 1 on one problem's screening operands -> (Lt, Nt) flags."""
+    _, flags = screen_batched(*(t[None] for t in screen), tau=tau_p, tile_l=pp.tile_l,
+                              tile_n=pp.tile_n, emit_verdict=False)
+    return flags[0]
+
+
+def _finish_solo(alpha, beta, a, b, sums, pp):
+    """:func:`_finish` at B = 1, so the value's sums are the batched ones'."""
+    lift = lambda *ts: tuple(t[None] for t in ts)
+    out = _finish(*lift(alpha, beta, a, b), lift(*sums), pp)
+    return tuple(t[0] for t in out)
+
+
+def screen_tile_flags(pstate: PaddedScreenState, alpha: torch.Tensor, beta: torch.Tensor, pp,
+                      tau, tau_p: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-eval screening of one problem -> (L_tiles, N_tiles) int32 flags (K1)."""
+    if tau_p is None:
+        tau_p = _pad_tau(tau, pp.L, pp.tile_l, alpha.device)
+    return _screen_flags_solo(_screen_operands(pstate, alpha, beta, pp), pp, tau_p)
+
+
+def _value_and_grad_solo(alpha, beta, a, b, flags, pp, prob, impl, tau_p):
+    if tuple(flags.shape) != pp.grid:
+        raise ValueError(f"flags {tuple(flags.shape)} != {pp.grid}")
+    kw = _kernel_kw(pp, prob, tau_p, alpha.device)
+    alphap, betap = pad_tile_inputs(alpha, beta, pp)
+    grid_k, compact_k, _ = _solo_kernels(pp)
+    if use_compact(flags, pp, impl):
+        sched, nact = build_tile_schedule(flags)
+        sums = compact_k(alphap, betap, *pp.leaves(), sched, nact, **kw)[:3]
+    else:
+        sums = grid_k(alphap, betap, *pp.leaves(), flags, **kw)
+    return _finish_solo(alpha, beta, a, b, sums, pp)
+
+
+def dual_value_and_grad_padded(
+    alpha: torch.Tensor,               # (m_pad,)
+    beta: torch.Tensor,                # (n,)
+    a: torch.Tensor,                   # (m_pad,)
+    b: torch.Tensor,                   # (n,)
+    flags: torch.Tensor,               # (L_tiles, N_tiles) int32
+    pp: PaddedProblem,
+    prob: DualProblem,
+    impl: str = "auto",
+    tau_p: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Screened kernel evaluation of one problem (B9 grid / B10 compact).
+
+    Returns ``(value (), grad_alpha (m_pad,), grad_beta (n,))`` of the
+    MAXIMIZATION dual, bitwise equal to
+    :func:`dual_value_and_grad_padded_batched` at B = 1.  ``'auto'`` reads
+    the live-tile count on the host (the JAX ``lax.cond``).
+    """
+    return _value_and_grad_solo(alpha, beta, a, b, flags, pp, prob, impl, tau_p)
+
+
+def dual_value_and_grad_factorized(
+    alpha: torch.Tensor,
+    beta: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    flags: torch.Tensor,
+    fp: FactorizedProblem,
+    prob: DualProblem,
+    impl: str = "auto",
+    tau_p: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`dual_value_and_grad_padded` on one factorized problem (B12 grid / B13 compact)."""
+    return _value_and_grad_solo(alpha, beta, a, b, flags, fp, prob, impl, tau_p)
+
+
+def dual_value_and_grad(alpha: torch.Tensor, beta: torch.Tensor, C: torch.Tensor,
+                        a: torch.Tensor, b: torch.Tensor, verdict: torch.Tensor,
+                        prob: DualProblem, tile_l: int = 0, tile_n: int = DEFAULT_TILE_N,
+                        impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Block-masked kernel evaluation from a raw (L, n) verdict matrix; pads C per call.
+
+    A convenience for one-shot evaluations; a solver prepares the problem
+    once (:func:`prepare_padded_problem`) and calls
+    :func:`dual_value_and_grad_padded`.
+    """
+    pp = prepare_padded_problem(C, prob, tile_l=tile_l, tile_n=tile_n)
+    flags = screening.tile_flags(verdict, pp.tile_l, pp.tile_n)
+    return dual_value_and_grad_padded(alpha, beta, a, b, flags, pp, prob, impl=impl)
+
+
+def screen_verdicts(z_snap, k_snap, o_snap, active, da_plus, da_full, da_neg, db, sqrt_g, tau,
+                    tile_l: int = 8, tile_n: int = DEFAULT_TILE_N):
+    """K1 on one problem's (L, n) bounds, padded to tile multiples here.
+
+    Returns ``(verdict (L, n) int32, flags (L_tiles, N_tiles) int32)``.
+    """
+    L, n = z_snap.shape
+
+    def pad2(x):
+        return _pad_axis(_pad_axis(x, -1, tile_n, 0), -2, tile_l, 0).contiguous()
+
+    padL = lambda x: _pad_axis(x, -1, tile_l, 0.0).contiguous()
+    operands = (pad2(z_snap), pad2(k_snap), pad2(o_snap), pad2(active.to(torch.int8)),
+           padL(da_plus), padL(da_full), padL(da_neg),
+           _pad_axis(db, -1, tile_n, 0.0).contiguous(), padL(sqrt_g))
+    v, flags = screen_batched(*(t[None] for t in operands),
+                              tau=_pad_tau(tau, L, tile_l, z_snap.device),
+                              tile_l=tile_l, tile_n=tile_n, emit_verdict=True)
+    return v[0, :L, :n], flags[0]
+
+
+def dual_value_and_grad_fused(
+    alpha: torch.Tensor,               # (m_pad,)
+    beta: torch.Tensor,                # (n,)
+    a: torch.Tensor,                   # (m_pad,)
+    b: torch.Tensor,                   # (n,)
+    pstate: PaddedScreenState,         # one problem's, from pad_screen_state
+    pp,
+    prob: DualProblem,
+    impl: str = "auto",
+    tau_p: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused oracle of one problem: :func:`dual_value_and_grad_fused_batched` at B = 1.
+
+    ``'grid'`` runs B11 (dense cost) or B14 (factorized), verdicts and
+    gradient in one launch; ``'compact'`` the two-launch K1 + B10 / B13;
+    ``'auto'`` picks one by :func:`fused_impl`.  Returns ``(value (),
+    grad_alpha (m_pad,), grad_beta (n,), flags (L_tiles, N_tiles))``.
+    """
+    impl = fused_impl(pstate, pp, prob.tau_vec(), impl)
+    kw = _kernel_kw(pp, prob, tau_p, alpha.device)
+    alphap, betap = pad_tile_inputs(alpha, beta, pp)
+    screen = _screen_operands(pstate, alpha, beta, pp)
+    _, compact_k, fused_k = _solo_kernels(pp)
+    if impl == "compact":
+        flags = _screen_flags_solo(screen, pp, kw["tau"])
+        sched, nact = build_tile_schedule(flags)
+        sums = compact_k(alphap, betap, *pp.leaves(), sched, nact, **kw)[:3]
+    else:
+        *sums, flags = fused_k(alphap, betap, *pp.leaves(), *screen, **kw)
+    return _finish_solo(alpha, beta, a, b, sums, pp) + (flags,)

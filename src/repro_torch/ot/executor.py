@@ -3,7 +3,8 @@
 Counterpart of ``repro.ot.executor`` for the solo route:
 :meth:`Executor.solve` lowers a problem on one of three routes
 (:meth:`Executor._route`, the JAX decision table) and runs the B = 1 slice
-of the batched solver (``core.solver.solve_dual_batch``) on the executor's
+of the batched solver (``core.solver.solve_dual_batch``, or with
+``solver='stochastic'`` ``core.stochastic.solve_solo``) on the executor's
 device:
 
   * ``'dense'``       the padded dense cost, built on the host;
@@ -64,6 +65,7 @@ class Executor:
         self._plan = plan
         self._template = template
         self._opts = plan.solve_options()
+        self._sopts = plan.stochastic_options() if plan.solver == "stochastic" else None
         self._counters = {"solves": 0, "problems_solved": 0, "rounds_total": 0,
                           "status": {"DONE": 0, "FAILED": 0}}
 
@@ -150,6 +152,15 @@ class Executor:
             return "factorized"
         return "dense"
 
+    def _solve_solo(self, C, a, b, spec: G.GroupSpec) -> slv.OTResult:
+        """One solve through the plan's dual solver."""
+        if self._sopts is not None:
+            from repro_torch.core import stochastic as sgd
+
+            return sgd.solve_solo(C, a, b, spec, self._reg, self._opts, self._sopts,
+                                  self._device)
+        return slv.solve_dual(C, a, b, spec, self._reg, self._opts, self._device)
+
     def _record(self, result: slv.OTResult) -> None:
         self._counters["solves"] += 1
         self._counters["problems_solved"] += 1
@@ -214,14 +225,13 @@ class Executor:
             if route == "factorized":
                 from repro_torch.kernels.ops import FactorizedCost
 
-                result = slv.solve_dual(FactorizedCost(*geom.operands()), a, b, spec,
-                                        self._reg, self._opts, dev)
+                result = self._solve_solo(FactorizedCost(*geom.operands()), a, b, spec)
                 # the dense cost exists only from here on, in f32 whatever the
                 # precision: the plan is recovered on the cost as given
                 C_t = geom.materialize()
             else:
                 C_t = geom.materialize()
-                result = slv.solve_dual(C_t, a, b, spec, self._reg, self._opts, dev)
+                result = self._solve_solo(C_t, a, b, spec)
             self._record(result)
             return build_solution(result, self._reg, C_t, spec, perm, n)
         pa = problem.padded()
@@ -235,7 +245,7 @@ class Executor:
             bf[:n] = b
             C, b = Cf, bf
         C_t = torch.from_numpy(np.ascontiguousarray(C)).to(dev)
-        result = slv.solve_dual(C_t, pa.a, b, pa.spec, self._reg, self._opts, dev)
+        result = self._solve_solo(C_t, pa.a, b, pa.spec)
         self._record(result)
         return build_solution(result, self._reg, C_t, pa.spec, pa.perm, n)
 
@@ -244,5 +254,8 @@ class Executor:
             "Executor.solve_many is not ported yet (ROADMAP queue A item 3)")
 
     def stream(self, problems):
+        if self._sopts is not None:
+            raise ValueError("solver='stochastic' has no round-step stream (epochs are not "
+                             "Algorithm-1 rounds); use solver='lbfgs' for streaming")
         raise NotImplementedError(
             "Executor.stream is not ported yet (ROADMAP queue A item 3)")

@@ -36,7 +36,8 @@ class ExecutionPlan:
     squared-l2 route, resolved per problem by ``Executor._route``),
     ``precision`` in {'f32', 'bf16'} ('bf16' on the kernel backends
     'pallas' / 'fused' only, as in the JAX package), ``devices='single'``,
-    ``solver='lbfgs'``.
+    ``solver`` in {'lbfgs', 'stochastic'} (the minibatch dual ascent of
+    :mod:`repro_torch.core.stochastic`, scheduled by the ``sgd_*`` fields).
     """
 
     grad_impl: str = "screened"
@@ -84,10 +85,20 @@ class ExecutionPlan:
         if self.precision == "bf16" and self.grad_impl not in ("pallas", "fused"):
             raise ValueError("precision='bf16' requires grad_impl='pallas' or 'fused' "
                              f"(got grad_impl={self.grad_impl!r})")
-        if self.solver == "stochastic":
-            raise _not_ported("solver='stochastic'", "8")
         if self.devices != "single":
             raise _not_ported(f"devices={self.devices!r} (device meshes)", "9")
+
+        self.stochastic_options()          # the sgd_* fields are checked here
+
+    def stochastic_options(self):
+        """The ``sgd_*`` slice as a ``StochasticOptions``."""
+        from repro_torch.core.stochastic import StochasticOptions
+
+        return StochasticOptions(
+            epochs=self.sgd_epochs, batch_blocks=self.sgd_batch_blocks,
+            block_cols=self.sgd_block_cols, step_size=self.sgd_step_size,
+            decay=self.sgd_decay, avg_fraction=self.sgd_avg_fraction, seed=self.sgd_seed,
+        )
 
     def lbfgs_options(self) -> LbfgsOptions:
         """The inner-optimizer slice as ``LbfgsOptions``."""

@@ -27,7 +27,17 @@ Tolerances:
   * whole solves on the card against the same solve on the CPU:
     objective rtol 2e-5, the repo's cross-backend tolerance; factorized ==
     dense on the materialized problem, solo == batched, and fused ==
-    pallas, bitwise.
+    pallas, bitwise;
+  * tile widths that are not whole warps (4, 20, 40) and 128: K2/K5
+    against their plain versions at rtol 1e-5 / atol 1e-6, K3/K6/K7/K8
+    bitwise against K2/K5 as at 128;
+  * the solo wrappers (B9-B14): bitwise equal to their batched twins at
+    B = 1, each launch counted under its own name;
+  * the samples layer on the card against the same layer on the CPU: value
+    rtol 2e-5, coordinate gradients atol 1e-5;
+  * the stochastic solver at sgd_block_cols=4 (tile_n = 4): within 1e-3 of
+    the exact value (the JAX tests' gate), fused == pallas and reruns
+    bitwise.
 """
 import numpy as np
 import pytest
@@ -362,3 +372,132 @@ def test_fused_solve_equals_pallas_on_the_card(cuda_device, precision):
             assert f.value == p.value and f.stats == p.stats and f.rounds == p.rounds
             for name in ("alpha", "beta", "plan"):
                 assert torch.equal(getattr(f, name), getattr(p, name)), (geometry, impl, name)
+
+
+# -- any tile width, the solo wrappers, the layer and the stochastic solver -------
+
+def _narrow_inputs(dev, seed, tile_n, B=2, L=16, g=6, n_tiles=5, d=2):
+    """Screening and cost operands on n_pad = n_tiles * tile_n columns."""
+    rng = np.random.default_rng(seed)
+    n = n_tiles * tile_n
+    x = (rng.normal(size=(B, L * g, d)) * 0.4).astype(np.float32)
+    y = (rng.normal(size=(B, n, d)) * 0.4).astype(np.float32)
+    leaves = _to(dev, x, (x * x).sum(-1), y, (y * y).sum(-1))
+    z, k, o, act, da, db, sqrt_g = _screen_inputs(seed, B=B, L=L, n=n)
+    screen = _to(dev, z, k, o, act, *da, db, sqrt_g)
+    alpha, beta = _to(dev, rng.uniform(0.2, 0.9, (B, L * g)).astype(np.float32),
+                      rng.uniform(0.2, 0.9, (B, n)).astype(np.float32))
+    tau = torch.linspace(0.05, 0.4, L, device=dev)
+    return alpha, beta, leaves, screen, tau
+
+
+@pytest.mark.parametrize("tile_n", [4, 20, 40, 128])
+def test_kernels_take_any_tile_width(cuda_device, tile_n):
+    """K2/K3/K5-K8 at tile widths that are not whole warps, against their plain versions."""
+    alpha, beta, leaves, screen, tau = _narrow_inputs(cuda_device, 11, tile_n)
+    C = tgp.factorized_cost_tile(*leaves)
+    kw = dict(num_groups=16, group_size=6, tau=tau, gamma=0.5, tile_l=4, tile_n=tile_n)
+    rng = np.random.default_rng(tile_n)
+    flags = torch.from_numpy((rng.random((2, 4, 5)) < 0.6).astype(np.int32)).to(cuda_device)
+    assert 0 < int(flags.count_nonzero()) < flags.numel()
+    sched, nact = tgp.build_batch_tile_schedule(flags)
+    k2 = tgp.gradpsi_batched(alpha, beta, C, flags, **kw)
+    ref = tgp.gradpsi_batched_ref(alpha, beta, C, flags, **kw)
+    for got, want in zip(k2, ref):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    k5 = tgp.gradpsi_fact_batched(alpha, beta, *leaves, flags, **kw)
+    fref = tgp.gradpsi_fact_batched_ref(alpha, beta, *leaves, flags, **kw)
+    for got, want in zip(k5, fref):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    same = lambda p, q: all(torch.equal(x, y) for x, y in zip(p, q))
+    assert same(tgp.gradpsi_compact_batched(alpha, beta, C, sched, nact, **kw)[:3], k2)
+    assert same(tgp.gradpsi_fact_compact_batched(alpha, beta, *leaves, sched, nact, **kw)[:3],
+                k5)
+    assert same(k5, k2)                           # the cost rebuilt with the same recipe
+    # the fused kernels: K1's flags, and K2's / K5's sums on them
+    _, f1 = tsc.screen_batched(*screen, tau=tau, tile_l=4, tile_n=tile_n, emit_verdict=False)
+    k7 = tgp.gradpsi_fused_batched(alpha, beta, C, *screen, **kw)
+    k8 = tgp.gradpsi_fused_fact_batched(alpha, beta, *leaves, *screen, **kw)
+    assert torch.equal(k7[3], f1) and torch.equal(k8[3], f1)
+    assert same(k7[:3], tgp.gradpsi_batched(alpha, beta, C, f1, **kw))
+    assert same(k8[:3], tgp.gradpsi_fact_batched(alpha, beta, *leaves, f1, **kw))
+
+
+@pytest.mark.parametrize("route", ["dense", "factorized"])
+def test_solo_wrappers_equal_batched_on_the_card(cuda_device, route):
+    """B9-B14: each solo wrapper launches its batched twin at B = 1 under its own name."""
+    alpha, beta, leaves, screen, tau = _narrow_inputs(cuda_device, 12, 32, B=1)
+    cost = leaves if route == "factorized" else (tgp.factorized_cost_tile(*leaves),)
+    kw = dict(num_groups=16, group_size=6, tau=tau, gamma=0.5, tile_l=4, tile_n=32)
+    _, flags = tsc.screen_batched(*screen, tau=tau, tile_l=4, tile_n=32, emit_verdict=False)
+    fact = route == "factorized"
+    grid, compact, fused = (
+        (tgp.gradpsi_fact, tgp.gradpsi_fact_compact, tgp.gradpsi_fused_fact) if fact
+        else (tgp.gradpsi, tgp.gradpsi_compact, tgp.gradpsi_fused))
+    bgrid, bcompact, bfused = (
+        (tgp.gradpsi_fact_batched, tgp.gradpsi_fact_compact_batched,
+         tgp.gradpsi_fused_fact_batched) if fact
+        else (tgp.gradpsi_batched, tgp.gradpsi_compact_batched, tgp.gradpsi_fused_batched))
+    one = lambda ts_: [t[0] for t in ts_]
+    sched, nact = tgp.build_tile_schedule(flags[0])
+    _build.reset_launch_counts()
+    solo = (grid(alpha[0], beta[0], *one(cost), flags[0], **kw),
+            compact(alpha[0], beta[0], *one(cost), sched, nact, **kw),
+            fused(alpha[0], beta[0], *one(cost), *one(screen), **kw))
+    counts = _build.launch_counts()
+    bsched, bnact = tgp.build_batch_tile_schedule(flags)
+    batched = (bgrid(alpha, beta, *cost, flags, **kw),
+               bcompact(alpha, beta, *cost, bsched, bnact, **kw),
+               bfused(alpha, beta, *cost, *screen, **kw))
+    for s_, b_ in zip(solo, batched):
+        for x, y in zip(s_, b_):
+            assert torch.equal(x, y if y.ndim == 0 else y[0])
+    names = ({"gradpsi_fact", "gradpsi_fact_compact", "gradpsi_fused_fact"} if fact
+             else {"gradpsi", "gradpsi_compact", "gradpsi_fused"})
+    assert {k: v for k, v in counts.items() if k != "row_sum"} == dict.fromkeys(names, 1)
+
+
+def test_samples_layer_backward_on_the_card_matches_cpu(cuda_device):
+    from repro_torch.ot import diff
+
+    rng = np.random.default_rng(13)
+    L, g, n, d = 6, 8, 70, 3
+    X = rng.normal(size=(L * g, d)).astype(np.float32)
+    Y = (rng.normal(size=(n, d)) + 0.5).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        layer = diff.OTLayer(L, g, n, GroupSparseReg.from_rho(1.0, 0.6),
+                             plan=tot.ExecutionPlan(grad_impl="pallas", gtol=1e-7,
+                                                    max_iters=2000, ftol=1e-12),
+                             normalize_cost=True, grad_refine=2000, device=dev)
+        x = torch.from_numpy(X).to(dev).requires_grad_()
+        y = torch.from_numpy(Y).to(dev).requires_grad_()
+        v = layer.from_samples(x, y)
+        gx, gy = torch.autograd.grad(v, (x, y))
+        assert gx.device == x.device
+        out[str(dev)] = [t.detach().cpu() for t in (v, gx, gy)]
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    torch.testing.assert_close(card[0], cpu[0], rtol=2e-5, atol=0.0)
+    for got, want in zip(card[1:], cpu[1:]):
+        torch.testing.assert_close(got, want, rtol=0.0, atol=1e-5)
+
+
+def test_stochastic_narrow_blocks_on_the_card(cuda_device):
+    """sgd_block_cols=4 on the golden-sized problem: tile_n = 4 on the card."""
+    C = np.random.default_rng(0).random((24, 20), dtype=np.float32)
+    spec = spec_from_labels(np.repeat(np.arange(3), 8))
+    reg = GroupSparseReg.from_rho(1.0, 0.6)
+    prob = Problem.from_padded(C, np.full(24, 1 / 24, np.float32),
+                               np.full(20, 1 / 20, np.float32), spec, reg)
+    kw = dict(solver="stochastic", sgd_epochs=200, sgd_block_cols=4)
+    exact = tot.compile(prob, tot.ExecutionPlan(grad_impl="dense", gtol=1e-7, max_iters=2000),
+                        device="cpu").solve()
+    _build.reset_launch_counts()
+    sols = {gi: tot.compile(prob, tot.ExecutionPlan(grad_impl=gi, pallas_impl="grid", **kw),
+                            device=cuda_device).solve() for gi in ("pallas", "fused")}
+    assert _build.launch_counts().get("gradpsi_batched", 0) > 400
+    again = tot.compile(prob, tot.ExecutionPlan(grad_impl="pallas", pallas_impl="grid", **kw),
+                        device=cuda_device).solve()
+    assert sols["pallas"].value == sols["fused"].value == again.value
+    assert torch.equal(sols["pallas"].alpha, again.alpha)
+    assert abs(sols["pallas"].value - exact.value) <= 1e-3

@@ -114,8 +114,11 @@ def test_plan_config_crosses_packages():
     (dict(devices=2), "item 9"),
 ])
 def test_unported_plan_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tot.ExecutionPlan(**kw)
+    if item == "item 8":          # solver='stochastic' is ported now: accepted
+        assert tot.ExecutionPlan(**kw).stochastic_options().epochs == 60
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            tot.ExecutionPlan(**kw)
     with pytest.raises(ValueError):
         tot.ExecutionPlan(grad_impl="unknown")
 
