@@ -1,6 +1,8 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
     python3 chip_smoke.py      # needs one CUDA card; takes five to six minutes
+    python3 chip_smoke.py --compare _archive/parent [--pairs 10]
+                               # this tree's gradient kernels against another checkout's
 
 The main path is the default plan at the paper's largest scale:
 ``repro_torch.ot.compile(Problem.from_samples(...), ExecutionPlan(grad_impl=
@@ -49,7 +51,9 @@ Phases:
      alone: the main path's and the fused/auto and fused/grid factorized
      ones, each with its peak device memory (must stay under the 1.05 GB
      dense cost) and a torch.profiler trace (device busy time, idle share,
-     launches per evaluation, largest kernels); the dense route's
+     launches per evaluation, largest kernels; the main path's launches
+     per evaluation must stay 6 under the 205.8 they were while a
+     gradient call took 8 launches); the dense route's
      fused/auto solver call in f32 and bf16, peak memory.  The fused route's
      'auto' decides once per round at the snapshot point (as the JAX
      package does); at this scale it takes the two-launch compact branch in
@@ -59,8 +63,10 @@ Phases:
      bound of a float64 evaluation, K5/K6 bitwise to K2/K3, K7/K8 flags
      exactly K1's and sums bitwise K2's / K5's) and timed (CUDA events,
      median) beside their bounds and the plain versions; the round
-     boundary with the plain torch.sum snapshot norms against K4's body;
-     K2/K3/K5-K8 times across live shares, and K2/K5/K7/K8 on bf16 costs;
+     boundary with the plain torch.sum snapshot norms
+     against K4's body; K2/K3/K5-K8 times across live shares (with every
+     tile live they go into their kernel rows beside the bound), and
+     K2/K5/K7/K8 on bf16 costs;
   6. solo vs batched (B = 2) at L = 64, n = 1024, dense and factorized,
      pallas and fused, grid and compact: bitwise equal (duals, value,
      rounds, stats), or the smoke fails;
@@ -123,6 +129,10 @@ MAIN_PATH_PRINTS = (0.02530081570148468, 4167098694829814692,
 # bf16 solves on the factorized route take 108 rounds to converge (PERF.md);
 # the smoke stops them here, which keeps every bitwise check among them
 BF16_FACT_ROUNDS = 12
+# Device launches per evaluation of the main path's solver call while every
+# gradient call zero-filled its slots (3 fills) and summed them with four
+# slot_sum launches: 8 launches a call where 2 now do (PERF.md)
+LAUNCHES_PER_EVAL_BEFORE = 205.8
 DENSE_PATH = "dense/auto"
 FUSED_PATH = "factorized/fused-auto"          # ExecutionPlan(grad_impl='fused')
 # 'auto' on the fused route decides once per round at the snapshot point;
@@ -131,7 +141,7 @@ FUSED_PATH = "factorized/fused-auto"          # ExecutionPlan(grad_impl='fused')
 FUSED_GRID_PATH = "factorized/fused-grid"
 FUSED_DENSE_GRID_PATH = "dense/fused-grid"
 PORT_KERNELS = ("screen_kernel", "gradpsi_grid_kernel", "gradpsi_compact_kernel",
-                "gradpsi_fused_kernel", "slot_sum_kernel", "snapshot_kernel",
+                "gradpsi_fused_kernel", "slot_reduce_kernel", "snapshot_kernel",
                 "row_sum_kernel")
 SOURCES = {
     K1: ("src/repro_torch/kernels/csrc/screen.cu", "src/repro/kernels/screen.py:63"),
@@ -438,7 +448,8 @@ def phase_kernels_wide_d(device):
     a, b, xx, xs, yy, ys, fl, tp, mk = (t(v) for v in (alpha, beta, x, x_sq, y, y_sq, flags,
                                                          tau, mask))
     kw = dict(num_groups=L_pad, group_size=g, tau=tp, gamma=0.25, tile_l=TILE_L, tile_n=TILE_N)
-    check(kg.d_chunk(TILE_L, g, TILE_N, d) == 32, "d = 64 should run two 32-column chunks")
+    check(kg.d_chunk(TILE_L, g, TILE_N, d) == 32 and kg.fact_loader_dc(TILE_L, g, TILE_N, d) == 32,
+          "d = 64 should run the chunked loader, two 32-column chunks")
     k5 = kg.gradpsi_fact_batched(a, b, xx, xs, yy, ys, fl, **kw)
     ref = kg.gradpsi_fact_batched_ref(a, b, xx, xs, yy, ys, fl, **kw)
     err = max(float((p - q).abs().max()) for p, q in zip(k5, ref))
@@ -528,8 +539,8 @@ def phase_tile_widths(device):
                   f"K2/K5 at tile_n = {tile_n} off their plain versions")
             err = max(err, max_errs(got, want)[0])
         check(same(kg.gradpsi_compact_batched(a, b, C, sched, nact, **kw)[:3], k2)
-              and same(kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw)[:3],
-                       k5) and same(k5, k2),
+              and same(kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact,
+                                                       **kw)[:3], k5) and same(k5, k2),
               f"K3/K6/K5 not bitwise K2 at tile_n = {tile_n}")
         sargs = _narrow_screen_args(rng, B, L_pad, n_pad, device)
         _, f1 = ks.screen_batched(*sargs, tau=tau, tile_l=tile_l, tile_n=tile_n,
@@ -833,7 +844,9 @@ def peak_memory(ops, problem, reg, device, plan, dense=False):
 
 def profile_solver_call(label, ops, problem, reg, device, plan):
     """Peak device memory and a torch.profiler trace of one factorized solver call
-    (plan recovery excluded); returns the peak."""
+    (plan recovery excluded); returns (peak, launches per evaluation, summary):
+    the summary holds wall and busy seconds, n_evals and the kernel rows
+    (name, device us, launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import solver as slv
@@ -866,7 +879,8 @@ def profile_solver_call(label, ops, problem, reg, device, plan):
           f"launches ({n_launch / res.n_evals:.1f} per evaluation)", flush=True)
     for key, us, count in kernels[:14]:
         print(f"  {us / 1e3:10.3f} ms  x{count:<6d} {key[:100]}", flush=True)
-    return peak
+    summary = dict(wall_s=wall, busy_s=busy, n_evals=res.n_evals, kernels=kernels)
+    return peak, n_launch / res.n_evals, summary
 
 
 def phase_memory_and_profile(ops, problem, reg, device):
@@ -875,7 +889,14 @@ def phase_memory_and_profile(ops, problem, reg, device):
     import repro_torch.ot as ot
 
     P = ot.ExecutionPlan
-    profile_solver_call(MAIN_PATH, ops, problem, reg, device, P(grad_impl="pallas"))
+    _, per_eval, _ = profile_solver_call(MAIN_PATH, ops, problem, reg, device,
+                                         P(grad_impl="pallas"))
+    print(f"launches per evaluation on {MAIN_PATH}: {per_eval:.1f} (two per gradient call, the "
+          f"kernel and the slot reduction; {LAUNCHES_PER_EVAL_BEFORE} with zero-filled slots "
+          f"and four slot_sum launches per call, PERF.md)", flush=True)
+    check(per_eval <= LAUNCHES_PER_EVAL_BEFORE - 5.8,
+          f"{MAIN_PATH}: {per_eval:.1f} device launches per evaluation, above "
+          f"{LAUNCHES_PER_EVAL_BEFORE - 5.8:.1f}: a gradient call takes more than two")
     profile_solver_call(FUSED_PATH, ops, problem, reg, device, P(grad_impl="fused"))
     profile_solver_call(FUSED_GRID_PATH, ops, problem, reg, device,
                         P(grad_impl="fused", pallas_impl="grid"))
@@ -980,6 +1001,32 @@ def gradient_f64_with_bound(alpha, beta, C, sched, num_active, *, num_groups, gr
     return tuple(vals), tuple(bounds)
 
 
+def kernel_work(pp, d, live, T):
+    """{kernel: (bytes, fp32 operations)} these inputs need: every input read once,
+    every output written once, the live tiles' work (``live`` of ``T`` tiles)."""
+    E = pp.L_pad * pp.n_pad                               # bound-matrix entries
+    m_pad = pp.L_pad * pp.g
+    tile_bytes = pp.tile_l * pp.g * pp.tile_n * 4
+    tile_entries = pp.tile_l * pp.g * pp.tile_n
+    sample_bytes = (pp.tile_l * pp.g + pp.tile_n) * (d + 1) * 4
+    vec_bytes = 4 * (2 * m_pad + 2 * pp.n_pad + pp.L_pad + 1)   # duals in, sums out, tau
+    work = {
+        K1: (13 * E + 4 * (4 * pp.L_pad + pp.n_pad + pp.L_pad) + 4 * T, 14 * E),
+        K2: (live * tile_bytes + vec_bytes + 4 * T, 9 * live * tile_entries),
+        K3: (live * tile_bytes + vec_bytes + 12 * live + 4, 9 * live * tile_entries),
+        K4: (4 * (m_pad + pp.n_pad) * (d + 2) + m_pad + 12 * E,
+             m_pad * pp.n_pad * snapshot_ops_per_entry(d) + 3 * E),
+        K5: (live * sample_bytes + vec_bytes + 4 * T,
+             fact_ops_per_entry(d) * live * tile_entries),
+        K6: (live * sample_bytes + vec_bytes + 12 * live + 4,
+             fact_ops_per_entry(d) * live * tile_entries),
+    }
+    # the fused kernels: K1's reads and flags, then K2's or K5's live-tile work
+    work[K7] = (work[K1][0] + work[K2][0] - 4 * T, work[K1][1] + work[K2][1])
+    work[K8] = (work[K1][0] + work[K5][0] - 4 * T, work[K1][1] + work[K5][1])
+    return work
+
+
 def final_state(sol, ops, reg, device):
     """The kernels' operands at the state of a solve's last round boundary."""
     import torch
@@ -1038,7 +1085,8 @@ def phase_times(sol, ops, reg, launches, device):
              lambda: ks.snapshot_norms_fact_ref(a, b, *leaves, ops.mask, **k4kw)),
         K5: (lambda: kg.gradpsi_fact_batched(a, b, *leaves, flags, **gkw),
              lambda: kg.gradpsi_fact_batched_ref(a, b, *leaves, flags, **gkw)),
-        K6: (lambda: kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **gkw),
+        K6: (lambda: kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact,
+                                                     **gkw),
              lambda: kg.gradpsi_fact_compact_batched_ref(a, b, *leaves, sched, nact, **gkw)),
         K7: (lambda: kg.gradpsi_fused_batched(a, b, pp.Cp, *sargs, **gkw),
              lambda: kg.gradpsi_fused_batched_ref(a, b, pp.Cp, *sargs, **gkw)),
@@ -1088,26 +1136,7 @@ def phase_times(sol, ops, reg, launches, device):
             "them",
     }
 
-    E = pp.L_pad * pp.n_pad                               # bound-matrix entries
-    m_pad, d = pp.L_pad * pp.g, fp.d
-    tile_bytes = pp.tile_l * pp.g * pp.tile_n * 4
-    tile_entries = pp.tile_l * pp.g * pp.tile_n
-    sample_bytes = (pp.tile_l * pp.g + pp.tile_n) * (d + 1) * 4
-    vec_bytes = 4 * (2 * m_pad + 2 * pp.n_pad + pp.L_pad + 1)   # duals in, sums out, tau
-    work = {
-        K1: (13 * E + 4 * (4 * pp.L_pad + pp.n_pad + pp.L_pad) + 4 * T, 14 * E),
-        K2: (live * tile_bytes + vec_bytes + 4 * T, 9 * live * tile_entries),
-        K3: (live * tile_bytes + vec_bytes + 12 * live + 4, 9 * live * tile_entries),
-        K4: (4 * (m_pad + pp.n_pad) * (d + 2) + m_pad + 12 * E,
-             m_pad * pp.n_pad * snapshot_ops_per_entry(d) + 3 * E),
-        K5: (live * sample_bytes + vec_bytes + 4 * T,
-             fact_ops_per_entry(d) * live * tile_entries),
-        K6: (live * sample_bytes + vec_bytes + 12 * live + 4,
-             fact_ops_per_entry(d) * live * tile_entries),
-    }
-    # the fused kernels: K1's reads and flags, then K2's or K5's live-tile work
-    work[K7] = (work[K1][0] + work[K2][0] - 4 * T, work[K1][1] + work[K2][1])
-    work[K8] = (work[K1][0] + work[K5][0] - 4 * T, work[K1][1] + work[K5][1])
+    work = kernel_work(pp, fp.d, live, T)
     rows = []
     for name in KERNELS:
         fn, plain = fns[name]
@@ -1194,7 +1223,11 @@ def phase_round_boundary(st, ops):
 
 def phase_density_times(ops, reg, device):
     """K1-K3, K5-K8 times across live shares (the grid/compact crossover, the fused
-    kernels against K1 + K2 / K5), and K2/K5/K7/K8 on the bf16 cost forms."""
+    kernels against K1 + K2 / K5), and K2/K5/K7/K8 on the bf16 cost forms.
+
+    Returns {K2, K3, K5-K8: (ms, bound ms, bound by, live share)} with every
+    tile live.
+    """
     import numpy as np
     import torch
 
@@ -1220,7 +1253,8 @@ def phase_density_times(ops, reg, device):
              K2: lambda: kg.gradpsi_batched(a, b, C, flags, **kw),
              K3: lambda: kg.gradpsi_compact_batched(a, b, C, sched, nact, **kw),
              K5: lambda: kg.gradpsi_fact_batched(a, b, *leaves, flags, **kw),
-             K6: lambda: kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw),
+             K6: lambda: kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact,
+                                                         **kw),
              K7: lambda: kg.gradpsi_fused_batched(a, b, C, *sargs, **kw),
              K8: lambda: kg.gradpsi_fused_fact_batched(a, b, *leaves, *sargs, **kw),
              K2 + " bf16": lambda: kg.gradpsi_batched(a, b, C16, flags, **kw),
@@ -1235,6 +1269,14 @@ def phase_density_times(ops, reg, device):
         print(f"share sweep @ live share {share:.4f}: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in ms.items()) + f" (+ schedule build {ts:.4f} ms)",
               flush=True)
+        if target == 1.0:
+            work = kernel_work(ops.fp, ops.fp.d, int(nact), flags.numel())
+            live = {k: (min(ms[k], ms.get(k + " again", ms[k])),) + bound(*work[k]) + (share,)
+                    for k in (K2, K3, K5, K6, K7, K8)}
+            print("fully live: " + ", ".join(f"{k} {v[0]:.4f} ms against a bound of {v[1]:.4f} "
+                                             f"ms ({v[2]})" for k, v in live.items()),
+                  flush=True)
+    return live
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -1716,14 +1758,247 @@ def phase_stochastic(problem, reg, lbfgs_value, device):
     return launches["pallas"]
 
 
-def main() -> None:
+# -- --compare: this tree's gradient kernels against another checkout's --------------
+
+COMPARE_DIR = os.path.join(HERE, "_archive", "compare")     # git-ignored
+
+
+def main_problem():
+    """(reg, problem): the main path's problem at the paper's scale."""
+    from repro_torch.core.regularizers import GroupSparseReg
+    from repro_torch.data.pipeline import DomainPairConfig, make_domain_pair
+    from repro_torch.ot.problem import Problem
+
+    reg = GroupSparseReg.from_rho(0.1, 0.8)
+    Xs, ys, Xt, _ = make_domain_pair(DomainPairConfig(num_classes=1280, samples_per_class=10,
+                                                      seed=0))
+    return reg, Problem.from_samples(Xs, ys, Xt, reg)
+
+
+def compare_bits(device):
+    """K2/K3/K5-K8 (and B9-B14 at d = 2, tile_n = 128) on seeded inputs across g in
+    {1, 3, 16, 17, 33}, d in {1, 2, 3, 8, 64}, tile_n in {4, 20, 128}, f32 and
+    bf16 storage -> {case: tuple of CPU tensors}."""
+    import numpy as np
     import torch
 
+    from repro_torch.kernels import gradpsi as kg
+
+    out = {}
+    t = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    for g in (1, 3, 16, 17, 33):
+        for d in (1, 2, 3, 8, 64):
+            for tile_n in (4, 20, 128):
+                rng = np.random.default_rng(1000 * g + 10 * d + tile_n)
+                B, L_pad, tile_l = 2, 16, 8
+                Nt = -(-300 // tile_n)
+                n_pad, m_pad = Nt * tile_n, L_pad * g
+                x = (rng.normal(size=(B, m_pad, d)) * 0.3 / np.sqrt(d)).astype(np.float32)
+                y = (rng.normal(size=(B, n_pad, d)) * 0.3 / np.sqrt(d)).astype(np.float32)
+                f32 = tuple(t(v) for v in (x, (x * x).sum(-1), y, (y * y).sum(-1)))
+                a = t(rng.uniform(0.1, 0.6, (B, m_pad)).astype(np.float32))
+                b = t(rng.uniform(0.1, 0.6, (B, n_pad)).astype(np.float32))
+                flags = t((rng.random((B, L_pad // tile_l, Nt)) < 0.6).astype(np.int32))
+                tau = torch.linspace(0.05, 0.5, L_pad, device=device)
+                shape = (B, L_pad, n_pad)
+                z = rng.uniform(0.0, 0.6, shape).astype(np.float32)
+                sargs = (t(z), t(z + rng.uniform(0, 0.3, shape).astype(np.float32)),
+                         t(rng.uniform(0, 0.2, shape).astype(np.float32)),
+                         t((rng.random(shape) < 0.01).astype(np.int8)),
+                         *(t(rng.uniform(0, 0.01, (B, L_pad)).astype(np.float32))
+                           for _ in range(3)),
+                         t(rng.uniform(-0.01, 0.01, (B, n_pad)).astype(np.float32)),
+                         t(np.full((B, L_pad), np.sqrt(g), np.float32)))
+                kw = dict(num_groups=L_pad, group_size=g, tau=tau, gamma=0.25, tile_l=tile_l,
+                          tile_n=tile_n)
+                sched, nact = kg.build_batch_tile_schedule(flags)
+                for storage in ("f32", "bf16"):
+                    leaves = f32 if storage == "f32" else tuple(v.bfloat16() for v in f32)
+                    C = kg.factorized_cost_tile(*f32)
+                    C = C if storage == "f32" else C.bfloat16()
+                    key = f"g{g} d{d} tn{tile_n} {storage}"
+                    out[key + " K2"] = kg.gradpsi_batched(a, b, C, flags, **kw)
+                    out[key + " K3"] = kg.gradpsi_compact_batched(a, b, C, sched, nact, **kw)
+                    out[key + " K5"] = kg.gradpsi_fact_batched(a, b, *leaves, flags, **kw)
+                    out[key + " K6"] = kg.gradpsi_fact_compact_batched(a, b, *leaves, sched,
+                                                                       nact, **kw)
+                    out[key + " K7"] = kg.gradpsi_fused_batched(a, b, C, *sargs, **kw)
+                    out[key + " K8"] = kg.gradpsi_fused_fact_batched(a, b, *leaves, *sargs, **kw)
+                    if d == 2 and tile_n == 128:
+                        one = lambda *ts: tuple(v[0] for v in ts)
+                        f1 = flags[0]
+                        s1, n1 = kg.build_tile_schedule(f1)
+                        a1, b1, C1, l1, sa1 = a[0], b[0], C[0], one(*leaves), one(*sargs)
+                        out[key + " B9"] = kg.gradpsi(a1, b1, C1, f1, **kw)
+                        out[key + " B10"] = kg.gradpsi_compact(a1, b1, C1, s1, n1, **kw)
+                        out[key + " B11"] = kg.gradpsi_fused(a1, b1, C1, *sa1, **kw)
+                        out[key + " B12"] = kg.gradpsi_fact(a1, b1, *l1, f1, **kw)
+                        out[key + " B13"] = kg.gradpsi_fact_compact(a1, b1, *l1, s1, n1, **kw)
+                        out[key + " B14"] = kg.gradpsi_fused_fact(a1, b1, *l1, *sa1, **kw)
+    sync()
+    return {k: tuple(v.cpu() for v in vs) for k, vs in out.items()}
+
+
+def compare_run(out_path: str, with_bits: bool) -> None:
+    """One tree's numbers for --compare (``repro_torch`` is that tree's): the main
+    path's prints and its solver call's profile and peak memory; K2/K3/K5-K8
+    at the main path's last round boundary (CUDA events, median of 50, and
+    host enqueue: the mean of 100 calls in a row with no synchronize) and
+    with every tile live (median of 20); with ``with_bits``, compare_bits."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    import repro_torch.ot as ot
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import gradpsi as kg
+    from repro_torch.kernels import screen as ks
+
+    device = torch.device("cuda")
+    _build.build()
+    res = {"tree": os.path.dirname(os.path.dirname(os.path.dirname(repro_torch.__file__)))}
+    reg, problem = main_problem()
+    plan = ot.ExecutionPlan(grad_impl="pallas")
+    ops = Operands(problem, reg, device)
+    # the solver call first, while the card holds only the factorized operands
+    peak, per_eval, prof = profile_solver_call(MAIN_PATH, ops, problem, reg, device, plan)
+    pick = lambda name: sum(us for k, us, _ in prof["kernels"] if name in k) / 1e3
+    res["profile"] = {"peak_bytes": peak, "launches_per_eval": per_eval,
+                      "idle_share": 1.0 - prof["busy_s"] / prof["wall_s"],
+                      "K5 device ms": pick("gradpsi_grid_kernel"),
+                      "K6 device ms": pick("gradpsi_compact_kernel"),
+                      "slot epilogue device ms": pick("slot_reduce_kernel") + pick("slot_sum"),
+                      "fill device ms": pick("FillFunctor")}
+    ex = ot.compile(problem, plan, device=device)
+    ex.solve()                                        # warm-up
+    sol = ex.solve()
+    res["main_path"] = [sol.value, fingerprint(sol.plan),
+                        [fingerprint(sol.alpha), fingerprint(sol.beta)]]
+
+    def calls(a, b, flags, sched, nact, sargs, kw):
+        C, leaves = ops.pp.Cp, ops.fp.leaves()
+        return {K2: lambda: kg.gradpsi_batched(a, b, C, flags, **kw),
+                K3: lambda: kg.gradpsi_compact_batched(a, b, C, sched, nact, **kw),
+                K5: lambda: kg.gradpsi_fact_batched(a, b, *leaves, flags, **kw),
+                K6: lambda: kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw),
+                K7: lambda: kg.gradpsi_fused_batched(a, b, C, *sargs, **kw),
+                K8: lambda: kg.gradpsi_fused_fact_batched(a, b, *leaves, *sargs, **kw)}
+
+    st = final_state(sol, ops, reg, device)
+    del sol, ex                                       # the dense plan
+    final = calls(st["alphap"], st["betap"], st["flags"], st["sched"], st["nact"], st["sargs"],
+                  st["gkw"])
+    res["final_share"] = int(st["nact"]) / st["flags"].numel()
+    res["final_ms"] = {k: median_ms(f, 50) for k, f in final.items()}
+    res["final_host_us"] = {}
+    for k, f in final.items():
+        sync()
+        h0 = time.perf_counter()
+        for _ in range(100):
+            f()
+        res["final_host_us"][k] = (time.perf_counter() - h0) / 100 * 1e6
+        sync()
+    inp = kernel_inputs(np.random.default_rng(1), ops.pp.Cp, ops.fp.L_pad, float(reg.tau), 1.0,
+                        device)
+    sargs = screen_args(inp)
+    _, flags = ks.screen_batched(*sargs, tau=st["gkw"]["tau"], tile_l=TILE_L, tile_n=TILE_N,
+                                 emit_verdict=False)
+    sched, nact = kg.build_batch_tile_schedule(flags)
+    res["live_share"] = int(nact) / flags.numel()
+    res["live_ms"] = {k: median_ms(f, 20) for k, f in
+                      calls(inp["alpha"], inp["beta"], flags, sched, nact, sargs,
+                            st["gkw"]).items()}
+    torch.save({"res": res, "bits": compare_bits(device) if with_bits else None}, out_path)
+    print(json.dumps(res), flush=True)
+
+
+def compare(other: str, pairs: int) -> None:
+    """``pairs`` runs of each tree, one process each, in turns (other, this; this,
+    other; ...): bits must agree, times print as medians with their range."""
+    import statistics
+
+    import torch
+
+    os.makedirs(COMPARE_DIR, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    order = []
+    for k in range(pairs):
+        order += [other, HERE] if k % 2 == 0 else [HERE, other]
+    runs = {HERE: [], other: []}
+    bits = {}
+    for i, tree in enumerate(order):
+        out, log = (os.path.join(COMPARE_DIR, f"run{i}.{ext}") for ext in ("pt", "log"))
+        with open(log, "w") as fh:
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--compare-run",
+                                   os.path.join(tree, "src"), "--out", out]
+                                  + (["--bits"] if tree not in bits else []),
+                                  stdout=fh, stderr=subprocess.STDOUT, timeout=900)
+        check(proc.returncode == 0, f"--compare run {i} ({tree}) failed: see {log}")
+        got = torch.load(out)
+        if got["bits"] is not None:
+            bits[tree] = got["bits"]
+        runs[tree].append(got["res"])
+        print(f"run {i}: {got['res']['tree']}", flush=True)
+    a, b = runs[HERE], runs[other]
+    prints = {json.dumps(r["main_path"]) for r in a + b}
+    check(len(prints) == 1, f"the main path's prints differ between runs: {prints}")
+    keys = set(bits[HERE]) | set(bits[other])
+    bad = sorted(k for k in keys if k not in bits[HERE] or k not in bits[other] or not same(
+        bits[HERE][k], bits[other][k]))
+    check(not bad, f"{len(bad)} of {len(keys)} kernel cases differ: {bad[:20]}")
+    print(f"bits: {len(keys)} kernel cases and the main path's solve equal in both trees; "
+          f"main path {a[0]['main_path']}; final live share {a[0]['final_share']:.4f}",
+          flush=True)
+    span = lambda v: f"{statistics.median(v):.4f} [{min(v):.4f}, {max(v):.4f}]"
+    print(f"{pairs} runs of each tree: median [min, max]; ratio = this / other per pair "
+          f"(the k-th run of each)", flush=True)
+    for section in ("final_ms", "final_host_us", "live_ms", "profile"):
+        for k in a[0][section]:
+            va, vb = [r[section][k] for r in a], [r[section][k] for r in b]
+            ratio = [x / y for x, y in zip(va, vb) if y]
+            print(f"{section} {k:30s} this {span(va)}  other {span(vb)}  ratio "
+                  f"{span(ratio) if ratio else '-'}", flush=True)
+    for section, k, what in (("live_ms", K5, "K5 fully live"), ("final_ms", K6,
+                                                                "K6 at the final state")):
+        va, vb = [r[section][k] for r in a], [r[section][k] for r in b]
+        ma, mb = statistics.median(va), statistics.median(vb)
+        q = statistics.quantiles(vb, n=4)
+        halves = sum(x < 0.5 * y for x, y in zip(va, vb))
+        print(f"{what}: median {ma:.4f} ms vs {mb:.4f} ms, {ma / mb:.3f} of the other tree's "
+              f"({'under' if ma < 0.5 * mb else 'NOT under'} half); under half in {halves} of "
+              f"{len(va)} pairs; the other tree's quartiles {q[0]:.4f}-{q[2]:.4f} ms",
+              flush=True)
+
+
+def main() -> None:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Drive the port on one GPU and check it.")
+    ap.add_argument("--compare", metavar="DIR",
+                    help="instead: time this tree's gradient kernels against those of the "
+                         "checkout at DIR (e.g. the parent commit unpacked by git archive "
+                         "into _archive/parent), in turns, and hold their bits equal")
+    ap.add_argument("--pairs", type=int, default=10, help="runs of each tree (--compare)")
+    ap.add_argument("--compare-run", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
+    ap.add_argument("--bits", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        fail(f"{SRC}/repro_torch not found: run from a checkout of the repository")
-    sys.path.insert(0, SRC)
+    src = os.path.abspath(args.compare_run) if args.compare_run else SRC
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        fail(f"{src}/repro_torch not found: run from a checkout of the repository")
+    sys.path.insert(0, src)
+    if args.compare_run:
+        compare_run(args.out, args.bits)
+        return
+    if args.compare:
+        compare(os.path.abspath(args.compare), args.pairs)
+        return
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1747,14 +2022,7 @@ def main() -> None:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print(f"  {line.strip()}", flush=True)
 
-    from repro_torch.core.regularizers import GroupSparseReg
-    from repro_torch.data.pipeline import DomainPairConfig, make_domain_pair
-    from repro_torch.ot.problem import Problem
-
-    reg = GroupSparseReg.from_rho(0.1, 0.8)
-    Xs, ys, Xt, _ = make_domain_pair(DomainPairConfig(num_classes=1280, samples_per_class=10,
-                                                      seed=0))
-    problem = Problem.from_samples(Xs, ys, Xt, reg)
+    reg, problem = main_problem()
     t0 = time.perf_counter()
     mat_problem = problem.materialized(device=device)
     t_mat = time.perf_counter() - t0
@@ -1783,7 +2051,11 @@ def main() -> None:
     lap("phase 5")
     rows, st = phase_times(sols[MAIN_PATH], ops, reg, launches, device)
     phase_round_boundary(st, ops)
-    phase_density_times(ops, reg, device)
+    fully = phase_density_times(ops, reg, device)
+    for row in rows:                       # beside the final state, every tile live
+        if row["name"] in fully:
+            ms, bms, by, share = fully[row["name"]]
+            row.update(live_ms=ms, live_bound_ms=bms, live_bound_by=by, live_share=share)
     # 7. the solo oracle layer at the same state
     lap("phase 7")
     solo_rows = phase_solo(sols[MAIN_PATH], st, ops, problem, reg, device)

@@ -12,7 +12,9 @@ Flags: ``sm_90a``, ``-O3``, and no ``--use_fast_math``, so ``sqrtf`` and
 ``/`` are IEEE-rounded as in PyTorch's elementwise ops; ``screen.cu`` and
 ``snapshot.cu`` also get ``-fmad=false`` so their verdicts and norms are
 bit-identical to the plain versions.  The factorized cost (``cost.cuh``)
-rounds each step with ``__fmul_rn`` / ``__fadd_rn`` and so needs no flag.
+and the gradient body (``gradpsi.cu``) round each step with ``__fmul_rn``
+/ ``__fadd_rn`` / ``__fmaf_rn`` and so need no flag: which products are
+fused is written in the source, not left to the compiler.
 """
 from __future__ import annotations
 
@@ -60,13 +62,12 @@ SOURCES: Dict[str, List[str]] = {
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "screen_launch": [_P] * 12 + [_I] * 5 + [_P],
-    "gradpsi_grid_launch": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
-    "gradpsi_compact_launch": [_P] * 9 + [_I] * 7 + [_F, _F, _P],
-    "gradpsi_fact_grid_launch": [_P] * 11 + [_I] * 9 + [_F, _F, _P],
-    "gradpsi_fact_compact_launch": [_P] * 12 + [_I] * 9 + [_F, _F, _P],
-    "gradpsi_fused_launch": [_P] * 17 + [_I] * 7 + [_F, _F, _P],
-    "gradpsi_fused_fact_launch": [_P] * 20 + [_I] * 9 + [_F, _F, _P],
-    "slot_sum_launch": [_P, _P, _I, _I, _I, _P],
+    "gradpsi_grid_launch": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
+    "gradpsi_compact_launch": [_P, _I] + [_P] * 11 + [_I] * 7 + [_F, _F, _P],
+    "gradpsi_fact_grid_launch": [_P] * 14 + [_I] * 9 + [_F, _F, _P],
+    "gradpsi_fact_compact_launch": [_P, _I] + [_P] * 14 + [_I] * 9 + [_F, _F, _P],
+    "gradpsi_fused_launch": [_P] * 20 + [_I] * 7 + [_F, _F, _P],
+    "gradpsi_fused_fact_launch": [_P] * 23 + [_I] * 9 + [_F, _F, _P],
     "snapshot_fact_launch": [_P] * 10 + [_I] * 9 + [_P],
     "snapshot_dense_launch": [_P] * 7 + [_I] * 7 + [_P],
     "row_sum_launch": [_P, _P, _I, _I, _I, _P],
@@ -151,7 +152,13 @@ def check(err: int, what: str) -> None:
 
 
 def stream_handle(device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``."""
+    """The raw handle of PyTorch's current stream on ``device`` (a ``torch.device``).
+
+    Read through the raw accessor Triton's launcher uses, which skips
+    building a ``torch.cuda.Stream``: a kernel call's host time is most of
+    what a sparse evaluation costs.
+    """
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -38,6 +38,12 @@ over the slot axis turns into ``(rowsum (B, L_pad*g), colsum (B, n_pad),
 psi (B,))``.  Grid, compact and fused therefore agree bit for bit, on the
 card and in their plain versions, and the factorized kernels equal the
 dense ones on the cost materialized with :func:`factorized_cost_tile`.
+On the card the slots come from ``torch.empty``: only live tiles write
+theirs, and the reduction (``slot_reduce_kernel``, one launch) sums the
+live slots by the tile flags, which gives the bits of a sum over
+zero-filled slots.  So a call is two launches, the kernel and the
+reduction; the compact wrappers take the flags their schedule was built
+from as the keyword ``flags``.
 
 The cost operands (``C``, or ``x, x_sq, y, y_sq``) may be stored in
 float32 or bfloat16 (``precision='bf16'``); the kernels upcast each value
@@ -66,15 +72,32 @@ COMPACT_DENSITY_THRESHOLD = 0.5
 
 # -- tiling ------------------------------------------------------------------
 
-def cta_smem_bytes(tile_l: int, g: int, tile_n: int) -> int:
+# Widest d whose row of y a factorized CTA keeps in registers (FACT_REG_D in
+# gradpsi.cu); a wider d stages x and y through shared memory in chunks.
+FACT_REG_D = 2
+
+
+def record_floats(d=None) -> int:
+    """Floats of a tile row's record in shared memory (gradpsi.cu's loaders).
+
+    The dense cost and the chunked factorized loader keep the row's alpha;
+    the register loader (``d <= FACT_REG_D``) also x_sq and the row of x,
+    padded to one float4.
+    """
+    return 1 if d is None or d > FACT_REG_D else -(-(2 + d) // 4) * 4
+
+
+def cta_smem_bytes(tile_l: int, g: int, tile_n: int, d=None) -> int:
     """Dynamic shared memory of one gradient CTA (mirrors ``smem_bytes`` in gradpsi.cu).
 
-    The [f]_+ column buffer ``(g, tile_n)``, the warp partials of the row
-    sums ``(tile_l * g, nwarps)`` and the psi warp partials, in f32, with
-    ``nwarps`` the warps of ``tile_n`` threads rounded up to whole warps.
+    The row records ``(tile_l * g, record_floats(d))`` (``d=None``: the
+    dense cost), the warp partials of the row sums ``(tile_l * g, nwarps)``
+    and of psi ``(nwarps,)``, and the groups' tau_l and tau_l / gamma
+    ``(tile_l, 2)``, in f32, with ``nwarps`` the warps of ``tile_n``
+    threads rounded up to whole warps.  [f]_+ lives in registers.
     """
-    nwarps = -(-tile_n // 32)
-    return 4 * (g * tile_n + tile_l * g * nwarps + nwarps)
+    rows, nwarps = tile_l * g, -(-tile_n // 32)
+    return 4 * (rows * record_floats(d) + rows * nwarps + nwarps + 2 * tile_l)
 
 
 def pick_tile_l(g: int, tile_n: int) -> int:
@@ -123,12 +146,13 @@ def factorized_cost_tile(x: torch.Tensor, x_sq: torch.Tensor, y: torch.Tensor,
 
 
 def fact_smem_bytes(tile_l: int, g: int, tile_n: int, dc: int) -> int:
-    """Shared memory of one factorized gradient CTA (``gradpsi_fact_*_launch``).
+    """Shared memory of one factorized CTA on the chunked loader (``FactChunkTile``).
 
-    The dense CTA's buffers plus the x chunk ``(g, dc)``, the group's x_sq
-    ``(g,)`` and the y chunk ``(dc, tile_n)``.
+    The dense CTA's buffers plus the loader's: the inner products ``(g,
+    tile_n)``, the x chunk ``(g, dc)``, the group's x_sq ``(g,)`` and the y
+    chunk ``(dc, tile_n)``.  K4 stages the same chunks with less beside them.
     """
-    return cta_smem_bytes(tile_l, g, tile_n) + 4 * (g * dc + g + dc * tile_n)
+    return cta_smem_bytes(tile_l, g, tile_n) + 4 * (g * tile_n + g * dc + g + dc * tile_n)
 
 
 def d_chunk(tile_l: int, g: int, tile_n: int, d: int) -> int:
@@ -139,8 +163,19 @@ def d_chunk(tile_l: int, g: int, tile_n: int, d: int) -> int:
     return dc
 
 
+def fact_loader_dc(tile_l: int, g: int, tile_n: int, d: int) -> int:
+    """The ``dc`` argument of the factorized launches: 0 for the register loader
+    (``d <= FACT_REG_D`` and its records fit), else :func:`d_chunk`."""
+    if d <= FACT_REG_D and cta_smem_bytes(tile_l, g, tile_n, d) <= CTA_SMEM_BUDGET_BYTES:
+        return 0
+    return d_chunk(tile_l, g, tile_n, d)
+
+
 def tau_row(tau, L: int, device=None) -> torch.Tensor:
     """Normalize ``tau`` (scalar or per-group ``(L,)``) to an (L,) f32 tensor."""
+    if (isinstance(tau, torch.Tensor) and tau.dtype == torch.float32 and tau.shape == (L,)
+            and (device is None or tau.device == torch.device(device)) and tau.is_contiguous()):
+        return tau                                    # the solver's padded tau, as it is
     t = torch.as_tensor(tau, dtype=torch.float32, device=device)
     return t.expand(L).contiguous()
 
@@ -186,7 +221,7 @@ def _geometry(alpha, beta, cost_shape, tile_l, tile_n, num_groups, group_size):
     if L_pad % tile_l or n_pad % tile_n:
         raise ValueError(f"(L_pad={L_pad}, n_pad={n_pad}) not multiples of "
                          f"({tile_l}, {tile_n})")
-    if tuple(alpha.shape) != (B, L_pad * g) or tuple(cost_shape) != (B, L_pad * g, n_pad):
+    if alpha.shape != (B, L_pad * g) or tuple(cost_shape) != (B, L_pad * g, n_pad):
         raise ValueError(f"shapes alpha {tuple(alpha.shape)}, C {tuple(cost_shape)} do not "
                          f"match B={B}, L_pad*g={L_pad * g}, n_pad={n_pad}")
     return B, L_pad, g, n_pad, L_pad // tile_l, n_pad // tile_n
@@ -218,9 +253,13 @@ def gradpsi_batched_ref(alpha, beta, C, flags, *, num_groups, group_size, tau, g
 
 def _compact_ref(alpha, beta, tile_cost, sched, num_active, B, L_pad, g, n_pad, Lt, Nt, *,
                  tau, gamma, tile_l, tile_n):
-    """Walk the schedule's live tiles; ``tile_cost(bi, li, ji)`` gives their (S, TL, g, TN) cost."""
+    """Walk the schedule's live tiles; ``tile_cost(bi, li, ji)`` gives their (S, TL, g, TN) cost.
+
+    ``sched`` is (3, B*T), or at B = 1 a solo (2, T) schedule (b = 0).
+    """
     na = int(num_active)
-    bi, li, ji = (sched[r, :na].long() for r in range(3))
+    rows_ = [sched[r, :na].long() for r in range(sched.shape[0])]
+    bi, li, ji = ([torch.zeros_like(rows_[0])] if len(rows_) == 2 else []) + rows_
     tau_g = tau_row(tau, L_pad, alpha.device)
     a_t = alpha.reshape(B, Lt, tile_l, g)[bi, li]
     b_t = beta.reshape(B, Nt, tile_n)[bi, ji]
@@ -251,10 +290,10 @@ def gradpsi_compact_batched_ref(alpha, beta, C, sched, num_active, *, num_groups
 def _fact_geometry(alpha, beta, x, x_sq, y, y_sq, tile_l, tile_n, num_groups, group_size):
     B, n_pad = beta.shape
     m_pad, d = num_groups * group_size, x.shape[-1]
-    want = {"x": (B, m_pad, d), "x_sq": (B, m_pad), "y": (B, n_pad, d), "y_sq": (B, n_pad)}
-    for name, t in (("x", x), ("x_sq", x_sq), ("y", y), ("y_sq", y_sq)):
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"{name} {tuple(t.shape)} != {want[name]}")
+    for name, t, want in (("x", x, (B, m_pad, d)), ("x_sq", x_sq, (B, m_pad)),
+                          ("y", y, (B, n_pad, d)), ("y_sq", y_sq, (B, n_pad))):
+        if t.shape != want:
+            raise ValueError(f"{name} {tuple(t.shape)} != {want}")
     return _geometry(alpha, beta, (B, m_pad, n_pad), tile_l, tile_n, num_groups,
                      group_size) + (d,)
 
@@ -346,27 +385,32 @@ def _check_cuda_inputs(dev, floats, ints=(), costs=()):
     return COST_DTYPES[dtypes.pop()] if dtypes else COST_DTYPES[torch.float32]
 
 
-def _slots(B, Lt, Nt, L_pad, g, n_pad, device):
-    kw = dict(dtype=torch.float32, device=device)
-    return (torch.zeros((B, Nt, L_pad * g), **kw), torch.zeros((B, Lt, n_pad), **kw),
-            torch.zeros((B, Lt, Nt), **kw))
+def _launch(launch, what, B, L_pad, g, n_pad, tile_l, tile_n, device, launch_name):
+    """Call ``launch(ga, gb, ps, ro, co, po, st)``: the slots' and outputs' pointers, the stream.
 
-
-def _reduce_slots_cuda(ga_part, gb_part, psi_part):
-    """Fixed-order slot reduction on the card (``slot_sum_kernel``)."""
-    lib = _build.library()
-    stream = _build.stream_handle(ga_part.device)
-    B = ga_part.shape[0]
-
-    def slot_sum(part):
-        _, S, I = part.shape
-        out = torch.empty((B, I), dtype=torch.float32, device=part.device)
-        _build.check(lib.slot_sum_launch(part.data_ptr(), out.data_ptr(), B, S, I, stream),
-                     "slot_sum_launch")
-        return out
-
-    psi = slot_sum(slot_sum(psi_part).reshape(B, -1, 1)).reshape(B)
-    return slot_sum(ga_part), slot_sum(gb_part), psi
+    The C launch functions make two launches: the gradient kernel into
+    partial slots from one ``torch.empty`` (only live tiles write theirs),
+    then ``slot_reduce_kernel``, which sums the live tiles' slots (by the
+    flags, or the schedule for the compact kernels) in ascending slot order.
+    The buffer also holds the reduction's scratch, ``(B, Nt)`` floats, the
+    compact kernel's tile marks ``(B, Lt, Nt)`` int32 and a block counter
+    the gradient kernel zeroes.  Returns ``(rowsum (B, L_pad*g), colsum (B, n_pad), psi (B,))``.
+    """
+    m_pad, Lt, Nt = L_pad * g, L_pad // tile_l, n_pad // tile_n
+    n_ga, n_gb = B * Nt * m_pad, B * Lt * n_pad
+    # dropped on return: the caching allocator hands it out again only to work
+    # queued on this stream after the two launches
+    slots = torch.empty(n_ga + n_gb + 2 * B * Lt * Nt + B * Nt + 1, dtype=torch.float32,
+                        device=device)
+    out = torch.empty(B * (m_pad + n_pad + 1), dtype=torch.float32, device=device)
+    p, o = slots.data_ptr(), out.data_ptr()
+    _build.check(launch(p, p + 4 * n_ga, p + 4 * (n_ga + n_gb), o, o + 4 * B * m_pad,
+                        o + 4 * B * (m_pad + n_pad), _build.stream_handle(device)), what)
+    _build.record_launch(launch_name)
+    # three contiguous views of the one buffer (as_strided is the cheapest on the host)
+    return (out.as_strided((B, m_pad), (m_pad, 1)),
+            out.as_strided((B, n_pad), (n_pad, 1), B * m_pad),
+            out.as_strided((B,), (1,), B * (m_pad + n_pad)))
 
 
 def _check_tile_n(tile_n: int) -> None:
@@ -379,9 +423,14 @@ def _check_flags(flags, B, Lt, Nt):
         raise ValueError(f"flags {tuple(flags.shape)} != {(B, Lt, Nt)}")
 
 
-def _check_sched(sched, B, Lt, Nt):
-    if tuple(sched.shape) != (3, B * Lt * Nt):
+def _check_sched(sched, num_active, B, Lt, Nt):
+    """A (3, B*T) schedule, or at B = 1 a solo (2, T) one, and its one-element
+    live count."""
+    if sched.ndim != 2 or sched.shape[0] not in ((3, 2) if B == 1 else (3,)) \
+            or sched.shape[1] != B * Lt * Nt:
         raise ValueError(f"sched {tuple(sched.shape)} != {(3, B * Lt * Nt)}")
+    if num_active.numel() != 1:
+        raise ValueError(f"num_active {tuple(num_active.shape)}: one live-tile count")
 
 
 def _check_screen_operands(z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g, tau_g):
@@ -426,15 +475,13 @@ def gradpsi_batched(alpha, beta, C, flags, *, num_groups, group_size, tau, gamma
                               (("flags", flags),), (("C", C),))
     _check_flags(flags, B, Lt, Nt)
     _check_tile_n(tile_n)
-    ga_part, gb_part, psi_part = _slots(B, Lt, Nt, L_pad, g, n_pad, alpha.device)
-    err = _build.library().gradpsi_grid_launch(
-        flags.data_ptr(), alpha.data_ptr(), beta.data_ptr(), C.data_ptr(), tau_g.data_ptr(),
-        ga_part.data_ptr(), gb_part.data_ptr(), psi_part.data_ptr(),
-        B, L_pad, g, n_pad, tile_l, tile_n, code, float(gamma), float(1.0 / gamma),
-        _build.stream_handle(alpha.device))
-    _build.check(err, "gradpsi_grid_launch")
-    _build.record_launch(launch_name)
-    return _reduce_slots_cuda(ga_part, gb_part, psi_part)
+    lib = _build.library()
+    return _launch(
+        lambda ga, gb, ps, ro, co, po, st: lib.gradpsi_grid_launch(
+            flags.data_ptr(), alpha.data_ptr(), beta.data_ptr(), C.data_ptr(),
+            tau_g.data_ptr(), ga, gb, ps, ro, co, po, B, L_pad, g, n_pad, tile_l, tile_n, code,
+            float(gamma), float(1.0 / gamma), st),
+        "gradpsi_grid_launch", B, L_pad, g, n_pad, tile_l, tile_n, alpha.device, launch_name)
 
 
 def gradpsi_compact_batched(alpha, beta, C, sched, num_active, *, num_groups, group_size,
@@ -444,6 +491,8 @@ def gradpsi_compact_batched(alpha, beta, C, sched, num_active, *, num_groups, gr
 
     Returns ``(rowsum, colsum, psi, steps)``; ``steps`` is ``num_active``,
     the number of CTAs that did work (the JAX kernel's grid-step count).
+    The sums are those of the schedule's first ``num_active`` tiles, as in
+    the JAX kernel.  At B = 1 the schedule may be a solo (2, T) one.
     """
     if not alpha.is_cuda:
         out = gradpsi_compact_batched_ref(alpha, beta, C, sched, num_active,
@@ -453,20 +502,19 @@ def gradpsi_compact_batched(alpha, beta, C, sched, num_active, *, num_groups, gr
     B, L_pad, g, n_pad, Lt, Nt = _geometry(alpha, beta, C.shape, tile_l, tile_n,
                                            num_groups, group_size)
     tau_g = tau_row(tau, L_pad, alpha.device)
-    nact = num_active.reshape(1)
+    _check_sched(sched, num_active, B, Lt, Nt)
     code = _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta), ("tau", tau_g)),
-                              (("sched", sched), ("num_active", nact)), (("C", C),))
-    _check_sched(sched, B, Lt, Nt)
+                              (("sched", sched), ("num_active", num_active)), (("C", C),))
     _check_tile_n(tile_n)
-    ga_part, gb_part, psi_part = _slots(B, Lt, Nt, L_pad, g, n_pad, alpha.device)
-    err = _build.library().gradpsi_compact_launch(
-        sched.data_ptr(), nact.data_ptr(), alpha.data_ptr(), beta.data_ptr(), C.data_ptr(),
-        tau_g.data_ptr(), ga_part.data_ptr(), gb_part.data_ptr(), psi_part.data_ptr(),
-        B, L_pad, g, n_pad, tile_l, tile_n, code, float(gamma), float(1.0 / gamma),
-        _build.stream_handle(alpha.device))
-    _build.check(err, "gradpsi_compact_launch")
-    _build.record_launch(launch_name)
-    return _reduce_slots_cuda(ga_part, gb_part, psi_part) + (num_active,)
+    lib = _build.library()
+    return _launch(
+        lambda ga, gb, ps, ro, co, po, st: lib.gradpsi_compact_launch(
+            sched.data_ptr(), sched.shape[0], num_active.data_ptr(), alpha.data_ptr(),
+            beta.data_ptr(), C.data_ptr(), tau_g.data_ptr(),
+            ga, gb, ps, ro, co, po, B, L_pad, g, n_pad, tile_l, tile_n, code, float(gamma),
+            float(1.0 / gamma), st),
+        "gradpsi_compact_launch", B, L_pad, g, n_pad, tile_l, tile_n, alpha.device,
+        launch_name) + (num_active,)
 
 
 def _fact_cuda_checks(alpha, beta, x, x_sq, y, y_sq, tau_g, ints):
@@ -495,16 +543,16 @@ def gradpsi_fact_batched(alpha, beta, x, x_sq, y, y_sq, flags, *, num_groups, gr
     code = _fact_cuda_checks(alpha, beta, x, x_sq, y, y_sq, tau_g, (("flags", flags),))
     _check_flags(flags, B, Lt, Nt)
     _check_tile_n(tile_n)
-    ga_part, gb_part, psi_part = _slots(B, Lt, Nt, L_pad, g, n_pad, alpha.device)
-    err = _build.library().gradpsi_fact_grid_launch(
-        flags.data_ptr(), alpha.data_ptr(), beta.data_ptr(), x.data_ptr(), x_sq.data_ptr(),
-        y.data_ptr(), y_sq.data_ptr(), tau_g.data_ptr(), ga_part.data_ptr(),
-        gb_part.data_ptr(), psi_part.data_ptr(), B, L_pad, g, n_pad, d,
-        d_chunk(tile_l, g, tile_n, d), tile_l, tile_n, code, float(gamma),
-        float(1.0 / gamma), _build.stream_handle(alpha.device))
-    _build.check(err, "gradpsi_fact_grid_launch")
-    _build.record_launch(launch_name)
-    return _reduce_slots_cuda(ga_part, gb_part, psi_part)
+    lib = _build.library()
+    dc = fact_loader_dc(tile_l, g, tile_n, d)
+    return _launch(
+        lambda ga, gb, ps, ro, co, po, st: lib.gradpsi_fact_grid_launch(
+            flags.data_ptr(), alpha.data_ptr(), beta.data_ptr(), x.data_ptr(),
+            x_sq.data_ptr(), y.data_ptr(), y_sq.data_ptr(), tau_g.data_ptr(),
+            ga, gb, ps, ro, co, po, B, L_pad, g, n_pad, d, dc, tile_l, tile_n, code, float(gamma),
+            float(1.0 / gamma), st),
+        "gradpsi_fact_grid_launch", B, L_pad, g, n_pad, tile_l, tile_n, alpha.device,
+        launch_name)
 
 
 def gradpsi_fact_compact_batched(alpha, beta, x, x_sq, y, y_sq, sched, num_active, *,
@@ -519,21 +567,20 @@ def gradpsi_fact_compact_batched(alpha, beta, x, x_sq, y, y_sq, sched, num_activ
     B, L_pad, g, n_pad, Lt, Nt, d = _fact_geometry(alpha, beta, x, x_sq, y, y_sq, tile_l,
                                                    tile_n, num_groups, group_size)
     tau_g = tau_row(tau, L_pad, alpha.device)
-    nact = num_active.reshape(1)
+    _check_sched(sched, num_active, B, Lt, Nt)
     code = _fact_cuda_checks(alpha, beta, x, x_sq, y, y_sq, tau_g,
-                             (("sched", sched), ("num_active", nact)))
-    _check_sched(sched, B, Lt, Nt)
+                             (("sched", sched), ("num_active", num_active)))
     _check_tile_n(tile_n)
-    ga_part, gb_part, psi_part = _slots(B, Lt, Nt, L_pad, g, n_pad, alpha.device)
-    err = _build.library().gradpsi_fact_compact_launch(
-        sched.data_ptr(), nact.data_ptr(), alpha.data_ptr(), beta.data_ptr(), x.data_ptr(),
-        x_sq.data_ptr(), y.data_ptr(), y_sq.data_ptr(), tau_g.data_ptr(), ga_part.data_ptr(),
-        gb_part.data_ptr(), psi_part.data_ptr(), B, L_pad, g, n_pad, d,
-        d_chunk(tile_l, g, tile_n, d), tile_l, tile_n, code, float(gamma),
-        float(1.0 / gamma), _build.stream_handle(alpha.device))
-    _build.check(err, "gradpsi_fact_compact_launch")
-    _build.record_launch(launch_name)
-    return _reduce_slots_cuda(ga_part, gb_part, psi_part) + (num_active,)
+    lib = _build.library()
+    dc = fact_loader_dc(tile_l, g, tile_n, d)
+    return _launch(
+        lambda ga, gb, ps, ro, co, po, st: lib.gradpsi_fact_compact_launch(
+            sched.data_ptr(), sched.shape[0], num_active.data_ptr(), alpha.data_ptr(),
+            beta.data_ptr(), x.data_ptr(), x_sq.data_ptr(), y.data_ptr(),
+            y_sq.data_ptr(), tau_g.data_ptr(), ga, gb, ps, ro, co, po, B, L_pad, g, n_pad, d, dc,
+            tile_l, tile_n, code, float(gamma), float(1.0 / gamma), st),
+        "gradpsi_fact_compact_launch", B, L_pad, g, n_pad, tile_l, tile_n, alpha.device,
+        launch_name) + (num_active,)
 
 
 # -- K7 / K8: fused screen + gradient ------------------------------------------
@@ -598,15 +645,15 @@ def gradpsi_fused_batched(alpha, beta, C, z, k, o, act, da_plus, da_full, da_neg
     tau_g, flags = _fused_prelude(alpha, beta, screen, tau, tile_l, tile_n, Lt, Nt, L_pad)
     code = _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta)), (),
                               (("C", C),))
-    ga_part, gb_part, psi_part = _slots(B, Lt, Nt, L_pad, g, n_pad, alpha.device)
-    err = _build.library().gradpsi_fused_launch(
-        alpha.data_ptr(), beta.data_ptr(), C.data_ptr(), tau_g.data_ptr(),
-        *(t.data_ptr() for t in screen), flags.data_ptr(), ga_part.data_ptr(),
-        gb_part.data_ptr(), psi_part.data_ptr(), B, L_pad, g, n_pad, tile_l, tile_n, code,
-        float(gamma), float(1.0 / gamma), _build.stream_handle(alpha.device))
-    _build.check(err, "gradpsi_fused_launch")
-    _build.record_launch(launch_name)
-    return _reduce_slots_cuda(ga_part, gb_part, psi_part) + (flags,)
+    lib = _build.library()
+    ptrs = tuple(t.data_ptr() for t in screen)
+    return _launch(
+        lambda ga, gb, ps, ro, co, po, st: lib.gradpsi_fused_launch(
+            alpha.data_ptr(), beta.data_ptr(), C.data_ptr(), tau_g.data_ptr(), *ptrs,
+            flags.data_ptr(), ga, gb, ps, ro, co, po, B, L_pad, g, n_pad, tile_l, tile_n, code,
+            float(gamma), float(1.0 / gamma), st),
+        "gradpsi_fused_launch", B, L_pad, g, n_pad, tile_l, tile_n, alpha.device,
+        launch_name) + (flags,)
 
 
 def gradpsi_fused_fact_batched(alpha, beta, x, x_sq, y, y_sq, z, k, o, act, da_plus, da_full,
@@ -624,16 +671,17 @@ def gradpsi_fused_fact_batched(alpha, beta, x, x_sq, y, y_sq, z, k, o, act, da_p
                                                    tile_n, num_groups, group_size)
     tau_g, flags = _fused_prelude(alpha, beta, screen, tau, tile_l, tile_n, Lt, Nt, L_pad)
     code = _fact_cuda_checks(alpha, beta, x, x_sq, y, y_sq, tau_g, ())
-    ga_part, gb_part, psi_part = _slots(B, Lt, Nt, L_pad, g, n_pad, alpha.device)
-    err = _build.library().gradpsi_fused_fact_launch(
-        alpha.data_ptr(), beta.data_ptr(), x.data_ptr(), x_sq.data_ptr(), y.data_ptr(),
-        y_sq.data_ptr(), tau_g.data_ptr(), *(t.data_ptr() for t in screen), flags.data_ptr(),
-        ga_part.data_ptr(), gb_part.data_ptr(), psi_part.data_ptr(), B, L_pad, g, n_pad, d,
-        d_chunk(tile_l, g, tile_n, d), tile_l, tile_n, code, float(gamma),
-        float(1.0 / gamma), _build.stream_handle(alpha.device))
-    _build.check(err, "gradpsi_fused_fact_launch")
-    _build.record_launch(launch_name)
-    return _reduce_slots_cuda(ga_part, gb_part, psi_part) + (flags,)
+    lib = _build.library()
+    ptrs = tuple(t.data_ptr() for t in screen)
+    dc = fact_loader_dc(tile_l, g, tile_n, d)
+    return _launch(
+        lambda ga, gb, ps, ro, co, po, st: lib.gradpsi_fused_fact_launch(
+            alpha.data_ptr(), beta.data_ptr(), x.data_ptr(), x_sq.data_ptr(), y.data_ptr(),
+            y_sq.data_ptr(), tau_g.data_ptr(), *ptrs, flags.data_ptr(), ga, gb, ps, ro, co, po, B,
+            L_pad, g, n_pad, d, dc, tile_l, tile_n, code, float(gamma), float(1.0 / gamma),
+            st),
+        "gradpsi_fused_fact_launch", B, L_pad, g, n_pad, tile_l, tile_n, alpha.device,
+        launch_name) + (flags,)
 
 
 # -- solo wrappers: the batched kernels at B = 1 ---------------------------------
@@ -648,11 +696,6 @@ def build_tile_schedule(flags: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     """
     sched, num_active = build_batch_tile_schedule(flags[None])
     return sched[1:].contiguous(), num_active
-
-
-def _widen(sched: torch.Tensor) -> torch.Tensor:
-    """A solo ``(2, T)`` schedule as the batched kernels' ``(3, T)``, with b = 0."""
-    return torch.cat([torch.zeros_like(sched[:1]), sched]).contiguous()
 
 
 def _unbatch(out):
@@ -683,7 +726,7 @@ def gradpsi_compact(alpha, beta, C, sched, num_active, *, num_groups, group_size
     Returns ``(rowsum, colsum, psi, steps)`` as :func:`gradpsi_compact_batched`.
     """
     return _unbatch(gradpsi_compact_batched(
-        *_lift(alpha, beta, C), _widen(sched), num_active, num_groups=num_groups,
+        *_lift(alpha, beta, C), sched, num_active, num_groups=num_groups,
         group_size=group_size, tau=tau, gamma=gamma, tile_l=tile_l, tile_n=tile_n,
         launch_name="gradpsi_compact"))
 
@@ -705,7 +748,7 @@ def gradpsi_fact_compact(alpha, beta, x, x_sq, y, y_sq, sched, num_active, *, nu
                          group_size, tau, gamma, tile_l, tile_n=DEFAULT_TILE_N):
     """B13, replaces ``gradpsi_fact_pallas_compact``: K6 at B = 1 over a (2, T) schedule."""
     return _unbatch(gradpsi_fact_compact_batched(
-        *_lift(alpha, beta, x, x_sq, y, y_sq), _widen(sched), num_active,
+        *_lift(alpha, beta, x, x_sq, y, y_sq), sched, num_active,
         num_groups=num_groups, group_size=group_size, tau=tau, gamma=gamma, tile_l=tile_l,
         tile_n=tile_n, launch_name="gradpsi_fact_compact"))
 

@@ -37,7 +37,16 @@ Tolerances:
     rtol 2e-5, coordinate gradients atol 1e-5;
   * the stochastic solver at sgd_block_cols=4 (tile_n = 4): within 1e-3 of
     the exact value (the JAX tests' gate), fused == pallas and reruns
-    bitwise.
+    bitwise;
+  * K5 / K6 at any group size (1, 3, 16, 17, 33: one or more 16-row
+    register chunks), d (1, 2 in registers; 3 and 8, one chunk, and 64,
+    two chunks, on the chunked loader) and tile width (4, 20, 128): rtol
+    1e-5 / atol 1e-6 against their plain versions, bitwise K2 / K3 on the
+    materialized cost;
+  * every gradient call (K2, K3, K5-K8, B9-B14) is two device launches in
+    a profiler trace: its kernel and the slot reduction, no fill;
+  * K3 / K6 sum exactly their schedule's tiles, whatever the uninitialized
+    slots and marks held before: bitwise K2 / K5 on the schedule's flags.
 """
 import numpy as np
 import pytest
@@ -410,9 +419,10 @@ def test_kernels_take_any_tile_width(cuda_device, tile_n):
     for got, want in zip(k5, fref):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     same = lambda p, q: all(torch.equal(x, y) for x, y in zip(p, q))
-    assert same(tgp.gradpsi_compact_batched(alpha, beta, C, sched, nact, **kw)[:3], k2)
-    assert same(tgp.gradpsi_fact_compact_batched(alpha, beta, *leaves, sched, nact, **kw)[:3],
-                k5)
+    assert same(tgp.gradpsi_compact_batched(alpha, beta, C, sched, nact,
+                                            **kw)[:3], k2)
+    assert same(tgp.gradpsi_fact_compact_batched(alpha, beta, *leaves, sched, nact,
+                                                 **kw)[:3], k5)
     assert same(k5, k2)                           # the cost rebuilt with the same recipe
     # the fused kernels: K1's flags, and K2's / K5's sums on them
     _, f1 = tsc.screen_batched(*screen, tau=tau, tile_l=4, tile_n=tile_n, emit_verdict=False)
@@ -501,3 +511,145 @@ def test_stochastic_narrow_blocks_on_the_card(cuda_device):
     assert sols["pallas"].value == sols["fused"].value == again.value
     assert torch.equal(sols["pallas"].alpha, again.alpha)
     assert abs(sols["pallas"].value - exact.value) <= 1e-3
+
+
+# -- the register kernels and the two-launch epilogue ----------------------------
+
+def _device_launches(fn, want=2, tries=3):
+    """[(kernel or copy name, launches)] of one call of ``fn``, from torch.profiler.
+
+    A trace with fewer than ``want`` has lost a kernel record (the profiler
+    drops one now and then) and is taken again, up to ``tries`` times.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    keys = ("self_device_time_total", "self_cuda_time_total")
+    dev = lambda e: next((float(getattr(e, k)) for k in keys if hasattr(e, k)), 0.0)
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [(e.key, e.count) for e in prof.key_averages()
+                if (dev(e) > 0 or getattr(e, "device_type", None)
+                    == torch.autograd.DeviceType.CUDA)
+                and not e.key.startswith(("aten::", "cuda"))]
+        if sum(c for _, c in kern) >= want:
+            break
+    return kern
+
+
+def _two_launches(fn, kernel):
+    kern = _device_launches(fn)
+    assert sum(c for _, c in kern) == 2, kern
+    assert any(kernel in k for k, _ in kern) and any("slot_reduce_kernel" in k for k, _ in kern)
+    assert not any("Fill" in k or "slot_sum" in k for k, _ in kern), kern
+
+
+@pytest.mark.parametrize("tile_n", [4, 20, 128])
+@pytest.mark.parametrize("d", [1, 2, 3, 8, 64])
+@pytest.mark.parametrize("g", [1, 3, 16, 17, 33])
+def test_factorized_kernels_any_group_size_d_and_width(cuda_device, g, d, tile_n):
+    rng = np.random.default_rng(100 * g + 10 * d + tile_n)
+    B, L, n = 2, 16, 3 * tile_n
+    x = (rng.normal(size=(B, L * g, d)) * 0.5 / np.sqrt(d)).astype(np.float32)
+    y = (rng.normal(size=(B, n, d)) * 0.5 / np.sqrt(d)).astype(np.float32)
+    leaves = _to(cuda_device, x, (x * x).sum(-1), y, (y * y).sum(-1))
+    a, b = _to(cuda_device, rng.uniform(0.1, 0.7, (B, L * g)).astype(np.float32),
+               rng.uniform(0.1, 0.7, (B, n)).astype(np.float32))
+    flags = _to(cuda_device, (rng.random((B, 2, 3)) < 0.6).astype(np.int32))[0]
+    tau = torch.linspace(0.05, 0.3 * np.sqrt(g), L, device=cuda_device)
+    kw = dict(num_groups=L, group_size=g, tau=tau, gamma=0.5, tile_l=8, tile_n=tile_n)
+    assert tgp.fact_loader_dc(8, g, tile_n, d) == (0 if d <= tgp.FACT_REG_D else min(d, 32))
+    sched, nact = tgp.build_batch_tile_schedule(flags)
+    k5 = tgp.gradpsi_fact_batched(a, b, *leaves, flags, **kw)
+    k6 = tgp.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw)
+    for got, want in ((k5, tgp.gradpsi_fact_batched_ref(a, b, *leaves, flags, **kw)),
+                      (k6[:3], tgp.gradpsi_fact_compact_batched_ref(a, b, *leaves, sched, nact,
+                                                                    **kw))):
+        for x_, y_ in zip(got, want):
+            torch.testing.assert_close(x_, y_, rtol=1e-5, atol=1e-6)
+    C = tgp.factorized_cost_tile(*leaves)
+    k2 = tgp.gradpsi_batched(a, b, C, flags, **kw)
+    k3 = tgp.gradpsi_compact_batched(a, b, C, sched, nact, **kw)
+    for x5, x6, x2, x3 in zip(k5, k6[:3], k2, k3[:3]):
+        assert torch.equal(x5, x2) and torch.equal(x6, x3) and torch.equal(x5, x6)
+    assert bool(torch.any(k5[0] > 0)) and int(k6[3]) == int(flags.count_nonzero())
+    _two_launches(lambda: tgp.gradpsi_fact_batched(a, b, *leaves, flags, **kw),
+                  "gradpsi_grid_kernel")
+    _two_launches(lambda: tgp.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw),
+                  "gradpsi_compact_kernel")
+
+
+def test_every_gradient_call_is_two_launches(cuda_device):
+    """K2, K3, K5-K8 and the solo wrappers B9-B14: the kernel and the slot reduction."""
+    alpha, beta, leaves, screen, tau = _narrow_inputs(cuda_device, 13, 32)
+    C = tgp.factorized_cost_tile(*leaves)
+    kw = dict(num_groups=16, group_size=6, tau=tau, gamma=0.5, tile_l=4, tile_n=32)
+    _, flags = tsc.screen_batched(*screen, tau=tau, tile_l=4, tile_n=32, emit_verdict=False)
+    sched, nact = tgp.build_batch_tile_schedule(flags)
+    s1, n1 = tgp.build_tile_schedule(flags[0])
+    one = lambda ts_: [t[0] for t in ts_]
+    a1, b1, f1 = alpha[0], beta[0], flags[0]
+    calls = {
+        "K2": (lambda: tgp.gradpsi_batched(alpha, beta, C, flags, **kw), "grid"),
+        "K3": (lambda: tgp.gradpsi_compact_batched(alpha, beta, C, sched, nact,
+                                                   **kw), "compact"),
+        "K5": (lambda: tgp.gradpsi_fact_batched(alpha, beta, *leaves, flags, **kw), "grid"),
+        "K6": (lambda: tgp.gradpsi_fact_compact_batched(alpha, beta, *leaves, sched, nact,
+                                                        **kw), "compact"),
+        "K7": (lambda: tgp.gradpsi_fused_batched(alpha, beta, C, *screen, **kw), "fused"),
+        "K8": (lambda: tgp.gradpsi_fused_fact_batched(alpha, beta, *leaves, *screen, **kw),
+               "fused"),
+        "B9": (lambda: tgp.gradpsi(a1, b1, C[0], f1, **kw), "grid"),
+        "B10": (lambda: tgp.gradpsi_compact(a1, b1, C[0], s1, n1, **kw), "compact"),
+        "B11": (lambda: tgp.gradpsi_fused(a1, b1, C[0], *one(screen), **kw), "fused"),
+        "B12": (lambda: tgp.gradpsi_fact(a1, b1, *one(leaves), f1, **kw), "grid"),
+        "B13": (lambda: tgp.gradpsi_fact_compact(a1, b1, *one(leaves), s1, n1, **kw),
+                "compact"),
+        "B14": (lambda: tgp.gradpsi_fused_fact(a1, b1, *one(leaves), *one(screen), **kw),
+                "fused"),
+    }
+    for name, (fn, kind) in calls.items():
+        fn()                                      # the library is loaded, the shapes seen
+        _two_launches(fn, f"gradpsi_{kind}_kernel")
+
+
+@pytest.mark.parametrize("held", ["stale", "zeros", "ramp", "nan"])
+def test_compact_sums_its_schedule_whatever_the_slots_held(cuda_device, held):
+    """The slots and tile marks come from torch.empty: K3 / K6 must sum the
+    schedule's tiles alone, whether the memory held another call's slots and
+    marks, zeros, small integers (marks that name real schedule entries) or NaN."""
+    alpha, beta, leaves, screen, tau = _narrow_inputs(cuda_device, 14, 32)
+    C = tgp.factorized_cost_tile(*leaves)
+    kw = dict(num_groups=16, group_size=6, tau=tau, gamma=0.5, tile_l=4, tile_n=32)
+    B, Lt, Nt = 2, 4, 5
+    rng = np.random.default_rng(14)
+    every = torch.ones((B, Lt, Nt), dtype=torch.int32, device=cuda_device)
+    some = torch.from_numpy((rng.random((B, Lt, Nt)) < 0.3).astype(np.int32)).to(cuda_device)
+    assert 0 < int(some.count_nonzero()) < some.numel()
+    sched, nact = tgp.build_batch_tile_schedule(some)
+    s_all, n_all = tgp.build_batch_tile_schedule(every)
+    m_pad, n_pad = 16 * 6, Nt * 32
+    numel = B * Nt * m_pad + B * Lt * n_pad + 2 * B * Lt * Nt + B * Nt + 1   # _launch's slots
+    for compact, grid, cost in ((tgp.gradpsi_compact_batched, tgp.gradpsi_batched, (C,)),
+                                (tgp.gradpsi_fact_compact_batched, tgp.gradpsi_fact_batched,
+                                 leaves)):
+        want = grid(alpha, beta, *cost, some, **kw)
+        torch.cuda.synchronize()
+        if held == "stale":            # every tile's slots written, every tile marked
+            compact(alpha, beta, *cost, s_all, n_all, **kw)
+        else:                          # the allocator hands the same block out again
+            junk = torch.empty(numel, dtype=torch.float32, device=cuda_device)
+            if held == "nan":
+                junk.fill_(float("nan"))
+            elif held == "zeros":
+                junk.zero_()
+            else:
+                ramp = torch.arange(numel, device=cuda_device, dtype=torch.int32) % int(nact)
+                junk.view(torch.int32).copy_(ramp)
+            del junk
+        got = compact(alpha, beta, *cost, sched, nact, **kw)
+        for x, y in zip(got[:3], want):
+            assert torch.equal(x, y), held
+        assert int(got[3]) == int(some.count_nonzero())

@@ -193,9 +193,17 @@ def test_tiling_matches_jax_and_fits_shared_memory():
     for L, g in ((1280, 16), (4, 8), (6, 8), (3, 8), (5, 64)):
         assert tgp.resolve_tile_l(L, g, 128) == jgp.resolve_tile_l(L, g, 128, 4)
     assert tgp.resolve_tile_l(1280, 16, 128) == 8
+    # gradpsi.cu's smem_bytes: the row records (alpha; with the register loader
+    # also x_sq and x, padded to float4s), the row sums' and psi's warp
+    # partials, and each group's tau_l and tau_l / gamma
+    assert tgp.cta_smem_bytes(8, 16, 128) == 4 * (128 * 1 + 128 * 4 + 4 + 2 * 8)
+    assert tgp.cta_smem_bytes(8, 16, 128, d=2) == 4 * (128 * 4 + 128 * 4 + 4 + 2 * 8)
+    assert tgp.cta_smem_bytes(8, 16, 128, d=64) == tgp.cta_smem_bytes(8, 16, 128)
     assert tgp.cta_smem_bytes(8, 16, 128) <= tgp.CTA_SMEM_BUDGET_BYTES
-    # a group too large for 8 groups per CTA drops to a smaller tile
-    assert tgp.pick_tile_l(1024, 128) < 8
+    assert tgp.fact_loader_dc(8, 16, 128, 2) == 0 and tgp.fact_loader_dc(8, 16, 128, 64) == 32
+    # a group too large for 8 groups per CTA drops to a smaller tile that fits
+    t = tgp.pick_tile_l(2048, 128)
+    assert t < 8 and tgp.cta_smem_bytes(t, 2048, 128) <= tgp.CTA_SMEM_BUDGET_BYTES
     assert tgp.COMPACT_DENSITY_THRESHOLD == jgp.COMPACT_DENSITY_THRESHOLD
 
 
