@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py      # needs one CUDA card; takes five to six minutes
     python3 chip_smoke.py --compare _archive/parent [--pairs 10]
-                               # this tree's gradient kernels against another checkout's
+                               # this tree's kernels against another checkout's
 
 The main path is the default plan at the paper's largest scale:
 ``repro_torch.ot.compile(Problem.from_samples(...), ExecutionPlan(grad_impl=
@@ -27,8 +27,9 @@ Phases:
      its plain version, all deterministic across runs; then the bf16
      instantiations of K2-K8 on the bf16 cost forms, held to their plain
      versions as the f32 ones are; once more at d = 64 on a narrower
-     problem (the d-chunk loop, K8 == K5 there too); the row-sum kernel
-     against its plain version and across batch sizes;
+     problem (the d-chunk loop, K8 == K5 there too); the row-sum and
+     row-dot kernels against their plain versions and across batch sizes,
+     row_dot(a, b) bitwise row_sum(a * b), over row lengths 1 to 33280;
   4. end to end through ``repro_torch.ot``: the default plan (factorized)
      with grid / compact / auto, the dense route (``geometry='dense'``)
      with grid / compact / auto, the dense route on
@@ -52,8 +53,8 @@ Phases:
      ones, each with its peak device memory (must stay under the 1.05 GB
      dense cost) and a torch.profiler trace (device busy time, idle share,
      launches per evaluation, largest kernels; the main path's launches
-     per evaluation must stay 6 under the 205.8 they were while a
-     gradient call took 8 launches); the dense route's
+     per evaluation must stay under the 199.8 they were while each inner
+     product took a multiply and a row sum); the dense route's
      fused/auto solver call in f32 and bf16, peak memory.  The fused route's
      'auto' decides once per round at the snapshot point (as the JAX
      package does); at this scale it takes the two-launch compact branch in
@@ -92,7 +93,9 @@ Phases:
 Phase 3 also runs K2/K3/K5-K8 at tile_n 4, 20, 40 and 128 on a narrow
 problem, and phase 4 holds the main path's solve to the fingerprint it had
 before the kernels took any tile width.
-The second-to-last line is the kernel table as JSON (K1-K8, B9-B14), the last line
+The second-to-last line is the kernel table as JSON (K1-K8, B9-B14, and
+row_sum / row_dot, the solver's batch-invariant reductions, which stand in
+for XLA's reductions and have no TPU kernel), the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 from __future__ import annotations
@@ -130,9 +133,8 @@ MAIN_PATH_PRINTS = (0.02530081570148468, 4167098694829814692,
 # the smoke stops them here, which keeps every bitwise check among them
 BF16_FACT_ROUNDS = 12
 # Device launches per evaluation of the main path's solver call while every
-# gradient call zero-filled its slots (3 fills) and summed them with four
-# slot_sum launches: 8 launches a call where 2 now do (PERF.md)
-LAUNCHES_PER_EVAL_BEFORE = 205.8
+# inner product was a torch multiply and a row_sum launch (PERF.md)
+LAUNCHES_PER_EVAL_BEFORE = 199.8
 DENSE_PATH = "dense/auto"
 FUSED_PATH = "factorized/fused-auto"          # ExecutionPlan(grad_impl='fused')
 # 'auto' on the fused route decides once per round at the snapshot point;
@@ -142,7 +144,14 @@ FUSED_GRID_PATH = "factorized/fused-grid"
 FUSED_DENSE_GRID_PATH = "dense/fused-grid"
 PORT_KERNELS = ("screen_kernel", "gradpsi_grid_kernel", "gradpsi_compact_kernel",
                 "gradpsi_fused_kernel", "slot_reduce_kernel", "snapshot_kernel",
-                "row_sum_kernel")
+                "snapshot_reg_kernel", "row_reduce_kernel",
+                "row_sum_kernel")           # an older tree's name (--compare)
+# the solver's batch-invariant reductions (kernels/reduce.py): no TPU kernel,
+# they stand in for XLA's jnp.sum
+ROW_SUM, ROW_DOT = "row_sum", "row_dot"
+REDUCE_PATH = {ROW_SUM: "dense", ROW_DOT: MAIN_PATH}   # where each runs
+ROW_D = (1, 31, 32, 33, 4096, 4097, 12800, 20480, 33280)
+ROW_D_MAIN = 33280                 # the main path's L-BFGS vectors: m_pad + n
 SOURCES = {
     K1: ("src/repro_torch/kernels/csrc/screen.cu", "src/repro/kernels/screen.py:63"),
     K2: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:522"),
@@ -158,6 +167,8 @@ SOURCES = {
     B12: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:845"),
     B13: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:958"),
     B14: ("src/repro_torch/kernels/csrc/gradpsi.cu", "src/repro/kernels/gradpsi.py:1615"),
+    ROW_SUM: ("src/repro_torch/kernels/csrc/reduce.cu", "src/repro/core/dual.py:135"),
+    ROW_DOT: ("src/repro_torch/kernels/csrc/reduce.cu", "src/repro/core/lbfgs.py:111"),
 }
 
 
@@ -478,26 +489,90 @@ def phase_kernels_wide_d(device):
           f"{int(f1.count_nonzero()) / f1.numel():.3f}), K4 == plain bitwise", flush=True)
 
 
+def device_us_per_call(fn, calls: int = 50):
+    """(device us, device launches) per call of ``fn``, from a torch.profiler trace.
+
+    The profiler drops a kernel record now and then, so the time is the mean
+    of the launches recorded times their whole number per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    rows = [(e.key, device_us(e), e.count) for e in prof.key_averages()]
+    kernels = [r for r in rows if r[1] > 0 and not r[0].startswith(("aten::", "cuda"))]
+    n = sum(r[2] for r in kernels)
+    if n == 0:
+        return 0.0, 0.0
+    return sum(r[1] for r in kernels) / n * max(round(n / calls), 1), n / calls
+
+
 def phase_row_sum(device):
-    """The batch-invariant row-sum kernel against its plain version, and across batches."""
+    """The batch-invariant row sum and row inner product against their plain versions,
+    against each other (row_dot(a, b) bitwise row_sum(a * b)) and across batch
+    sizes, over row lengths 1 to 33280; then both timed on one L-BFGS vector of
+    the main path (D = 33280) beside torch.sum / torch.linalg.vecdot.  Returns
+    their kernel-table rows (launches filled in after phase 4)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import reduce as kr
 
     rng = np.random.default_rng(4)
-    worst = 0.0
-    for D in (16, 300, 4097, 33280):
+    worst = {ROW_SUM: 0.0, ROW_DOT: 0.0}
+    for D in sorted(set(ROW_D) | {16, 300}):
         x = torch.from_numpy(rng.normal(size=(3, D)).astype(np.float32)).to(device)
-        got = kr.row_sum(x)
-        check(torch.allclose(got, kr.row_sum_ref(x), rtol=1e-5, atol=1e-4),
-              f"row_sum off its plain version at D = {D}")
-        worst = max(worst, float((got - kr.row_sum_ref(x)).abs().max()))
+        y = torch.from_numpy(rng.normal(size=(3, D)).astype(np.float32)).to(device)
+        got = {ROW_SUM: kr.row_sum(x), ROW_DOT: kr.row_dot(x, y)}
+        plain = {ROW_SUM: kr.row_sum_ref(x), ROW_DOT: kr.row_dot_ref(x, y)}
+        for name in (ROW_SUM, ROW_DOT):
+            check(torch.allclose(got[name], plain[name], rtol=1e-5, atol=1e-4),
+                  f"{name} off its plain version at D = {D}")
+            worst[name] = max(worst[name], float((got[name] - plain[name]).abs().max()))
+        check(torch.equal(got[ROW_DOT], kr.row_sum(x * y)),
+              f"row_dot(a, b) not bitwise row_sum(a * b) at D = {D}")
         for i in range(3):
-            check(torch.equal(kr.row_sum(x[i:i + 1])[0], got[i]),
-                  f"row_sum not batch-invariant at D = {D}")
-    print(f"row_sum: within rtol 1e-5 / atol 1e-4 of torch.sum (max abs err {worst:.3e}); "
-          f"each row's bits the same alone and in a batch of 3", flush=True)
+            check(torch.equal(kr.row_sum(x[i:i + 1])[0], got[ROW_SUM][i])
+                  and torch.equal(kr.row_dot(x[i:i + 1], y[i:i + 1])[0], got[ROW_DOT][i]),
+                  f"row_sum / row_dot not batch-invariant at D = {D}")
+    print(f"row_sum, row_dot: within rtol 1e-5 / atol 1e-4 of their plain versions (max abs "
+          f"err {worst[ROW_SUM]:.3e}, {worst[ROW_DOT]:.3e}) for D in {ROW_D} and 16, 300; "
+          f"row_dot(a, b) == row_sum(a * b) bitwise; each row's bits the same alone and in a "
+          f"batch of 3", flush=True)
+
+    D = ROW_D_MAIN
+    x = torch.from_numpy(rng.normal(size=(1, D)).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.normal(size=(1, D)).astype(np.float32)).to(device)
+    cases = {
+        ROW_SUM: (lambda: kr.row_sum(x), lambda: kr.row_sum_ref(x),
+                  lambda: torch.sum(x, dim=-1), 4 * D + 4, D - 1,
+                  "within rtol 1e-5 / atol 1e-4 of torch.sum, D in 1..33280, batch-invariant"),
+        ROW_DOT: (lambda: kr.row_dot(x, y), lambda: kr.row_dot_ref(x, y),
+                  lambda: torch.linalg.vecdot(x, y), 8 * D + 4, 2 * D - 1,
+                  "bitwise row_sum(a * b), within rtol 1e-5 / atol 1e-4 of its plain version"),
+    }
+    rows = []
+    for name, (fn, plain, lib, nbytes, nops, what) in cases.items():
+        err = float((fn() - plain()).abs().max())
+        ms, plain_ms, lib_ms = median_ms(fn, 50), median_ms(plain, 50), median_ms(lib, 50)
+        dev_us, dev_launches = device_us_per_call(fn)
+        lib_us, lib_launches = device_us_per_call(lib)
+        bms, by = bound(nbytes, nops)
+        source, replaces = SOURCES[name]
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": 0, "launches_path": REDUCE_PATH[name], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": lib_ms, "device_us_per_call": dev_us,
+                     "device_launches_per_call": dev_launches, "library_device_us": lib_us,
+                     "check": what, "result": "pass"})
+        print(f"time {name} at (1, {D}): {ms:.4f} ms (CUDA events, wrapper included), device "
+              f"{dev_us:.2f} us in {dev_launches:.0f} launch(es) a call (profiler); bound "
+              f"{bms * 1e3:.3f} us by {by}; plain {plain_ms:.4f} ms; library {lib_ms:.4f} ms, "
+              f"device {lib_us:.2f} us in {lib_launches:.0f} launch(es)", flush=True)
+    return rows
 
 
 def phase_tile_widths(device):
@@ -738,7 +813,8 @@ def phase_end_to_end(problem, mat_problem, device):
               f"{sol.group_sparsity!r}, mean live-tile share "
               f"{'n/a' if share is None else f'{share:.6f}'}, max_memory_allocated "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches "
-              f"{ {k: v for k, v in launches[name].items() if k != 'row_sum'} }", flush=True)
+              f"{ {k: v for k, v in launches[name].items() if k not in REDUCE_PATH} }",
+              flush=True)
         check_path_launches(name, launches[name], sol)
         prints[name] = fingerprint(sol.plan)
         if name == MAIN_PATH:
@@ -892,11 +968,11 @@ def phase_memory_and_profile(ops, problem, reg, device):
     _, per_eval, _ = profile_solver_call(MAIN_PATH, ops, problem, reg, device,
                                          P(grad_impl="pallas"))
     print(f"launches per evaluation on {MAIN_PATH}: {per_eval:.1f} (two per gradient call, the "
-          f"kernel and the slot reduction; {LAUNCHES_PER_EVAL_BEFORE} with zero-filled slots "
-          f"and four slot_sum launches per call, PERF.md)", flush=True)
-    check(per_eval <= LAUNCHES_PER_EVAL_BEFORE - 5.8,
-          f"{MAIN_PATH}: {per_eval:.1f} device launches per evaluation, above "
-          f"{LAUNCHES_PER_EVAL_BEFORE - 5.8:.1f}: a gradient call takes more than two")
+          f"kernel and the slot reduction, one per inner product; {LAUNCHES_PER_EVAL_BEFORE} "
+          f"with a multiply and a row sum per inner product, PERF.md)", flush=True)
+    check(per_eval < LAUNCHES_PER_EVAL_BEFORE,
+          f"{MAIN_PATH}: {per_eval:.1f} device launches per evaluation, not below "
+          f"{LAUNCHES_PER_EVAL_BEFORE}: an inner product takes more than one launch")
     profile_solver_call(FUSED_PATH, ops, problem, reg, device, P(grad_impl="fused"))
     profile_solver_call(FUSED_GRID_PATH, ops, problem, reg, device,
                         P(grad_impl="fused", pallas_impl="grid"))
@@ -1001,11 +1077,14 @@ def gradient_f64_with_bound(alpha, beta, C, sched, num_active, *, num_groups, gr
     return tuple(vals), tuple(bounds)
 
 
-def kernel_work(pp, d, live, T):
+def kernel_work(pp, d, live, T, real_rows=None):
     """{kernel: (bytes, fp32 operations)} these inputs need: every input read once,
-    every output written once, the live tiles' work (``live`` of ``T`` tiles)."""
+    every output written once, the live tiles' work (``live`` of ``T`` tiles);
+    K4's only on the ``real_rows`` rows that are not padding (all when None):
+    a padded row adds nothing to its group's norms."""
     E = pp.L_pad * pp.n_pad                               # bound-matrix entries
     m_pad = pp.L_pad * pp.g
+    real = m_pad if real_rows is None else real_rows
     tile_bytes = pp.tile_l * pp.g * pp.tile_n * 4
     tile_entries = pp.tile_l * pp.g * pp.tile_n
     sample_bytes = (pp.tile_l * pp.g + pp.tile_n) * (d + 1) * 4
@@ -1014,8 +1093,8 @@ def kernel_work(pp, d, live, T):
         K1: (13 * E + 4 * (4 * pp.L_pad + pp.n_pad + pp.L_pad) + 4 * T, 14 * E),
         K2: (live * tile_bytes + vec_bytes + 4 * T, 9 * live * tile_entries),
         K3: (live * tile_bytes + vec_bytes + 12 * live + 4, 9 * live * tile_entries),
-        K4: (4 * (m_pad + pp.n_pad) * (d + 2) + m_pad + 12 * E,
-             m_pad * pp.n_pad * snapshot_ops_per_entry(d) + 3 * E),
+        K4: (4 * (real + pp.n_pad) * (d + 2) + m_pad + 12 * E,
+             real * pp.n_pad * snapshot_ops_per_entry(d) + 3 * E),
         K5: (live * sample_bytes + vec_bytes + 4 * T,
              fact_ops_per_entry(d) * live * tile_entries),
         K6: (live * sample_bytes + vec_bytes + 12 * live + 4,
@@ -1136,12 +1215,13 @@ def phase_times(sol, ops, reg, launches, device):
             "them",
     }
 
-    work = kernel_work(pp, fp.d, live, T)
+    work = kernel_work(pp, fp.d, live, T, int(torch.count_nonzero(ops.mask)))
     rows = []
     for name in KERNELS:
         fn, plain = fns[name]
         err, rel = max_errs(*out[name])
         ms = median_ms(fn, 50)
+        dev_us = device_us_per_call(fn, 20)[0] if name == K4 else None
         plain_ms = median_ms(plain, 5, warmup=1)
         nbytes, nops = work[name]
         bms, by = bound(nbytes, nops)
@@ -1154,6 +1234,9 @@ def phase_times(sol, ops, reg, launches, device):
                      "bound_ms": bms, "bound_by": by, "library_ms": None,
                      "check": checks[name], "result": "pass" if ok[name] else "fail",
                      "err_over_bound": {K2: q2, K3: q3}.get(name)})
+        if dev_us is not None:            # a long kernel: its own time beside the call's
+            rows[-1]["device_us_per_call"] = dev_us
+            print(f"device time {name}: {dev_us:.2f} us a call (profiler, 20 calls)", flush=True)
         print(f"time {name}: {ms:.4f} ms (bound {bms:.4f} ms by {by}, {nbytes} B, {nops} "
               f"flops), plain {plain_ms:.4f} ms, live share {share:.6f}; {checks[name]}: "
               f"{'pass' if ok[name] else 'FAIL'} (max abs err {err:.3e}, max rel err "
@@ -1553,7 +1636,7 @@ def phase_train(problem, reg, device):
               f"1e-3 * {mass:.3e}")
         check(peak < dense_bytes, f"forward + backward peaked at {peak} B, not below the "
               f"{dense_bytes} B of the dense cost")
-        kernels_run = {k: c for k, c in launches.items() if k != "row_sum"}
+        kernels_run = {k: c for k, c in launches.items() if k not in REDUCE_PATH}
         check(launches.get(K1, 0) > 0 and launches.get(K4, 0) > 0
               and (launches.get(K5, 0) + launches.get(K6, 0) + launches.get(K8, 0)) > 0,
               f"layer ({gi}) forward did not run K1, K4 and a factorized gradient kernel: "
@@ -1839,12 +1922,28 @@ def compare_bits(device):
     return {k: tuple(v.cpu() for v in vs) for k, vs in out.items()}
 
 
+def reduce_calls(kr, device, rng, shape):
+    """{row_sum, row_dot: call} on seeded f32 rows of ``shape``; a tree without
+    row_dot takes its callers' former form, a multiply and row_sum."""
+    import numpy as np
+    import torch
+
+    t = lambda v: torch.from_numpy(v.astype(np.float32)).to(device)
+    x = t(rng.normal(size=shape) * 10.0 ** rng.integers(-3, 3, shape))
+    y = t(rng.normal(size=shape))
+    dot = getattr(kr, "row_dot", lambda a, b: kr.row_sum(a * b))
+    return {ROW_SUM: lambda: kr.row_sum(x), ROW_DOT: lambda: dot(x, y)}
+
+
 def compare_run(out_path: str, with_bits: bool) -> None:
     """One tree's numbers for --compare (``repro_torch`` is that tree's): the main
     path's prints and its solver call's profile and peak memory; K2/K3/K5-K8
-    at the main path's last round boundary (CUDA events, median of 50, and
-    host enqueue: the mean of 100 calls in a row with no synchronize) and
-    with every tile live (median of 20); with ``with_bits``, compare_bits."""
+    and K4 at the main path's last round boundary, and row_sum / row_dot on
+    one of its L-BFGS vectors (CUDA events, median of 50, and host enqueue:
+    the mean of 100 calls in a row with no synchronize; row_sum / row_dot also
+    their device us per call, profiled); K2/K3/K5-K8 with every tile live
+    (median of 20); with ``with_bits``, compare_bits, K4's outputs at the final
+    state and the row sums over ROW_D."""
     import numpy as np
     import torch
 
@@ -1852,6 +1951,7 @@ def compare_run(out_path: str, with_bits: bool) -> None:
     import repro_torch.ot as ot
     from repro_torch.kernels import _build
     from repro_torch.kernels import gradpsi as kg
+    from repro_torch.kernels import reduce as kr
     from repro_torch.kernels import screen as ks
 
     device = torch.device("cuda")
@@ -1868,7 +1968,12 @@ def compare_run(out_path: str, with_bits: bool) -> None:
                       "K5 device ms": pick("gradpsi_grid_kernel"),
                       "K6 device ms": pick("gradpsi_compact_kernel"),
                       "slot epilogue device ms": pick("slot_reduce_kernel") + pick("slot_sum"),
-                      "fill device ms": pick("FillFunctor")}
+                      "fill device ms": pick("FillFunctor"),
+                      "row reductions device ms": pick("row_sum_kernel")
+                      + pick("row_reduce_kernel"),
+                      "multiplies device ms": pick("MulFunctor"),
+                      "K4 device ms": pick("snapshot_kernel") + pick("snapshot_reg_kernel"),
+                      "device launches": per_eval * prof["n_evals"]}
     ex = ot.compile(problem, plan, device=device)
     ex.solve()                                        # warm-up
     sol = ex.solve()
@@ -1888,6 +1993,21 @@ def compare_run(out_path: str, with_bits: bool) -> None:
     del sol, ex                                       # the dense plan
     final = calls(st["alphap"], st["betap"], st["flags"], st["sched"], st["nact"], st["sargs"],
                   st["gkw"])
+    k4kw = dict(num_groups=ops.fp.L_pad, group_size=ops.fp.g, tile_l=ops.fp.tile_l,
+                tile_n=ops.fp.tile_n)
+    final[K4] = lambda: ks.snapshot_norms_fact_batched(st["alphap"], st["betap"],
+                                                       *ops.fp.leaves(), ops.mask, **k4kw)
+    rows = reduce_calls(kr, device, np.random.default_rng(5), (1, ROW_D_MAIN))
+    final.update(rows)
+    res["device_us"] = {k: device_us_per_call(f)[0] for k, f in rows.items()}
+    res["device_us"][K4] = device_us_per_call(final[K4], 20)[0]
+    bits = None
+    if with_bits:
+        bits = {"K4 final state": tuple(v.cpu() for v in final[K4]())}
+        rng = np.random.default_rng(6)
+        for D in ROW_D:
+            for name, f in reduce_calls(kr, device, rng, (3, D)).items():
+                bits[f"{name} D{D}"] = (f().cpu(),)
     res["final_share"] = int(st["nact"]) / st["flags"].numel()
     res["final_ms"] = {k: median_ms(f, 50) for k, f in final.items()}
     res["final_host_us"] = {}
@@ -1908,7 +2028,9 @@ def compare_run(out_path: str, with_bits: bool) -> None:
     res["live_ms"] = {k: median_ms(f, 20) for k, f in
                       calls(inp["alpha"], inp["beta"], flags, sched, nact, sargs,
                             st["gkw"]).items()}
-    torch.save({"res": res, "bits": compare_bits(device) if with_bits else None}, out_path)
+    if with_bits:
+        bits.update(compare_bits(device))
+    torch.save({"res": res, "bits": bits}, out_path)
     print(json.dumps(res), flush=True)
 
 
@@ -1948,28 +2070,30 @@ def compare(other: str, pairs: int) -> None:
     bad = sorted(k for k in keys if k not in bits[HERE] or k not in bits[other] or not same(
         bits[HERE][k], bits[other][k]))
     check(not bad, f"{len(bad)} of {len(keys)} kernel cases differ: {bad[:20]}")
-    print(f"bits: {len(keys)} kernel cases and the main path's solve equal in both trees; "
+    print(f"bits: {len(keys)} kernel cases (gradient kernels, K4 at the final state, row sums "
+          f"and inner products over D in {ROW_D}) and the main path's solve equal in both trees; "
           f"main path {a[0]['main_path']}; final live share {a[0]['final_share']:.4f}",
           flush=True)
     span = lambda v: f"{statistics.median(v):.4f} [{min(v):.4f}, {max(v):.4f}]"
     print(f"{pairs} runs of each tree: median [min, max]; ratio = this / other per pair "
           f"(the k-th run of each)", flush=True)
-    for section in ("final_ms", "final_host_us", "live_ms", "profile"):
+    for section in ("final_ms", "final_host_us", "device_us", "live_ms", "profile"):
         for k in a[0][section]:
             va, vb = [r[section][k] for r in a], [r[section][k] for r in b]
             ratio = [x / y for x, y in zip(va, vb) if y]
             print(f"{section} {k:30s} this {span(va)}  other {span(vb)}  ratio "
                   f"{span(ratio) if ratio else '-'}", flush=True)
-    for section, k, what in (("live_ms", K5, "K5 fully live"), ("final_ms", K6,
-                                                                "K6 at the final state")):
+    for section, k, what, unit in (("final_ms", K4, "K4 at the final state", "ms"),
+                                   ("device_us", K4, "K4's device time a call", "us"),
+                                   ("device_us", ROW_DOT, "row_dot's device time a call", "us")):
         va, vb = [r[section][k] for r in a], [r[section][k] for r in b]
         ma, mb = statistics.median(va), statistics.median(vb)
-        q = statistics.quantiles(vb, n=4)
+        q = statistics.quantiles(vb, n=4) if len(vb) > 1 else vb * 3
         halves = sum(x < 0.5 * y for x, y in zip(va, vb))
-        print(f"{what}: median {ma:.4f} ms vs {mb:.4f} ms, {ma / mb:.3f} of the other tree's "
-              f"({'under' if ma < 0.5 * mb else 'NOT under'} half); under half in {halves} of "
-              f"{len(va)} pairs; the other tree's quartiles {q[0]:.4f}-{q[2]:.4f} ms",
-              flush=True)
+        print(f"{what}: median {ma:.4f} {unit} vs {mb:.4f} {unit}, {ma / mb:.3f} of the other "
+              f"tree's ({'under' if ma < 0.5 * mb else 'NOT under'} half); under half in "
+              f"{halves} of {len(va)} pairs; the other tree's quartiles {q[0]:.4f}-{q[2]:.4f} "
+              f"{unit}", flush=True)
 
 
 def main() -> None:
@@ -2039,7 +2163,7 @@ def main() -> None:
     lap("phase 3")
     phase_kernels(ops, reg, device)
     phase_kernels_wide_d(device)
-    phase_row_sum(device)
+    reduce_rows = phase_row_sum(device)
     phase_tile_widths(device)
     ops.drop_dense()
     # 4. the solver calls alone (memory, profile), then every path end to end
@@ -2050,6 +2174,9 @@ def main() -> None:
     # 5. checks and times at the main path's final state
     lap("phase 5")
     rows, st = phase_times(sols[MAIN_PATH], ops, reg, launches, device)
+    for row in reduce_rows:
+        row["launches"] = launches[row["launches_path"]].get(row["name"], 0)
+        check(row["launches"] > 0, f"{row['name']} was not launched on {row['launches_path']}")
     phase_round_boundary(st, ops)
     fully = phase_density_times(ops, reg, device)
     for row in rows:                       # beside the final state, every tile live
@@ -2073,7 +2200,7 @@ def main() -> None:
         if row["name"] == B12:          # the layer's grad_refine path runs it
             row["launches"] = refine_launches[B12]
             row["launches_path"] = "layer from_samples, grad_refine=20"
-    rows += solo_rows
+    rows += solo_rows + reduce_rows
 
     print(f"{smi_line}; smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -6,7 +6,8 @@ Counterpart of ``repro.core.dual``.  Every function is batch-polymorphic:
 inputs may carry leading batch dims and all reductions run over trailing
 axes, so a solo call and a batched call run the same per-problem
 reductions.  This is plain PyTorch, as the JAX module is plain XLA; the
-value's sums go through the batch-invariant ``kernels.reduce.row_sum``.
+value's sums go through the batch-invariant ``kernels.reduce.row_sum`` /
+``row_dot``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.regularizers import Regularizer
-from repro_torch.kernels.reduce import row_sum
+from repro_torch.kernels.reduce import row_dot, row_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,8 +86,8 @@ def dual_value_and_grad(
     if zero_mask is not None:
         psi = torch.where(zero_mask, zero, psi)
     value = (
-        row_sum(alpha * a)
-        + row_sum(beta * b)
+        row_dot(alpha, a)
+        + row_dot(beta, b)
         - row_sum(psi.reshape(psi.shape[:-2] + (-1,)))
     )
     grad_alpha = a - torch.sum(T, dim=-1)

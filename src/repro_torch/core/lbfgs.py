@@ -24,7 +24,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels.reduce import row_sum
+from repro_torch.kernels.reduce import row_dot
 
 # Consecutive steps within ftol that end a solve.
 FLAT_STEPS = 2
@@ -72,10 +72,10 @@ def where_state(mask: torch.Tensor, new: LbfgsState, old: LbfgsState) -> LbfgsSt
 def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched inner product (B, d), (B, d) -> (B,), one reduction form everywhere.
 
-    :func:`~repro_torch.kernels.reduce.row_sum` keeps each problem's bits
+    :func:`~repro_torch.kernels.reduce.row_dot` keeps each problem's bits
     independent of B on the card.
     """
-    return row_sum(a * b)
+    return row_dot(a, b)
 
 
 def _take(H: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

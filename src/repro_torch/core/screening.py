@@ -19,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.reduce import row_sum
+from repro_torch.kernels.reduce import row_dot
 
 ZERO, CHECK, ACTIVE = 0, 1, 2
 
@@ -71,7 +71,7 @@ def init_state(
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
     """||x||_2 over the last axis, as ``sqrt(sum(x*x))`` (the JAX form), batch-invariant."""
-    return torch.sqrt(row_sum(x * x))
+    return torch.sqrt(row_dot(x, x))
 
 
 def grouped_norms(x: torch.Tensor, L: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -25,7 +25,7 @@ Batching: every tensor carries a leading problem axis B; :func:`solve_dual`
 is the B = 1 slice of :func:`solve_dual_batch` and runs the same op
 sequence.  A problem solved solo and inside a batch gives the same bits:
 the kernels write per-problem slots, and every per-problem sum outside
-them goes through the batch-invariant ``kernels.reduce.row_sum``.
+them goes through the batch-invariant ``kernels.reduce.row_sum`` / ``row_dot``.
 """
 from __future__ import annotations
 

@@ -11,10 +11,11 @@ Each kernel wrapper also counts its launches here (:func:`record_launch`).
 Flags: ``sm_90a``, ``-O3``, and no ``--use_fast_math``, so ``sqrtf`` and
 ``/`` are IEEE-rounded as in PyTorch's elementwise ops; ``screen.cu`` and
 ``snapshot.cu`` also get ``-fmad=false`` so their verdicts and norms are
-bit-identical to the plain versions.  The factorized cost (``cost.cuh``)
-and the gradient body (``gradpsi.cu``) round each step with ``__fmul_rn``
-/ ``__fadd_rn`` / ``__fmaf_rn`` and so need no flag: which products are
-fused is written in the source, not left to the compiler.
+bit-identical to the plain versions.  The factorized cost (``cost.cuh``),
+the snapshot norms, the gradient body (``gradpsi.cu``) and the row
+reductions (``reduce.cu``) round each step with ``__fmul_rn`` /
+``__fadd_rn`` / ``__fmaf_rn`` / ``__fsqrt_rn`` and so need no flag: which
+products are fused is written in the source, not left to the compiler.
 """
 from __future__ import annotations
 
@@ -71,6 +72,7 @@ SIGNATURES = {
     "snapshot_fact_launch": [_P] * 10 + [_I] * 9 + [_P],
     "snapshot_dense_launch": [_P] * 7 + [_I] * 7 + [_P],
     "row_sum_launch": [_P, _P, _I, _I, _I, _P],
+    "row_dot_launch": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -33,6 +33,11 @@
 // stages the g rows of x and the tile's tile_n rows of y (y only once when
 // d <= dc) and accumulates each thread's g inner products in `acc`
 // (g, tile_n), one column per thread.
+//
+// FactRegTile, for d <= FACT_REG_D (the paper's d = 2), keeps the thread's
+// y_j and y_sq_j in registers and reads each row as one record (x_sq,
+// alpha, x_0 .. x_{d-1}) in shared memory: no barrier per group.  The
+// gradient kernels (gradpsi.cu) and K4 (snapshot.cu) share its layout.
 #pragma once
 
 #include <cstddef>
@@ -47,6 +52,9 @@ static __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloa
 // Storage codes of the launch functions' `cost_dtype` argument.
 constexpr int STORE_F32 = 0;
 constexpr int STORE_BF16 = 1;
+
+// Widest d whose row of y a thread keeps in registers (FactRegTile).
+constexpr int FACT_REG_D = 2;
 
 template <class T>
 struct Store {
@@ -160,8 +168,87 @@ struct FactCost {
   }
 };
 
+// The factorized cost for d <= FACT_REG_D: a record is (x_sq, alpha, x_0
+// .. x_{d-1}), padded to one float4, read by one broadcast vector load;
+// y_j and y_sq_j live in registers.  The recipe of `factorized_cost_tile`,
+// op for op:
+//   xy = x_0 y_0;  xy = xy + x_k y_k (k = 1 .. d-1);  c = max((x_sq + y_sq) - 2 xy, 0).
+// The gradient kernels' tile-loader interface (gradpsi.cu): `begin` for a
+// column, `stage` for a tile's rows, `at` per entry; `record` writes one
+// row's record (K4 stages only the rows it sums).
+template <class T>
+struct FactRegTile {
+  static constexpr int DR = FACT_REG_D;
+  static constexpr int NQ = (DR + 2 + 3) / 4;   // float4s of a record
+  static constexpr int STRIDE = 4 * NQ;         // floats of a record: 4
+  const T* x;           // (B, m_pad, d)
+  const T* x_sq;        // (B, m_pad)
+  const T* y;           // (B, n_pad, d)
+  const T* y_sq;        // (B, n_pad)
+  size_t m_pad;
+  int n_pad, d;
+  const T *xb, *xsqb;
+  float yr[DR];
+  float ysq;
+
+  __device__ __forceinline__ void setup(float*) {}
+
+  __device__ __forceinline__ void begin(int b, int, int j, bool col) {
+    xb = x + (size_t)b * m_pad * d;
+    xsqb = x_sq + (size_t)b * m_pad;
+    const T* yj = y + ((size_t)b * n_pad + j) * d;
+#pragma unroll
+    for (int k = 0; k < DR; ++k) yr[k] = (col && k < d) ? to_f32(yj[k]) : 0.0f;
+    ysq = col ? to_f32(y_sq[(size_t)b * n_pad + j]) : 0.0f;
+  }
+
+  __device__ __forceinline__ void stage(float* rec, const float* alpha_rows, size_t row_base,
+                                        int rows) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    for (int q = tid; q < rows; q += nt) {
+      rec[q * STRIDE] = to_f32(xsqb[row_base + q]);
+      rec[q * STRIDE + 1] = alpha_rows[q];
+    }
+    const T* xr = xb + row_base * d;
+    for (int e = tid; e < rows * d; e += nt) {
+      const int q = e / d;
+      rec[q * STRIDE + 2 + (e - q * d)] = to_f32(xr[e]);
+    }
+  }
+
+  // The record of row `row` of the problem `begin` named, with alpha `a`.
+  __device__ __forceinline__ void record(float* rec, size_t row, float a) const {
+    rec[0] = to_f32(xsqb[row]);
+    rec[1] = a;
+#pragma unroll
+    for (int k = 0; k < DR; ++k)
+      if (k < d) rec[2 + k] = to_f32(xb[row * d + k]);
+  }
+
+  __device__ __forceinline__ void load_group(size_t, bool) {}
+
+  __device__ __forceinline__ float at(const float* rec, size_t, int, float& a) const {
+    float r[4 * NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(rec)[q];
+      r[4 * q] = v.x;
+      r[4 * q + 1] = v.y;
+      r[4 * q + 2] = v.z;
+      r[4 * q + 3] = v.w;
+    }
+    a = r[1];
+    float xy = __fmul_rn(r[2], yr[0]);
+#pragma unroll
+    for (int k = 1; k < DR; ++k)
+      if (k < d) xy = __fadd_rn(xy, __fmul_rn(r[2 + k], yr[k]));
+    return fmaxf(__fsub_rn(__fadd_rn(r[0], ysq), __fmul_rn(2.0f, xy)), 0.0f);
+  }
+};
+
 // The loaders of a launch: C (B, L_pad*g, n_pad); x (B, L_pad*g, d), x_sq
-// (B, L_pad*g), y (B, n_pad, d), y_sq (B, n_pad), staged `dc` columns at a time.
+// (B, L_pad*g), y (B, n_pad, d), y_sq (B, n_pad), staged `dc` columns at a
+// time (make_fact_cost) or held as records and registers (make_fact_reg).
 template <class T>
 DenseCost<T> make_dense_cost(const void* C, int L_pad, int g, int n_pad) {
   DenseCost<T> c = {};
@@ -186,6 +273,20 @@ FactCost<T> make_fact_cost(const void* x, const void* x_sq, const void* y, const
   c.g = g;
   c.tile_n = tile_n;
   return c;
+}
+
+template <class T>
+FactRegTile<T> make_fact_reg(const void* x, const void* x_sq, const void* y, const void* y_sq,
+                             int L_pad, int g, int n_pad, int d) {
+  FactRegTile<T> t = {};
+  t.x = static_cast<const T*>(x);
+  t.x_sq = static_cast<const T*>(x_sq);
+  t.y = static_cast<const T*>(y);
+  t.y_sq = static_cast<const T*>(y_sq);
+  t.m_pad = (size_t)L_pad * g;
+  t.n_pad = n_pad;
+  t.d = d;
+  return t;
 }
 
 }  // namespace rt

@@ -60,10 +60,10 @@
 //    no shared-memory round trip and no barrier per group.  A group of more
 //    than GC rows takes its rows GC at a time and computes each chunk
 //    twice, once for Z and once for T: the same ops on the same operands,
-//    so the same bits.  FactChunkTile, for d above FACT_REG_D, is the
-//    chunked shared-memory loader of cost.cuh (K4's), which stages each
-//    group's x and y through shared memory with two barriers per chunk of
-//    feature columns.
+//    so the same bits.  FactRegTile (cost.cuh, shared with K4) holds the
+//    records; FactChunkTile, for d above FACT_REG_D, is cost.cuh's chunked
+//    shared-memory loader, which stages each group's x and y through
+//    shared memory with two barriers per chunk of feature columns.
 //  * Row sums by a reduce-scatter: at each xor step a lane sends the half
 //    of its rows its partner keeps and adds the partner's copy of the half
 //    it keeps, so 16 rows cost 8 + 4 + 2 + 1 + 1 = 16 shuffles (the xor
@@ -117,7 +117,8 @@
 namespace {
 
 constexpr int GC = 16;          // rows of a group a thread holds in registers at once
-constexpr int FACT_REG_D = 2;   // widest d whose row of y a thread keeps in registers
+using rt::FACT_REG_D;           // widest d of the register loader, FactRegTile (cost.cuh)
+using rt::FactRegTile;
 
 struct TileArgs {
   const float* alpha;   // (B, L_pad*g)
@@ -160,74 +161,8 @@ struct DenseTile {
   }
 };
 
-// The factorized cost for d <= FACT_REG_D: a record is (x_sq, alpha, x_0
-// .. x_{d-1}), padded to one float4, read by one broadcast vector load;
-// y_j and y_sq_j live in registers.  The recipe of `factorized_cost_tile`,
-// op for op:
-//   xy = x_0 y_0;  xy = xy + x_k y_k (k = 1 .. d-1);  c = max((x_sq + y_sq) - 2 xy, 0).
-template <class T>
-struct FactRegTile {
-  static constexpr int DR = FACT_REG_D;
-  static constexpr int NQ = (DR + 2 + 3) / 4;   // float4s of a record
-  static constexpr int STRIDE = 4 * NQ;         // floats of a record: 4
-  const T* x;           // (B, m_pad, d)
-  const T* x_sq;        // (B, m_pad)
-  const T* y;           // (B, n_pad, d)
-  const T* y_sq;        // (B, n_pad)
-  size_t m_pad;
-  int n_pad, d;
-  const T *xb, *xsqb;
-  float yr[DR];
-  float ysq;
-
-  __device__ __forceinline__ void setup(float*) {}
-
-  __device__ __forceinline__ void begin(int b, int, int j, bool col) {
-    xb = x + (size_t)b * m_pad * d;
-    xsqb = x_sq + (size_t)b * m_pad;
-    const T* yj = y + ((size_t)b * n_pad + j) * d;
-#pragma unroll
-    for (int k = 0; k < DR; ++k) yr[k] = (col && k < d) ? rt::to_f32(yj[k]) : 0.0f;
-    ysq = col ? rt::to_f32(y_sq[(size_t)b * n_pad + j]) : 0.0f;
-  }
-
-  __device__ __forceinline__ void stage(float* rec, const float* alpha_rows, size_t row_base,
-                                        int rows) {
-    const int tid = threadIdx.x, nt = blockDim.x;
-    for (int q = tid; q < rows; q += nt) {
-      rec[q * STRIDE] = rt::to_f32(xsqb[row_base + q]);
-      rec[q * STRIDE + 1] = alpha_rows[q];
-    }
-    const T* xr = xb + row_base * d;
-    for (int e = tid; e < rows * d; e += nt) {
-      const int q = e / d;
-      rec[q * STRIDE + 2 + (e - q * d)] = rt::to_f32(xr[e]);
-    }
-  }
-
-  __device__ __forceinline__ void load_group(size_t, bool) {}
-
-  __device__ __forceinline__ float at(const float* rec, size_t, int, float& a) const {
-    float r[4 * NQ];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const float4 v = reinterpret_cast<const float4*>(rec)[q];
-      r[4 * q] = v.x;
-      r[4 * q + 1] = v.y;
-      r[4 * q + 2] = v.z;
-      r[4 * q + 3] = v.w;
-    }
-    a = r[1];
-    float xy = __fmul_rn(r[2], yr[0]);
-#pragma unroll
-    for (int k = 1; k < DR; ++k)
-      if (k < d) xy = __fadd_rn(xy, __fmul_rn(r[2 + k], yr[k]));
-    return fmaxf(__fsub_rn(__fadd_rn(r[0], ysq), __fmul_rn(2.0f, xy)), 0.0f);
-  }
-};
-
-// The factorized cost for wider d: cost.cuh's chunked loader (K4's), which
-// stages each group's x and the tile's y through shared memory `dc` feature
+// The factorized cost for wider d: cost.cuh's chunked loader, which stages
+// each group's x and the tile's y through shared memory `dc` feature
 // columns at a time and accumulates the inner products in `acc` (g,
 // tile_n).  A record is the row's alpha.
 template <class T>
@@ -753,14 +688,7 @@ int with_fact(const void* x, const void* x_sq, const void* y, const void* y_sq, 
               int g, int n_pad, int d, int dc, int tile_l, int tile_n, F&& fn) {
   if (dc == 0) {
     if (d < 1 || d > FACT_REG_D) return static_cast<int>(cudaErrorInvalidValue);
-    FactRegTile<T> t;
-    t.x = static_cast<const T*>(x);
-    t.x_sq = static_cast<const T*>(x_sq);
-    t.y = static_cast<const T*>(y);
-    t.y_sq = static_cast<const T*>(y_sq);
-    t.m_pad = (size_t)L_pad * g;
-    t.n_pad = n_pad;
-    t.d = d;
+    FactRegTile<T> t = rt::make_fact_reg<T>(x, x_sq, y, y_sq, L_pad, g, n_pad, d);
     return fn(t, smem_bytes(tile_l, g, tile_n, t.STRIDE, 0));
   }
   FactChunkTile<T> t;

@@ -1,4 +1,4 @@
-// Row sums whose order depends on the row length alone.
+// Row sums and row inner products whose order depends on the row length alone.
 //
 // The solver reduces many per-problem vectors: the L-BFGS inner products
 // and norms, the dual value's marginal terms, the per-group delta norms of
@@ -12,28 +12,79 @@
 // how many rows there are.  The plain version (torch.sum) sums in another
 // order and agrees to f32 tolerance.
 //
-// Bound: bytes, each element read once (memory latency for short rows).
+// `row_reduce_kernel<true>` sums the products a_i b_i of two rows in the
+// same order, each product rounded on its own (__fmul_rn) before its add
+// (__fadd_rn), so no FMA forms whatever -fmad says: row_dot(a, b) gives the
+// bits of row_sum(a * b), whose product torch rounds on its own, in one
+// launch instead of two.
+//
+// Bound: bytes, each element read once (D x 4 bytes a row, D x 8 for a
+// product; 0.04 / 0.08 us at D = 33280 and 3.35 TB/s), far under a
+// launch's own device time, which is most of what a call takes.  Memory
+// latency is the rest: each thread issues the loads of BATCH elements
+// before it adds them in order, so a row of 65 elements a thread waits for
+// 5 latencies, not 65.  (Measured on the H100 at D = 33280: BATCH = 32, or
+// the row spread over a cluster of 8 CTAs, took no less device time.)
 #include "common.cuh"
 
 namespace {
 
 constexpr int MAX_WARPS = 16;
+constexpr int BATCH = 16;   // elements whose loads a thread has in flight
 
-__global__ void row_sum_kernel(const float* __restrict__ x, float* __restrict__ out, int D) {
+template <bool PRODUCT>
+__device__ __forceinline__ float term(const float* __restrict__ a, const float* __restrict__ b,
+                                      int i) {
+  return PRODUCT ? __fmul_rn(__ldg(a + i), __ldg(b + i)) : __ldg(a + i);
+}
+
+// out[r] = sum_i a[r, i] (PRODUCT: a[r, i] b[r, i]).  The batch's lanes past
+// the row add +0, an exact identity: the running sum starts at +0 and no
+// round-to-nearest add makes it -0, so the bits are those of the loop
+// `for (i = t; i < D; i += T) acc += term(i)`.
+template <bool PRODUCT>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+    row_reduce_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                      float* __restrict__ out, int D) {
   __shared__ float part[MAX_WARPS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float* row = x + (size_t)blockIdx.x * D;
+  const int T = blockDim.x, nwarps = T >> 5;
+  const size_t off = (size_t)blockIdx.x * D;
+  const float* ar = a + off;
+  const float* br = PRODUCT ? b + off : nullptr;
   float acc = 0.0f;
-  for (int i = tid; i < D; i += blockDim.x) acc += row[i];
+  for (int i0 = tid; i0 < D; i0 += BATCH * T) {
+    float v[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const int i = i0 + k * T;
+      v[k] = i < D ? term<PRODUCT>(ar, br, i) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) acc = __fadd_rn(acc, v[k]);
+  }
   acc = rt::warp_sum(acc);
   if (lane == 0) part[warp] = acc;
   __syncthreads();
   if (tid == 0) {
     float s = 0.0f;
-    for (int w = 0; w < nwarps; ++w) s += part[w];
+    for (int w = 0; w < nwarps; ++w) s = __fadd_rn(s, part[w]);
     out[blockIdx.x] = s;
   }
+}
+
+int launch(const void* a, const void* b, void* out, int R, int D, int threads, void* stream) {
+  if (threads % 32 != 0 || threads < 32 || threads > 32 * MAX_WARPS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* pa = static_cast<const float*>(a);
+  const auto* pb = static_cast<const float*>(b);
+  auto* po = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (pb != nullptr)
+    row_reduce_kernel<true><<<R, threads, 0, s>>>(pa, pb, po, D);
+  else
+    row_reduce_kernel<false><<<R, threads, 0, s>>>(pa, nullptr, po, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -42,9 +93,13 @@ __global__ void row_sum_kernel(const float* __restrict__ x, float* __restrict__ 
 // most 32 * MAX_WARPS) per row.  Returns cudaGetLastError().
 extern "C" int row_sum_launch(const void* x, void* out, int R, int D, int threads,
                               void* stream) {
-  if (threads % 32 != 0 || threads < 32 || threads > 32 * MAX_WARPS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  row_sum_kernel<<<R, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), D);
-  return static_cast<int>(cudaGetLastError());
+  return launch(x, nullptr, out, R, D, threads, stream);
+}
+
+// out (R,) = sum over D of a (R, D) * b (R, D), each product rounded on
+// its own, in row_sum_launch's order.  Returns cudaGetLastError().
+extern "C" int row_dot_launch(const void* a, const void* b, void* out, int R, int D,
+                              int threads, void* stream) {
+  if (b == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(a, b, out, R, D, threads, stream);
 }

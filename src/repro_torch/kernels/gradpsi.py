@@ -73,7 +73,7 @@ COMPACT_DENSITY_THRESHOLD = 0.5
 # -- tiling ------------------------------------------------------------------
 
 # Widest d whose row of y a factorized CTA keeps in registers (FACT_REG_D in
-# gradpsi.cu); a wider d stages x and y through shared memory in chunks.
+# csrc/cost.cuh); a wider d stages x and y through shared memory in chunks.
 FACT_REG_D = 2
 
 

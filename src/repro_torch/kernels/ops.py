@@ -73,7 +73,7 @@ from repro_torch.kernels.gradpsi import (
     resolve_tile_l,
     tau_row,
 )
-from repro_torch.kernels.reduce import row_sum
+from repro_torch.kernels.reduce import row_dot
 from repro_torch.kernels.screen import (
     screen_batched,
     snapshot_norms_dense_batched,
@@ -265,7 +265,7 @@ def _finish(alpha, beta, a, b, sums, pp):
     B = alpha.shape[0]
     rowsum = rowsum.reshape(B, pp.L_pad, pp.g)[:, : pp.L].reshape(B, -1)
     colsum = colsum[:, : pp.n]
-    value = row_sum(alpha * a) + row_sum(beta * b) - psi
+    value = row_dot(alpha, a) + row_dot(beta, b) - psi
     return value, a - rowsum, b - colsum
 
 

@@ -16,9 +16,11 @@ and a tile's flag is 1 unless every entry of it is ZERO.  With
 K4, :func:`snapshot_norms_fact_batched`, replaces
 ``repro.kernels.screen.snapshot_norms_fact_pallas``: the snapshot norms
 z~ = ||[f]_+||, k~ = ||f||, o~ = ||[f]_-|| per group with the cost rebuilt
-from samples and padded group members masked before the sums.  The same
-kernel body over the dense cost, :func:`snapshot_norms_dense_batched`,
-takes the dense route's snapshots.  Both sum the members in order, as the
+from samples and padded group members masked before the sums (at d <= 2
+``snapshot_reg_kernel``, from registers and one staging of the real rows
+per CTA; above, the chunked loader).  The chunked kernel's body over the
+dense cost, :func:`snapshot_norms_dense_batched`, takes the dense route's
+snapshots.  Both sum the members in order, as the
 plain ``core.dual.snapshot_norms``, so the two routes and the plain
 versions give the same bits (``csrc/snapshot.cu``).  The cost may be
 stored in bf16 (``precision='bf16'``): the kernel upcasts each value on
@@ -35,6 +37,8 @@ from repro_torch.core.dual import member_norms
 from repro_torch.core.screening import ACTIVE, CHECK, ZERO
 from repro_torch.kernels import _build
 from repro_torch.kernels.gradpsi import (
+    CTA_SMEM_BUDGET_BYTES,
+    FACT_REG_D,
     _check_cuda_inputs,
     _check_screen_operands,
     d_chunk,
@@ -116,6 +120,15 @@ def snapshot_norms_fact_ref(alpha, beta, x, x_sq, y, y_sq, mask, *, num_groups: 
                                     num_groups=num_groups, group_size=group_size)
 
 
+def snapshot_loader_dc(tile_l: int, g: int, tile_n: int, d: int) -> int:
+    """The ``dc`` argument of K4's launch: 0 for ``snapshot_reg_kernel`` (``d <=
+    FACT_REG_D``, one group's records, real-row count and mask in shared
+    memory), else the chunked loader's :func:`d_chunk`."""
+    if d <= FACT_REG_D and 17 * g + 4 <= CTA_SMEM_BUDGET_BYTES:
+        return 0
+    return d_chunk(tile_l, g, tile_n, d)
+
+
 def _snapshot_checks(alpha, beta, mask, num_groups, group_size, tile_l, tile_n):
     B, n_pad = beta.shape
     L_pad, g = num_groups, group_size
@@ -176,8 +189,8 @@ def snapshot_norms_fact_batched(alpha, beta, x, x_sq, y, y_sq, mask, *, num_grou
     err = _build.library().snapshot_fact_launch(
         alpha.data_ptr(), beta.data_ptr(), x.data_ptr(), x_sq.data_ptr(), y.data_ptr(),
         y_sq.data_ptr(), mask.data_ptr(), z.data_ptr(), k.data_ptr(), o.data_ptr(), B,
-        num_groups, group_size, n_pad, d, d_chunk(tile_l, group_size, tile_n, d), tile_l,
-        tile_n, code, _build.stream_handle(alpha.device))
+        num_groups, group_size, n_pad, d, snapshot_loader_dc(tile_l, group_size, tile_n, d),
+        tile_l, tile_n, code, _build.stream_handle(alpha.device))
     _build.check(err, "snapshot_fact_launch")
     _build.record_launch("snapshot_norms_fact_batched")
     return z, k, o

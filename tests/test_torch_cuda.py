@@ -11,9 +11,10 @@ Tolerances:
     -fmad=false and repeats the plain version's op order);
   * K2 sums and psi: rtol 1e-5 / atol 1e-6 (another summation order);
   * K3 == K2 and reruns: bitwise (same per-tile slots, fixed-order sums);
-  * K4 (snapshot norms, both cost loaders): bitwise equal to the plain
-    version (snapshot.cu is built with -fmad=false and sums the members in
-    the plain version's order);
+  * K4 (snapshot norms, the register kernel at d <= 2, the chunked loader
+    above, the dense body): bitwise equal to the plain version (every step
+    an `_rn` intrinsic, the members summed in the plain version's order),
+    every output written (they are NaN before the launch);
   * K5 / K6 against their plain versions: rtol 1e-5 / atol 1e-6, as K2;
     K5 == K2 and K6 == K3 bitwise on the cost materialized with the same
     recipe (the factorized loader rounds every step on its own);
@@ -23,7 +24,9 @@ Tolerances:
   * bf16 cost storage: the same tolerances as f32, each kernel against its
     plain version on the same bf16 operands (both upcast exactly);
   * row sums: rtol 1e-5 / atol 1e-4 against the plain torch.sum (another
-    order), and batch-invariant bitwise;
+    order), and batch-invariant bitwise; row_sum and row_dot bitwise equal
+    to the float32 model of their order (tests/test_torch_reduce.py),
+    row_dot(a, b) bitwise row_sum(a * b), in one launch;
   * whole solves on the card against the same solve on the CPU:
     objective rtol 2e-5, the repo's cross-backend tolerance; factorized ==
     dense on the materialized problem, solo == batched, and fused ==
@@ -62,6 +65,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import reduce as trd
 from repro_torch.kernels import screen as tsc
 from repro_torch.ot.problem import Problem, squared_euclidean_cost
+from test_torch_reduce import ROW_D, kernel_order_sum
 
 pytestmark = pytest.mark.cuda
 
@@ -236,6 +240,85 @@ def test_row_sum_matches_plain_and_is_batch_invariant(cuda_device):
         torch.testing.assert_close(got, trd.row_sum_ref(x), rtol=1e-5, atol=1e-4)
         for i in range(5):
             assert torch.equal(trd.row_sum(x[i:i + 1])[0], got[i])
+
+
+@pytest.mark.parametrize("R", [1, 3])
+def test_row_sum_and_row_dot_follow_the_order_model(cuda_device, R):
+    rng = np.random.default_rng(R)
+    for D in ROW_D:
+        x = rng.normal(size=(R, D)) * 10.0 ** rng.integers(-3, 3, (R, D))
+        x[rng.random((R, D)) < 0.05] = -0.0
+        x, y = x.astype(np.float32), rng.normal(size=(R, D)).astype(np.float32)
+        xd, yd = _to(cuda_device, x, y)
+        s, d_ = trd.row_sum(xd), trd.row_dot(xd, yd)
+        assert s.cpu().numpy().tobytes() == kernel_order_sum(x).tobytes(), D
+        assert d_.cpu().numpy().tobytes() == kernel_order_sum(x * y).tobytes(), D
+        assert torch.equal(d_, trd.row_sum(xd * yd))
+        for i in range(R):
+            assert torch.equal(trd.row_sum(xd[i:i + 1])[0], s[i])
+            assert torch.equal(trd.row_dot(xd[i:i + 1], yd[i:i + 1])[0], d_[i])
+    _build.reset_launch_counts()
+    trd.row_dot(xd, yd)
+    assert _build.launch_counts() == {"row_dot": 1}
+
+
+def _snapshot_nan_outputs(kind, alpha, beta, cost, mask, L, g, tile_l, tile_n):
+    """K4's launch (the wrapper's arguments) into outputs filled with NaN."""
+    B, n_pad = beta.shape
+    z, k, o = (torch.full((B, L, n_pad), float("nan"), device=alpha.device) for _ in range(3))
+    lib, stream = _build.library(), _build.stream_handle(alpha.device)
+    code = tgp._check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta)), (),
+                                  tuple((str(i), t) for i, t in enumerate(cost)))
+    ptrs = [t.data_ptr() for t in (alpha, beta, *cost, mask, z, k, o)]
+    if kind == "fact":
+        d = cost[0].shape[-1]
+        err = lib.snapshot_fact_launch(*ptrs, B, L, g, n_pad, d,
+                                       tsc.snapshot_loader_dc(tile_l, g, tile_n, d), tile_l,
+                                       tile_n, code, stream)
+    else:
+        err = lib.snapshot_dense_launch(*ptrs, B, L, g, n_pad, tile_l, tile_n, code, stream)
+    _build.check(err, f"snapshot_{kind}_launch")
+    return z, k, o
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [1, 2, 3, 8])
+@pytest.mark.parametrize("g", [1, 3, 16, 17, 33])
+def test_snapshot_kernels_equal_plain_bitwise(cuda_device, g, d, storage):
+    """K4 (the register kernel at d <= 2, else the chunked loader) and its dense
+    body: every output written and bitwise the plain version, at several tile
+    widths, with padded rows and a problem axis."""
+    for tile_n in (4, 20, 128):
+        rng = np.random.default_rng(1000 * g + 10 * d + tile_n)
+        B, L, tile_l = 2, 16, 8
+        n_pad = 3 * tile_n
+        x = (rng.normal(size=(B, L * g, d)) * 0.4).astype(np.float32)
+        y = (rng.normal(size=(B, n_pad, d)) * 0.4).astype(np.float32)
+        leaves = _to(cuda_device, x, (x * x).sum(-1), y, (y * y).sum(-1))
+        if storage == "bf16":
+            leaves = [t.bfloat16() for t in leaves]
+        a, b = _to(cuda_device, rng.uniform(0.0, 0.6, (B, L * g)).astype(np.float32),
+                   rng.uniform(0.0, 0.6, (B, n_pad)).astype(np.float32))
+        mask = _to(cuda_device, (rng.random(L * g) < 0.7).astype(np.int8))[0]
+        C = tgp.factorized_cost_tile(*leaves)
+        C = C.bfloat16() if storage == "bf16" else C
+        plain = tsc.snapshot_norms_fact_ref(a, b, *leaves, mask, num_groups=L, group_size=g)
+        dense_plain = tsc.snapshot_norms_dense_ref(a, b, C, mask, num_groups=L, group_size=g)
+        if storage == "f32":          # the dense cost is the factorized one, materialized
+            assert all(torch.equal(p, q) for p, q in zip(plain, dense_plain))
+        kw = dict(num_groups=L, group_size=g, tile_l=tile_l, tile_n=tile_n)
+        got = {
+            "fact": tsc.snapshot_norms_fact_batched(a, b, *leaves, mask, **kw),
+            "fact nan": _snapshot_nan_outputs("fact", a, b, leaves, mask, L, g, tile_l, tile_n),
+            "dense": tsc.snapshot_norms_dense_batched(a, b, C, mask, **kw),
+            "dense nan": _snapshot_nan_outputs("dense", a, b, (C,), mask, L, g, tile_l, tile_n),
+        }
+        torch.cuda.synchronize()
+        for key, outs in got.items():
+            want = plain if key.startswith("fact") else dense_plain
+            for p, q in zip(outs, want):
+                assert torch.equal(p, q), (key, tile_n)
+        assert bool((plain[1] > 0).any())
 
 
 def _sample_problem(seed, L=12, g=7, n=300, d=2, scale=1.0):
@@ -464,7 +547,8 @@ def test_solo_wrappers_equal_batched_on_the_card(cuda_device, route):
             assert torch.equal(x, y if y.ndim == 0 else y[0])
     names = ({"gradpsi_fact", "gradpsi_fact_compact", "gradpsi_fused_fact"} if fact
              else {"gradpsi", "gradpsi_compact", "gradpsi_fused"})
-    assert {k: v for k, v in counts.items() if k != "row_sum"} == dict.fromkeys(names, 1)
+    assert ({k: v for k, v in counts.items() if k not in ("row_sum", "row_dot")}
+            == dict.fromkeys(names, 1))
 
 
 def test_samples_layer_backward_on_the_card_matches_cpu(cuda_device):
