@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py      # needs one CUDA card; takes five to six minutes
+    python3 chip_smoke.py      # needs one CUDA card; takes about six to eight minutes
     python3 chip_smoke.py --compare _archive/parent [--pairs 10]
                                # this tree's kernels against another checkout's
 
@@ -90,6 +90,22 @@ Phases:
      bitwise (the pair prices 'auto''s host read per step), the value at
      most the L-BFGS one, times and launches per step, a profile of 5
      epochs; and on the golden problem at sgd_block_cols=4 (tile_n = 4).
+ 10. ``Executor.solve_many`` and ``stream`` at full width on four problems
+     (seeds 0-3; three with 10 samples per class, one with 12, padded to
+     the same g = 16, so K4's register kernel takes a row mask per
+     problem), the default plan: each problem bitwise its solo solve
+     (duals, value, rounds, stats, plan fingerprint), the stream bitwise
+     ``solve_many`` with its alive count never rising; the B = 4 solver
+     call's peak memory and profile (device busy, idle share, launches per
+     evaluation) beside phase 4's B = 1 figures;
+ 11. the serving engine, ``OTServingEngine(reg, SolveOptions(grad_impl=
+     'pallas'), max_batch=4)``: six full-width requests (four with 10
+     samples per class, two with 12) through the four slots of one bucket,
+     each DONE once with the value and duals of its solo dense solve, bit
+     for bit; ticks, launches per tick, time per tick by live slots and
+     the idle share over the ticks; and a chaos run at L = 128 (a NaN cost
+     walks one request down the ladder to 'dense'; its neighbours keep
+     their bits).
 Phase 3 also runs K2/K3/K5-K8 at tile_n 4, 20, 40 and 128 on a narrow
 problem, and phase 4 holds the main path's solve to the fingerprint it had
 before the kernels took any tile width.
@@ -117,6 +133,7 @@ K1, K2, K3 = "screen_batched", "gradpsi_batched", "gradpsi_compact_batched"
 K4, K5, K6 = "snapshot_norms_fact_batched", "gradpsi_fact_batched", "gradpsi_fact_compact_batched"
 K7, K8 = "gradpsi_fused_batched", "gradpsi_fused_fact_batched"
 K4D = "snapshot_norms_dense_batched"          # K4's body on the dense cost
+SLOT = "slot_reduce_kernel"                   # each gradient call's second launch
 KERNELS = (K1, K2, K3, K4, K5, K6, K7, K8)
 # the solo wrappers (ROADMAP B9-B14): the batched kernel of their twin at B = 1
 B9, B10, B11 = "gradpsi", "gradpsi_compact", "gradpsi_fused"
@@ -923,8 +940,6 @@ def profile_solver_call(label, ops, problem, reg, device, plan):
     (plan recovery excluded); returns (peak, launches per evaluation, summary):
     the summary holds wall and busy seconds, n_evals and the kernel rows
     (name, device us, launches)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import solver as slv
 
     peak, base, res = peak_memory(ops, problem, reg, device, plan)
@@ -936,19 +951,9 @@ def profile_solver_call(label, ops, problem, reg, device, plan):
           f"{dense_bytes} B of the dense cost")
 
     cost, a, b, spec, opts = solver_call(ops, problem, device, plan)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = slv.solve_dual(cost, a, b, spec, reg, opts, device)
-        sync()
-        wall = time.perf_counter() - t0
-    # CPU-side events (aten ops, CUDA runtime calls) carry their kernels'
-    # time only through children; the device events are the rest
-    rows = [(e.key, device_us(e), e.count) for e in prof.key_averages()]
-    kernels = sorted((r for r in rows if r[1] > 0 and not r[0].startswith(("aten::", "cuda"))),
-                     key=lambda r: -r[1])
-    busy = sum(r[1] for r in kernels) / 1e6
+    res, wall, busy, n_launch, kernels = profile_device(
+        lambda: slv.solve_dual(cost, a, b, spec, reg, opts, device))
     port = sum(r[1] for r in kernels if any(k in r[0] for k in PORT_KERNELS)) / 1e6
-    n_launch = sum(r[2] for r in kernels)
     print(f"profile {label} solver call: wall {wall:.4f} s, rounds {res.rounds}, n_evals "
           f"{res.n_evals}, device busy {busy:.4f} s, idle share {1.0 - busy / wall:.4f}, port "
           f"kernels {port:.4f} s, PyTorch kernels {busy - port:.4f} s, {n_launch} device "
@@ -961,12 +966,14 @@ def profile_solver_call(label, ops, problem, reg, device, plan):
 
 def phase_memory_and_profile(ops, problem, reg, device):
     """The main path's and the fused/auto factorized solver calls: peak memory and profile;
-    the dense route's fused/auto solver call in f32 and bf16: peak memory."""
+    the dense route's fused/auto solver call in f32 and bf16: peak memory.  Returns the
+    main path's (peak, launches per evaluation, summary) for phase 10."""
     import repro_torch.ot as ot
 
     P = ot.ExecutionPlan
-    _, per_eval, _ = profile_solver_call(MAIN_PATH, ops, problem, reg, device,
-                                         P(grad_impl="pallas"))
+    main_profile = profile_solver_call(MAIN_PATH, ops, problem, reg, device,
+                                       P(grad_impl="pallas"))
+    per_eval = main_profile[1]
     print(f"launches per evaluation on {MAIN_PATH}: {per_eval:.1f} (two per gradient call, the "
           f"kernel and the slot reduction, one per inner product; {LAUNCHES_PER_EVAL_BEFORE} "
           f"with a multiply and a row sum per inner product, PERF.md)", flush=True)
@@ -986,6 +993,7 @@ def phase_memory_and_profile(ops, problem, reg, device):
               f"{p} {peak} B ({(peak - base) / 2**20:.1f} MiB above the {base} B held)"
               for p, (peak, base) in peaks.items()), flush=True)
     ops.drop_dense()
+    return main_profile
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -1103,6 +1111,11 @@ def kernel_work(pp, d, live, T, real_rows=None):
     # the fused kernels: K1's reads and flags, then K2's or K5's live-tile work
     work[K7] = (work[K1][0] + work[K2][0] - 4 * T, work[K1][1] + work[K2][1])
     work[K8] = (work[K1][0] + work[K5][0] - 4 * T, work[K1][1] + work[K5][1])
+    # the slot reduction after a grid kernel: each live tile's slots (its rows'
+    # and columns' partial sums and psi), the flags, then the sums it writes
+    slot_floats = pp.tile_l * pp.g + pp.tile_n + 1
+    work[SLOT] = (4 * live * slot_floats + 4 * T + 4 * (m_pad + pp.n_pad + 1),
+                  live * slot_floats)
     return work
 
 
@@ -1241,6 +1254,10 @@ def phase_times(sol, ops, reg, launches, device):
               f"flops), plain {plain_ms:.4f} ms, live share {share:.6f}; {checks[name]}: "
               f"{'pass' if ok[name] else 'FAIL'} (max abs err {err:.3e}, max rel err "
               f"{rel:.3e}); launches on {path}: {launches[path].get(name, 0)}", flush=True)
+    full = kernel_work(pp, fp.d, T, T)[SLOT]
+    print(f"bound {SLOT} (each gradient call's second launch): {bound(*work[SLOT])[0]:.6f} ms "
+          f"at the final state ({work[SLOT][0]} B), {bound(*full)[0]:.6f} ms with every tile "
+          f"live ({full[0]} B); launches on {MAIN_PATH}: one a gradient call", flush=True)
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} was not launched on {row['launches_path']}")
     if not all(ok.values()):
@@ -1843,6 +1860,315 @@ def phase_stochastic(problem, reg, lbfgs_value, device):
 
 # -- --compare: this tree's gradient kernels against another checkout's --------------
 
+# -- phase 10: the batch API at full width ----------------------------------------
+
+def full_width_problems(reg, cases):
+    """Problems at the main path's scale, one per (seed, samples per class): L = 1280,
+    d = 2, n = 12 800 targets (10 per class, so every problem fits one template;
+    with 12 sources per class g = 12 pads to 16 as 10 does)."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import DomainPairConfig, make_domain_pair
+    from repro_torch.ot.problem import Problem
+
+    out = []
+    for seed, spc in cases:
+        Xs, ys, Xt, _ = make_domain_pair(DomainPairConfig(num_classes=1280,
+                                                          samples_per_class=spc, seed=seed))
+        out.append(Problem.from_samples(Xs, ys, Xt[np.arange(len(Xt)) % spc < 10], reg))
+    return out
+
+
+def same_solution(x, y) -> bool:
+    """Bitwise equal duals, value, rounds, stats, iterations and plan fingerprint."""
+    import torch
+
+    return (torch.equal(x.alpha, y.alpha) and torch.equal(x.beta, y.beta)
+            and solution_bits(x) == solution_bits(y)
+            and fingerprint(x.plan) == fingerprint(y.plan))
+
+
+def profile_device(fn):
+    """(result, wall s, device busy s, device launches, kernel rows) of ``fn()`` under
+    torch.profiler; rows are (name, device us, launches), largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+    # CPU-side events (aten ops, CUDA runtime calls) carry their kernels'
+    # time only through children; the device events are the rest
+    rows = [(e.key, device_us(e), e.count) for e in prof.key_averages()]
+    kernels = sorted((r for r in rows if r[1] > 0 and not r[0].startswith(("aten::", "cuda"))),
+                     key=lambda r: -r[1])
+    return out, wall, sum(r[1] for r in kernels) / 1e6, sum(r[2] for r in kernels), kernels
+
+
+def check_k4_mask_per_problem(label, x, pp, row_mask):
+    """K4 on the duals ``x`` (B, m_pad + n) of a batch whose (B, m_pad) row mask differs
+    between problems, at the shapes the path gives it: the kernel (the factorized
+    loader or the dense body, by ``pp``) against its plain version on the same
+    tensors, bit for bit.  Its launch is a comparison's, not the path's."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import screen
+
+    m_pad = row_mask.shape[-1]
+    check(row_mask.dim() == 2 and bool((row_mask != row_mask[:1]).any()),
+          f"{label}: the batch's row mask is not one per problem")
+    alphap, betap = kops.pad_tile_inputs(x[:, :m_pad], x[:, m_pad:], pp)
+    mask = kops._padded_mask(row_mask, pp)
+    kw = dict(num_groups=pp.L_pad, group_size=pp.g)
+    if isinstance(pp, kops.FactorizedProblem):
+        name, cost = K4, pp.leaves()
+        got = screen.snapshot_norms_fact_batched(alphap, betap, *cost, mask, tile_l=pp.tile_l,
+                                                 tile_n=pp.tile_n, **kw)
+        want = screen.snapshot_norms_fact_ref(alphap, betap, *cost, mask, **kw)
+    else:
+        name = K4D
+        got = screen.snapshot_norms_dense_batched(alphap, betap, pp.Cp, mask, tile_l=pp.tile_l,
+                                                  tile_n=pp.tile_n, **kw)
+        want = screen.snapshot_norms_dense_ref(alphap, betap, pp.Cp, mask, **kw)
+    sync()
+    differ = sum(int((g != w).sum()) for g, w in zip(got, want))
+    print(f"{label}: {name} with a ({mask.shape[0]}, {mask.shape[1]}) row mask (mask stride "
+          f"{mask.shape[1]}) against its plain version on {tuple(alphap.shape)} duals: "
+          f"{differ} of {3 * got[0].numel()} outputs differ (bitwise)", flush=True)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{label}: {name} with a row mask per problem differs from its plain version")
+
+
+def phase_batch(reg, main_profile, device):
+    """``solve_many`` and ``stream`` on four full-width problems, the default plan
+    (factorized route, pallas_impl='auto'): three with 10 samples per class and one
+    with 12, so the batch carries a row mask per problem through K4's register
+    kernel.  Each problem's bits must equal its solo ``Executor.solve``; the
+    stream's must equal ``solve_many``'s and its alive count must never rise.
+    Then the B = 4 solver call alone: peak memory and a profile, beside phase
+    4's B = 1 figures, and K4 at its final duals with the (4, m_pad) mask against
+    its plain version, bit for bit.  Returns the launches of the ``solve_many`` run."""
+    import torch
+
+    import repro_torch.ot as ot
+    from repro_torch.core import solver as slv
+    from repro_torch.kernels import _build
+
+    probs = full_width_problems(reg, ((0, 10), (1, 10), (2, 10), (3, 12)))
+    ex = ot.compile(probs[0], ot.ExecutionPlan(grad_impl="pallas"), device=device)
+    check(all(ex._route(p) == "factorized" for p in probs), "phase 10 left the factorized route")
+    t0 = time.perf_counter()
+    solo = [ex.solve(p) for p in probs]
+    sync()
+    t_solo = time.perf_counter() - t0
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    many = ex.solve_many(probs)
+    sync()
+    t_many = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    stream = ex.stream(probs)
+    alive = [info["alive"] for info in stream]
+    streamed = stream.solutions()
+    for i, (s, m, t) in enumerate(zip(solo, many, streamed)):
+        print(f"phase 10 problem {i} (m={probs[i].num_source}, sizes "
+              f"{sorted(set(probs[i].group_spec().sizes))}): value {m.value!r}, rounds "
+              f"{m.rounds}, n_evals {m.n_evals}; solve_many == solo {same_solution(m, s)}, "
+              f"stream == solve_many {same_solution(t, m)}", flush=True)
+        check(same_solution(m, s), f"phase 10: solve_many != solo on problem {i}")
+        check(same_solution(t, m), f"phase 10: stream != solve_many on problem {i}")
+    check(alive == sorted(alive, reverse=True) and alive[-1] == 0,
+          f"phase 10: the stream's alive count rose or did not reach 0: {alive}")
+    for name in (K1, K4):
+        check(counts.get(name, 0) > 0, f"phase 10: solve_many launched no {name}: {counts}")
+    check(counts.get(K5, 0) + counts.get(K6, 0) > 0, f"phase 10: no gradient kernel: {counts}")
+    stats = ex.stats()
+    check(stats["launches"] == 4 + 1 + 1 + len(alive) and stats["problems_solved"] == 12,
+          f"phase 10: executor stats {stats}")
+    print(f"phase 10: 4 solo solves {t_solo:.3f} s, solve_many {t_many:.3f} s (plan recovery "
+          f"included), stream rounds {len(alive)} alive {alive}; launches in solve_many "
+          f"{counts}; executor stats {stats}", flush=True)
+
+    # the B = 4 solver call alone, with the Solutions above freed
+    del solo, many, streamed, stream, s, m, t
+    preps, C, a, b, row_mask, sqrt_g = ex._stack(probs)
+    check(tuple(row_mask.shape) == (4, ex.spec.m_pad), "phase 10: the mask is not per problem")
+    prob, opts = ex._prob, ex._opts
+
+    def call():
+        return slv._solve_batch_impl(C, a, b, row_mask, sqrt_g, prob, opts)
+
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    sync()
+    peak = torch.cuda.max_memory_allocated()
+    _build.reset_launch_counts()
+    out, wall, busy, n_launch, kernels = profile_device(call)
+    evals = max(_build.launch_counts().get(K1, 0), 1)   # one K1 launch a batched evaluation
+    b1_peak, b1_per_eval, b1 = main_profile
+    print(f"phase 10 B = 4 solver call: wall {wall:.4f} s, device busy {busy:.4f} s, idle share "
+          f"{1.0 - busy / wall:.4f}, {n_launch} device launches over {evals} batched "
+          f"evaluations ({n_launch / evals:.1f} per evaluation; the most any problem took "
+          f"{int(out[0].n_evals.max())}), peak device memory {peak - base} B above the {base} B "
+          f"held ({(peak - base) / 4 / 1e9:.3f} GB a problem)", flush=True)
+    print(f"phase 10 beside phase 4 (B = 1, {MAIN_PATH}): wall {b1['wall_s']:.4f} s, device "
+          f"busy {b1['busy_s']:.4f} s, idle share {1.0 - b1['busy_s'] / b1['wall_s']:.4f}, "
+          f"{b1_per_eval:.1f} launches per evaluation over {b1['n_evals']} evaluations, peak "
+          f"{b1_peak} B", flush=True)
+    for key, us, count in kernels[:8]:
+        print(f"  {us / 1e3:10.3f} ms  x{count:<6d} {key[:100]}", flush=True)
+    check(peak - base < 4 * b1_peak + 2**28,
+          f"phase 10: B = 4 peaked {peak - base} B above what was held, over 4 x {b1_peak}")
+    check_k4_mask_per_problem("phase 10", out[0].x, slv._prepare_padded(C, prob, opts),
+                              row_mask)
+    return counts
+
+
+# -- phase 11: the serving engine on the card -------------------------------------
+
+def phase_engine(reg, device):
+    """``OTServingEngine(reg, SolveOptions(grad_impl='pallas'), max_batch=4)`` on the
+    card: six full-width requests (L = 1280, m = n = 12 800: four with 10 samples
+    per class, two with 12) share one bucket, so they go through its four slots
+    and the slots recycle, with K1, K2/K3 and K4's dense body taking a row mask
+    per slot.  Each request must end DONE exactly once, from its slot, with the
+    value and duals of its solo ``Executor.solve`` at geometry='dense', bit for
+    bit.  After the first tick K4's dense body, on the bucket's slots with their
+    row mask per slot, is held bitwise against its plain version (its launch is
+    left out of the path's counts).  Then one chaos run at a narrower size (L = 128, m = n = 1280, so it
+    costs seconds): ``FaultSpec('nan_cost')`` on one of three requests walks the
+    ladder to 'dense' and ends DONE there, and its neighbours keep the bits of a
+    run without the fault.  Returns the launches of the six-request run."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    import repro_torch.ot as ot
+    from repro_torch.core.solver import SolveOptions
+    from repro_torch.kernels import _build
+    from repro_torch.serving import ot_engine
+    from repro_torch.serving.policy import RequestStatus
+    from repro_torch.utils import faults
+
+    logging.getLogger("repro_torch.ot_serving").setLevel("WARNING")
+    duals = {}
+    retire = ot_engine._Bucket._retire
+
+    def keep_duals(self, slot, converged, rounds):       # the duals, for the bit check
+        x = self.state.lb.x[slot].clone()
+        req = retire(self, slot, converged, rounds)
+        duals[req.rid] = x
+        return req
+
+    ot_engine._Bucket._retire = keep_duals
+    try:
+        sizes = (10, 10, 12, 10, 12, 10)
+        probs = full_width_problems(reg, list(enumerate(sizes, start=4)))
+        engine = ot_engine.OTServingEngine(reg, SolveOptions(grad_impl="pallas"), max_batch=4,
+                                           device=device)
+        reqs = [engine.enqueue(p)[0] for p in probs]
+        _build.reset_launch_counts()
+        done, ticks, t_admit, extra = [], [], 0.0, {}
+        while len(engine.pending) or engine._in_flight():
+            t0 = time.perf_counter()
+            engine.admit_pending()
+            sync()
+            t_admit += time.perf_counter() - t0
+            live = engine._in_flight()
+            before = _build.launch_counts()
+            (retired, wall, busy, n_launch, _) = profile_device(engine.tick)
+            after = _build.launch_counts()
+            port = sum(after.values()) - sum(before.values())
+            ticks.append((live, wall, busy, n_launch, port))
+            done += retired
+            if len(ticks) == 1:          # four live slots, two row masks: K4's dense body
+                bucket = next(iter(engine.buckets.values()))
+                bucket._operands()
+                check_k4_mask_per_problem("phase 11", bucket.state.lb.x, bucket._padded,
+                                          bucket.row_mask)
+                checked = _build.launch_counts()
+                extra = {k: checked[k] - after.get(k, 0) for k in checked}
+        # the path's launches, without the comparison's
+        counts = {k: c - extra.get(k, 0) for k, c in _build.launch_counts().items()}
+    finally:
+        ot_engine._Bucket._retire = retire
+    for k, (live, wall, busy, n_launch, port) in enumerate(ticks, start=1):
+        print(f"phase 11 tick {k}: {live} live slots, {wall:.4f} s, device busy {busy:.4f} s, "
+              f"idle share {1.0 - busy / wall:.4f}, {n_launch} device launches ({port} of "
+              f"them the port's kernels)", flush=True)
+    walls = [t[1] for t in ticks]
+    busy = sum(t[2] for t in ticks)
+    by_live = {n: [t[1] for t in ticks if t[0] == n] for n in sorted({t[0] for t in ticks})}
+    print(f"phase 11: {len(ticks)} ticks, {sum(walls):.3f} s in ticks, admission {t_admit:.3f} "
+          f"s (host padding and upload of six 1.05 GB costs, state init); idle share over the "
+          f"ticks {1.0 - busy / sum(walls):.4f}; launches per tick "
+          f"{sum(t[3] for t in ticks) / len(ticks):.1f} (device), "
+          f"{sum(t[4] for t in ticks) / len(ticks):.1f} (the port's kernels); s a tick by live "
+          f"slots: " + ", ".join(f"{n}: {np.median(v):.4f} (x{len(v)})"
+                                 for n, v in by_live.items()), flush=True)
+    print(f"phase 11 launches: {counts}; engine stats {engine.stats()}", flush=True)
+    check(len(done) == 6 and sorted(r.rid for r in done) == list(range(6)),
+          f"phase 11: {len(done)} requests came back")
+    check(all(r.status is RequestStatus.DONE and r.route == "slot" for r in reqs),
+          f"phase 11: statuses {[(r.rid, r.status, r.route) for r in reqs]}")
+    check(engine.stats()["status"]["DONE"] == 6 and len(engine.buckets) == 1,
+          f"phase 11: engine stats {engine.stats()}")
+    for name in (K1, K4D):
+        check(counts.get(name, 0) > 0, f"phase 11: the engine launched no {name}: {counts}")
+    check(counts.get(K2, 0) + counts.get(K3, 0) > 0, f"phase 11: no K2/K3 launch: {counts}")
+
+    plan = ot.ExecutionPlan(grad_impl="pallas", geometry="dense")
+    for req, p in zip(reqs, probs):
+        sol = ot.compile(p, plan, device=device).solve()
+        m_pad = sol.alpha.shape[0]
+        ok = (req.value == sol.value and req.rounds == sol.rounds
+              and torch.equal(duals[req.rid][:m_pad], sol.alpha)
+              and torch.equal(duals[req.rid][m_pad:], sol.beta))
+        print(f"phase 11 request {req.rid} (m={p.num_source}): value {req.value!r}, rounds "
+              f"{req.rounds}, ticks in flight {req.ticks_in_flight}; == solo dense solve "
+              f"{ok}", flush=True)
+        check(ok, f"phase 11: request {req.rid} differs from its solo solve")
+        del sol
+
+    # chaos at L = 128, m = n = 1280
+    small = []
+    for seed in range(3):
+        from repro_torch.data.pipeline import DomainPairConfig, make_domain_pair
+        from repro_torch.ot.problem import Problem
+
+        Xs, ys, Xt, _ = make_domain_pair(DomainPairConfig(num_classes=128, samples_per_class=10,
+                                                          seed=100 + seed))
+        small.append(Problem.from_samples(Xs, ys, Xt, reg))
+    runs = {}
+    for fault in (False, True):
+        eng = ot_engine.OTServingEngine(reg, SolveOptions(grad_impl="pallas"), max_batch=4,
+                                        device=device)
+        specs = (faults.FaultSpec("nan_cost", rids={1}),) if fault else ()
+        with faults.injected(*specs) as registry:
+            out = {r.rid: r for r in eng.run(small)}
+            fired = list(registry.fired)
+        runs[fault] = (out, fired)
+    (clean, _), (hit, fired) = runs[False], runs[True]
+    bad = hit[1]
+    print(f"phase 11 chaos (L=128, m=n=1280): faults fired {fired}; request 1 {bad.status.value} "
+          f"via {bad.route} after {bad.attempts} attempts ({bad.error}); value {bad.value!r} "
+          f"against the clean run's {clean[1].value!r}", flush=True)
+    check(len(fired) == 1 and bad.status is RequestStatus.DONE and bad.route == "dense"
+          and bad.attempts == 3, "phase 11 chaos: the poisoned request did not end DONE via dense")
+    check(abs(bad.value - clean[1].value) <= 2e-5 * abs(clean[1].value),
+          "phase 11 chaos: the dense rung's value is off the slot's by more than rtol 2e-5")
+    for rid in (0, 2):
+        ok = (hit[rid].status is RequestStatus.DONE and hit[rid].value == clean[rid].value
+              and np.array_equal(hit[rid].plan, clean[rid].plan))
+        check(ok, f"phase 11 chaos: neighbour {rid} lost its bits")
+    return counts
+
+
 COMPARE_DIR = os.path.join(HERE, "_archive", "compare")     # git-ignored
 
 
@@ -1938,12 +2264,13 @@ def reduce_calls(kr, device, rng, shape):
 def compare_run(out_path: str, with_bits: bool) -> None:
     """One tree's numbers for --compare (``repro_torch`` is that tree's): the main
     path's prints and its solver call's profile and peak memory; K2/K3/K5-K8
-    and K4 at the main path's last round boundary, and row_sum / row_dot on
+    and K1 and K4 at the main path's last round boundary, and row_sum / row_dot on
     one of its L-BFGS vectors (CUDA events, median of 50, and host enqueue:
     the mean of 100 calls in a row with no synchronize; row_sum / row_dot also
     their device us per call, profiled); K2/K3/K5-K8 with every tile live
-    (median of 20); with ``with_bits``, compare_bits, K4's outputs at the final
-    state and the row sums over ROW_D."""
+    (median of 20), K1 on the same screening inputs; with ``with_bits``,
+    compare_bits, K1's and K4's outputs at the final state and the row sums
+    over ROW_D."""
     import numpy as np
     import torch
 
@@ -1965,6 +2292,7 @@ def compare_run(out_path: str, with_bits: bool) -> None:
     pick = lambda name: sum(us for k, us, _ in prof["kernels"] if name in k) / 1e3
     res["profile"] = {"peak_bytes": peak, "launches_per_eval": per_eval,
                       "idle_share": 1.0 - prof["busy_s"] / prof["wall_s"],
+                      "K1 device ms": pick("screen_kernel"),
                       "K5 device ms": pick("gradpsi_grid_kernel"),
                       "K6 device ms": pick("gradpsi_compact_kernel"),
                       "slot epilogue device ms": pick("slot_reduce_kernel") + pick("slot_sum"),
@@ -1997,13 +2325,15 @@ def compare_run(out_path: str, with_bits: bool) -> None:
                 tile_n=ops.fp.tile_n)
     final[K4] = lambda: ks.snapshot_norms_fact_batched(st["alphap"], st["betap"],
                                                        *ops.fp.leaves(), ops.mask, **k4kw)
+    final[K1] = lambda: ks.screen_batched(*st["sargs"], **st["skw"])
     rows = reduce_calls(kr, device, np.random.default_rng(5), (1, ROW_D_MAIN))
     final.update(rows)
     res["device_us"] = {k: device_us_per_call(f)[0] for k, f in rows.items()}
     res["device_us"][K4] = device_us_per_call(final[K4], 20)[0]
     bits = None
     if with_bits:
-        bits = {"K4 final state": tuple(v.cpu() for v in final[K4]())}
+        bits = {"K4 final state": tuple(v.cpu() for v in final[K4]()),
+                "K1 final state": tuple(v.cpu() for v in final[K1]() if v is not None)}
         rng = np.random.default_rng(6)
         for D in ROW_D:
             for name, f in reduce_calls(kr, device, rng, (3, D)).items():
@@ -2025,9 +2355,10 @@ def compare_run(out_path: str, with_bits: bool) -> None:
                                  emit_verdict=False)
     sched, nact = kg.build_batch_tile_schedule(flags)
     res["live_share"] = int(nact) / flags.numel()
-    res["live_ms"] = {k: median_ms(f, 20) for k, f in
-                      calls(inp["alpha"], inp["beta"], flags, sched, nact, sargs,
-                            st["gkw"]).items()}
+    live = calls(inp["alpha"], inp["beta"], flags, sched, nact, sargs, st["gkw"])
+    live[K1] = lambda: ks.screen_batched(*sargs, tau=st["gkw"]["tau"], tile_l=TILE_L,
+                                         tile_n=TILE_N, emit_verdict=False)
+    res["live_ms"] = {k: median_ms(f, 20) for k, f in live.items()}
     if with_bits:
         bits.update(compare_bits(device))
     torch.save({"res": res, "bits": bits}, out_path)
@@ -2168,7 +2499,7 @@ def main() -> None:
     ops.drop_dense()
     # 4. the solver calls alone (memory, profile), then every path end to end
     lap("phase 4")
-    phase_memory_and_profile(ops, problem, reg, device)
+    main_profile = phase_memory_and_profile(ops, problem, reg, device)
     sols, launches = phase_end_to_end(problem, mat_problem, device)
     del mat_problem
     # 5. checks and times at the main path's final state
@@ -2196,6 +2527,11 @@ def main() -> None:
     refine_launches = phase_train(problem, reg, device)
     lap("phase 9")
     phase_stochastic(problem, reg, lbfgs_value, device)
+    # 10. solve_many and stream at full width; 11. the serving engine
+    lap("phase 10")
+    phase_batch(reg, main_profile, device)
+    lap("phase 11")
+    phase_engine(reg, device)
     for row in solo_rows:
         if row["name"] == B12:          # the layer's grad_refine path runs it
             row["launches"] = refine_launches[B12]

@@ -23,7 +23,10 @@ kernel backends' prepared cost in bfloat16 (computed on in float32).
 
 Batching: every tensor carries a leading problem axis B; :func:`solve_dual`
 is the B = 1 slice of :func:`solve_dual_batch` and runs the same op
-sequence.  A problem solved solo and inside a batch gives the same bits:
+sequence.  The round-step API, :func:`init_batch_state` and
+:func:`batch_round`, runs the same rounds one call at a time (the façade's
+``stream`` and the serving engine's tick), with the row mask and sqrt(g)
+shared by the batch or one per problem.  A problem solved solo and inside a batch gives the same bits:
 the kernels write per-problem slots, and every per-problem sum outside
 them goes through the batch-invariant ``kernels.reduce.row_sum`` / ``row_dot``.
 """
@@ -37,7 +40,8 @@ import torch
 from repro_torch.core import screening
 from repro_torch.core.dual import DualProblem, dual_value_and_grad, plan_from_duals, snapshot_norms
 from repro_torch.core.groups import GroupSpec
-from repro_torch.core.lbfgs import LbfgsOptions, LbfgsState, init_state_batched, run_segment_batched
+from repro_torch.core.lbfgs import (LbfgsOptions, LbfgsState, init_state_batched,
+                                   run_segment_batched, where_state)
 from repro_torch.core.regularizers import Regularizer
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 
@@ -460,6 +464,60 @@ def _round_body(state, C, a, b, row_mask, sqrt_g, prob, opts, padded, tile_stats
 
     rounds = rounds + alive.to(torch.int32)
     return BatchSolveState(lb=lb, scr=scr, rounds=rounds, stats=stats)
+
+
+def _batch_operands(C, a, b, row_mask, sqrt_g, device: DeviceLike):
+    """The round-step API's operands as tensors on the resolved device."""
+    dev = resolve_device(device)
+    return (_cost_operand(C, dev), as_tensor(a, dev, torch.float32),
+            as_tensor(b, dev, torch.float32), as_tensor(row_mask, dev, torch.bool),
+            as_tensor(sqrt_g, dev, torch.float32))
+
+
+def init_batch_state(C, a, b, row_mask, sqrt_g, prob: DualProblem, opts: SolveOptions,
+                     padded=None, device: DeviceLike = None) -> BatchSolveState:
+    """Initial state of the round-step API: valid snapshots + the first evaluation.
+
+    Counterpart of the JAX ``init_batch_state``.  ``C`` is a (B, m_pad, n)
+    cost or a batched FactorizedCost (kernel backends); ``row_mask`` /
+    ``sqrt_g`` are shared ((m_pad,) / (L,)) or per problem ((B, m_pad) /
+    (B, L)), as the serving engine packs problems whose true group sizes
+    differ into one bucket.  ``padded`` may carry the prepared kernel
+    problem (``_prepare_padded``) so a long-lived caller prepares it once;
+    without it the kernel backends prepare it here.  Runs on ``cuda``
+    unless ``device='cpu'`` is passed.
+    """
+    C, a, b, row_mask, sqrt_g = _batch_operands(C, a, b, row_mask, sqrt_g, device)
+    if padded is None:
+        padded = _prepare_padded(C, prob, opts)
+    return _init_batch_state(C, a, b, row_mask, sqrt_g, prob, opts, padded)
+
+
+def batch_round(state: BatchSolveState, C, a, b, row_mask, sqrt_g, prob: DualProblem,
+                opts: SolveOptions, padded=None, device: DeviceLike = None) -> BatchSolveState:
+    """One Algorithm-1 round over the batch; problems already finished stay frozen.
+
+    Counterpart of the JAX ``batch_round`` (one engine tick).  Operands as
+    in :func:`init_batch_state`; ``padded`` lets the caller keep its
+    prepared kernel problem across rounds.  Running rounds while any
+    problem is alive, up to ``opts.max_rounds``, gives the bits of
+    :func:`solve_dual_batch`.
+    """
+    C, a, b, row_mask, sqrt_g = _batch_operands(C, a, b, row_mask, sqrt_g, device)
+    if padded is None:
+        padded = _prepare_padded(C, prob, opts)
+    return _round_body(state, C, a, b, row_mask, sqrt_g, prob, opts, padded)
+
+
+def where_batch_state(mask: torch.Tensor, new: BatchSolveState,
+                      old: BatchSolveState) -> BatchSolveState:
+    """Per-problem select of two batch states: ``new`` where ``mask`` (B,) is True."""
+    return BatchSolveState(
+        lb=where_state(mask, new.lb, old.lb),
+        scr=screening.where_screen(mask, new.scr, old.scr),
+        rounds=torch.where(mask, new.rounds, old.rounds),
+        stats=torch.where(mask[:, None], new.stats, old.stats),
+    )
 
 
 def _solve_batch_impl(C, a, b, row_mask, sqrt_g, prob, opts, tile_stats=None):

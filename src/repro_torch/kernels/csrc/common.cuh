@@ -15,6 +15,25 @@ constexpr int ZERO = 0;
 constexpr int CHECK = 1;
 constexpr int ACTIVE = 2;
 
+// [x]_+ and -[-x]_+ (max(x, 0), min(x, 0)) as torch.clamp_min / clamp_max and
+// jnp.maximum / jnp.minimum take them: a NaN stays NaN.  fmaxf / fminf
+// would turn a NaN into 0, so a NaN cost or dual would vanish from the
+// sums instead of reaching the objective, where the solver and the
+// serving engine's finite check must see it.  PTX's max.NaN / min.NaN
+// (sm_80 on) is one instruction, where a compare and a select are two.
+// It gives +0 for -0 where clamp_min keeps -0; no output can tell them
+// apart, since every caller squares the part or adds it to a sum.
+static __device__ __forceinline__ float pos_part(float x) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(x));
+  return r;
+}
+static __device__ __forceinline__ float neg_part(float x) {
+  float r;
+  asm("min.NaN.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(x));
+  return r;
+}
+
 // Screening verdict of one (l, j) entry: paper Eq. 6 (upper bound) and
 // Eq. 7 (lower bound), in exactly the operation order of the JAX
 // `_verdict_tile` (src/repro/kernels/gradpsi.py) and of the plain
@@ -26,10 +45,15 @@ constexpr int ACTIVE = 2;
 static __device__ __forceinline__ int verdict(float z, float k, float o, int8_t act,
                                               float dap, float daf, float dan,
                                               float db, float sg, float tau) {
-  const float zbar = __fadd_rn(__fadd_rn(z, dap), __fmul_rn(sg, fmaxf(db, 0.0f)));
+  // [db]_+ and [-db]_+ (NaN kept) by a compare and a select: here, unlike
+  // in the cost and gradient bodies, that measured faster on an H100 than
+  // max.NaN (chip_smoke.py --compare)
+  const float ndb = -db;
+  const float dbp = db < 0.0f ? 0.0f : db, dbn = ndb < 0.0f ? 0.0f : ndb;
+  const float zbar = __fadd_rn(__fadd_rn(z, dap), __fmul_rn(sg, dbp));
   const float zlow = __fsub_rn(
       __fsub_rn(__fsub_rn(__fsub_rn(__fsub_rn(k, daf), __fmul_rn(sg, fabsf(db))), o), dan),
-      __fmul_rn(sg, fmaxf(-db, 0.0f)));
+      __fmul_rn(sg, dbn));
   int v = (zbar <= tau) ? ZERO : CHECK;
   if (act != 0) v = ACTIVE;
   if (v == CHECK && zlow > tau) v = ACTIVE;

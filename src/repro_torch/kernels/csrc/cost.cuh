@@ -44,6 +44,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace rt {
 
 static __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -164,7 +166,7 @@ struct FactCost {
   __device__ __forceinline__ float at(size_t, int i) const {
     const float c = __fsub_rn(__fadd_rn(xsq[i], ysq_j),
                               __fmul_rn(2.0f, acc[i * tile_n + threadIdx.x]));
-    return fmaxf(c, 0.0f);
+    return pos_part(c);
   }
 };
 
@@ -242,7 +244,7 @@ struct FactRegTile {
 #pragma unroll
     for (int k = 1; k < DR; ++k)
       if (k < d) xy = __fadd_rn(xy, __fmul_rn(r[2 + k], yr[k]));
-    return fmaxf(__fsub_rn(__fadd_rn(r[0], ysq), __fmul_rn(2.0f, xy)), 0.0f);
+    return pos_part(__fsub_rn(__fadd_rn(r[0], ysq), __fmul_rn(2.0f, xy)));
   }
 };
 

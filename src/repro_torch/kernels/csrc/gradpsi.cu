@@ -185,8 +185,8 @@ struct FactChunkTile {
   __device__ __forceinline__ float at(const float* rec, size_t, int i, float& a) const {
     a = rec[0];
     const int t = min((int)threadIdx.x, c.tile_n - 1);
-    return fmaxf(__fsub_rn(__fadd_rn(c.xsq[i], c.ysq_j), __fmul_rn(2.0f, c.acc[i * c.tile_n + t])),
-                 0.0f);
+    return rt::pos_part(
+        __fsub_rn(__fadd_rn(c.xsq[i], c.ysq_j), __fmul_rn(2.0f, c.acc[i * c.tile_n + t])));
   }
 };
 
@@ -236,7 +236,7 @@ __device__ __forceinline__ void group_chunk(const Tile& cost, const float* rec, 
     for (int ii = 0; ii < GC; ++ii) c[ii] = cost.at(rr + ii * S, row0 + c0 + ii, c0 + ii, a[ii]);
 #pragma unroll
     for (int ii = 0; ii < GC; ++ii) {
-      fp[ii] = fmaxf(__fsub_rn(__fadd_rn(a[ii], bj), c[ii]), 0.0f);
+      fp[ii] = rt::pos_part(__fsub_rn(__fadd_rn(a[ii], bj), c[ii]));
       if (ZSQ) zsq = __fmaf_rn(fp[ii], fp[ii], zsq);
     }
     return;
@@ -248,7 +248,7 @@ __device__ __forceinline__ void group_chunk(const Tile& cost, const float* rec, 
   }
 #pragma unroll
   for (int ii = 0; ii < GC; ++ii) {
-    const float v = fmaxf(__fsub_rn(__fadd_rn(a[ii], bj), c[ii]), 0.0f);
+    const float v = rt::pos_part(__fsub_rn(__fadd_rn(a[ii], bj), c[ii]));
     const bool ok = c0 + ii < g;
     if (ZSQ && ok) zsq = __fmaf_rn(v, v, zsq);
     fp[ii] = ok ? v : 0.0f;

@@ -7,7 +7,8 @@
 // `repro.core.dual.snapshot_norms`.  Per (b, l, j):
 //
 //   f_i  = alpha_i + beta_j - c_ij    for the g members i of group l,
-//   fm_i = f_i on real rows, 0 on padded rows (masked BEFORE the sums),
+//   fm_i = f_i on real rows, 0 on padded rows (masked BEFORE the sums; the
+//          row mask is one for the batch, or one per problem: mask_stride),
 //   z~ = ||[fm]_+||,  k~ = ||fm||,  o~ = ||[fm]_-||,
 //
 // each sum taken over the members in order, i = 0 .. g-1, on the cost as
@@ -51,16 +52,17 @@ namespace {
 struct SnapArgs {
   const float* alpha;   // (B, L_pad*g)
   const float* beta;    // (B, n_pad)
-  const int8_t* mask;   // (L_pad*g,) 1 on real rows
+  const int8_t* mask;   // problem b's row mask at mask + b * mask_stride, 1 on real rows
   float* z;             // (B, L_pad, n_pad)
   float* k;
   float* o;
   int L_pad, g, n_pad, tile_l, tile_n;
+  int mask_stride;      // 0: one (L_pad*g,) mask shared by the batch; L_pad*g: (B, L_pad*g)
 };
 
 // One member's f = (alpha_i + beta_j) - c_ij added to the three sums of squares.
 __device__ __forceinline__ void add_member(float f, float& zsq, float& ksq, float& osq) {
-  const float fp = fmaxf(f, 0.0f), fn = fminf(f, 0.0f);
+  const float fp = rt::pos_part(f), fn = rt::neg_part(f);
   zsq = __fadd_rn(zsq, __fmul_rn(fp, fp));
   ksq = __fadd_rn(ksq, __fmul_rn(f, f));
   osq = __fadd_rn(osq, __fmul_rn(fn, fn));
@@ -84,6 +86,7 @@ __global__ void snapshot_kernel(SnapArgs A, Cost cost) {
   const size_t m_pad = (size_t)A.L_pad * g;
   const float bj = A.beta[(size_t)b * A.n_pad + j];
   const float* ab = A.alpha + (size_t)b * m_pad;
+  const int8_t* mb = A.mask + (size_t)b * A.mask_stride;
   for (int r = 0; r < A.tile_l; ++r) {
     const int l = lt * A.tile_l + r;
     const size_t row0 = (size_t)l * g;
@@ -91,7 +94,7 @@ __global__ void snapshot_kernel(SnapArgs A, Cost cost) {
     float zsq = 0.0f, ksq = 0.0f, osq = 0.0f;
     for (int i = 0; i < g; ++i) {
       const float f = __fsub_rn(__fadd_rn(ab[row0 + i], bj), cost.at(row0, i));
-      add_member(A.mask[row0 + i] != 0 ? f : 0.0f, zsq, ksq, osq);
+      add_member(mb[row0 + i] != 0 ? f : 0.0f, zsq, ksq, osq);
     }
     store_norms(A, ((size_t)b * A.L_pad + l) * A.n_pad + j, zsq, ksq, osq);
   }
@@ -139,7 +142,8 @@ __global__ void __launch_bounds__(REG_THREADS)
   const size_t row_base = (size_t)l0 * g;
   const float* ab = A.alpha + (size_t)b * A.L_pad * g + row_base;
 
-  for (int q = tid; q < rows; q += nt) real[q] = A.mask[row_base + q] != 0;
+  const int8_t* mb = A.mask + (size_t)b * A.mask_stride + row_base;
+  for (int q = tid; q < rows; q += nt) real[q] = mb[q] != 0;
   __syncthreads();
   // each real row's record goes to its group's next slot, in member order
   for (int q = tid; q < rows; q += nt) {
@@ -181,8 +185,9 @@ __global__ void __launch_bounds__(REG_THREADS)
   }
 }
 
-SnapArgs make_args(const void* alpha, const void* beta, const void* mask, void* z, void* k,
-                   void* o, int L_pad, int g, int n_pad, int tile_l, int tile_n) {
+SnapArgs make_args(const void* alpha, const void* beta, const void* mask, int mask_stride,
+                   void* z, void* k, void* o, int L_pad, int g, int n_pad, int tile_l,
+                   int tile_n) {
   SnapArgs A;
   A.alpha = static_cast<const float*>(alpha);
   A.beta = static_cast<const float*>(beta);
@@ -195,6 +200,7 @@ SnapArgs make_args(const void* alpha, const void* beta, const void* mask, void* 
   A.n_pad = n_pad;
   A.tile_l = tile_l;
   A.tile_n = tile_n;
+  A.mask_stride = mask_stride;
   return A;
 }
 
@@ -232,14 +238,16 @@ int launch_reg(const SnapArgs& A, const RegTile<T>& cost, int B, void* stream) {
 
 // K4 on the factorized cost.  alpha: (B, L_pad*g), beta: (B, n_pad), x:
 // (B, L_pad*g, d), x_sq: (B, L_pad*g), y: (B, n_pad, d), y_sq: (B, n_pad),
-// the four stored as `cost_dtype` (cost.cuh); mask: (L_pad*g,) int8; z, k,
-// o: (B, L_pad, n_pad).  Returns cudaGetLastError().
+// the four stored as `cost_dtype` (cost.cuh); mask: int8, (L_pad*g,) shared by
+// the batch with mask_stride 0, or (B, L_pad*g) with mask_stride L_pad*g; z,
+// k, o: (B, L_pad, n_pad).  Returns cudaGetLastError().
 extern "C" int snapshot_fact_launch(const void* alpha, const void* beta, const void* x,
                                     const void* x_sq, const void* y, const void* y_sq,
                                     const void* mask, void* z, void* k, void* o, int B,
-                                    int L_pad, int g, int n_pad, int d, int dc, int tile_l,
-                                    int tile_n, int cost_dtype, void* stream) {
-  const SnapArgs A = make_args(alpha, beta, mask, z, k, o, L_pad, g, n_pad, tile_l, tile_n);
+                                    int mask_stride, int L_pad, int g, int n_pad, int d, int dc,
+                                    int tile_l, int tile_n, int cost_dtype, void* stream) {
+  const SnapArgs A =
+      make_args(alpha, beta, mask, mask_stride, z, k, o, L_pad, g, n_pad, tile_l, tile_n);
   if (dc == 0) {
     if (d < 1 || d > rt::FACT_REG_D) return static_cast<int>(cudaErrorInvalidValue);
     return rt::with_storage(cost_dtype, [&](auto st) {
@@ -260,9 +268,10 @@ extern "C" int snapshot_fact_launch(const void* alpha, const void* beta, const v
 // The same norms on a dense (B, L_pad*g, n_pad) cost C stored as `cost_dtype`.
 extern "C" int snapshot_dense_launch(const void* alpha, const void* beta, const void* C,
                                      const void* mask, void* z, void* k, void* o, int B,
-                                     int L_pad, int g, int n_pad, int tile_l, int tile_n,
-                                     int cost_dtype, void* stream) {
-  const SnapArgs A = make_args(alpha, beta, mask, z, k, o, L_pad, g, n_pad, tile_l, tile_n);
+                                     int mask_stride, int L_pad, int g, int n_pad, int tile_l,
+                                     int tile_n, int cost_dtype, void* stream) {
+  const SnapArgs A =
+      make_args(alpha, beta, mask, mask_stride, z, k, o, L_pad, g, n_pad, tile_l, tile_n);
   return rt::with_storage(cost_dtype, [&](auto st) {
     using T = typename decltype(st)::type;
     return launch(A, rt::make_dense_cost<T>(C, L_pad, g, n_pad), B, 0, stream);

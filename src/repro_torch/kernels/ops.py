@@ -304,9 +304,11 @@ def dual_value_and_grad_padded_batched(
 
 
 def _padded_mask(row_mask: torch.Tensor, pp) -> torch.Tensor:
-    """(L_pad*g,) int8 real-row mask of the tile grid; padded groups are 0."""
-    mask = row_mask.reshape(pp.L, pp.g).to(torch.int8)
-    return _pad_axis(mask, 0, pp.tile_l, 0).reshape(-1).contiguous()
+    """(..., L_pad*g) int8 real-row mask of the tile grid from a (..., m_pad) one:
+    shared by the batch (m_pad,) or per problem (B, m_pad); padded groups are 0."""
+    lead = tuple(row_mask.shape[:-1])
+    mask = row_mask.reshape(lead + (pp.L, pp.g)).to(torch.int8)
+    return _pad_axis(mask, -2, pp.tile_l, 0).reshape(lead + (-1,)).contiguous()
 
 
 def snapshot_norms_padded(alpha: torch.Tensor, beta: torch.Tensor, pp: PaddedProblem,
@@ -314,7 +316,8 @@ def snapshot_norms_padded(alpha: torch.Tensor, beta: torch.Tensor, pp: PaddedPro
     """Snapshot norms (z~, k~, o~), each (B, L, n), on the dense route: K4's body on ``Cp``.
 
     Bitwise equal to ``core.dual.snapshot_norms`` on the same cost.
-    ``row_mask`` is the (m_pad,) bool real-row mask shared by the batch.
+    ``row_mask`` is the bool real-row mask: (m_pad,) shared by the batch, or
+    (B, m_pad) per problem.
     """
     alphap, betap = pad_tile_inputs(alpha, beta, pp)
     z, k, o = snapshot_norms_dense_batched(

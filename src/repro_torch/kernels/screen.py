@@ -106,8 +106,8 @@ def snapshot_norms_dense_ref(alpha, beta, C, mask, *, num_groups: int, group_siz
     """Plain snapshot norms on a dense cost.
 
     alpha (B, L_pad*g), beta (B, n_pad), C (B, L_pad*g, n_pad) f32 or bf16
-    (upcast first), mask (L_pad*g,) nonzero on real rows -> (z~, k~, o~) each
-    (B, L_pad, n_pad).
+    (upcast first), mask (L_pad*g,) shared by the batch or (B, L_pad*g) per
+    problem, nonzero on real rows -> (z~, k~, o~) each (B, L_pad, n_pad).
     """
     F = alpha[..., :, None] + beta[..., None, :] - C.float()
     return member_norms(F, mask != 0, num_groups, group_size)
@@ -139,11 +139,13 @@ def _snapshot_checks(alpha, beta, mask, num_groups, group_size, tile_l, tile_n):
         raise ValueError(f"tile_n={tile_n}: one thread per column, at most 1024")
     if tuple(alpha.shape) != (B, L_pad * g):
         raise ValueError(f"alpha {tuple(alpha.shape)} != {(B, L_pad * g)}")
-    if tuple(mask.shape) != (L_pad * g,) or mask.dtype != torch.int8 \
+    if tuple(mask.shape) not in ((L_pad * g,), (B, L_pad * g)) or mask.dtype != torch.int8 \
             or mask.device != alpha.device or not mask.is_contiguous():
-        raise ValueError(f"mask: expected contiguous int8 {(L_pad * g,)} on {alpha.device}")
+        raise ValueError(f"mask: expected contiguous int8 {(L_pad * g,)} or "
+                         f"{(B, L_pad * g)} on {alpha.device}, got {tuple(mask.shape)}")
+    stride = 0 if mask.dim() == 1 else L_pad * g
     kw = dict(dtype=torch.float32, device=alpha.device)
-    return B, n_pad, tuple(torch.empty((B, L_pad, n_pad), **kw) for _ in range(3))
+    return B, n_pad, stride, tuple(torch.empty((B, L_pad, n_pad), **kw) for _ in range(3))
 
 
 def snapshot_norms_dense_batched(alpha, beta, C, mask, *, num_groups: int, group_size: int,
@@ -152,16 +154,16 @@ def snapshot_norms_dense_batched(alpha, beta, C, mask, *, num_groups: int, group
     if not alpha.is_cuda:
         return snapshot_norms_dense_ref(alpha, beta, C, mask, num_groups=num_groups,
                                         group_size=group_size)
-    B, n_pad, (z, k, o) = _snapshot_checks(alpha, beta, mask, num_groups, group_size,
-                                           tile_l, tile_n)
+    B, n_pad, stride, (z, k, o) = _snapshot_checks(alpha, beta, mask, num_groups, group_size,
+                                                   tile_l, tile_n)
     if tuple(C.shape) != (B, num_groups * group_size, n_pad):
         raise ValueError(f"C {tuple(C.shape)} != {(B, num_groups * group_size, n_pad)}")
     code = _check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta)), (),
                               (("C", C),))
     err = _build.library().snapshot_dense_launch(
         alpha.data_ptr(), beta.data_ptr(), C.data_ptr(), mask.data_ptr(), z.data_ptr(),
-        k.data_ptr(), o.data_ptr(), B, num_groups, group_size, n_pad, tile_l, tile_n, code,
-        _build.stream_handle(alpha.device))
+        k.data_ptr(), o.data_ptr(), B, stride, num_groups, group_size, n_pad, tile_l, tile_n,
+        code, _build.stream_handle(alpha.device))
     _build.check(err, "snapshot_dense_launch")
     _build.record_launch("snapshot_norms_dense_batched")
     return z, k, o
@@ -172,13 +174,14 @@ def snapshot_norms_fact_batched(alpha, beta, x, x_sq, y, y_sq, mask, *, num_grou
     """K4: snapshot norms on the factorized cost, (z~, k~, o~) each (B, L_pad, n_pad).
 
     x (B, L_pad*g, d), x_sq (B, L_pad*g), y (B, n_pad, d), y_sq (B, n_pad),
-    all f32 or all bf16.
+    all f32 or all bf16; the int8 row mask is (L_pad*g,), shared by the
+    batch, or (B, L_pad*g), one row per problem (the kernel's mask stride).
     """
     if not alpha.is_cuda:
         return snapshot_norms_fact_ref(alpha, beta, x, x_sq, y, y_sq, mask,
                                        num_groups=num_groups, group_size=group_size)
-    B, n_pad, (z, k, o) = _snapshot_checks(alpha, beta, mask, num_groups, group_size,
-                                           tile_l, tile_n)
+    B, n_pad, stride, (z, k, o) = _snapshot_checks(alpha, beta, mask, num_groups, group_size,
+                                                   tile_l, tile_n)
     m_pad, d = num_groups * group_size, x.shape[-1]
     want = {"x": (B, m_pad, d), "x_sq": (B, m_pad), "y": (B, n_pad, d), "y_sq": (B, n_pad)}
     for name, t in (("x", x), ("x_sq", x_sq), ("y", y), ("y_sq", y_sq)):
@@ -188,7 +191,7 @@ def snapshot_norms_fact_batched(alpha, beta, x, x_sq, y, y_sq, mask, *, num_grou
                               (("x", x), ("x_sq", x_sq), ("y", y), ("y_sq", y_sq)))
     err = _build.library().snapshot_fact_launch(
         alpha.data_ptr(), beta.data_ptr(), x.data_ptr(), x_sq.data_ptr(), y.data_ptr(),
-        y_sq.data_ptr(), mask.data_ptr(), z.data_ptr(), k.data_ptr(), o.data_ptr(), B,
+        y_sq.data_ptr(), mask.data_ptr(), z.data_ptr(), k.data_ptr(), o.data_ptr(), B, stride,
         num_groups, group_size, n_pad, d, snapshot_loader_dc(tile_l, group_size, tile_n, d),
         tile_l, tile_n, code, _build.stream_handle(alpha.device))
     _build.check(err, "snapshot_fact_launch")

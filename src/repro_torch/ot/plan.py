@@ -3,7 +3,7 @@
 Counterpart of ``repro.ot.plan``, with the same fields and the same config
 JSON, so a plan written by the JAX package loads here.  Values the JAX
 package accepts but the port has not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them; values
+``NotImplementedError`` naming the ROADMAP queue id that ports them; values
 neither package knows raise ``ValueError``.
 """
 from __future__ import annotations
@@ -22,8 +22,8 @@ PRECISIONS = ("f32", "bf16")
 SOLVERS = ("lbfgs", "stochastic")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue A item {item})")
+def _not_ported(what: str, queue_id: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {queue_id})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +86,7 @@ class ExecutionPlan:
             raise ValueError("precision='bf16' requires grad_impl='pallas' or 'fused' "
                              f"(got grad_impl={self.grad_impl!r})")
         if self.devices != "single":
-            raise _not_ported(f"devices={self.devices!r} (device meshes)", "9")
+            raise _not_ported(f"devices={self.devices!r} (device meshes)", "A3")
 
         self.stochastic_options()          # the sgd_* fields are checked here
 

@@ -45,6 +45,40 @@ class PaddedArrays(NamedTuple):
     perm: np.ndarray       # (m_pad,) padded-row -> original-row (-1 = padding)
 
 
+@dataclasses.dataclass(frozen=True)
+class SubmitOptions:
+    """Per-request serving SLOs a :class:`Problem` can carry (as ``repro.ot.SubmitOptions``).
+
+    The solver layers ignore these; the serving engine
+    (:class:`repro_torch.serving.ot_engine.OTServingEngine`) reads them at
+    submission — the declarative form of its ``submit(problem,
+    deadline=..., priority=...)`` keywords.
+
+    Parameters
+    ----------
+    deadline : int, optional
+        Tick budget: the request must reach a terminal status within this
+        many engine ticks of submission or it is retired
+        ``DEADLINE_EXCEEDED``.  ``None`` = no deadline.
+    priority : int
+        Priority class; higher-priority requests are admitted first and
+        shed last under overload.
+    """
+
+    deadline: Optional[int] = None
+    priority: int = 0
+
+    def __post_init__(self):
+        if self.deadline is not None and int(self.deadline) < 1:
+            raise ValueError(f"deadline must be >= 1 ticks (or None), got {self.deadline}")
+        if not isinstance(self.priority, int):
+            raise ValueError(f"priority must be an int, got {self.priority!r}")
+
+    def config(self) -> dict:
+        """JSON-able description; ``SubmitOptions(**cfg)`` inverts it."""
+        return {"deadline": self.deadline, "priority": self.priority}
+
+
 def _opt_array(x) -> Optional[np.ndarray]:
     return None if x is None else np.asarray(x)
 
@@ -70,6 +104,9 @@ class Problem:
         Samples mode: divide the cost by its max.
     pad_to : int
         Group-size padding granularity of the derived layout.
+    submit : SubmitOptions, optional
+        Serving SLOs (deadline in ticks, priority class); ignored by the
+        solver layers, read by the serving engine at submission.
     """
 
     reg: Regularizer
@@ -82,6 +119,7 @@ class Problem:
     spec: Optional[G.GroupSpec] = None
     normalize_cost: bool = True
     pad_to: int = 8
+    submit: Optional[SubmitOptions] = None
 
     def __post_init__(self):
         for name in ("C", "labels", "X_S", "X_T", "a", "b"):
@@ -157,6 +195,8 @@ class Problem:
             v = getattr(self, name)
             if v is not None and not np.all(np.isfinite(v)):
                 raise ValueError(f"{name} contains non-finite entries (NaN or inf)")
+        if self.submit is not None and not isinstance(self.submit, SubmitOptions):
+            raise ValueError(f"submit must be a SubmitOptions, got {type(self.submit).__name__}")
         self.reg.mu_vec(self.group_spec().num_groups)
 
     @property
@@ -239,7 +279,8 @@ class Problem:
         C = np.empty((self.num_source, self.num_target), np.float32)
         C[perm[real]] = C_pad[real]
         return Problem(reg=self.reg, C=C, labels=self.labels, a=self.a, b=self.b,
-                       normalize_cost=self.normalize_cost, pad_to=self.pad_to)
+                       normalize_cost=self.normalize_cost, pad_to=self.pad_to,
+                       submit=self.submit)
 
     def config(self) -> dict:
         """JSON-able description, the same as the JAX package's."""
@@ -264,6 +305,8 @@ class Problem:
                 "sizes": list(self.spec.sizes),
                 "m": self.spec.m,
             }
+        if self.submit is not None:
+            cfg["submit"] = self.submit.config()
         return cfg
 
     @staticmethod
@@ -271,10 +314,10 @@ class Problem:
         """Rebuild a :class:`Problem` from its (JAX or port) config dict."""
         cfg = dict(cfg)
         cfg.pop("mode", None)
-        if cfg.pop("submit", None) is not None:
-            raise NotImplementedError(
-                "serving SLOs (submit) are not ported yet (ROADMAP queue A item 10)")
         reg = reg_from_config(cfg.pop("reg"))
+        submit = cfg.pop("submit", None)
+        if submit is not None:
+            submit = SubmitOptions(**submit)
         spec = cfg.pop("spec", None)
         if spec is not None:
             spec = G.GroupSpec(num_groups=int(spec["num_groups"]),
@@ -288,7 +331,7 @@ class Problem:
             if name in cfg:
                 dtype = np.dtype(dtypes[name]) if name in dtypes else default
                 arrays[name] = np.asarray(cfg.pop(name), dtype)
-        return Problem(reg=reg, spec=spec, **arrays, **cfg)
+        return Problem(reg=reg, spec=spec, submit=submit, **arrays, **cfg)
 
     def __eq__(self, other) -> bool:
         if not isinstance(other, Problem):

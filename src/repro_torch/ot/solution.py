@@ -69,15 +69,18 @@ class Solution:
 
 
 def build_solution(result: OTResult, reg, C_pad: torch.Tensor, spec: G.GroupSpec,
-                   perm: np.ndarray, n: int, tol: float = 1e-9) -> Solution:
+                   perm: np.ndarray, n: int, tol: float = 1e-9,
+                   T_pad: Optional[torch.Tensor] = None) -> Solution:
     """Assemble a :class:`Solution`: recover the plan, un-pad it, derive the scalars.
 
     ``C_pad`` is the ``(m_pad, n_solved)`` cost tensor the solve ran on
-    (``n_solved >= n``); everything runs on its device.
+    (``n_solved >= n``); everything runs on its device.  ``T_pad`` may carry
+    the plan already recovered (a slice of a batched recovery).
     """
     dev = C_pad.device
-    prob = DualProblem(spec.num_groups, spec.group_size, int(C_pad.shape[1]), reg)
-    T_pad = plan_from_duals(result.alpha, result.beta, C_pad, prob)
+    if T_pad is None:
+        prob = DualProblem(spec.num_groups, spec.group_size, int(C_pad.shape[1]), reg)
+        T_pad = plan_from_duals(result.alpha, result.beta, C_pad, prob)
     real = torch.as_tensor(np.flatnonzero(perm >= 0), device=dev)
     dest = torch.as_tensor(perm[perm >= 0], device=dev)
     T = torch.zeros((int(spec.m), n), dtype=T_pad.dtype, device=dev)

@@ -9,12 +9,16 @@ a CUDA kernel has no CPU mode.  The file imports neither ``jax`` nor
 Tolerances:
   * K1 verdicts and flags: exactly equal (screen.cu is built with
     -fmad=false and repeats the plain version's op order);
+  * a NaN input reaches the kernels' outputs where it reaches the plain
+    versions' (the same places; elsewhere the usual tolerances);
   * K2 sums and psi: rtol 1e-5 / atol 1e-6 (another summation order);
   * K3 == K2 and reruns: bitwise (same per-tile slots, fixed-order sums);
   * K4 (snapshot norms, the register kernel at d <= 2, the chunked loader
     above, the dense body): bitwise equal to the plain version (every step
     an `_rn` intrinsic, the members summed in the plain version's order),
-    every output written (they are NaN before the launch);
+    every output written (they are NaN before the launch); with a row mask
+    per problem the same, and bitwise the shared-mask launch where the
+    rows are equal;
   * K5 / K6 against their plain versions: rtol 1e-5 / atol 1e-6, as K2;
     K5 == K2 and K6 == K3 bitwise on the cost materialized with the same
     recipe (the factorized loader rounds every step on its own);
@@ -118,6 +122,65 @@ def test_screen_kernel_equals_plain(cuda_device):
     assert _build.launch_counts()["screen_batched"] == before + 1
     none, f2 = tsc.screen_batched(*args, tau=tau, tile_l=8, tile_n=128, emit_verdict=False)
     assert none is None and torch.equal(f2, f)
+
+
+def _nan_equal(x, y, exact=True):
+    """Same NaN places; elsewhere bitwise equal, or within rtol 1e-5 / atol 1e-6."""
+    assert torch.equal(torch.isnan(x), torch.isnan(y))
+    x, y = torch.nan_to_num(x, nan=0.0), torch.nan_to_num(y, nan=0.0)
+    if exact:
+        assert torch.equal(x, y)
+    else:
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+
+
+def test_kernels_keep_nan_as_their_plain_versions(cuda_device):
+    """A NaN in a cost row, a dual or a delta reaches K1's verdicts, K2/K3's sums,
+    K5's rebuilt cost and K4's norms as it reaches the plain versions
+    (torch.clamp_min / clamp_max keep a NaN; fmaxf / fminf would drop it), so a
+    poisoned problem's objective turns non-finite on the card as on the CPU."""
+    alpha, beta, C, flags, tau = _grad_inputs(9, live_share=1.0)
+    C[0, 3, :] = np.nan
+    beta[1, 5] = np.nan
+    a, b, c, f, t = _to(cuda_device, alpha, beta, C, flags, tau)
+    kw = dict(num_groups=16, group_size=8, tau=t, gamma=0.25, tile_l=8, tile_n=128)
+    outs = list(zip(tgp.gradpsi_batched(a, b, c, f, **kw),
+                    tgp.gradpsi_batched_ref(a, b, c, f, **kw)))
+    for got, want in outs:
+        _nan_equal(got, want, exact=False)
+    # the row and column sums carry the NaN; psi skips a NaN group norm (z > tau
+    # is false), in the kernel as in the plain version
+    assert all(bool(torch.isnan(want).any()) for _, want in outs[:2])
+    sched, nact = tgp.build_batch_tile_schedule(f)
+    for got, want in zip(tgp.gradpsi_compact_batched(a, b, c, sched, nact, **kw)[:3],
+                         tgp.gradpsi_batched(a, b, c, f, **kw)):
+        _nan_equal(got, want)
+    mask = torch.ones(16 * 8, dtype=torch.int8, device=cuda_device)
+    skw = dict(num_groups=16, group_size=8, tile_l=8, tile_n=128)
+    for got, want in zip(tsc.snapshot_norms_dense_batched(a, b, c, mask, **skw),
+                         tsc.snapshot_norms_dense_ref(a, b, c, mask, num_groups=16,
+                                                      group_size=8)):
+        _nan_equal(got, want)
+    x = np.random.default_rng(3).normal(size=(2, 128, 2)).astype(np.float32)
+    x[0, 7, 1] = np.nan
+    y = np.random.default_rng(4).normal(size=(2, 256, 2)).astype(np.float32)
+    leaves = _to(cuda_device, x, (x * x).sum(-1), y, (y * y).sum(-1))
+    for got, want in zip(tsc.snapshot_norms_fact_batched(a, b, *leaves, mask, **skw),
+                         tsc.snapshot_norms_fact_ref(a, b, *leaves, mask, num_groups=16,
+                                                     group_size=8)):
+        _nan_equal(got, want)
+    for got, want in zip(tgp.gradpsi_fact_batched(a, b, *leaves, f, **kw),
+                         tgp.gradpsi_batched_ref(a, b, tgp.factorized_cost_tile(*leaves), f,
+                                                 **kw)):
+        _nan_equal(got, want, exact=False)
+    z, k, o, act, da, db, sqrt_g = _screen_inputs(4)
+    db[0, 17] = np.nan
+    da[0][1, 3] = np.nan
+    args = _to(cuda_device, z, k, o, act, *da, db, sqrt_g)
+    tau_s = torch.linspace(0.0, 0.6, z.shape[1], device=cuda_device)
+    v, fl = tsc.screen_batched(*args, tau=tau_s, tile_l=8, tile_n=128)
+    rv, rf = tsc.screen_batched_ref(*args, tau=tau_s, tile_l=8, tile_n=128)
+    assert torch.equal(v, rv) and torch.equal(fl, rf)
 
 
 @pytest.mark.parametrize("live_share", [0.0, 0.3, 1.0])
@@ -270,13 +333,15 @@ def _snapshot_nan_outputs(kind, alpha, beta, cost, mask, L, g, tile_l, tile_n):
     code = tgp._check_cuda_inputs(alpha.device, (("alpha", alpha), ("beta", beta)), (),
                                   tuple((str(i), t) for i, t in enumerate(cost)))
     ptrs = [t.data_ptr() for t in (alpha, beta, *cost, mask, z, k, o)]
+    stride = 0 if mask.dim() == 1 else L * g
     if kind == "fact":
         d = cost[0].shape[-1]
-        err = lib.snapshot_fact_launch(*ptrs, B, L, g, n_pad, d,
+        err = lib.snapshot_fact_launch(*ptrs, B, stride, L, g, n_pad, d,
                                        tsc.snapshot_loader_dc(tile_l, g, tile_n, d), tile_l,
                                        tile_n, code, stream)
     else:
-        err = lib.snapshot_dense_launch(*ptrs, B, L, g, n_pad, tile_l, tile_n, code, stream)
+        err = lib.snapshot_dense_launch(*ptrs, B, stride, L, g, n_pad, tile_l, tile_n, code,
+                                        stream)
     _build.check(err, f"snapshot_{kind}_launch")
     return z, k, o
 
@@ -319,6 +384,61 @@ def test_snapshot_kernels_equal_plain_bitwise(cuda_device, g, d, storage):
             for p, q in zip(outs, want):
                 assert torch.equal(p, q), (key, tile_n)
         assert bool((plain[1] > 0).any())
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [2, 8])
+@pytest.mark.parametrize("g", [3, 16])
+def test_snapshot_kernels_take_a_mask_per_problem(cuda_device, g, d, storage):
+    """K4 (register kernel at d = 2, chunked loader at d = 8) and its dense body
+    with a (B, L_pad*g) mask: every output written and bitwise the plain
+    version; with every row of the mask equal, bitwise the shared-mask launch."""
+    rng = np.random.default_rng(77 * g + d)
+    B, L, tile_l, tile_n = 3, 16, 8, 128
+    n_pad = 2 * tile_n
+    x = (rng.normal(size=(B, L * g, d)) * 0.4).astype(np.float32)
+    y = (rng.normal(size=(B, n_pad, d)) * 0.4).astype(np.float32)
+    leaves = _to(cuda_device, x, (x * x).sum(-1), y, (y * y).sum(-1))
+    if storage == "bf16":
+        leaves = [t.bfloat16() for t in leaves]
+    a, b = _to(cuda_device, rng.uniform(0.0, 0.6, (B, L * g)).astype(np.float32),
+               rng.uniform(0.0, 0.6, (B, n_pad)).astype(np.float32))
+    C = tgp.factorized_cost_tile(*leaves)
+    C = C.bfloat16() if storage == "bf16" else C
+    per = _to(cuda_device, (rng.random((B, L * g)) < 0.7).astype(np.int8))[0]
+    shared = per[1].contiguous()
+    same_rows = shared.expand(B, -1).contiguous()
+    kw = dict(num_groups=L, group_size=g, tile_l=tile_l, tile_n=tile_n)
+    pkw = dict(num_groups=L, group_size=g)
+    for mask in (per, same_rows):
+        plain = tsc.snapshot_norms_fact_ref(a, b, *leaves, mask, **pkw)
+        dense_plain = tsc.snapshot_norms_dense_ref(a, b, C, mask, **pkw)
+        got = {
+            "fact": tsc.snapshot_norms_fact_batched(a, b, *leaves, mask, **kw),
+            "fact nan": _snapshot_nan_outputs("fact", a, b, leaves, mask, L, g, tile_l, tile_n),
+            "dense": tsc.snapshot_norms_dense_batched(a, b, C, mask, **kw),
+            "dense nan": _snapshot_nan_outputs("dense", a, b, (C,), mask, L, g, tile_l, tile_n),
+        }
+        torch.cuda.synchronize()
+        for key, outs in got.items():
+            want = plain if key.startswith("fact") else dense_plain
+            assert all(torch.equal(p, q) for p, q in zip(outs, want)), key
+    # a row per problem, all equal: the shared launch's bits
+    for key, args in (("fact", leaves), ("dense", (C,))):
+        fn = (tsc.snapshot_norms_fact_batched if key == "fact"
+              else tsc.snapshot_norms_dense_batched)
+        one = fn(a, b, *args, shared, **kw)
+        rows = fn(a, b, *args, same_rows, **kw)
+        assert all(torch.equal(p, q) for p, q in zip(one, rows)), key
+    # each problem's slice of the per-problem launch is its solo launch
+    for i in range(B):
+        solo = tsc.snapshot_norms_fact_batched(a[i:i + 1], b[i:i + 1],
+                                               *(t[i:i + 1] for t in leaves),
+                                               per[i].contiguous(), **kw)
+        full = tsc.snapshot_norms_fact_batched(a, b, *leaves, per, **kw)
+        assert all(torch.equal(p, q[i:i + 1]) for p, q in zip(solo, full)), i
+    with pytest.raises(ValueError, match="mask"):
+        tsc.snapshot_norms_fact_batched(a, b, *leaves, per[:2].contiguous(), **kw)
 
 
 def _sample_problem(seed, L=12, g=7, n=300, d=2, scale=1.0):

@@ -25,6 +25,15 @@ ROW_D = (1, 31, 32, 33, 4096, 4097, 12800, 20480, 33280)
 U32 = 2.0 ** -24
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: one intra-op thread each, so parallel test workers do not oversubscribe."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def kernel_order_sum(x: np.ndarray) -> np.ndarray:
     """``row_reduce_kernel``'s sum of x (R, D) float32 over D, one f32 add at a time.
 

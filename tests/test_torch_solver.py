@@ -38,6 +38,15 @@ REG_CFGS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: one intra-op thread each, so parallel test workers do not oversubscribe."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _quadratic(B=2, d=12, seed=0):
     rng = np.random.default_rng(seed)
     M = rng.normal(size=(B, d, d)).astype(np.float32)
