@@ -1,8 +1,10 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py      # needs one CUDA card; takes about six to eight minutes
+    python3 chip_smoke.py      # needs one CUDA card; takes about seven to nine minutes
     python3 chip_smoke.py --compare _archive/parent [--pairs 10]
                                # this tree's kernels against another checkout's
+    python3 chip_smoke.py --mesh-only
+                               # phase 12 alone, from an earlier full run's results
 
 The main path is the default plan at the paper's largest scale:
 ``repro_torch.ot.compile(Problem.from_samples(...), ExecutionPlan(grad_impl=
@@ -106,6 +108,24 @@ Phases:
      the idle share over the ticks; and a chaos run at L = 128 (a NaN cost
      walks one request down the ladder to 'dense'; its neighbours keep
      their bits).
+ 12. the same work over two ranks of ``torch.distributed``, spawned from here
+     (NCCL with a card each where there are two, else gloo with both on card
+     0; the backend and world size on a line of their own): (a)
+     ``solve_many`` and (b) ``stream`` with ``ExecutionPlan(grad_impl=
+     'pallas', devices='all')`` on phase 10's problems, each bitwise phase
+     10's solo solve (prints handed over in a file); (c) the engine on the
+     mesh, ``max_batch=2``, on four of phase 11's requests, each DONE once
+     with phase 11's bits; (d) ``solve_dual_distributed`` on the main
+     problem's dense cost at full width on a (data=2, model=1) and a
+     (data=1, model=2) mesh, 'pallas' grid and compact, within rtol 2e-5
+     of phase 4's dense route, its plan within a total variation of 2.5e-2
+     of that route's and its marginal residual at most 1.5 x the route's,
+     every rank's duals equal, K1, K2/K3 and K4's dense body launched on
+     every rank, the collective bytes per evaluation printed.  Each rank
+     prints its wall, device busy time, idle share and launches per
+     evaluation beside phase 10's single-rank figures, and (a)'s time split
+     into lowering, the block's solve, the final gather and the plan
+     recoveries.
 Phase 3 also runs K2/K3/K5-K8 at tile_n 4, 20, 40 and 128 on a narrow
 problem, and phase 4 holds the main path's solve to the fingerprint it had
 before the kernels took any tile width.
@@ -723,6 +743,12 @@ def check_path_launches(name: str, counts: dict, sol) -> None:
 
 def solution_bits(sol):
     return (sol.value, sol.rounds, sol.iterations, sol.n_evals, sol.stats)
+
+
+def solution_prints(sol) -> list:
+    """``solution_bits`` and the exact prints of the duals and the plan, JSON-able."""
+    return [list(solution_bits(sol)), fingerprint(sol.alpha), fingerprint(sol.beta),
+            fingerprint(sol.plan)]
 
 
 def fingerprint(t) -> int:
@@ -1888,16 +1914,33 @@ def same_solution(x, y) -> bool:
             and fingerprint(x.plan) == fingerprint(y.plan))
 
 
-def profile_device(fn):
+def profile_device(fn, untraced=None):
     """(result, wall s, device busy s, device launches, kernel rows) of ``fn()`` under
-    torch.profiler; rows are (name, device us, launches), largest first."""
+    torch.profiler; rows are (name, device us, launches), largest first.
+
+    Where the profiler does not start and ``untraced`` is given, ``untraced(error)``
+    is called and ``fn()`` runs without it: (result, wall s, None, None, []).  Only
+    the profiler's start is guarded; an error of ``fn`` propagates."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:
+        if untraced is None:
+            raise
+        untraced(e)
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0, None, None, []
+    try:
         t0 = time.perf_counter()
         out = fn()
         sync()
         wall = time.perf_counter() - t0
+    finally:
+        prof.stop()
     # CPU-side events (aten ops, CUDA runtime calls) carry their kernels'
     # time only through children; the device events are the rest
     rows = [(e.key, device_us(e), e.count) for e in prof.key_averages()]
@@ -1949,7 +1992,8 @@ def phase_batch(reg, main_profile, device):
     stream's must equal ``solve_many``'s and its alive count must never rise.
     Then the B = 4 solver call alone: peak memory and a profile, beside phase
     4's B = 1 figures, and K4 at its final duals with the (4, m_pad) mask against
-    its plain version, bit for bit.  Returns the launches of the ``solve_many`` run."""
+    its plain version, bit for bit.  Returns each solo solve's prints (phase 12 holds
+    the sharded solves to them) and the B = 4 call's figures."""
     import torch
 
     import repro_torch.ot as ot
@@ -1963,6 +2007,7 @@ def phase_batch(reg, main_profile, device):
     solo = [ex.solve(p) for p in probs]
     sync()
     t_solo = time.perf_counter() - t0
+    prints = [solution_prints(s) for s in solo]
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     many = ex.solve_many(probs)
@@ -2025,7 +2070,9 @@ def phase_batch(reg, main_profile, device):
           f"phase 10: B = 4 peaked {peak - base} B above what was held, over 4 x {b1_peak}")
     check_k4_mask_per_problem("phase 10", out[0].x, slv._prepare_padded(C, prob, opts),
                               row_mask)
-    return counts
+    return {"prints": prints, "b4": {"wall_s": wall, "busy_s": busy,
+                                     "launches_per_eval": n_launch / evals,
+                                     "solve_many_s": t_many}}
 
 
 # -- phase 11: the serving engine on the card -------------------------------------
@@ -2042,7 +2089,9 @@ def phase_engine(reg, device):
     left out of the path's counts).  Then one chaos run at a narrower size (L = 128, m = n = 1280, so it
     costs seconds): ``FaultSpec('nan_cost')`` on one of three requests walks the
     ladder to 'dense' and ends DONE there, and its neighbours keep the bits of a
-    run without the fault.  Returns the launches of the six-request run."""
+    run without the fault.  Returns, per request, the served value, rounds and plan
+    print and the solo dense solve's dual prints (phase 12 holds the engine on a
+    mesh to them)."""
     import logging
 
     import numpy as np
@@ -2123,12 +2172,16 @@ def phase_engine(reg, device):
     check(counts.get(K2, 0) + counts.get(K3, 0) > 0, f"phase 11: no K2/K3 launch: {counts}")
 
     plan = ot.ExecutionPlan(grad_impl="pallas", geometry="dense")
+    served = {}
     for req, p in zip(reqs, probs):
         sol = ot.compile(p, plan, device=device).solve()
         m_pad = sol.alpha.shape[0]
         ok = (req.value == sol.value and req.rounds == sol.rounds
               and torch.equal(duals[req.rid][:m_pad], sol.alpha)
               and torch.equal(duals[req.rid][m_pad:], sol.beta))
+        served[req.rid] = {"value": req.value, "rounds": req.rounds,
+                           "plan": fingerprint(torch.from_numpy(req.plan)),
+                           "duals": [fingerprint(sol.alpha), fingerprint(sol.beta)]}
         print(f"phase 11 request {req.rid} (m={p.num_source}): value {req.value!r}, rounds "
               f"{req.rounds}, ticks in flight {req.ticks_in_flight}; == solo dense solve "
               f"{ok}", flush=True)
@@ -2166,7 +2219,350 @@ def phase_engine(reg, device):
         ok = (hit[rid].status is RequestStatus.DONE and hit[rid].value == clean[rid].value
               and np.array_equal(hit[rid].plan, clean[rid].plan))
         check(ok, f"phase 11 chaos: neighbour {rid} lost its bits")
-    return counts
+    return served
+
+
+# -- phase 12: the same work spread over two ranks --------------------------------
+
+MESH_WORLD = 2
+MESH_DIR = os.path.join(HERE, "_archive", "phase12")       # git-ignored
+MESH_TIMEOUT_S = 420
+# (d)'s plan against phase 4's dense route's: total variation sum |T - T_ref|
+# (the plans carry mass 1), and the marginal residual sum |T 1 - a| +
+# sum |T^T 1 - b| over the route's.  Readings (PERF.md §6): 0 and 1.0 here at
+# full width; up to 9.0e-3 and 1.14 in tests/test_torch_distributed.py, whose
+# bound on the variation this shares
+MESH_PLAN_TV = 2.5e-2
+MESH_RESIDUAL_OVER = 1.5
+
+
+def write_handoff(handoff: dict, dense_duals: dict) -> None:
+    """Phases 4, 10 and 11's results for phase 12's ranks, in ``MESH_DIR``: a later
+    ``--mesh-only`` run on this tree (several cards) reads them from there."""
+    import torch
+
+    os.makedirs(MESH_DIR, exist_ok=True)
+    for name in os.listdir(MESH_DIR):
+        os.remove(os.path.join(MESH_DIR, name))
+    with open(os.path.join(MESH_DIR, "handoff.json"), "w") as f:
+        json.dump(handoff, f)
+    torch.save(dense_duals, os.path.join(MESH_DIR, "dense_duals.pt"))
+
+
+def phase_mesh(smi_line: str) -> None:
+    """Two ranks over ``torch.distributed``, spawned from here: NCCL with a card each
+    where there are two, else gloo with both on card 0.  Each rank (``mesh_rank``)
+    runs (a) ``solve_many`` and (b) ``stream`` with ``ExecutionPlan(grad_impl=
+    'pallas', devices='all')`` on phase 10's four problems, each bitwise phase 10's
+    solo solve; (c) the engine on the mesh, ``max_batch=2``, on four of phase 11's
+    requests, each DONE once with the bits phase 11 gave it; (d)
+    ``solve_dual_distributed`` on the main problem's dense cost (m = n = 12 800), on
+    a (data=2, model=1) and a (data=1, model=2) mesh with 'pallas' grid and compact,
+    within rtol 2e-5 of phase 4's unsharded dense route, its plan within
+    ``MESH_PLAN_TV`` of that route's and its marginal residual at most
+    ``MESH_RESIDUAL_OVER`` times that route's, every rank's duals equal.  The
+    phases' results come through ``write_handoff``'s files; every rank's result
+    must agree."""
+    import socket
+
+    import torch
+
+    with open(os.path.join(MESH_DIR, "handoff.json")) as f:
+        handoff = json.load(f)
+    for name in os.listdir(MESH_DIR):
+        if name.startswith("rank"):
+            os.remove(os.path.join(MESH_DIR, name))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.empty_cache()               # the ranks may share this card
+    cards = torch.cuda.device_count()
+    print(f"phase 12: backend {'nccl' if cards >= MESH_WORLD else 'gloo'}, world size "
+          f"{MESH_WORLD} ({'a card each' if cards >= MESH_WORLD else 'both ranks on card 0'})",
+          flush=True)
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(MESH_WORLD):
+            log = open(os.path.join(MESH_DIR, f"rank{r}.log"), "w")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+                 "--mesh-init", f"tcp://127.0.0.1:{port}"],
+                stdout=log, stderr=subprocess.STDOUT))
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break                          # one rank failed: stop the others
+            if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r in range(len(procs)):
+        with open(os.path.join(MESH_DIR, f"rank{r}.log")) as f:
+            for line in f.read().splitlines()[-200:]:
+                print(f"  [rank {r}] {line}", flush=True)
+    rcs = [p.returncode for p in procs]
+    check(all(rc == 0 for rc in rcs), f"phase 12: the ranks exited {rcs} after {wall:.1f} s "
+                                      f"(limit {MESH_TIMEOUT_S} s)")
+    res = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(MESH_DIR, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    for key in ("a_prints", "c_served", "d_x"):
+        check(all(x[key] == res[0][key] for x in res), f"phase 12: the ranks disagree on {key}")
+    b4 = handoff["batch"]["b4"]
+    print(f"phase 12 ({res[0]['backend']}, world size {MESH_WORLD}; {smi_line}): {wall:.1f} s "
+          f"with the ranks' start; beside phase 10's single-rank B = 4 solver call (wall "
+          f"{b4['wall_s']:.4f} s, device busy {b4['busy_s']:.4f} s, idle share "
+          f"{1.0 - b4['busy_s'] / b4['wall_s']:.4f}, {b4['launches_per_eval']:.1f} launches per "
+          f"evaluation; solve_many {b4['solve_many_s']:.3f} s):", flush=True)
+    for r, x in enumerate(res):
+        print(f"phase 12 rank {r}: " + "; ".join(f"{k} {v}" for k, v in x["figures"].items()),
+              flush=True)
+
+
+def mesh_rank(rank: int, init: str) -> None:
+    """One rank of phase 12 (see ``phase_mesh``); exits non-zero on any failed check."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    import repro_torch.ot as ot
+    from repro_torch.core import distributed as D
+    from repro_torch.core import sharded as shd
+    from repro_torch.core import solver as slv
+    from repro_torch.core.dual import DualProblem, plan_from_duals
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import ot_engine
+    from repro_torch.serving.policy import RequestStatus
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    logging.getLogger("repro_torch.ot_serving").setLevel("WARNING")
+    backend, device = D.init_process_group(MESH_WORLD, rank, init, timeout_s=300)
+    say = lambda msg: print(f"[{time.perf_counter() - t_start:.1f} s] {msg}", flush=True)
+    say(f"phase 12: backend {backend}, world size {MESH_WORLD}, rank {rank} on {device} "
+        f"({torch.cuda.get_device_name(device)}; {torch.cuda.device_count()} card(s) visible)")
+    with open(os.path.join(MESH_DIR, "handoff.json")) as f:
+        handoff = json.load(f)
+    figures = {}
+    norm = lambda x: json.loads(json.dumps(x))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def profiled(fn):
+        """profile_device(fn); where the profiler does not start on this rank (a
+        second process tracing the card), fn runs without it and busy and idle
+        read 'not measured'.  A fault of fn propagates."""
+        return profile_device(fn, untraced=lambda e: say(
+            f"phase 12: torch.profiler did not start on rank {rank} ({e}); busy not measured"))
+
+    def lapped(laps, obj, name):
+        """Wrap ``obj.name`` so each call adds its synchronized seconds to
+        ``laps[name]``; returns the restore."""
+        real = getattr(obj, name)
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                laps[name] = laps.get(name, 0.0) + time.perf_counter() - t0
+
+        setattr(obj, name, run)
+        return lambda: setattr(obj, name, real)
+
+    def busy_text(wall, busy, n_launch, evals, rows):
+        """The rank's own device work; NCCL's kernels apart: they run on their own
+        stream and wait on the card for the other rank, so they are not its work."""
+        if busy is None:
+            return f"wall {wall:.4f} s, device busy not measured"
+        nccl = [r for r in rows if "nccl" in r[0].lower()]
+        comm = sum(r[1] for r in nccl) / 1e6
+        busy, n_launch = busy - comm, n_launch - sum(r[2] for r in nccl)
+        return (f"wall {wall:.4f} s, device busy {busy:.4f} s, idle share "
+                f"{1.0 - busy / wall:.4f}, {n_launch / evals:.1f} launches per evaluation, "
+                f"NCCL kernels {comm:.4f} s in {sum(r[2] for r in nccl)} launches")
+
+    def kernels_ran(label, counts, names, any_of=()):
+        for name in names:
+            check(counts.get(name, 0) > 0, f"{label}: rank {rank} launched no {name}: {counts}")
+        if any_of:
+            check(sum(counts.get(k, 0) for k in any_of) > 0,
+                  f"{label}: rank {rank} launched none of {any_of}: {counts}")
+
+    reg, problem = main_problem()
+    say("phase 12: the problems are built")
+
+    # (a) solve_many, (b) stream: phase 10's problems over the mesh
+    probs = full_width_problems(reg, ((0, 10), (1, 10), (2, 10), (3, 12)))
+    ex = ot.compile(probs[0], ot.ExecutionPlan(grad_impl="pallas", devices="all"))
+    check(ex.mesh.size() == MESH_WORLD and ex.device == device,
+          f"phase 12: mesh {ex.mesh}, device {ex.device}")
+    _build.reset_launch_counts()
+    D.reset_collective_counts()
+    laps = {}
+    restore = [lapped(laps, ex, "_stack_block"), lapped(laps, slv, "_solve_batch_impl"),
+               lapped(laps, shd, "gather_result"), lapped(laps, ex, "_wrap_sharded")]
+    try:
+        many, t_many = timed(lambda: ex.solve_many(probs))
+    finally:
+        for undo in restore:
+            undo()
+    counts, comm = _build.launch_counts(), D.collective_counts()
+    got = norm([solution_prints(s) for s in many])
+    for i, (g_, w_) in enumerate(zip(got, handoff["batch"]["prints"])):
+        say(f"phase 12 (a) problem {i}: value {g_[0][0]!r}, rounds {g_[0][1]}; == phase 10's "
+            f"solo solve {g_ == w_}")
+        check(g_ == w_, f"phase 12 (a): problem {i} differs from its solo solve on rank {rank}")
+    kernels_ran("phase 12 (a)", counts, (K1, K4), (K5, K6))
+    split = (f"lowering and upload of the rank's block {laps['_stack_block']:.3f} s, its solve "
+             f"{laps['_solve_batch_impl']:.3f} s, the final gather (with the wait for the "
+             f"slower rank) {laps['gather_result']:.3f} s, four plan recoveries "
+             f"{laps['_wrap_sharded']:.3f} s")
+    say(f"phase 12 (a) solve_many: {t_many:.3f} s: {split}; launches {counts}; "
+        f"collectives {comm}")
+    del many
+    stream = ex.stream(probs)
+    (alive, streamed), t_stream = timed(lambda: ([i["alive"] for i in stream],
+                                                 stream.solutions()))
+    check(norm([solution_prints(s) for s in streamed]) == got,
+          f"phase 12 (b): stream != solve_many on rank {rank}")
+    check(alive == sorted(alive, reverse=True) and alive[-1] == 0,
+          f"phase 12 (b): alive {alive}")
+    say(f"phase 12 (b) stream: {t_stream:.3f} s, rounds {len(alive)}, alive {alive}; == (a) True")
+    del streamed, stream
+    lo, preps, C, a, b, rm, sg = ex._stack_block(probs)
+    _build.reset_launch_counts()
+    out, wall, busy, n_launch, rows = profiled(
+        lambda: slv._solve_batch_impl(C, a, b, rm, sg, ex._prob, ex._opts))
+    evals = max(_build.launch_counts().get(K1, 0), 1)
+    figures["(a) B = 2 block solver call"] = (busy_text(wall, busy, n_launch, evals, rows)
+                                              + f" over {evals} batched evaluations")
+    figures["(a) solve_many s"] = f"{t_many:.3f} ({split})"
+    figures["(b) stream s"] = f"{t_stream:.3f}"
+    del out, C, a, b, rm, sg, preps, ex
+    torch.cuda.empty_cache()
+    say("phase 12 (a), (b) done")
+
+    # (c) the engine on the mesh: four of phase 11's requests, max_batch = 2
+    duals, retire = {}, ot_engine._Bucket._retire
+
+    def keep_duals(self, slot, converged, rounds):
+        if self.owns(slot):
+            x = self.state.lb.x[self.slot_placement(slot)[1]]
+            duals[self.slots[slot].rid] = [fingerprint(x[: self.prob.m_pad]),
+                                           fingerprint(x[self.prob.m_pad:])]
+        return retire(self, slot, converged, rounds)
+
+    ot_engine._Bucket._retire = keep_duals
+    try:
+        reqs = full_width_problems(reg, list(enumerate((10, 10, 12, 10), start=4)))
+        engine = ot_engine.OTServingEngine(reg, slv.SolveOptions(grad_impl="pallas"),
+                                           max_batch=2, mesh=D.make_batch_mesh())
+        _build.reset_launch_counts()
+        done, t_engine = timed(lambda: engine.run(reqs))
+        counts = _build.launch_counts()
+    finally:
+        ot_engine._Bucket._retire = retire
+    check(sorted(r.rid for r in done) == [0, 1, 2, 3], f"phase 12 (c): {len(done)} came back")
+    served = {}
+    for req in done:
+        want = handoff["engine"][str(req.rid)]
+        plan = fingerprint(torch.from_numpy(req.plan))
+        ok = (req.status is RequestStatus.DONE and req.route == "slot"
+              and req.value == want["value"] and req.rounds == want["rounds"]
+              and plan == want["plan"] and duals.get(req.rid, want["duals"]) == want["duals"])
+        say(f"phase 12 (c) request {req.rid}: {req.status.value} via {req.route}, value "
+            f"{req.value!r}, rounds {req.rounds}, ticks in flight {req.ticks_in_flight}"
+            f"{', duals held here' if req.rid in duals else ''}; == phase 11 {ok}")
+        check(ok, f"phase 12 (c): request {req.rid} differs from phase 11 on rank {rank}")
+        served[req.rid] = [req.value, req.rounds, plan]
+    check(len(duals) == 2, f"phase 12 (c): rank {rank} held {sorted(duals)}, not two slots")
+    kernels_ran("phase 12 (c)", counts, (K1, K4D), (K2, K3))
+    st = engine.stats()
+    figures["(c) engine"] = (f"{t_engine:.3f} s, {st['ticks']} ticks, {st['launches']} solver "
+                             f"calls on this rank, statuses {st['status']}")
+    del engine, reqs, done
+    torch.cuda.empty_cache()
+
+    # (d) one problem over a 2-D mesh: the main problem's dense cost
+    pa = problem.padded()
+    ref = torch.load(os.path.join(MESH_DIR, "dense_duals.pt"))
+    C_dev = torch.from_numpy(pa.C).to(device)
+    a_dev, b_dev = (torch.from_numpy(np.asarray(v, np.float32)).to(device) for v in (pa.a, pa.b))
+    prob = DualProblem(pa.spec.num_groups, pa.spec.group_size, int(pa.C.shape[1]), reg)
+    m_pad = int(pa.C.shape[0])
+
+    def plan_of(alpha, beta):
+        """(plan, its marginal residual sum |T 1 - a| + sum |T^T 1 - b|) on the card."""
+        T = plan_from_duals(alpha[:m_pad].to(device), beta.to(device), C_dev, prob)
+        return T, float(torch.sum(torch.abs(T.sum(1) - a_dev))
+                        + torch.sum(torch.abs(T.sum(0) - b_dev)))
+
+    say("phase 12 (d): the dense cost is padded and on the card")
+    d_x = {}
+    for shape in ((2, 1), (1, 2)):
+        mesh = make_host_mesh(*shape)
+        for impl in ("grid", "compact"):
+            opts = slv.SolveOptions(grad_impl="pallas", pallas_impl=impl)
+            _build.reset_launch_counts()
+            res, wall, busy, n_launch, rows = profiled(lambda: D.solve_dual_distributed(
+                pa.C, pa.a, pa.b, pa.spec, reg, mesh, opts))
+            counts = _build.launch_counts()
+            want = handoff["dense"][impl]
+            value = float(res.value)
+            rel = abs(value - want) / abs(want)
+            xs = D.all_gather_objects(fingerprint(res.lbfgs_state.x), mesh)
+            label = f"phase 12 (d) data={shape[0]} model={shape[1]} {impl}"
+            say(f"{label}: value {value!r} against phase 4's dense/{impl} {want!r} (rel "
+                f"{rel:.2e}), rounds {res.rounds}, {res.comm['evaluations']} evaluations, "
+                f"{res.comm['bytes_per_evaluation']:.0f} collective bytes per evaluation "
+                f"(4 x (m_pad + n + 2) = {4 * (pa.C.shape[0] + pa.C.shape[1] + 2)}), "
+                f"every rank's duals equal {len(set(xs)) == 1}; "
+                f"{busy_text(wall, busy, n_launch, res.comm['evaluations'], rows)}; {counts}")
+            T, resid = plan_of(res.alpha, res.beta)
+            T_ref, resid_ref = plan_of(*ref[impl])
+            tv = float(torch.sum(torch.abs(T - T_ref)))
+            del T, T_ref
+            say(f"{label}: plan against phase 4's dense/{impl}: total variation {tv:.3e} "
+                f"(bound {MESH_PLAN_TV:.1e}), marginal residual {resid:.3e} against the "
+                f"route's {resid_ref:.3e} (bound {MESH_RESIDUAL_OVER:.1f} x)")
+            check(rel <= 2e-5, f"{label}: off the unsharded dense route by {rel:.2e}")
+            check(tv <= MESH_PLAN_TV, f"{label}: plan {tv:.3e} off the dense route's")
+            check(resid <= MESH_RESIDUAL_OVER * resid_ref,
+                  f"{label}: marginal residual {resid:.3e} over {MESH_RESIDUAL_OVER} x "
+                  f"{resid_ref:.3e}")
+            check(len(set(xs)) == 1, f"{label}: the ranks' duals differ")
+            check(res.comm["bytes_per_evaluation"] <= 4 * (pa.C.shape[0] + pa.C.shape[1] + 16),
+                  f"{label}: {res.comm}")
+            kernels_ran(label, counts, (K1, K4D), (K2, K3))
+            d_x[f"{shape}/{impl}"] = xs[0]
+            figures[f"(d) {shape[0]}x{shape[1]} {impl}"] = (
+                busy_text(wall, busy, n_launch, res.comm["evaluations"], rows)
+                + f", {res.comm['bytes_per_evaluation']:.0f} collective B per evaluation, "
+                f"plan TV {tv:.3e}, residual {resid:.3e} (route {resid_ref:.3e})")
+    import torch.distributed as dist
+
+    dist.barrier()
+    with open(os.path.join(MESH_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump({"backend": backend, "a_prints": got, "c_served": norm(served),
+                   "d_x": d_x, "figures": figures}, f)
+    dist.destroy_process_group()
+    say("phase 12: done")
 
 
 COMPARE_DIR = os.path.join(HERE, "_archive", "compare")     # git-ignored
@@ -2441,6 +2837,12 @@ def main() -> None:
     ap.add_argument("--compare-run", metavar="SRC", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     ap.add_argument("--bits", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-init", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="instead: build, then run phase 12 alone from the results an earlier "
+                         "full run of this tree left in _archive/phase12 (for several cards: "
+                         "NCCL with a card a rank)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2448,6 +2850,9 @@ def main() -> None:
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"{src}/repro_torch not found: run from a checkout of the repository")
     sys.path.insert(0, src)
+    if args.mesh_rank is not None:
+        mesh_rank(args.mesh_rank, args.mesh_init)
+        return
     if args.compare_run:
         compare_run(args.out, args.bits)
         return
@@ -2476,6 +2881,13 @@ def main() -> None:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print(f"  {line.strip()}", flush=True)
+    if args.mesh_only:
+        check(os.path.exists(os.path.join(MESH_DIR, "dense_duals.pt")),
+              f"--mesh-only needs an earlier full run's results in {MESH_DIR}")
+        phase_mesh(smi_line)
+        print(f"{smi_line}; phase 12 alone took {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return
 
     reg, problem = main_problem()
     t0 = time.perf_counter()
@@ -2518,6 +2930,9 @@ def main() -> None:
     lap("phase 7")
     solo_rows = phase_solo(sols[MAIN_PATH], st, ops, problem, reg, device)
     lbfgs_value = sols[MAIN_PATH].value
+    handoff = {"dense": {impl: sols[f"dense/{impl}"].value for impl in ("grid", "compact")}}
+    dense_duals = {impl: (sols[f"dense/{impl}"].alpha.cpu(), sols[f"dense/{impl}"].beta.cpu())
+                   for impl in ("grid", "compact")}
     del ops, st, sols
     # 6. solo vs batched solves
     lap("phase 6")
@@ -2529,9 +2944,13 @@ def main() -> None:
     phase_stochastic(problem, reg, lbfgs_value, device)
     # 10. solve_many and stream at full width; 11. the serving engine
     lap("phase 10")
-    phase_batch(reg, main_profile, device)
+    handoff["batch"] = phase_batch(reg, main_profile, device)
     lap("phase 11")
-    phase_engine(reg, device)
+    handoff["engine"] = phase_engine(reg, device)
+    # 12. the same work spread over two ranks
+    lap("phase 12")
+    write_handoff(handoff, dense_duals)
+    phase_mesh(smi_line)
     for row in solo_rows:
         if row["name"] == B12:          # the layer's grad_refine path runs it
             row["launches"] = refine_launches[B12]

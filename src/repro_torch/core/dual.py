@@ -74,6 +74,24 @@ def dual_value_and_grad(
 
     Returns (value, (grad_alpha, grad_beta)).
     """
+    rowsum, colsum, psi = dual_sums(alpha, beta, C, prob, zero_mask)
+    value = row_dot(alpha, a) + row_dot(beta, b) - psi
+    return value, (a - rowsum, b - colsum)
+
+
+def dual_sums(
+    alpha: torch.Tensor,
+    beta: torch.Tensor,
+    C: torch.Tensor,
+    prob: DualProblem,
+    zero_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plan's row and column sums and the summed psi: ``(T 1, T^T 1, sum psi)``.
+
+    What :func:`dual_value_and_grad` subtracts from the marginals and the
+    linear term; the distributed solve sums these over the blocks of a
+    mesh instead (``core.distributed``).
+    """
     L, g = prob.num_groups, prob.group_size
     F = _outer_f(alpha, beta, C)
     Z = _group_norms_relu(F, L, g)
@@ -85,14 +103,8 @@ def dual_value_and_grad(
     psi = prob.reg.psi_from_z(Z)
     if zero_mask is not None:
         psi = torch.where(zero_mask, zero, psi)
-    value = (
-        row_dot(alpha, a)
-        + row_dot(beta, b)
-        - row_sum(psi.reshape(psi.shape[:-2] + (-1,)))
-    )
-    grad_alpha = a - torch.sum(T, dim=-1)
-    grad_beta = b - torch.sum(T, dim=-2)
-    return value, (grad_alpha, grad_beta)
+    return (torch.sum(T, dim=-1), torch.sum(T, dim=-2),
+            row_sum(psi.reshape(psi.shape[:-2] + (-1,))))
 
 
 def plan_from_duals(

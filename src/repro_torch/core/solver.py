@@ -107,7 +107,9 @@ class OTResult:
     value : torch.Tensor
         0-d dual objective at the solution (maximization sign).
     lbfgs_state, screen_state :
-        Final optimizer and screening state.
+        Final optimizer and screening state (after a sharded solve the
+        optimizer state has no history and the screening state is None:
+        they stay on the rank that solved the problem).
     rounds : int
         Algorithm-1 rounds run.
     stats : dict
@@ -162,7 +164,7 @@ class BatchOTResult:
         return self.lbfgs_state.converged
 
     def __getitem__(self, i: int) -> OTResult:
-        scr = screening.ScreenState(**{
+        scr = None if self.screen_state is None else screening.ScreenState(**{
             f.name: getattr(self.screen_state, f.name)[i]
             for f in dataclasses.fields(screening.ScreenState)
         })

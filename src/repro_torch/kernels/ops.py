@@ -259,18 +259,28 @@ def _compact(alphap, betap, flags, pp, kw):
     return _kernels(pp)[1](alphap, betap, *pp.leaves(), sched, nact, **kw)[:3]
 
 
+def _unpad_sums(sums, pp):
+    """The kernel's padded (rowsum, colsum, psi) cut to (B, m_pad), (B, n), (B,)."""
+    rowsum, colsum, psi = sums
+    B = rowsum.shape[0]
+    return rowsum.reshape(B, pp.L_pad, pp.g)[:, : pp.L].reshape(B, -1), colsum[:, : pp.n], psi
+
+
 def _finish(alpha, beta, a, b, sums, pp):
     """Un-pad the kernel's (rowsum, colsum, psi) and add the dual value."""
-    rowsum, colsum, psi = sums
-    B = alpha.shape[0]
-    rowsum = rowsum.reshape(B, pp.L_pad, pp.g)[:, : pp.L].reshape(B, -1)
-    colsum = colsum[:, : pp.n]
+    rowsum, colsum, psi = _unpad_sums(sums, pp)
     value = row_dot(alpha, a) + row_dot(beta, b) - psi
     return value, a - rowsum, b - colsum
 
 
-def _value_and_grad(alpha, beta, a, b, flags, pp, prob, impl, tau_p):
-    """The two-launch oracle on either route: pad, pick grid or compact, un-pad."""
+def kernel_sums(alpha, beta, flags, pp, prob, impl: str = "auto",
+                tau_p: Optional[torch.Tensor] = None):
+    """The gradient kernel's sums of B problems: ``(T 1 (B, m_pad), T^T 1 (B, n), psi (B,))``.
+
+    Pads, picks grid or compact (``impl``), launches K2/K3 (dense cost) or
+    K5/K6 (factorized) and un-pads: the oracle of
+    :func:`dual_value_and_grad_padded_batched` before the marginals enter.
+    """
     B = alpha.shape[0]
     if tuple(flags.shape) != (B,) + pp.grid:
         raise ValueError(f"flags {tuple(flags.shape)} != {(B,) + pp.grid}")
@@ -280,7 +290,14 @@ def _value_and_grad(alpha, beta, a, b, flags, pp, prob, impl, tau_p):
         sums = _compact(alphap, betap, flags, pp, kw)
     else:
         sums = _kernels(pp)[0](alphap, betap, *pp.leaves(), flags, **kw)
-    return _finish(alpha, beta, a, b, sums, pp)
+    return _unpad_sums(sums, pp)
+
+
+def _value_and_grad(alpha, beta, a, b, flags, pp, prob, impl, tau_p):
+    """The two-launch oracle on either route: pad, pick grid or compact, un-pad."""
+    rowsum, colsum, psi = kernel_sums(alpha, beta, flags, pp, prob, impl, tau_p)
+    value = row_dot(alpha, a) + row_dot(beta, b) - psi
+    return value, a - rowsum, b - colsum
 
 
 def dual_value_and_grad_padded_batched(

@@ -21,8 +21,16 @@ batch or one per problem) and solves it in one batched solver call;
 :meth:`Executor.stream` runs the same batch one Algorithm-1 round per
 step (``core.solver.init_batch_state`` / ``batch_round``), bitwise equal
 to :meth:`Executor.solve_many`.  Each problem of a batch gets the bits of
-its solo :meth:`Executor.solve`.  Device meshes (``devices != 'single'``)
-are not ported yet (ROADMAP A3).
+its solo :meth:`Executor.solve`.
+
+With a mesh (``ExecutionPlan(devices='all' | k)`` or ``compile(...,
+mesh=)``), the batch's problem axis spreads over the ranks of a
+``torch.distributed`` process group (``core.sharded``): every rank calls
+the same methods with the same problems, lowers and uploads only its own
+block (:meth:`Executor._stack_block`), solves it, and after the
+round-boundary gathers every rank returns every problem's Solution, bit
+for bit the unsharded one.  A mesh of one rank (``devices='all'`` without
+a process group) is no mesh: the executor takes the single-device path.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from typing import List, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as D
 from repro_torch.core import groups as G
 from repro_torch.core import solver as slv
 from repro_torch.core.dual import DualProblem, plan_from_duals
@@ -61,29 +70,41 @@ class _Prepared(NamedTuple):
 
 
 def compile(problem: Problem, plan: Optional[ExecutionPlan] = None,
-            device: DeviceLike = None) -> "Executor":
+            device: DeviceLike = None, mesh=None) -> "Executor":
     """Compile a problem template + plan into an :class:`Executor`.
 
-    ``device`` is ``None`` for ``cuda``; pass ``'cpu'`` for the host.
+    ``device`` is ``None`` for ``cuda`` (on a mesh: this rank's card,
+    ``cuda:(local_rank % device_count)``); pass ``'cpu'`` for the host.
     Without a CUDA device a ``cuda`` request raises ``RuntimeError``.
+    ``mesh`` is a 1-D batch mesh (``core.distributed.make_batch_mesh``);
+    without one the plan's ``devices`` decides: ``'single'`` stays
+    unsharded, ``'all'`` / an int builds the default mesh.  A mesh of one
+    rank runs unsharded.
     """
     plan = plan if plan is not None else ExecutionPlan()
     return Executor(problem.group_spec(), problem.num_target, problem.reg, plan,
-                    template=problem, device=device)
+                    template=problem, device=device, mesh=mesh)
 
 
 def solve(problem: Problem, plan: Optional[ExecutionPlan] = None,
-          device: DeviceLike = None) -> Solution:
-    """One-shot convenience: ``compile(problem, plan, device).solve()``."""
-    return compile(problem, plan, device).solve(problem)
+          device: DeviceLike = None, mesh=None) -> Solution:
+    """One-shot convenience: ``compile(problem, plan, device, mesh).solve()``."""
+    return compile(problem, plan, device, mesh).solve(problem)
 
 
 class Executor:
-    """A compiled solver for one problem geometry, bound to one device."""
+    """A compiled solver for one problem geometry, bound to one device (this rank's on a mesh)."""
 
     def __init__(self, spec: G.GroupSpec, n: int, reg: Regularizer, plan: ExecutionPlan,
-                 template: Optional[Problem] = None, device: DeviceLike = None):
-        self._device = resolve_device(device)
+                 template: Optional[Problem] = None, device: DeviceLike = None, mesh=None):
+        if mesh is None and plan.devices != "single":
+            mesh = D.make_batch_mesh(None if plan.devices == "all" else int(plan.devices))
+        if mesh is not None and plan.solver == "stochastic":
+            raise ValueError("solver='stochastic' runs solo/batched only; sharded meshes "
+                             "require the exact solver (ExecutionPlan(solver='lbfgs')).")
+        self._mesh = mesh if mesh is not None and D.mesh_size(mesh) > 1 else None
+        self._device = (resolve_device(device) if self._mesh is None
+                        else D.rank_device(device))
         self._spec = spec
         self._n = int(n)
         self._reg = reg
@@ -115,6 +136,12 @@ class Executor:
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def mesh(self):
+        """The batch mesh the problems spread over (None: one device, also for a
+        mesh of one rank)."""
+        return self._mesh
 
     def stats(self) -> dict:
         """Per-executor counters, in the JAX executor's schema.
@@ -155,10 +182,10 @@ class Executor:
             if isinstance(result.stats, dict):
                 zero, check, act = (result.stats[k] for k in ("zero", "check", "active"))
                 conv, rounds = result.converged, result.rounds
-            else:                            # a batch: totals over its problems
-                zero, check, act = (int(v) for v in result.stats.sum(dim=0))
-                conv = bool(torch.all(result.converged))
-                rounds = int(torch.sum(result.rounds))
+            else:            # a batch, or a mesh's gathered flags: totals over its problems
+                zero, check, act = (int(v) for v in torch.as_tensor(result.stats).sum(dim=0))
+                conv = bool(torch.all(torch.as_tensor(result.converged)))
+                rounds = int(torch.sum(torch.as_tensor(result.rounds)))
             total = max(zero + check + act, 1)
             lines += [
                 f"solve:    rounds={rounds} converged={conv}",
@@ -378,22 +405,121 @@ class Executor:
         """Solve a list of problems: solo, or one batched solver call.
 
         The plan's ``batching`` picks the route: ``'solo'`` solves one by
-        one; ``'batched'``, or ``'auto'`` with more than one problem, stacks
-        the list (:meth:`_stack`: true group sizes may differ, columns may
-        be narrower than the template) and solves it in one call.  Returns
-        one :class:`Solution` per problem, in order, each bitwise equal to
-        that problem's :meth:`solve`.
+        one; ``'batched'``, or ``'auto'`` with more than one problem (or any
+        number with a mesh), stacks the list (:meth:`_stack`: true group
+        sizes may differ, columns may be narrower than the template) and
+        solves it in one call, with a mesh one call per rank on its block.
+        Returns one :class:`Solution` per problem, in order, each bitwise
+        equal to that problem's :meth:`solve`.
         """
         problems = list(problems)
         if not problems:
             return []
         if self._plan.batching == "solo" or (self._plan.batching == "auto"
-                                              and len(problems) == 1):
+                                              and len(problems) == 1 and self._mesh is None):
             return [self.solve(p) for p in problems]
+        if self._mesh is not None:
+            return self._solve_many_sharded(problems)
         preps, C, a, b, row_mask, sqrt_g = self._stack(problems)
         lb, scr, rounds, stats, share = self._solve_padded_batch(C, a, b, row_mask, sqrt_g)
         self._record(rounds.cpu(), lb.failed.cpu())
         return self._wrap_batch(preps, C, self._as_batch_result(lb, scr, rounds, stats, share))
+
+    # -- the problem axis over a mesh ----------------------------------------------
+    def _stack_block(self, problems: Sequence[Problem]):
+        """This rank's block of a batch: ``(lo, preps, C, a, b, row_mask, sqrt_g)`` on its device.
+
+        The batch pads to a multiple of the mesh size; the rank lowers and
+        uploads only problems ``lo, lo + 1, ...`` of its block, then its
+        share of dummy problems (``core.sharded.add_dummy_problems``), with a
+        row mask and sqrt(g) per problem.  Feature dimensions are checked
+        over the whole batch, so every rank raises alike.
+        """
+        from repro_torch.core import sharded as shd
+        from repro_torch.kernels.ops import FactorizedCost
+
+        B = len(problems)
+        k = D.mesh_size(self._mesh)
+        blk = shd.problem_block(-(-B // k) * k, self._mesh)
+        factorized = all(self._route(p) == "factorized" for p in problems)
+        if factorized:
+            dims = sorted({int(p.X_S.shape[1]) for p in problems})
+            if len(dims) > 1:
+                raise ValueError(f"cannot batch factorized problems with different feature "
+                                 f"dims {dims}; materialize or split")
+        mine = list(problems[blk.start:min(blk.stop, B)])
+        m_pad, n, dev = self._spec.m_pad, self._n, self._device
+        if mine:
+            preps, C, a, b, row_mask, sqrt_g = self._stack(mine)
+        else:                          # a rank holding dummy problems only
+            z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+            d = int(problems[0].X_S.shape[1]) if factorized else 0
+            C = FactorizedCost(z(0, m_pad, d), z(0, m_pad), z(0, n, d), z(0, n)) \
+                if factorized else z(0, m_pad, n)
+            preps, a, b = [], z(0, m_pad), z(0, n)
+            row_mask = torch.zeros((0, m_pad), dtype=torch.bool, device=dev)
+            sqrt_g = z(0, self._spec.num_groups)
+        if row_mask.dim() == 1:
+            row_mask = row_mask.expand(len(preps), -1)
+            sqrt_g = sqrt_g.expand(len(preps), -1)
+        return (blk.start, preps) + shd.add_dummy_problems(
+            C, a, b, row_mask, sqrt_g, blk.stop - blk.start - len(preps))
+
+    def _solve_block(self, C, a, b, row_mask, sqrt_g, B: int):
+        """One sharded solve (one call in :meth:`stats`): this rank solves its block,
+        then every rank holds every problem's ``(lb, rounds, stats)``, cut to ``B``."""
+        from repro_torch.core import sharded as shd
+
+        self._counters["launches"] += 1
+        out = shd.solve_local_and_gather(C, a, b, row_mask, sqrt_g, self._prob, self._opts,
+                                         self._mesh)
+        return _cut_batch(out, B)
+
+    def _solve_padded_batch_sharded(self, C, a, b, row_mask=None, sqrt_g=None):
+        """One sharded solve of a full padded batch given on every rank (the shim's route).
+
+        Shared masks are broadcast per problem, the batch is padded with
+        dummy problems, and each rank moves only its block to its device.
+        Returns ``(lb, rounds, stats)`` of the ``B`` real problems.
+        """
+        from repro_torch.core import sharded as shd
+
+        host = lambda x: x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+        C = C.map(host) if slv._is_factorized(C) else host(C)
+        a, b = host(a), host(b)
+        B = int(C.shape[0])
+        if row_mask is None:
+            row_mask = torch.from_numpy(self._spec.row_mask().reshape(-1))
+            sqrt_g = torch.from_numpy(self._spec.sqrt_sizes())
+        row_mask, sqrt_g = host(row_mask), host(sqrt_g)
+        if row_mask.dim() == 1:
+            row_mask = row_mask.expand(B, -1)
+            sqrt_g = sqrt_g.expand(B, -1)
+        padded = shd.pad_batch_to_devices(C, a, b, row_mask, sqrt_g, D.mesh_size(self._mesh))
+        C, a, b, row_mask, sqrt_g = slv._batch_operands(
+            *shd.shard_batch(padded[:5], self._mesh), self._device)
+        return self._solve_block(C, a, b, row_mask, sqrt_g, B)
+
+    def _solve_many_sharded(self, problems: List[Problem]) -> List[Solution]:
+        lo, preps, C, a, b, row_mask, sqrt_g = self._stack_block(problems)
+        lb, rounds, stats = self._solve_block(C, a, b, row_mask, sqrt_g, len(problems))
+        self._record(rounds.cpu(), lb.failed.cpu())
+        return self._wrap_sharded(problems, lo, preps,
+                                  self._as_batch_result(lb, None, rounds, stats))
+
+    def _wrap_sharded(self, problems, lo: int, preps, batch: slv.BatchOTResult) -> List[Solution]:
+        """Every problem's :class:`Solution` on this rank, from the gathered duals.
+
+        The rank's own problems reuse their lowering; the others are lowered
+        here, one at a time, for their plan recovery (each at B = 1, the
+        bits of a solo recovery).
+        """
+        out = []
+        for i, problem in enumerate(problems):
+            p = preps[i - lo] if 0 <= i - lo < len(preps) else self._prepare(problem)
+            C_i = p.geom.materialize() if p.geom is not None else p.C
+            out.append(build_solution(batch[i], self._reg, C_i, p.spec, p.perm, p.n))
+        return out
 
     def stream(self, problems: Union[Problem, Sequence[Problem]]) -> "Stream":
         """Open a round-step :class:`Stream` over one or more problems.
@@ -411,6 +537,12 @@ class Executor:
         return Stream(self, list(problems))
 
 
+def _cut_batch(out, B: int):
+    """``(lb, rounds, stats)`` of a padded batch cut to its first ``B`` problems."""
+    lb, rounds, stats = out
+    return type(lb)(*(v[:B] for v in lb)), rounds[:B], stats[:B]
+
+
 class Stream:
     """Round-step iteration over a batch of problems (one solver call per round).
 
@@ -420,30 +552,51 @@ class Stream:
     verdict ``stats``; it stops when every problem is finished or the
     plan's ``max_rounds`` is reached, the loop condition of the batched
     solve, so the final state is bitwise :meth:`Executor.solve_many`'s.
+    On a mesh each rank advances its block and every round ends with the
+    gather of the whole batch's flags (``core.sharded.batch_round_sharded``),
+    from which every rank reads the same diagnostics.
     """
 
     def __init__(self, executor: Executor, problems: Sequence[Problem]):
         self._ex = executor
         self._round = 0
         self._recorded = False
+        self._problems = list(problems)
         self._B = len(problems)
+        self._flags = None
         if not problems:               # an empty batch: a stream born done
             self._preps, self._state = [], None
             return
-        preps, C, a, b, row_mask, sqrt_g = executor._stack(problems)
+        prob, opts, mesh = executor._prob, executor._opts, executor._mesh
+        if mesh is not None:
+            self._lo, preps, *args = executor._stack_block(problems)
+        else:
+            preps, *args = executor._stack(problems)
         self._preps = preps
-        prob, opts = executor._prob, executor._opts
-        self._padded = slv._prepare_padded(C, prob, opts)
-        self._args = (C, a, b, row_mask, sqrt_g)
+        self._args = tuple(args)
         executor._counters["launches"] += 1
-        self._state = slv.init_batch_state(*self._args, prob, opts, self._padded,
-                                           device=executor.device)
+        err, self._state = None, None
+        try:
+            self._padded = slv._prepare_padded(self._args[0], prob, opts)
+            self._state = slv.init_batch_state(*self._args, prob, opts, self._padded,
+                                               device=executor.device)
+        except Exception as e:
+            if mesh is None:
+                raise
+            err = e                   # every rank raises after the gather
+        if mesh is not None:
+            from repro_torch.core import sharded as shd
+
+            self._flags = shd.gather_flags(self._state, mesh, count=int(self._args[1].shape[0]),
+                                           error=err)
 
     @property
     def done(self) -> bool:
         """True when every problem finished or the round cap was reached."""
         if self._B == 0 or self._round >= self._ex._opts.max_rounds:
             return True
+        if self._flags is not None:
+            return not bool(self._flags.alive[: self._B].any())
         lb = self._state.lb
         return not bool(torch.any(torch.logical_and(~lb.converged, ~lb.failed)))
 
@@ -457,11 +610,23 @@ class Stream:
             raise StopIteration
         ex = self._ex
         ex._counters["launches"] += 1
-        self._state = slv.batch_round(self._state, *self._args, ex._prob, ex._opts,
-                                      self._padded, device=ex.device)
+        if self._flags is not None:
+            from repro_torch.core import sharded as shd
+
+            self._state, self._flags = shd.batch_round_sharded(
+                self._state, *self._args, ex._prob, ex._opts, ex._mesh, self._padded,
+                device=ex.device)
+            f = self._flags
+            conv, failed, rounds, stats = (v[: self._B] for v in
+                                           (f.converged, f.failed, f.rounds, f.stats))
+        else:
+            self._state = slv.batch_round(self._state, *self._args, ex._prob, ex._opts,
+                                          self._padded, device=ex.device)
+            conv = self._state.lb.converged.cpu().numpy()
+            failed = self._state.lb.failed.cpu().numpy()
+            rounds = self._state.rounds.cpu().numpy()
+            stats = self._state.stats.cpu().numpy()
         self._round += 1
-        conv = self._state.lb.converged.cpu().numpy()
-        failed = self._state.lb.failed.cpu().numpy()
         return {
             "round": self._round,
             "alive": int(np.sum(~conv & ~failed)),
@@ -470,8 +635,8 @@ class Stream:
             # FAILED wins over converged, as in the serving vocabulary
             "status": ["FAILED" if f else ("DONE" if c else "RUNNING")
                        for c, f in zip(conv, failed)],
-            "rounds": self._state.rounds.cpu().numpy(),
-            "stats": self._state.stats.cpu().numpy(),
+            "rounds": rounds,
+            "stats": stats,
         }
 
     def _maybe_record(self) -> None:
@@ -479,12 +644,25 @@ class Stream:
         if self._recorded:
             return
         self._recorded = True
-        if self._B:                    # an empty stream did no work to count
+        if not self._B:                # an empty stream did no work to count
+            return
+        if self._flags is not None:
+            self._ex._record(self._flags.rounds[: self._B], self._flags.failed[: self._B])
+        else:
             self._ex._record(self._state.rounds.cpu(), self._state.lb.failed.cpu())
 
     def _batch_result(self) -> slv.BatchOTResult:
+        """The batch's state as a result; on a mesh one gather of every rank's final
+        points (every rank calls it)."""
         st = self._state
-        return self._ex._as_batch_result(st.lb, st.scr, st.rounds, st.stats)
+        if self._flags is None:
+            return self._ex._as_batch_result(st.lb, st.scr, st.rounds, st.stats)
+        from repro_torch.core import sharded as shd
+
+        lb, rounds, stats = _cut_batch(shd.gather_result(st, self._ex._mesh,
+                                                         count=int(self._args[1].shape[0])),
+                                       self._B)
+        return self._ex._as_batch_result(lb, None, rounds, stats)
 
     def solutions(self) -> List[Solution]:
         """The per-problem :class:`Solution` list; runs the remaining rounds first."""
@@ -493,10 +671,15 @@ class Stream:
         self._maybe_record()
         if self._B == 0:
             return []
+        if self._flags is not None:
+            return self._ex._wrap_sharded(self._problems, self._lo, self._preps,
+                                          self._batch_result())
         return self._ex._wrap_batch(self._preps, self._args[0], self._batch_result())
 
     def describe(self) -> str:
-        """The executor's diagnostic block + this stream's progress."""
+        """The executor's diagnostic block + this stream's progress (on a mesh from
+        the last round's gathered flags: no collective)."""
         if self._B == 0:
             return self._ex.describe()
-        return self._ex.describe(self._batch_result())
+        return self._ex.describe(self._flags.cut(self._B) if self._flags is not None
+                                 else self._batch_result())

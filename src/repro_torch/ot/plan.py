@@ -1,10 +1,8 @@
 """Execution policy for the ``repro_torch.ot`` façade.
 
 Counterpart of ``repro.ot.plan``, with the same fields and the same config
-JSON, so a plan written by the JAX package loads here.  Values the JAX
-package accepts but the port has not ported yet raise
-``NotImplementedError`` naming the ROADMAP queue id that ports them; values
-neither package knows raise ``ValueError``.
+JSON, so a plan written by the JAX package loads here.  Values neither
+package knows raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -22,10 +20,6 @@ PRECISIONS = ("f32", "bf16")
 SOLVERS = ("lbfgs", "stochastic")
 
 
-def _not_ported(what: str, queue_id: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {queue_id})")
-
-
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """Static execution policy (fields as in ``repro.ot.ExecutionPlan``).
@@ -35,7 +29,9 @@ class ExecutionPlan:
     ``geometry`` in {'auto', 'dense', 'on_the_fly'} (the factorized
     squared-l2 route, resolved per problem by ``Executor._route``),
     ``precision`` in {'f32', 'bf16'} ('bf16' on the kernel backends
-    'pallas' / 'fused' only, as in the JAX package), ``devices='single'``,
+    'pallas' / 'fused' only, as in the JAX package), ``devices`` in
+    {'single', 'all'} or a rank count (the problem axis over a mesh of
+    ``torch.distributed`` ranks, :mod:`repro_torch.core.sharded`),
     ``solver`` in {'lbfgs', 'stochastic'} (the minibatch dual ascent of
     :mod:`repro_torch.core.stochastic`, scheduled by the ``sgd_*`` fields).
     """
@@ -85,8 +81,6 @@ class ExecutionPlan:
         if self.precision == "bf16" and self.grad_impl not in ("pallas", "fused"):
             raise ValueError("precision='bf16' requires grad_impl='pallas' or 'fused' "
                              f"(got grad_impl={self.grad_impl!r})")
-        if self.devices != "single":
-            raise _not_ported(f"devices={self.devices!r} (device meshes)", "A3")
 
         self.stochastic_options()          # the sgd_* fields are checked here
 
@@ -118,6 +112,22 @@ class ExecutionPlan:
             tight_active_refresh=self.tight_active_refresh,
             precision=self.precision,
             lbfgs=self.lbfgs_options(),
+        )
+
+    @staticmethod
+    def from_solve_options(opts: SolveOptions, *, batching: str = "auto",
+                           devices: Union[str, int] = "single") -> "ExecutionPlan":
+        """Lift ``SolveOptions`` into a plan (the deprecated shims use this).
+
+        Round-trips exactly: ``from_solve_options(o).solve_options() == o``.
+        """
+        lb = opts.lbfgs
+        return ExecutionPlan(
+            grad_impl=opts.grad_impl, pallas_impl=opts.pallas_impl, precision=opts.precision,
+            snapshot_every=opts.snapshot_every, max_rounds=opts.max_rounds,
+            tight_active_refresh=opts.tight_active_refresh, batching=batching, devices=devices,
+            history=lb.history, max_iters=lb.max_iters, gtol=lb.gtol, ftol=lb.ftol, c1=lb.c1,
+            c2=lb.c2, max_linesearch=lb.max_linesearch, init_step=lb.init_step,
         )
 
     def config(self) -> dict:

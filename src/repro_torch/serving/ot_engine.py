@@ -1,10 +1,9 @@
-"""OT request serving engine: continuous batching over solver rounds (torch, one device).
+"""OT request serving engine: continuous batching over solver rounds (torch).
 
-Counterpart of ``repro.serving.ot_engine`` without the device mesh (ROADMAP
-A3).  The batched solver wants B same-shape problems; real traffic (many
-concurrent domain-adaptation solves) arrives with mixed shapes and at
-arbitrary times.  This engine is the bridge (fixed slots, static shapes,
-slot recycling):
+Counterpart of ``repro.serving.ot_engine``.  The batched solver wants B
+same-shape problems; real traffic (many concurrent domain-adaptation
+solves) arrives with mixed shapes and at arbitrary times.  This engine is
+the bridge (fixed slots, static shapes, slot recycling):
 
   * requests carry a declarative :class:`repro_torch.ot.Problem` (or the raw
     (m, n) cost matrix + class labels); the engine pads each to a canonical
@@ -27,6 +26,20 @@ engine's device, and admission writes only the admitted slot; the JAX
 package keeps them on the host and uploads the whole bucket after each
 admission.  The bits are the same: each slot's state evolves exactly as
 its solo solve's (the solo == batched invariant).
+
+On a mesh (``mesh=``, a 1-D batch mesh of ``torch.distributed`` ranks,
+``core.distributed.make_batch_mesh``) every rank runs the same engine on
+the same requests (SPMD), so its host bookkeeping (slots, queue, clock,
+fault firings) is the same on every rank.  A bucket has ``mesh.size *
+max_batch`` slots, the ranks' contiguous blocks (:meth:`_Bucket.slot_placement`);
+admission picks a free slot on the least-loaded rank, and only the rank
+that owns a slot pads and uploads its arrays.  A tick runs one local
+``batch_round`` on each rank that holds a live slot, then every rank joins
+the round-boundary gather of the flags (``core.sharded.gather_flags``).  A
+retiring slot's value and plan, and a fallback rung's outcome, come from
+the slot's owner to every rank; a fault on one rank (a round, a
+retirement, a rung that raises on the card) ends on every rank as an
+exception, never as a rank left waiting.
 
 On top of the batching machinery sits the robustness layer (knobs in
 :class:`repro_torch.serving.policy.ServingPolicy`):
@@ -75,7 +88,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as D
 from repro_torch.core import groups as G
+from repro_torch.core import sharded as shd
 from repro_torch.core import solver as slv
 from repro_torch.core.dual import DualProblem, plan_from_duals
 from repro_torch.core.regularizers import Regularizer
@@ -212,27 +227,33 @@ class _Bucket:
 
     The bucket key is ``(L, g_pad, n_pad, reg)``: problems share a bucket —
     and so a batch and a screening-threshold vector — only when both their
-    padded geometry AND their regularizer coincide.  The slot arrays live
-    on the engine's device; the prepared kernel problem is rebuilt only
-    after a slot's contents change.
+    padded geometry AND their regularizer coincide.  ``num_slots`` =
+    ``num_devices * slots_per_device``; the slot list is the same on every
+    rank, while the slot arrays on this rank's device hold only the
+    ``slots_per_device`` lanes it owns.  The prepared kernel problem is
+    rebuilt only after a lane's contents change.
     """
 
-    def __init__(self, key: Tuple, num_slots: int, reg: Regularizer,
+    def __init__(self, key: Tuple, slots_per_device: int, reg: Regularizer,
                  opts: slv.SolveOptions, dtype, device: torch.device,
-                 counters: Optional[dict] = None):
+                 counters: Optional[dict] = None, mesh=None):
         L, g_pad, n_pad = key[:3]
         self.key = key
-        self.num_slots = num_slots
+        self.mesh = mesh
+        self.num_devices = D.mesh_size(mesh) if mesh is not None else 1
+        self.rank = D.mesh_rank(mesh) if mesh is not None else 0
+        self.slots_per_device = slots_per_device
+        self.num_slots = slots_per_device * self.num_devices
         self.reg = reg
         self.opts = opts
         self.device = device
         self.dtype = np.dtype(dtype)
         self.prob = DualProblem(L, g_pad, n_pad, reg)
         m_pad = self.prob.m_pad
-        S = num_slots
+        S = slots_per_device                            # this rank's lanes
         tdt = torch.from_numpy(np.zeros(0, self.dtype)).dtype
-        self.slots: List[Optional[OTRequest]] = [None] * S
-        self._meta: List[Optional[dict]] = [None] * S   # perm/spec per slot
+        self.slots: List[Optional[OTRequest]] = [None] * self.num_slots
+        self._meta: List[Optional[dict]] = [None] * self.num_slots   # perm/spec per slot
         self.C = torch.full((S, m_pad, n_pad), G.PAD_COST, dtype=tdt, device=device)
         self.a = torch.zeros((S, m_pad), dtype=tdt, device=device)
         self.b = torch.zeros((S, n_pad), dtype=tdt, device=device)
@@ -258,43 +279,99 @@ class _Bucket:
         """A slot's arrays changed: prepare the kernel problem again before the next call."""
         self._padded = None
 
+    def slot_placement(self, slot: int) -> Tuple[int, int]:
+        """A slot's ``(device, lane)``: the problem axis splits in contiguous blocks
+        over the mesh, so this is index arithmetic."""
+        return slot // self.slots_per_device, slot % self.slots_per_device
+
+    def owns(self, slot: int) -> bool:
+        """Whether this rank holds ``slot``'s arrays and state."""
+        return self.slot_placement(slot)[0] == self.rank
+
+    def on_owner(self, slot: int, fn):
+        """``fn()`` on the rank that owns ``slot``; its result on every rank.
+
+        On a mesh the owner's result (or its exception, as text) reaches
+        every rank in one broadcast, and every rank raises if it failed.
+        """
+        owner = self.slot_placement(slot)[0]
+        out, err = None, None
+        if owner == self.rank:
+            if self.mesh is None:
+                return fn()
+            try:
+                out = fn()
+            except Exception as e:
+                err = e
+        if self.mesh is None:
+            return out
+        out, msg = D.broadcast_object(
+            (out, None if err is None else f"{type(err).__name__}: {err}"), owner, self.mesh)
+        if msg is not None:
+            if err is not None:
+                raise RuntimeError(f"bucket {self.key} slot {slot} failed on this rank") from err
+            raise RuntimeError(f"bucket {self.key} slot {slot} failed on rank {owner}: {msg}")
+        return out
+
     # -- admission -----------------------------------------------------------
     def free_slot(self) -> Optional[int]:
-        """The first free slot (None if full)."""
+        """A free slot on the least-loaded device (None if full).
+
+        A tick lasts as long as the busiest rank's round, so live requests
+        spread over the ranks; with one device this is the first free slot.
+        """
         free = [i for i, s in enumerate(self.slots) if s is None]
-        return free[0] if free else None
+        if not free:
+            return None
+        load = [0] * self.num_devices
+        for i in self.occupied():
+            load[self.slot_placement(i)[0]] += 1
+        return min(free, key=lambda i: (load[self.slot_placement(i)[0]], i))
 
     def admit(self, slot: int, req: OTRequest, problem: Problem):
-        """Write the request's padded Problem arrays into ``slot`` (no state init)."""
+        """Write the request's padded Problem arrays into ``slot`` (no state init).
+
+        Only the owner pads and uploads; every rank records the request.
+        """
         m, n = problem.num_source, problem.num_target
-        C_pad, a_pad, b, spec, perm = problem.padded(dtype=self.dtype)
-        dev = self.device
-        self.C[slot] = G.PAD_COST
-        self.C[slot, :, :n] = torch.from_numpy(np.ascontiguousarray(C_pad)).to(dev)
-        self.a[slot] = torch.from_numpy(a_pad).to(dev)
-        self.b[slot] = 0.0
-        self.b[slot, :n] = torch.from_numpy(np.asarray(b, self.dtype)).to(dev)
-        self.row_mask[slot] = torch.from_numpy(spec.row_mask().reshape(-1)).to(dev)
-        self.sqrt_g[slot] = torch.from_numpy(spec.sqrt_sizes()).to(dev)
         self.slots[slot] = req
-        self._meta[slot] = {"spec": spec, "perm": perm, "m": m, "n": n}
-        self._changed()
-        log.info("admitted OT request %d into bucket %s slot %d (m=%d n=%d)",
-                 req.rid, self.key, slot, m, n)
+        self._meta[slot] = {"m": m, "n": n}
+        dev_i, lane = self.slot_placement(slot)
+        if self.owns(slot):
+            C_pad, a_pad, b, spec, perm = problem.padded(dtype=self.dtype)
+            dev = self.device
+            self.C[lane] = G.PAD_COST
+            self.C[lane, :, :n] = torch.from_numpy(np.ascontiguousarray(C_pad)).to(dev)
+            self.a[lane] = torch.from_numpy(a_pad).to(dev)
+            self.b[lane] = 0.0
+            self.b[lane, :n] = torch.from_numpy(np.asarray(b, self.dtype)).to(dev)
+            self.row_mask[lane] = torch.from_numpy(spec.row_mask().reshape(-1)).to(dev)
+            self.sqrt_g[lane] = torch.from_numpy(spec.sqrt_sizes()).to(dev)
+            self._meta[slot].update(spec=spec, perm=perm)
+            self._changed()
+        log.info("admitted OT request %d into bucket %s slot %d (device %d lane %d, m=%d n=%d)",
+                 req.rid, self.key, slot, dev_i, lane, m, n)
 
     def _init_state(self):
-        """The initial state of every slot (one solver call)."""
+        """The initial state of this rank's lanes (one solver call)."""
         self._count_launch()
         return slv.init_batch_state(*self._operands(), self.prob, self.opts, self._padded,
                                     device=self.device)
 
     def refresh_state(self, new_mask: np.ndarray):
-        """(Re)initialize solver state for slots in ``new_mask``; keep others."""
+        """(Re)initialize solver state for slots in ``new_mask``; keep others.
+
+        Only the rank that owns one of the slots does work; no collective.
+        """
+        lo = self.rank * self.slots_per_device
+        local = np.asarray(new_mask, bool)[lo:lo + self.slots_per_device]
+        if not local.any():
+            return
         fresh = self._init_state()
         if self.state is None:
             self.state = fresh
         else:
-            mask = torch.from_numpy(np.asarray(new_mask, bool)).to(self.device)
+            mask = torch.from_numpy(local).to(self.device)
             self.state = slv.where_batch_state(mask, fresh, self.state)
 
     # -- one engine tick -----------------------------------------------------
@@ -314,7 +391,7 @@ class _Bucket:
             non-finite duals/objective, or an injected fault).
         """
         active = self.occupied()
-        if not active or self.state is None:
+        if not active or (self.mesh is None and self.state is None):
             return [], []
         reg = faults.REGISTRY
         chaos = reg.enabled()
@@ -323,18 +400,24 @@ class _Bucket:
             # (deadlines keep counting) but no round runs
             log.warning("bucket %s: injected slow tick %d", self.key, clock)
             return [], []
-        operands = self._operands()
-        self._count_launch()
-        self.state = slv.batch_round(self.state, *operands, self.prob, self.opts,
-                                     self._padded, device=self.device)
-        lb = self.state.lb
-        # the round boundary's host read: the (S,) flags and round counts.
-        # The finite check is the quarantine tripwire: NaN/inf duals or
-        # objectives retire the offending slot, never ride into another round
-        finite = torch.logical_and(torch.all(torch.isfinite(lb.x), dim=-1),
-                                   torch.isfinite(lb.f))
-        conv, failed, finite, rounds = (t.cpu().numpy() for t in
-                                        (lb.converged, lb.failed, finite, self.state.rounds))
+        err = None
+        if any(self.owns(i) for i in active):
+            try:
+                operands = self._operands()
+                self._count_launch()
+                self.state = slv.batch_round(self.state, *operands, self.prob, self.opts,
+                                             self._padded, device=self.device)
+            except Exception as e:
+                if self.mesh is None:
+                    raise
+                err = e                  # rides the gather: every rank raises
+        # the round boundary's read: the (S,) flags and round counts, on a
+        # mesh gathered from every rank.  The finite check is the quarantine
+        # tripwire: NaN/inf duals or objectives retire the offending slot,
+        # never ride into another round
+        flags = shd.gather_flags(self.state, D.LocalMesh() if self.mesh is None else self.mesh,
+                                 count=self.slots_per_device, error=err)
+        conv, failed, finite, rounds = flags.converged, flags.failed, flags.finite, flags.rounds
         done: List[OTRequest] = []
         bad: List[Tuple[int, str]] = []
         for i in active:
@@ -353,37 +436,43 @@ class _Bucket:
     def release(self, slot: int) -> Tuple[OTRequest, dict]:
         """Vacate ``slot`` (no result recovery): recycle to the dummy problem.
 
-        The slot's arrays go back to the zero-gradient dummy, so the
-        in-flight neighbours are untouched (their state freezes through
-        the same masked merges as always).  Returns the evicted request
-        and its padding metadata.
+        The slot's arrays (on its owner) go back to the zero-gradient dummy,
+        so the in-flight neighbours are untouched (their state freezes
+        through the same masked merges as always).  Returns the evicted
+        request and its padding metadata.
         """
         req, meta = self.slots[slot], self._meta[slot]
         self.slots[slot] = None
         self._meta[slot] = None
-        self.C[slot] = G.PAD_COST
-        self.a[slot] = 0.0
-        self.b[slot] = 0.0
-        self.row_mask[slot] = False
-        self.sqrt_g[slot] = 0.0
-        self._changed()
+        if self.owns(slot):
+            lane = self.slot_placement(slot)[1]
+            self.C[lane] = G.PAD_COST
+            self.a[lane] = 0.0
+            self.b[lane] = 0.0
+            self.row_mask[lane] = False
+            self.sqrt_g[lane] = 0.0
+            self._changed()
         return req, meta
 
     def _retire(self, slot: int, converged: bool, rounds: int) -> OTRequest:
         req = self.slots[slot]
         meta = self._meta[slot]
-        lb = self.state.lb
-        m_pad = self.prob.m_pad
-        x = lb.x[slot]
-        T_pad = plan_from_duals(x[:m_pad], x[m_pad:], self.C[slot], self.prob).cpu().numpy()
-        # un-pad rows back to the caller's order, drop padded columns
-        m, n = meta["m"], meta["n"]
-        perm = meta["perm"]
-        T = np.zeros((m, n), T_pad.dtype)
-        real = perm >= 0
-        T[perm[real]] = T_pad[real][:, :n]
-        req.value = float(-lb.f[slot])
-        req.plan = T
+
+        def result():                    # on the slot's owner
+            lb = self.state.lb
+            m_pad = self.prob.m_pad
+            lane = self.slot_placement(slot)[1]
+            x = lb.x[lane]
+            T_pad = plan_from_duals(x[:m_pad], x[m_pad:], self.C[lane],
+                                    self.prob).cpu().numpy()
+            # un-pad rows back to the caller's order, drop padded columns
+            perm = meta["perm"]
+            T = np.zeros((meta["m"], meta["n"]), T_pad.dtype)
+            real = perm >= 0
+            T[perm[real]] = T_pad[real][:, :meta["n"]]
+            return float(-lb.f[lane]), T
+
+        req.value, req.plan = self.on_owner(slot, result)
         req.rounds = rounds
         req.converged = converged
         # recycle: dummy problem (zero gradient) until the next admission
@@ -425,15 +514,18 @@ class OTServingEngine:
         Group-size padding granularity (rows per group rounded up).
     dtype : numpy dtype, optional
         Storage dtype of the slot arrays (float32 everywhere in practice).
-    mesh : None
-        Device meshes are not ported yet (ROADMAP A3): anything but None
-        raises ``NotImplementedError``.
+    mesh : DeviceMesh, optional
+        A 1-D batch mesh (:func:`repro_torch.core.distributed.make_batch_mesh`):
+        every bucket packs ``mesh.size * max_batch`` slots over the ranks,
+        each of which runs this engine on the same requests (module
+        docstring).  Without one, or with a mesh of one rank, the engine
+        runs on ``device`` alone.
     policy : ServingPolicy, optional
         SLO / admission-control / quarantine knobs (see
         :mod:`repro_torch.serving.policy`).
     device : str or torch.device, optional
         Where the slot arrays live and the rounds run: ``None`` for
-        ``cuda``; pass ``'cpu'`` for the host.
+        ``cuda`` (on a mesh this rank's card); pass ``'cpu'`` for the host.
 
     Examples
     --------
@@ -454,17 +546,15 @@ class OTServingEngine:
         policy: ServingPolicy = ServingPolicy(),
         device: DeviceLike = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the serving engine on a device mesh is not ported yet (ROADMAP A3); "
-                "pass device= for one card")
+        self.mesh = mesh if mesh is not None and D.mesh_size(mesh) > 1 else None
+        self.num_devices = D.mesh_size(self.mesh) if self.mesh is not None else 1
         self.reg = reg
         self.opts = opts
         self.max_batch = max_batch
         self.n_quant = n_quant
         self.pad_to = pad_to
         self.dtype = dtype
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if self.mesh is None else D.rank_device(device)
         self.policy = policy
         self.buckets: Dict[Tuple, _Bucket] = {}
         self.pending = PendingQueue(policy.max_pending)
@@ -706,7 +796,7 @@ class OTServingEngine:
         bucket = self.buckets.get(key)
         if bucket is None:
             bucket = _Bucket(key, self.max_batch, key[3], self.opts, self.dtype,
-                             self.device, counters=self._stats)
+                             self.device, counters=self._stats, mesh=self.mesh)
             self.buckets[key] = bucket
         slot = bucket.free_slot()
         if slot is None:
@@ -716,8 +806,9 @@ class OTServingEngine:
                                       bucket=bucket.key, tick=self.clock):
             # corrupt AFTER admission validation: simulates in-flight data
             # poisoning, the case the round-boundary tripwire must catch
-            bucket.C[slot, 0, :] = float("nan")
-            bucket._changed()
+            if bucket.owns(slot):
+                bucket.C[bucket.slot_placement(slot)[1], 0, :] = float("nan")
+                bucket._changed()
             log.warning("request %d: injected NaN cost in slot %d",
                         req.rid, slot)
         if req.submitted_tick is None:
@@ -780,12 +871,17 @@ class OTServingEngine:
             bucket.refresh_state(mask)
             return None
         bucket.release(slot)
-        return self._fallback(req, reason)
+        return self._fallback(req, reason, bucket, slot)
 
-    def _fallback(self, req: OTRequest, reason: str) -> OTRequest:
-        """Run the off-slot fallback rungs until success or exhaustion."""
+    def _fallback(self, req: OTRequest, reason: str, bucket: Optional[_Bucket] = None,
+                  slot: Optional[int] = None) -> OTRequest:
+        """Run the off-slot fallback rungs until success or exhaustion.
+
+        With the request's ``bucket`` and ``slot``, each rung runs on the
+        rank that owned the slot (:meth:`_Bucket.on_owner`), and every rank
+        follows its outcome.
+        """
         problem = self._as_problem(req)
-        pa = problem.padded(self.dtype)
         error = reason
         while True:
             rung = self._next_rung(req)
@@ -807,9 +903,13 @@ class OTServingEngine:
             req.attempts += 1
             self._stats["retry_attempts"] += 1
             try:
-                out = self._run_fallback(rung, problem, pa)
+                run = lambda: self._run_fallback(rung, problem, None)
+                out = run() if bucket is None else bucket.on_owner(slot, run)
             except Exception as e:
                 if on_card:              # a kernel or CUDA fault is never served around
+                    if self.mesh is not None:     # the request ends alike on every rank
+                        self._finish(req, RequestStatus.FAILED,
+                                     error=f"{rung} fallback raised on the card: {e}")
                     raise
                 out = None               # on the host a fallback never crashes serving
                 error = f"{rung} fallback raised {type(e).__name__}: {e}"
@@ -829,8 +929,9 @@ class OTServingEngine:
             log.info("request %d recovered via %s fallback", req.rid, rung)
             return self._finish(req, RequestStatus.DONE)
 
-    def _run_fallback(self, rung: str, problem: Problem, pa):
+    def _run_fallback(self, rung: str, problem: Problem, pa=None):
         """One fallback rung; returns (value, plan, rounds) or None."""
+        pa = pa if pa is not None else problem.padded(self.dtype)
         m, n = problem.num_source, problem.num_target
         dev = self.device
         if rung == "dense":

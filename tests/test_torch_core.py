@@ -13,10 +13,17 @@ Same inputs, made with numpy from a seed, go through ``repro`` and
 """
 import json
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:                  # the limit only saves time
+    threadpool_limits = lambda limits: contextlib.nullcontext()
 
 from conftest import make_ot_problem
 
@@ -36,6 +43,17 @@ REG_CFGS = {
     "l2": {"kind": "l2", "gamma": 0.4},
     "elastic_net": {"kind": "elastic_net", "gamma": 0.4, "mu_weights": [0.0, 0.5, 1.0, 1.5]},
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one torch intra-op thread and one BLAS thread each, so parallel
+    test workers do not oversubscribe the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
+    torch.set_num_threads(before)
 
 
 def _t(x):

@@ -123,11 +123,19 @@ def test_plan_config_crosses_packages():
     (dict(devices=2), "A3"),
 ])
 def test_unported_plan_options_raise(kw, item):
-    if item == "item 8":          # solver='stochastic' is ported now: accepted
-        assert tot.ExecutionPlan(**kw).stochastic_options().epochs == 60
+    """Once unported, now accepted: solver='stochastic' (item 8) and device meshes (A3).
+    A mesh of more than one rank needs a process group: without one, compiling raises,
+    naming torchrun; devices='all' is then a mesh of one rank, which runs unsharded."""
+    plan = tot.ExecutionPlan(**kw)
+    assert plan.config() == jot.ExecutionPlan(**kw).config()
+    if item == "item 8":
+        assert plan.stochastic_options().epochs == 60
+    elif kw["devices"] == "all":
+        ex = tot.compile(_problems("samples")[1], plan, device="cpu")
+        assert ex.mesh is None
     else:
-        with pytest.raises(NotImplementedError, match=item):
-            tot.ExecutionPlan(**kw)
+        with pytest.raises(RuntimeError, match="torchrun"):
+            tot.compile(_problems("samples")[1], plan, device="cpu")
     with pytest.raises(ValueError):
         tot.ExecutionPlan(grad_impl="unknown")
 
@@ -156,17 +164,19 @@ def test_fused_and_bf16_plan_options(kw, accepted):
 
 
 def test_unported_entry_points_raise():
-    """What stays unported raises, naming its ROADMAP queue id: device meshes for the
-    executor (``devices != 'single'``) and for the serving engine (A3).  The batch
-    API and SLO configs (A1, A2) are ported: they run here."""
+    """The entry points once unported now run here: the batch API and SLO configs
+    (A1, A2) and device meshes (A3) for the executor and the serving engine.  A mesh
+    of several ranks without a process group raises, naming torchrun."""
+    from repro_torch.core.distributed import make_batch_mesh
     from repro_torch.serving.ot_engine import OTServingEngine
 
     _, tp = _problems("samples")
-    for devices in ("all", 2):
-        with pytest.raises(NotImplementedError, match="A3"):
-            tot.ExecutionPlan(devices=devices)
-    with pytest.raises(NotImplementedError, match="A3"):
-        OTServingEngine(tp.reg, mesh=object(), device="cpu")
+    with pytest.raises(RuntimeError, match="torchrun"):
+        make_batch_mesh(2)
+    engine = OTServingEngine(tp.reg, ts.SolveOptions(grad_impl="pallas"),
+                             mesh=make_batch_mesh(), device="cpu")
+    done = engine.run([tp])
+    assert done[0].status.value == "DONE" and done[0].plan.shape == (35, 35)
     ex = tot.compile(tp, tot.ExecutionPlan(), device="cpu")
     many = ex.solve_many([tp])
     assert len(many) == 1 and many[0].converged

@@ -11,10 +11,17 @@ without a card) and by ``chip_smoke.py``.  Tolerances:
   * plain compact vs plain grid, kernels across runs: bitwise, by design
     (both fill the same per-tile slots, reduced in one fixed order).
 """
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:                  # the limit only saves time
+    threadpool_limits = lambda limits: contextlib.nullcontext()
 
 from conftest import make_ot_problem
 
@@ -32,6 +39,17 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import gradpsi as tgp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import screen as tsc
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one torch intra-op thread and one BLAS thread each, so parallel
+    test workers do not oversubscribe the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
+    torch.set_num_threads(before)
 
 
 def _t(x):

@@ -217,8 +217,8 @@ def test_stochastic_plan_executor_and_configs():
     ex = ot.compile(_problem(), plan, device="cpu")
     with pytest.raises(ValueError, match="stream"):
         ex.stream([_problem()])
-    with pytest.raises(NotImplementedError):
-        ot.ExecutionPlan(**SGD, devices="all")
+    with pytest.raises(ValueError, match="stochastic"):     # as the JAX executor
+        ot.compile(_problem(), ot.ExecutionPlan(**SGD, devices="all"), device="cpu")
     with pytest.raises(ValueError, match="bf16"):
         ot.ExecutionPlan(**SGD, precision="bf16")
     # bf16 on the kernel backend: the cost is cast once, the solve stays finite
