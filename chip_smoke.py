@@ -1,10 +1,12 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py      # needs one CUDA card; takes about seven to nine minutes
+    python3 chip_smoke.py      # needs one CUDA card; takes about ten minutes
     python3 chip_smoke.py --compare _archive/parent [--pairs 10]
                                # this tree's kernels against another checkout's
     python3 chip_smoke.py --mesh-only
                                # phase 12 alone, from an earlier full run's results
+    python3 chip_smoke.py --lm-only
+                               # phase 13 alone (the LM trainer)
 
 The main path is the default plan at the paper's largest scale:
 ``repro_torch.ot.compile(Problem.from_samples(...), ExecutionPlan(grad_impl=
@@ -126,6 +128,26 @@ Phases:
      evaluation beside phase 10's single-rank figures, and (a)'s time split
      into lowering, the block's solve, the final gather and the plan
      recoveries.
+ 13. the LM trainer with the paper's OT alignment loss:
+     ``repro_torch.training.trainer.Trainer`` on ``smollm-135m`` at full
+     width and depth (30 layers, d_model 576, 9 / 3 heads, d_ff 1536, vocab
+     49 152, tied, bf16, 134 515 008 parameters), ``SyntheticLM(vocab, 128,
+     64, 8 classes, seed 0)``, ``TrainConfig(ot_align=True,
+     ot_align_weight=0.05, ot_grad_impl='pallas', ot_solver='lbfgs',
+     remat='block')``, 12 steps at lr 6e-4 (warmup 2, decay over 12): each
+     step solves one 32 x 32 OT problem (8 classes x 4) at d = 576 on K1, K4
+     and K5/K6.  Every loss and OT distance finite, every OT distance above
+     0, the last loss below the first, K1, K4 and K5 or K6 launched (the
+     counters); the step's wall time split into the LM forward + backward,
+     the OT solve, its backward and the optimizer, tokens per second, peak
+     memory, a profile of 2 steps (idle share, launches per step) and each OT
+     kernel's launches per step; K1, K4, K5, K6 and K8 at the step-0 OT
+     operands (L_pad 8, g 4, n_pad 128, d 576: the chunked loader, 18 chunks
+     of 32, and K4's FactCost body) held to their plain versions as at d =
+     64; a 3-step run with ``ot_grad_impl='fused'`` whose step-0 OT distance
+     is the pallas run's bit for bit; and a restart at full width cut to 2
+     layers (save at step 3, resume to 6) bitwise an uninterrupted 6-step
+     run, under ``torch.use_deterministic_algorithms(True)``.
 Phase 3 also runs K2/K3/K5-K8 at tile_n 4, 20, 40 and 128 on a narrow
 problem, and phase 4 holds the main path's solve to the fingerprint it had
 before the kernels took any tile width.
@@ -144,6 +166,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
+# cuBLAS needs it before CUDA starts for torch.use_deterministic_algorithms (phase 13)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -2565,6 +2589,364 @@ def mesh_rank(rank: int, init: str) -> None:
     say("phase 12: done")
 
 
+# -- phase 13: the LM trainer with the OT alignment loss -----------------------------
+
+LM_ARCH = "smollm-135m"
+LM_PARAMS = 134_515_008              # its parameter count (the JAX abstract init's)
+LM_STEPS = 12
+LM_SEQ, LM_BATCH, LM_CLASSES = 128, 64, 8
+LM_RESTART_LAYERS = 2                # the restart check's depth cut (PERF.md §4)
+LM_SPLIT_STEPS = 3                   # steps timed piece by piece after the run
+LM_DIR = os.path.join(HERE, "_archive", "phase13")         # git-ignored: the restart's files
+LM_ROW = "@lm_step"                  # suffix of the kernel rows at the trainer's shapes
+
+
+def lm_trainer(cfg, grad_impl: str, steps: int, device, ckpt=None):
+    """The trainer of phase 13: ``SyntheticLM(vocab, 128, 64, 8 classes, seed 0)``, AdamW
+    at lr 6e-4 (warmup 2, decay over 12 steps), remat per block, the OT alignment loss
+    (weight 0.05, L-BFGS) on ``grad_impl``; a checkpoint every 3 steps into ``ckpt``."""
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM, SyntheticLMConfig
+    from repro_torch.training.trainer import Trainer
+
+    tcfg = TrainConfig(optimizer=OptimizerConfig(lr=6e-4, warmup_steps=2, decay_steps=LM_STEPS),
+                       steps=steps, log_every=1, checkpoint_every=3, ot_align=True,
+                       ot_align_weight=0.05, ot_solver="lbfgs", ot_grad_impl=grad_impl,
+                       remat="block")
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                                         global_batch=LM_BATCH, num_classes=LM_CLASSES, seed=0))
+    return Trainer(cfg, tcfg, data, ckpt_dir=ckpt, device=device)
+
+
+def lm_ot_operands(tr, batch, device):
+    """The OT problem of ``batch`` as the trainer's layer solves it at the current
+    parameters: (the tile-padded FactorizedProblem, duals padded to its grid, its row
+    mask, the regularizer, the solve's result)."""
+    import torch
+
+    from repro_torch.core import solver as slv
+    from repro_torch.kernels import ops as kops
+    from repro_torch.ot import diff
+    from repro_torch.training import losses
+
+    tcfg = tr.tcfg
+    with torch.no_grad():
+        h_src, h_tgt, L, g = tr.ot_inputs(batch)
+        layer = losses._alignment_layer(L, g, int(h_tgt.shape[0]), tcfg.ot_gamma, tcfg.ot_rho,
+                                        60, tcfg.ot_solver, "pallas", device)
+        xs, x_sq, ys, y_sq, _ = diff._scaled_factors(layer, h_src.float(), h_tgt.float())
+        a, b = layer._marginals(None, None)
+        fc = kops.FactorizedCost(xs, x_sq, ys, y_sq)
+        res = slv.solve_dual(fc, a, b, layer.spec(), layer.reg, layer.plan.solve_options(),
+                             device)
+        fp = kops.prepare_factorized_problem(fc.map(lambda t: t[None]), layer.dual_problem())
+        alphap, betap = kops.pad_tile_inputs(res.alpha[None], res.beta[None], fp)
+        row_mask = torch.as_tensor(layer.spec().row_mask().reshape(-1), device=device)
+    return fp, alphap, betap, kops._padded_mask(row_mask, fp), layer.reg, res
+
+
+def phase_lm_kernels(fp, a, b, mask, reg, launches, fused_launches, smi_line, device):
+    """K1, K4, K5, K6 and K8 at the trainer's step-0 OT operands (L_pad 8, g 4, n_pad 128,
+    d 576: the chunked loader and K4's FactCost body), on the solve's duals, each held
+    to its plain version as ``phase_kernels_wide_d`` holds them at d = 64, then timed
+    beside its bound and its plain version.  Returns the kernel-table rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import gradpsi as kg
+    from repro_torch.kernels import screen as ks
+
+    L_pad, g, n_pad, d = fp.L_pad, fp.g, fp.n_pad, fp.d
+    check((fp.tile_l, fp.tile_n) == (TILE_L, TILE_N), f"phase 13 tiles {fp.tile_l} x {fp.tile_n}")
+    dc = kg.fact_loader_dc(TILE_L, g, TILE_N, d)
+    check(0 < dc < d, f"d = {d} should take the chunked loader, got dc = {dc}")
+    leaves = fp.leaves()
+    tp = torch.full((L_pad,), float(reg.tau), dtype=torch.float32, device=device)
+    kw = dict(num_groups=L_pad, group_size=g, tau=tp, gamma=reg.gamma, tile_l=TILE_L,
+              tile_n=TILE_N)
+    skw = dict(num_groups=L_pad, group_size=g, tile_l=TILE_L, tile_n=TILE_N)
+    C = kg.factorized_cost_tile(*leaves)
+    rng = np.random.default_rng(13)
+    errs = []
+    for share in (0.0, 1.0):
+        flags = torch.full((1, L_pad // TILE_L, n_pad // TILE_N), int(share), dtype=torch.int32,
+                           device=device)
+        k5 = kg.gradpsi_fact_batched(a, b, *leaves, flags, **kw)
+        ref = kg.gradpsi_fact_batched_ref(a, b, *leaves, flags, **kw)
+        errs.append(max(float((p - q).abs().max()) for p, q in zip(k5, ref)))
+        check(all(torch.allclose(p, q, rtol=1e-5, atol=1e-6) for p, q in zip(k5, ref)),
+              f"K5 at d = {d} (share {share}) off its plain version: max abs err {errs[-1]:.3e}")
+        sched, nact = kg.build_batch_tile_schedule(flags)
+        k6 = kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw)
+        k2 = kg.gradpsi_batched(a, b, C, flags, **kw)
+        check(same(k5, k2) and same(k6[:3], k5),
+              f"K5/K6 at d = {d} (share {share}) not bitwise equal to K2 on the cost")
+        inp = kernel_inputs(rng, C, L_pad, float(reg.tau), share, device)
+        sargs = screen_args(inp)
+        v1, f1 = ks.screen_batched(*sargs, tau=tp, tile_l=TILE_L, tile_n=TILE_N,
+                                   emit_verdict=True)
+        v1p, f1p = ks.screen_batched_ref(*sargs, tau=tp, tile_l=TILE_L, tile_n=TILE_N)
+        check(torch.equal(v1, v1p) and torch.equal(f1, f1p),
+              f"K1 at the trainer's shapes (share {share}) differs from its plain version")
+        k8 = kg.gradpsi_fused_fact_batched(a, b, *leaves, *sargs, **kw)
+        k5f = kg.gradpsi_fact_batched(a, b, *leaves, f1, **kw)
+        check(torch.equal(k8[3], f1) and same(k8[:3], k5f),
+              f"K8 at d = {d} (share {share}) not K1's flags and K5's sums bit for bit")
+    k4 = ks.snapshot_norms_fact_batched(a, b, *leaves, mask, **skw)
+    k4p = ks.snapshot_norms_fact_ref(a, b, *leaves, mask, num_groups=L_pad, group_size=g)
+    check(same(k4, k4p), f"K4 at d = {d} differs from its plain version")
+    print(f"kernels @ the trainer's step-0 OT operands (B = 1, L_pad = {L_pad}, g = {g}, "
+          f"n_pad = {n_pad}, d = {d}: {-(-d // dc)} chunks of {dc}; the solve's duals): K5 max "
+          f"abs err {max(errs):.3e} (rtol 1e-5, atol 1e-6), K5 == K2 and K6 == K5 bitwise, "
+          f"K1 == plain, K8 == K1's flags and K5's sums bitwise (live shares 0 and 1), K4 == "
+          f"plain bitwise", flush=True)
+
+    # times at the live state (the one tile live), beside bound and plain version
+    flags = torch.ones((1, 1, 1), dtype=torch.int32, device=device)
+    sched, nact = kg.build_batch_tile_schedule(flags)
+    sargs = screen_args(inp)                # share 1.0: K1 and K8 find the tile live
+    fns = {
+        K1: (lambda: ks.screen_batched(*sargs, tau=tp, tile_l=TILE_L, tile_n=TILE_N,
+                                       emit_verdict=False),
+             lambda: ks.screen_batched_ref(*sargs, tau=tp, tile_l=TILE_L, tile_n=TILE_N)),
+        K4: (lambda: ks.snapshot_norms_fact_batched(a, b, *leaves, mask, **skw),
+             lambda: ks.snapshot_norms_fact_ref(a, b, *leaves, mask, num_groups=L_pad,
+                                                group_size=g)),
+        K5: (lambda: kg.gradpsi_fact_batched(a, b, *leaves, flags, **kw),
+             lambda: kg.gradpsi_fact_batched_ref(a, b, *leaves, flags, **kw)),
+        K6: (lambda: kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw),
+             lambda: kg.gradpsi_fact_compact_batched_ref(a, b, *leaves, sched, nact, **kw)),
+        K8: (lambda: kg.gradpsi_fused_fact_batched(a, b, *leaves, *sargs, **kw),
+             lambda: kg.gradpsi_fused_fact_batched_ref(a, b, *leaves, *sargs, **kw)),
+    }
+    work = kernel_work(fp, d, 1, 1, int(torch.count_nonzero(mask)))
+    rows = []
+    for name, (fn, plain) in fns.items():
+        got, want = fn(), plain()
+        if name == K1:
+            got, want = (got[1].float(),), (want[1].float(),)
+        err, rel = max_errs(got[:3], want[:3])
+        ms = median_ms(fn, 50)
+        plain_ms = median_ms(plain, 10, warmup=1)
+        bms, by = bound(*work[name])
+        path, count = ((f"phase 13 {LM_ARCH} trainer, 3 steps, grad_impl 'fused'",
+                        fused_launches.get(name, 0)) if name == K8 else
+                       (f"phase 13 {LM_ARCH} trainer, {LM_STEPS} steps, grad_impl 'pallas'",
+                        launches.get(name, 0)))
+        source, replaces = SOURCES[name]
+        rows.append({"name": name + LM_ROW, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": count, "launches_path": path,
+                     "max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     "check": "phase 13: held to the plain version as at d = 64",
+                     "result": "pass"})
+        print(f"time {name}{LM_ROW} ({smi_line}): {ms:.4f} ms (bound {bms:.6f} ms by {by}), "
+              f"plain {plain_ms:.4f} ms, max abs err {err:.3e}; launches on {path}: {count}",
+              flush=True)
+    return rows
+
+
+def profile_device_records(fn):
+    """(wall s, device busy s, device launches, rows) of ``fn()`` under torch.profiler,
+    from the device's own records only (kernels, copies, fills; not the profiler's
+    buffer flushes, nor host ops, whose self time would count the ctypes-launched
+    kernels inside them once more); rows (name, device us, launches), largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:      # no host ops: quick to read
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.key, device_us(e), e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and not e.key.startswith("Buffer Flush")),
+                  key=lambda r: -r[1])
+    return wall, sum(r[1] for r in rows) / 1e6, sum(r[2] for r in rows), rows
+
+
+def lm_split_step(tr, batch):
+    """One training step timed piece by piece (host clock, each piece ending in a
+    synchronize): the LM forward + backward, the OT solve (forward), its backward, the
+    optimizer.  The same work as ``tr.step_fn`` (the two gradients summed)."""
+    import torch
+
+    from repro_torch.training.optim import adamw_update
+
+    params = tr.state["params"]
+    names = list(params)
+    t = [time.perf_counter()]
+    total, _ = tr.model.train_loss(batch, z_loss=tr.tcfg.z_loss, remat=True)
+    grads = dict(zip(names, torch.autograd.grad(total, list(params.values()))))
+    sync()
+    t.append(time.perf_counter())
+    ot, _ = tr.ot_loss(batch)
+    sync()
+    t.append(time.perf_counter())
+    (g_emb,) = torch.autograd.grad(tr.tcfg.ot_align_weight * ot, [params["embed"]])
+    sync()
+    t.append(time.perf_counter())
+    grads["embed"] = grads["embed"] + g_emb
+    adamw_update(params, grads, tr.state["opt"], tr.tcfg.optimizer, tr.decay)
+    sync()
+    t.append(time.perf_counter())
+    return [q - p for p, q in zip(t, t[1:])]
+
+
+def phase_lm(smi_line, device):
+    """The LM trainer of the port on the card (see the module docstring, phase 13).
+    Returns the kernel-table rows at the trainer's shapes."""
+    import dataclasses
+    import math
+    import shutil
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build as kbuild
+    from repro_torch.models.common import count_params
+    from repro_torch.ot import diff
+
+    t_phase = time.perf_counter()
+
+    def lap13(what):
+        print(f"[phase 13 +{time.perf_counter() - t_phase:.1f} s] {what}", flush=True)
+
+    cfg = get_config(LM_ARCH)
+    # The restart check runs under torch.use_deterministic_algorithms (the
+    # backward of the embedding gathers accumulates with atomics otherwise), with
+    # no NaN fill of every torch.empty (the mode's default: the kernels read only
+    # memory the call wrote, ROADMAP queue C).  The mode costs a tenth to a third
+    # of a step (PERF.md §5), so the timed run and the fused check (a forward, no
+    # atomics) go without it.
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        tr = lm_trainer(cfg, "pallas", LM_STEPS, device)
+        n_params = count_params(tr.model)
+        check(n_params == LM_PARAMS, f"{LM_ARCH} has {n_params} parameters, not {LM_PARAMS}")
+        check(next(tr.model.parameters()).dtype == torch.bfloat16, "the params are not bf16")
+        ops = lm_ot_operands(tr, tr.batch(0), device)
+        lap13("the trainer is built")
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kbuild.reset_launch_counts()
+        diff.reset_solve_count()
+        t0 = time.perf_counter()
+        tr.run()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = kbuild.launch_counts()
+        solves = diff.solve_count()
+        peak = torch.cuda.max_memory_allocated()
+        hist = tr.metrics_history
+        durations = list(tr.watchdog.window)
+        losses = [m["loss"] for m in hist]
+        dists = [m["ot_distance"] for m in hist]
+        print(f"phase 13 {LM_ARCH} ({n_params} params, {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, bf16) {LM_STEPS} steps of {LM_BATCH} x {LM_SEQ} tokens, "
+              f"ot_align (pallas, L = {LM_CLASSES}, g = {ops[0].g}, n = {ops[0].n}, d = "
+              f"{ops[0].d}): loss {losses}; ce {[m['ce'] for m in hist]}; ot_distance {dists}",
+              flush=True)
+        check(len(hist) == LM_STEPS and all(math.isfinite(v) for v in losses + dists),
+              f"phase 13: a loss or OT distance is not finite: {losses} {dists}")
+        check(all(v > 0 for v in dists), f"phase 13: an OT distance is not positive: {dists}")
+        check(losses[-1] < losses[0], f"phase 13: the loss did not fall: {losses}")
+        check(solves == LM_STEPS, f"phase 13 ran {solves} OT solves in {LM_STEPS} steps")
+        check(launches.get(K1, 0) > 0 and launches.get(K4, 0) > 0
+              and launches.get(K5, 0) + launches.get(K6, 0) > 0,
+              f"phase 13: the trainer did not launch K1, K4 and K5 or K6: {launches}")
+        per_step = {k: v / LM_STEPS for k, v in sorted(launches.items())}
+        med = statistics.median(durations[1:])
+        print(f"phase 13 ({smi_line}): {wall:.3f} s for {LM_STEPS} steps; step wall median "
+              f"{med:.4f} s (steps 1-{LM_STEPS - 1}; step 0 {durations[0]:.4f} s), "
+              f"{LM_BATCH * LM_SEQ / med:.1f} tokens/s; peak device memory {peak} B ({base} B "
+              f"held before); OT kernel launches per step {per_step}", flush=True)
+        lap13(f"{LM_STEPS} steps")
+
+        splits = [lm_split_step(tr, tr.batch(LM_STEPS + i)) for i in range(LM_SPLIT_STEPS)]
+        torch.use_deterministic_algorithms(True)
+        strict = [lm_split_step(tr, tr.batch(LM_STEPS + LM_SPLIT_STEPS + i))
+                  for i in range(LM_SPLIT_STEPS)]
+        torch.use_deterministic_algorithms(False)
+        names = ("LM forward + backward", "OT solve (forward)", "OT backward", "optimizer")
+        part = lambda runs, i: statistics.median(r[i] for r in runs)
+        print(f"phase 13 step split (median of {LM_SPLIT_STEPS}, {smi_line}): "
+              + ", ".join(f"{n} {part(splits, i):.4f} s" for i, n in enumerate(names))
+              + f"; total {statistics.median(sum(r) for r in splits):.4f} s; under "
+              f"use_deterministic_algorithms {statistics.median(sum(r) for r in strict):.4f} s ("
+              + ", ".join(f"{part(strict, i):.4f}" for i in range(4)) + ")", flush=True)
+        lap13("split steps")
+
+        s0 = LM_STEPS + 2 * LM_SPLIT_STEPS
+        pwall, busy, n_dev, krows = profile_device_records(
+            lambda: [tr.step_fn(tr.batch(s0 + i)) for i in range(2)])
+        check(busy > 0, "phase 13: the profiler recorded no device time")
+        print(f"phase 13 profile (2 steps, torch.profiler, the device's own records, "
+              f"{smi_line}): wall {pwall:.4f} s, device busy {busy:.4f} s, idle share "
+              f"{1 - busy / pwall:.4f}, {n_dev / 2:.1f} device launches per step; largest: "
+              + ", ".join(f"{k[:48]} {us / 1e3:.2f} ms x{c}" for k, us, c in krows[:8]),
+              flush=True)
+        lap13("profile")
+        del tr
+
+        # fused: the same init and data, 3 steps; step 0's OT distance bit for bit pallas's
+        kbuild.reset_launch_counts()
+        trf = lm_trainer(cfg, "fused", 3, device)
+        trf.run()
+        fused_launches = kbuild.launch_counts()
+        fd = trf.metrics_history[0]["ot_distance"]
+        check(fd == dists[0], f"phase 13: fused step-0 OT distance {fd!r} != pallas {dists[0]!r}")
+        check(fused_launches.get(K8, 0) + fused_launches.get(K6, 0) > 0,
+              f"phase 13: the fused run launched no K8 or K6: {fused_launches}")
+        print(f"phase 13 fused (3 steps): step-0 ot_distance {fd!r} == pallas bit for bit; "
+              f"losses {[m['loss'] for m in trf.metrics_history]}; launches {fused_launches}",
+              flush=True)
+        del trf
+        lap13("fused")
+
+        rows = phase_lm_kernels(*ops[:5], launches, fused_launches, smi_line, device)
+        del ops
+        lap13("kernels")
+
+        # restart: full width, 2 layers; save at step 3, resume to 6 == 6 uninterrupted
+        torch.use_deterministic_algorithms(True)
+        cfg2 = dataclasses.replace(cfg, num_layers=LM_RESTART_LAYERS)
+        shutil.rmtree(LM_DIR, ignore_errors=True)
+        t0 = time.perf_counter()
+        first = lm_trainer(cfg2, "pallas", 6, device, ckpt=LM_DIR)
+        first.run(3)
+        check(first.ckpt.latest_step() == 3, "phase 13: no checkpoint at step 3")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(LM_DIR, "step_00000003", f))
+                         for f in os.listdir(os.path.join(LM_DIR, "step_00000003")))
+        del first
+        resumed = lm_trainer(cfg2, "pallas", 6, device, ckpt=LM_DIR)
+        check(resumed.start_step == 3, f"phase 13: resumed at {resumed.start_step}, not 3")
+        resumed.run()
+        whole = lm_trainer(cfg2, "pallas", 6, device)
+        whole.run()
+        same_params = all(torch.equal(p, resumed.state["params"][k])
+                          for k, p in whole.state["params"].items())
+        same_opt = all(torch.equal(t, resumed.state["opt"][kind][k])
+                       for kind in ("m", "v", "master")
+                       for k, t in whole.state["opt"][kind].items())
+        tail = [m for m in whole.metrics_history if m["step"] >= 3]
+        check(same_params and same_opt and tail == resumed.metrics_history,
+              "phase 13: the resumed run differs from the uninterrupted one")
+        print(f"phase 13 restart ({LM_RESTART_LAYERS} layers, full width; checkpoint "
+              f"{ckpt_bytes} B): saved at 3, resumed to 6 == 6 uninterrupted, bit for bit "
+              f"(params, m, v, master, metrics; under use_deterministic_algorithms) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        shutil.rmtree(LM_DIR, ignore_errors=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
 COMPARE_DIR = os.path.join(HERE, "_archive", "compare")     # git-ignored
 
 
@@ -2843,6 +3225,8 @@ def main() -> None:
                     help="instead: build, then run phase 12 alone from the results an earlier "
                          "full run of this tree left in _archive/phase12 (for several cards: "
                          "NCCL with a card a rank)")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="instead: build, then run phase 13 (the LM trainer) alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2886,6 +3270,11 @@ def main() -> None:
               f"--mesh-only needs an earlier full run's results in {MESH_DIR}")
         phase_mesh(smi_line)
         print(f"{smi_line}; phase 12 alone took {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return
+    if args.lm_only:
+        print(json.dumps({"kernels": phase_lm(smi_line, device)}), flush=True)
+        print(f"{smi_line}; phase 13 alone took {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return
 
@@ -2951,11 +3340,14 @@ def main() -> None:
     lap("phase 12")
     write_handoff(handoff, dense_duals)
     phase_mesh(smi_line)
+    # 13. the LM trainer with the OT alignment loss
+    lap("phase 13")
+    lm_rows = phase_lm(smi_line, device)
     for row in solo_rows:
         if row["name"] == B12:          # the layer's grad_refine path runs it
             row["launches"] = refine_launches[B12]
             row["launches_path"] = "layer from_samples, grad_refine=20"
-    rows += solo_rows + reduce_rows
+    rows += solo_rows + reduce_rows + lm_rows
 
     print(f"{smi_line}; smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -16,16 +16,22 @@ only dicts and numpy arrays (it imports nothing of ``repro``):
     ``operands()``), from a ``repro.kernels.ops.FactorizedCost`` (through
     its ``x, x_sq, y, y_sq`` attributes) or from the four arrays, so both
     packages compute on the same operand bits; bfloat16 leaves (the JAX
-    package's ``precision='bf16'`` storage) stay bfloat16.
+    package's ``precision='bf16'`` storage) stay bfloat16;
+  * :func:`lm_params_from_numpy` turns the JAX LM's parameter tree (numpy
+    leaves, the layers stacked on a leading axis of ``blocks``) into the
+    port's ``LM`` state dict, bit for bit; :func:`lm_params_to_tree` and
+    :func:`lm_params_to_numpy` go back (the trainer's checkpoint uses the
+    tree, so a checkpoint of either package restores in the other).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lbfgs import LbfgsState
 from repro_torch.core.regularizers import Regularizer, from_config as _reg_from_config
 from repro_torch.core.screening import ScreenState
@@ -123,3 +129,97 @@ def geometry_from_numpy(obj, n_real: Optional[int] = None, device: DeviceLike = 
     if n_real is None:
         n_real = int(getattr(obj, "n_real", fc.y.shape[0]))
     return SquaredL2Geometry(x=fc.x, x_sq=fc.x_sq, y=fc.y, y_sq=fc.y_sq, n_real=int(n_real))
+
+
+# -- LM parameters ---------------------------------------------------------------
+
+def _as_tensor(v) -> torch.Tensor:
+    """A tensor with ``v``'s bits: a tensor as it is, a numpy array copied (a bfloat16
+    array, numpy's ml_dtypes extension type, through its 16-bit view)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    v = np.asarray(v)
+    if v.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(v).view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(v, copy=True))
+
+
+def _expected_lm_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    from repro_torch.models import build_model
+
+    return {k: tuple(p.shape) for k, p in build_model(cfg, device="meta").named_parameters()}
+
+
+def lm_params_from_numpy(cfg: ModelConfig, params: Mapping,
+                         device: DeviceLike = "cpu") -> Dict[str, torch.Tensor]:
+    """The port's ``LM`` state dict from a JAX LM parameter tree, bit for bit.
+
+    ``params`` is the nested dict ``repro.models.build_model(cfg).init(...)[0]``
+    holds (numpy arrays or tensors; ``blocks`` leaves stacked over the
+    layers).  Block ``i``'s leaf ``blocks/attn/wq`` becomes
+    ``blocks.{i}.attn.wq``.  Names and shapes are checked against the port's
+    model of ``cfg``; load the result with ``model.load_state_dict``.
+    """
+    dev = torch.device(device)
+    out = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (k,))
+            elif path[:1] == ("blocks",):
+                t = _as_tensor(v)
+                for i in range(t.shape[0]):
+                    out[".".join(("blocks", str(i)) + path[1:] + (k,))] = t[i].to(dev, copy=True)
+            else:
+                out[".".join(path + (k,))] = _as_tensor(v).to(dev, copy=True)
+
+    walk(params, ())
+    want = _expected_lm_shapes(cfg)
+    got = {k: tuple(t.shape) for k, t in out.items()}
+    if got != want:
+        diff = sorted(set(got.items()) ^ set(want.items()))
+        raise ValueError(f"the parameter tree does not fit {cfg.arch_id}: {diff[:6]}")
+    return out
+
+
+def lm_params_to_tree(cfg: ModelConfig, state: Mapping[str, torch.Tensor]) -> Dict:
+    """The JAX LM's parameter layout (nested dict, ``blocks`` stacked) of a port state
+    dict (parameters, or any per-parameter state such as AdamW's moments), as tensors
+    on the state's device."""
+    tree: Dict = {}
+    blocks: Dict[tuple, list] = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            blocks.setdefault(tuple(parts[2:]), []).append((int(parts[1]), t))
+            continue
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = t.detach()
+    for rest, layers in blocks.items():
+        layers.sort(key=lambda it: it[0])
+        if [i for i, _ in layers] != list(range(cfg.num_layers)):
+            raise ValueError(f"blocks.*.{'.'.join(rest)}: layers {[i for i, _ in layers]}, "
+                             f"expected 0..{cfg.num_layers - 1}")
+        node = tree.setdefault("blocks", {})
+        for part in rest[:-1]:
+            node = node.setdefault(part, {})
+        node[rest[-1]] = torch.stack([t.detach() for _, t in layers])
+    return tree
+
+
+def lm_params_to_numpy(cfg: ModelConfig, state: Mapping[str, torch.Tensor]) -> Dict:
+    """:func:`lm_params_to_tree` with numpy leaves, the inverse of
+    :func:`lm_params_from_numpy`.  numpy has no bfloat16 of its own, so bfloat16
+    leaves come out as float32 (exactly)."""
+
+    def to_np(node):
+        if isinstance(node, dict):
+            return {k: to_np(v) for k, v in node.items()}
+        t = node.cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    return to_np(lm_params_to_tree(cfg, state))

@@ -1,1 +1,1 @@
-"""Synthetic data for the port (domain-adaptation pairs)."""
+"""Synthetic data for the port: LM token streams and domain-adaptation pairs."""

@@ -1,14 +1,71 @@
-"""Synthetic domain-adaptation data (numpy), as ``repro.data.pipeline``.
+"""Deterministic synthetic data (numpy), as ``repro.data.pipeline``.
 
-Only the two-domain generator is ported: it makes the inputs of the paper's
-experiments and of ``chip_smoke.py``.  Same seed, same arrays as the JAX
-package.
+Two generators: :class:`SyntheticLM`, the LM token stream of the trainer
+(``batch(step)`` a pure function of seed, step and shard, so a restart
+resumes on the same data; a Zipf-like marginal with a class-conditioned
+drift, so the LM loss falls), and :func:`make_domain_pair`, the inputs of
+the paper's experiments and of ``chip_smoke.py``.  Same seed, same arrays
+as the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Iterator
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class SyntheticLMConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    zipf_a: float = 1.3
+    markov_order: int = 1
+    num_classes: int = 8          # for DA mode
+
+
+class SyntheticLM:
+    """batch(step) -> {"tokens": (B, S+1) int32, "class": (B,) int32}."""
+
+    def __init__(self, cfg: SyntheticLMConfig, shard_id: int = 0, num_shards: int = 1):
+        if cfg.global_batch % num_shards:
+            raise ValueError(f"global_batch {cfg.global_batch} is not a multiple of "
+                             f"num_shards {num_shards}")
+        self.cfg = cfg
+        self.shard_id = shard_id
+        self.num_shards = num_shards
+        self.local_batch = cfg.global_batch // num_shards
+        rng = np.random.default_rng(cfg.seed)
+        # fixed random Markov transition biased toward a Zipf marginal
+        V = cfg.vocab_size
+        ranks = np.arange(1, V + 1)
+        self.marginal = (ranks ** -cfg.zipf_a)
+        self.marginal /= self.marginal.sum()
+        self.shift = rng.integers(1, V, size=cfg.num_classes)
+
+    def batch(self, step: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        rng = np.random.default_rng(
+            (cfg.seed * 1_000_003 + step) * 4096 + self.shard_id
+        )
+        B, S, V = self.local_batch, cfg.seq_len, cfg.vocab_size
+        cls = rng.integers(0, cfg.num_classes, size=B).astype(np.int32)
+        base = rng.choice(V, size=(B, S + 1), p=self.marginal)
+        # class-conditioned deterministic drift: makes next-token partially
+        # predictable, so training curves move
+        drift = np.cumsum(np.ones((B, S + 1), np.int64), axis=1) * self.shift[cls][:, None]
+        tokens = ((base + drift) % V).astype(np.int32)
+        # inject strong bigram structure: every even position repeats
+        tokens[:, 2::2] = (tokens[:, 1:-1:2] + self.shift[cls][:, None]) % V
+        return {"tokens": tokens, "class": cls}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch(step)
+            step += 1
 
 
 @dataclasses.dataclass

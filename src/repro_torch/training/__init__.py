@@ -1,1 +1,2 @@
-"""Training-time losses of the port (``repro.training``'s OT part)."""
+"""The port's training stack (``repro.training``): losses, AdamW, checkpoint,
+compression, the watchdog and the trainer.  Import the submodules."""

@@ -1,0 +1,99 @@
+"""AdamW and its LR schedule (torch), as ``repro.training.optim``.
+
+This is the JAX package's own AdamW, not ``torch.optim.AdamW`` (whose
+update differs): bias correction, decoupled weight decay on the leaves
+the caller marks (the JAX rule: leaves of 2 or more dimensions, read on
+the layer-stacked layout; ``LM.decay_mask``), float32 master weights for
+low-precision parameters, and clipping by the global norm in float32.
+
+State over flat name -> tensor dicts:
+  {"m": float32 like params, "v": float32 like params,
+   "master": float32 params (low-precision params with master_weights on),
+   "step": 0-d int32 tensor}
+:func:`adamw_update` updates the parameters and the state in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import OptimizerConfig
+from repro_torch.utils.tree import tree_global_norm
+
+Params = Dict[str, torch.Tensor]
+
+
+def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup -> cosine decay to min_lr_ratio (float32, on ``step``'s device)."""
+    step = step.float()
+    warm = cfg.lr * step / max(cfg.warmup_steps, 1)
+    t = torch.clamp((step - cfg.warmup_steps) / max(cfg.decay_steps - cfg.warmup_steps, 1),
+                    0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (1 + torch.cos(math.pi * t))
+    return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
+
+
+def _needs_master(params: Params, cfg: OptimizerConfig) -> bool:
+    return cfg.master_weights and any(p.dtype != torch.float32 for p in params.values())
+
+
+def init_opt_state(params: Params, cfg: OptimizerConfig) -> Dict:
+    """Zero moments, a zero step and, where needed, float32 master copies."""
+    with torch.no_grad():
+        f32 = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        state = {
+            "m": {k: f32(p) for k, p in params.items()},
+            "v": {k: f32(p) for k, p in params.items()},
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=next(iter(params.values())).device),
+        }
+        if _needs_master(params, cfg):
+            state["master"] = {k: p.detach().to(torch.float32, copy=True)
+                               for k, p in params.items()}
+    return state
+
+
+def clip_by_global_norm(grads: Params, max_norm: float) -> Tuple[Params, torch.Tensor]:
+    """Scale every gradient by ``min(1, max_norm / norm)``, in float32 then its dtype."""
+    gnorm = tree_global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
+    return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}, gnorm
+
+
+@torch.no_grad()
+def adamw_update(params: Params, grads: Params, state: Dict, cfg: OptimizerConfig,
+                 decay: Optional[Dict[str, bool]] = None) -> Tuple[Params, Dict, Dict]:
+    """One AdamW step, in place; returns ``(params, state, {"lr", "grad_norm"})``.
+
+    ``decay`` marks the parameters weight decay applies to; by default those
+    of 2 or more dimensions, the JAX rule on a tree whose leaves are these
+    tensors.
+    """
+    state["step"] += 1
+    step = state["step"]
+    lr = lr_schedule(cfg, step)
+    if cfg.grad_clip > 0:
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    else:
+        gnorm = tree_global_norm(grads)
+
+    b1, b2, eps = cfg.b1, cfg.b2, cfg.eps
+    bc1 = 1 - b1 ** step.float()
+    bc2 = 1 - b2 ** step.float()
+    master = state.get("master")
+    for name, p in params.items():
+        g = grads[name].float()
+        m, v = state["m"][name], state["v"][name]
+        m.copy_(b1 * m + (1 - b1) * g)
+        v.copy_(b2 * v + (1 - b2) * g * g)
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        p32 = (master if master is not None else params)[name].float()
+        if (p.ndim >= 2 if decay is None else decay[name]) and cfg.weight_decay > 0:
+            delta = delta + cfg.weight_decay * p32
+        new = p32 - lr * delta
+        if master is not None:
+            master[name].copy_(new)
+        p.copy_(new.to(p.dtype))
+    return params, state, {"lr": lr, "grad_norm": gnorm}
