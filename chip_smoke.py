@@ -166,7 +166,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
-# cuBLAS needs it before CUDA starts for torch.use_deterministic_algorithms (phase 13)
+# cuBLAS needs it before CUDA starts for torch.use_deterministic_algorithms (phase 13);
+# so every phase runs with this cuBLAS workspace
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
@@ -1137,26 +1138,28 @@ def gradient_f64_with_bound(alpha, beta, C, sched, num_active, *, num_groups, gr
 
 def kernel_work(pp, d, live, T, real_rows=None):
     """{kernel: (bytes, fp32 operations)} these inputs need: every input read once,
-    every output written once, the live tiles' work (``live`` of ``T`` tiles);
-    K4's only on the ``real_rows`` rows that are not padding (all when None):
-    a padded row adds nothing to its group's norms."""
-    E = pp.L_pad * pp.n_pad                               # bound-matrix entries
+    every output written once, the live tiles' work (``live`` of ``T`` tiles), all
+    counted on the rows and columns that are not padding: the ``pp.n`` real
+    columns, the ``pp.L`` real groups and, of their rows, the ``real_rows`` that
+    K4's row mask keeps (all when None).  A padded row or column adds nothing;
+    each live tile holds its share of the real rows and columns."""
     m_pad = pp.L_pad * pp.g
-    real = m_pad if real_rows is None else real_rows
-    tile_bytes = pp.tile_l * pp.g * pp.tile_n * 4
-    tile_entries = pp.tile_l * pp.g * pp.tile_n
-    sample_bytes = (pp.tile_l * pp.g + pp.tile_n) * (d + 1) * 4
-    vec_bytes = 4 * (2 * m_pad + 2 * pp.n_pad + pp.L_pad + 1)   # duals in, sums out, tau
+    rows = pp.L * pp.g if real_rows is None else real_rows
+    cols = pp.n
+    E = pp.L * cols                                       # real bound-matrix entries
+    # the live tiles' real entries, and the sample rows and columns they read
+    entries = live * pp.tile_l * pp.g * pp.tile_n * rows * cols // (m_pad * pp.n_pad)
+    sample_bytes = live * (pp.tile_l * pp.g * rows // m_pad
+                           + pp.tile_n * cols // pp.n_pad) * (d + 1) * 4
+    vec_bytes = 4 * (2 * rows + 2 * cols + pp.L + 1)      # duals in, sums out, tau
     work = {
-        K1: (13 * E + 4 * (4 * pp.L_pad + pp.n_pad + pp.L_pad) + 4 * T, 14 * E),
-        K2: (live * tile_bytes + vec_bytes + 4 * T, 9 * live * tile_entries),
-        K3: (live * tile_bytes + vec_bytes + 12 * live + 4, 9 * live * tile_entries),
-        K4: (4 * (real + pp.n_pad) * (d + 2) + m_pad + 12 * E,
-             real * pp.n_pad * snapshot_ops_per_entry(d) + 3 * E),
-        K5: (live * sample_bytes + vec_bytes + 4 * T,
-             fact_ops_per_entry(d) * live * tile_entries),
-        K6: (live * sample_bytes + vec_bytes + 12 * live + 4,
-             fact_ops_per_entry(d) * live * tile_entries),
+        K1: (13 * E + 4 * (4 * pp.L + cols + pp.L) + 4 * T, 14 * E),
+        K2: (4 * entries + vec_bytes + 4 * T, 9 * entries),
+        K3: (4 * entries + vec_bytes + 12 * live + 4, 9 * entries),
+        K4: (4 * (rows + cols) * (d + 2) + m_pad + 12 * E,
+             rows * cols * snapshot_ops_per_entry(d) + 3 * E),
+        K5: (sample_bytes + vec_bytes + 4 * T, fact_ops_per_entry(d) * entries),
+        K6: (sample_bytes + vec_bytes + 12 * live + 4, fact_ops_per_entry(d) * entries),
     }
     # the fused kernels: K1's reads and flags, then K2's or K5's live-tile work
     work[K7] = (work[K1][0] + work[K2][0] - 4 * T, work[K1][1] + work[K2][1])
@@ -1940,14 +1943,18 @@ def same_solution(x, y) -> bool:
 
 def profile_device(fn, untraced=None):
     """(result, wall s, device busy s, device launches, kernel rows) of ``fn()`` under
-    torch.profiler; rows are (name, device us, launches), largest first.
+    torch.profiler, from the device's own records only (kernels, copies, fills; not
+    the profiler's buffer flushes, nor host ops, whose self time would count the
+    ctypes-launched kernels inside them once more); rows are (name, device us,
+    launches), largest first.
 
     Where the profiler does not start and ``untraced`` is given, ``untraced(error)``
     is called and ``fn()`` runs without it: (result, wall s, None, None, []).  Only
     the profiler's start is guarded; an error of ``fn`` propagates."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])     # no host ops: quick to read
     try:
         prof.start()
     except RuntimeError as e:
@@ -1965,10 +1972,8 @@ def profile_device(fn, untraced=None):
         wall = time.perf_counter() - t0
     finally:
         prof.stop()
-    # CPU-side events (aten ops, CUDA runtime calls) carry their kernels'
-    # time only through children; the device events are the rest
-    rows = [(e.key, device_us(e), e.count) for e in prof.key_averages()]
-    kernels = sorted((r for r in rows if r[1] > 0 and not r[0].startswith(("aten::", "cuda"))),
+    kernels = sorted(((e.key, device_us(e), e.count) for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and not e.key.startswith("Buffer Flush")),
                      key=lambda r: -r[1])
     return out, wall, sum(r[1] for r in kernels) / 1e6, sum(r[2] for r in kernels), kernels
 
@@ -2746,53 +2751,6 @@ def phase_lm_kernels(fp, a, b, mask, reg, launches, fused_launches, smi_line, de
     return rows
 
 
-def profile_device_records(fn):
-    """(wall s, device busy s, device launches, rows) of ``fn()`` under torch.profiler,
-    from the device's own records only (kernels, copies, fills; not the profiler's
-    buffer flushes, nor host ops, whose self time would count the ctypes-launched
-    kernels inside them once more); rows (name, device us, launches), largest first."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:      # no host ops: quick to read
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        wall = time.perf_counter() - t0
-    rows = sorted(((e.key, device_us(e), e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and not e.key.startswith("Buffer Flush")),
-                  key=lambda r: -r[1])
-    return wall, sum(r[1] for r in rows) / 1e6, sum(r[2] for r in rows), rows
-
-
-def lm_split_step(tr, batch):
-    """One training step timed piece by piece (host clock, each piece ending in a
-    synchronize): the LM forward + backward, the OT solve (forward), its backward, the
-    optimizer.  The same work as ``tr.step_fn`` (the two gradients summed)."""
-    import torch
-
-    from repro_torch.training.optim import adamw_update
-
-    params = tr.state["params"]
-    names = list(params)
-    t = [time.perf_counter()]
-    total, _ = tr.model.train_loss(batch, z_loss=tr.tcfg.z_loss, remat=True)
-    grads = dict(zip(names, torch.autograd.grad(total, list(params.values()))))
-    sync()
-    t.append(time.perf_counter())
-    ot, _ = tr.ot_loss(batch)
-    sync()
-    t.append(time.perf_counter())
-    (g_emb,) = torch.autograd.grad(tr.tcfg.ot_align_weight * ot, [params["embed"]])
-    sync()
-    t.append(time.perf_counter())
-    grads["embed"] = grads["embed"] + g_emb
-    adamw_update(params, grads, tr.state["opt"], tr.tcfg.optimizer, tr.decay)
-    sync()
-    t.append(time.perf_counter())
-    return [q - p for p, q in zip(t, t[1:])]
-
-
 def phase_lm(smi_line, device):
     """The LM trainer of the port on the card (see the module docstring, phase 13).
     Returns the kernel-table rows at the trainer's shapes."""
@@ -2866,22 +2824,21 @@ def phase_lm(smi_line, device):
               f"held before); OT kernel launches per step {per_step}", flush=True)
         lap13(f"{LM_STEPS} steps")
 
-        splits = [lm_split_step(tr, tr.batch(LM_STEPS + i)) for i in range(LM_SPLIT_STEPS)]
-        torch.use_deterministic_algorithms(True)
-        strict = [lm_split_step(tr, tr.batch(LM_STEPS + LM_SPLIT_STEPS + i))
-                  for i in range(LM_SPLIT_STEPS)]
-        torch.use_deterministic_algorithms(False)
-        names = ("LM forward + backward", "OT solve (forward)", "OT backward", "optimizer")
-        part = lambda runs, i: statistics.median(r[i] for r in runs)
+        def split_step(batch):
+            """Seconds of each piece of one ``tr.step_fn``, each piece ending in a synchronize."""
+            marks = [("start", time.perf_counter())]
+            tr.step_fn(batch, mark=lambda piece: (sync(), marks.append((piece, time.perf_counter()))))
+            return {p: t - marks[i][1] for i, (p, t) in enumerate(marks[1:])}
+
+        splits = [split_step(tr.batch(LM_STEPS + i)) for i in range(LM_SPLIT_STEPS)]
         print(f"phase 13 step split (median of {LM_SPLIT_STEPS}, {smi_line}): "
-              + ", ".join(f"{n} {part(splits, i):.4f} s" for i, n in enumerate(names))
-              + f"; total {statistics.median(sum(r) for r in splits):.4f} s; under "
-              f"use_deterministic_algorithms {statistics.median(sum(r) for r in strict):.4f} s ("
-              + ", ".join(f"{part(strict, i):.4f}" for i in range(4)) + ")", flush=True)
+              + ", ".join(f"{p} {statistics.median(r[p] for r in splits):.4f} s"
+                          for p in splits[0])
+              + f"; total {statistics.median(sum(r.values()) for r in splits):.4f} s", flush=True)
         lap13("split steps")
 
-        s0 = LM_STEPS + 2 * LM_SPLIT_STEPS
-        pwall, busy, n_dev, krows = profile_device_records(
+        s0 = LM_STEPS + LM_SPLIT_STEPS
+        _, pwall, busy, n_dev, krows = profile_device(
             lambda: [tr.step_fn(tr.batch(s0 + i)) for i in range(2)])
         check(busy > 0, "phase 13: the profiler recorded no device time")
         print(f"phase 13 profile (2 steps, torch.profiler, the device's own records, "

@@ -17,7 +17,7 @@ State, in the port's layout (flat name -> tensor dicts):
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -120,29 +120,41 @@ class Trainer:
                                  gamma=tcfg.ot_gamma, rho=tcfg.ot_rho, solver=tcfg.ot_solver,
                                  grad_impl=tcfg.ot_grad_impl, device=self.device)
 
-    def loss_fn(self, batch: Dict[str, torch.Tensor]):
-        """``(total, metrics)`` of one batch, differentiable in the parameters."""
-        tcfg = self.tcfg
+    def loss_and_grads(self, batch: Dict[str, torch.Tensor], mark: Optional[Callable] = None):
+        """``(metrics, grads)`` of one batch: the LM loss and its gradient in the
+        parameters, then, with ``ot_align``, the OT alignment term, whose backward
+        adds its own gradient to ``embed``'s (its features read ``embed`` alone).
+        ``mark(piece)``, where given, is called as each piece ends: "LM forward +
+        backward", "OT solve (forward)", "OT backward"."""
+        tcfg, params = self.tcfg, self.state["params"]
+        mark = mark or (lambda piece: None)
         total, metrics = self.model.train_loss(batch, z_loss=tcfg.z_loss,
                                                remat=tcfg.remat != "none")
-        if tcfg.ot_align and "class" in batch:
-            ot, ot_metrics = self.ot_loss(batch)
-            total = total + tcfg.ot_align_weight * ot
-            metrics = dict(metrics, ot_distance=ot_metrics["ot_distance"].detach())
-        return total, metrics
-
-    def step_fn(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """One training step on ``batch`` (tensors on the device); updates the state in
-        place and returns the step's metrics (0-d tensors)."""
-        params = self.state["params"]
-        total, metrics = self.loss_fn(batch)
         grads = dict(zip(params, torch.autograd.grad(total, list(params.values()))))
         metrics = {k: v.detach() for k, v in metrics.items()}
+        mark("LM forward + backward")
+        if tcfg.ot_align and "class" in batch:
+            ot, ot_metrics = self.ot_loss(batch)
+            metrics["ot_distance"] = ot_metrics["ot_distance"].detach()
+            mark("OT solve (forward)")
+            (g_ot,) = torch.autograd.grad(tcfg.ot_align_weight * ot, [params["embed"]])
+            grads["embed"] = grads["embed"] + g_ot
+            mark("OT backward")
+        return metrics, grads
+
+    def step_fn(self, batch: Dict[str, torch.Tensor],
+                mark: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+        """One training step on ``batch`` (tensors on the device); updates the state in
+        place and returns the step's metrics (0-d tensors).  ``mark`` as in
+        ``loss_and_grads``, and once more, "optimizer", after the update."""
+        metrics, grads = self.loss_and_grads(batch, mark)
         with torch.no_grad():
             if "ef" in self.state:
                 grads, self.state["ef"] = apply_error_feedback(grads, self.state["ef"])
-            _, _, om = adamw_update(params, grads, self.state["opt"], self.tcfg.optimizer,
-                                    self.decay)
+            _, _, om = adamw_update(self.state["params"], grads, self.state["opt"],
+                                    self.tcfg.optimizer, self.decay)
+        if mark:
+            mark("optimizer")
         return dict(metrics, **om)
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:

@@ -323,11 +323,67 @@ def test_trainer_ot_align_matches_jax():
     tr.run()
     assert len(tr.metrics_history) == len(jtr.metrics_history) == 4
     for a, b in zip(tr.metrics_history, jtr.metrics_history):
-        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-4)
-        np.testing.assert_allclose(a["ce"], b["ce"], rtol=1e-4)
+        for key in ("loss", "ce", "grad_norm", "ot_distance"):
+            np.testing.assert_allclose(a[key], b[key], rtol=1e-4, err_msg=f"{key} {a['step']}")
         assert a["ot_distance"] > 0
     np.testing.assert_allclose(tr.metrics_history[0]["ot_distance"],
                                jtr.metrics_history[0]["ot_distance"], rtol=2e-5)
+
+
+def _first_gradients(port: bool, ot_grad_impl=None):
+    """Each leaf's gradient of one step from the JAX trainer's init (with the OT
+    alignment term on ``ot_grad_impl``, none when None), read from AdamW's first
+    moment (m = (1 - b1) g with no clipping), in the JAX package's layout."""
+    kw = dict(steps=1, log_every=1, ot_align=ot_grad_impl is not None, ot_align_weight=0.05,
+              ot_grad_impl=ot_grad_impl or "screened")
+    ocfg = dict(lr=1e-3, warmup_steps=2, grad_clip=0.0)
+    jtr = JTrainer(jget_config("smollm-135m").reduced(**SMALL),
+                   JTrainConfig(optimizer=JOptimizerConfig(**ocfg), **kw), _data(jpipeline))
+    if port:
+        tr = Trainer(get_config("smollm-135m").reduced(**SMALL),
+                     TrainConfig(optimizer=OptimizerConfig(**ocfg), **kw), _data(pipeline),
+                     device="cpu")
+        jparams = jax.tree_util.tree_map(np.asarray, jtr.state["params"])
+        tr.model.load_state_dict(convert.lm_params_from_numpy(tr.cfg, jparams))
+        tr.state["opt"] = optim.init_opt_state(tr.state["params"], tr.tcfg.optimizer)
+        tr.run()
+        m = convert.lm_params_to_numpy(tr.cfg, tr.state["opt"]["m"])
+    else:
+        jtr.run()
+        m = jax.tree_util.tree_map(np.asarray, jtr.state["opt"]["m"])
+    return {k: v / (1 - JOptimizerConfig().b1) for k, v in _flat(m).items()}
+
+
+def test_trainer_ot_gradient_matches_jax():
+    """The wiring of the OT term's gradient (embed -> mean features -> classes ->
+    OT loss -> embed), read from one step of each package's trainer:
+
+      * without the OT term, every leaf's gradient within rtol 1e-4 of the JAX step's;
+      * with it, every leaf but ``embed`` keeps the bits of the step without it
+        (the features read ``embed`` alone);
+      * the OT term's share of ``embed``'s gradient (the step with it less the
+        step without), port 'pallas' against JAX 'screened', differs in L2 norm
+        by no more than the JAX package's own exact backends differ ('dense'
+        against 'screened'): the share is the envelope gradient at the L-BFGS
+        solve's stopping point, which each backend's rounding moves (about 2e-3
+        of the share's norm on this problem), so no elementwise rtol 1e-4 holds
+        between any two backends.  A missing or misrouted OT gradient is off
+        by the share's whole norm.
+    """
+    port_lm, jax_lm = _first_gradients(True), _first_gradients(False)
+    assert sorted(port_lm) == sorted(jax_lm)
+    for k in jax_lm:
+        np.testing.assert_allclose(port_lm[k], jax_lm[k], rtol=1e-4, atol=1e-6, err_msg=k)
+    port_ot = _first_gradients(True, "pallas")
+    for k in port_lm:
+        assert k == "embed" or np.array_equal(port_ot[k], port_lm[k]), k
+    share = port_ot["embed"] - port_lm["embed"]
+    want = _first_gradients(False, "screened")["embed"] - jax_lm["embed"]
+    other = _first_gradients(False, "dense")["embed"] - jax_lm["embed"]
+    norm = lambda v: float(np.linalg.norm(v))
+    err, spread = norm(share - want) / norm(want), norm(other - want) / norm(want)
+    assert norm(want) > 0.1 * norm(jax_lm["embed"]), "the OT share is too small to test"
+    assert spread < 1e-2 and err <= spread, (err, spread)
 
 
 def test_trainer_restart_resumes_bitwise(tmp_path):
