@@ -7,6 +7,8 @@
                                # phase 12 alone, from an earlier full run's results
     python3 chip_smoke.py --lm-only
                                # phase 13 alone (the LM trainer)
+    python3 chip_smoke.py --serve-only
+                               # phase 14 alone (LM serving, MoE, the OT router)
 
 The main path is the default plan at the paper's largest scale:
 ``repro_torch.ot.compile(Problem.from_samples(...), ExecutionPlan(grad_impl=
@@ -148,12 +150,35 @@ Phases:
      is the pallas run's bit for bit; and a restart at full width cut to 2
      layers (save at step 3, resume to 6) bitwise an uninterrupted 6-step
      run, under ``torch.use_deterministic_algorithms(True)``.
+ 14. LM serving through ``repro_torch.serving.engine.ServingEngine`` (four
+     slots, continuous batching, prefill at batch 1 and one decode step a
+     tick for every slot): (a) ``smollm-135m`` at full width and depth, bf16,
+     eight requests of 64 + 32 tokens, each back once with 32 tokens, those
+     served in recycled slots bit for bit each alone in a fresh engine; with
+     ``kv_quant`` the int8 cache under 0.65 of the bf16 bytes and its
+     teacher-forced decode logits within 0.2 of the bf16 run's std; in float32
+     the teacher-forced prefill and decode logits within rtol / atol 2e-3 of
+     ``LM.forward``.  (b) ``qwen2-moe-a2.7b`` at full width and depth (24
+     layers, 60 experts top-4, 4 shared, bf16, 14 315 636 736 parameters drawn
+     on the card), six requests of 32 + 16: every request served, a second run
+     the same tokens bit for bit, the dropped fraction printed.  (c) the same
+     at full width cut to 2 layers with ``ot_balance``: one OT solve
+     (``grad_impl='screened'``: ``row_dot`` / ``row_sum``, no other port
+     kernel) per MoE layer and forward pass, every routing weight finite and
+     summing to 1 within 1e-4, the router's seconds a solve and launches; the
+     first layer's prefill routing beside top-k's (load_cv, experts per
+     sequence; the logits saved in ``_archive/phase14``), and
+     tests/test_ot_routing.py's property on the card: on its skewed router
+     ``ot_route``'s load_cv below top-k's.  For each run tokens a second, ms a
+     tick, peak memory, and a profile of a few ticks (idle share, launches a
+     tick).
 Phase 3 also runs K2/K3/K5-K8 at tile_n 4, 20, 40 and 128 on a narrow
 problem, and phase 4 holds the main path's solve to the fingerprint it had
 before the kernels took any tile width.
 The second-to-last line is the kernel table as JSON (K1-K8, B9-B14, and
 row_sum / row_dot, the solver's batch-invariant reductions, which stand in
-for XLA's reductions and have no TPU kernel), the last line
+for XLA's reductions and have no TPU kernel; their ``launches_ot_router``
+are phase 14 (c)'s), the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 from __future__ import annotations
@@ -2904,6 +2929,395 @@ def phase_lm(smi_line, device):
     return rows
 
 
+# -- phase 14: LM serving and the MoE family with the OT router ------------------------
+
+SERVE_SLOTS = 4
+SERVE_DENSE = dict(requests=8, prompt=64, new=32, max_len=104)     # (a) smollm-135m
+SERVE_MOE_ARCH = "qwen2-moe-a2.7b"
+SERVE_MOE_PARAMS = 14_315_636_736    # its parameter count (the JAX abstract init's)
+SERVE_MOE = dict(requests=6, prompt=32, new=16, max_len=56)        # (b) and (c)
+SERVE_OT_LAYERS = 2                  # (c)'s depth cut (PERF.md §4)
+SERVE_TF_STEPS = 8                   # teacher-forced decode steps of the float32 check
+SERVE_DIR = os.path.join(HERE, "_archive", "phase14")  # git-ignored: (c)'s router logits
+
+
+def serve_requests(vocab, spec, seed):
+    """``spec['requests']`` numpy-seeded prompts of ``spec['prompt']`` tokens: (rid, prompt)
+    pairs, made into fresh Requests for each run."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(i, rng.integers(0, vocab, spec["prompt"]).astype(np.int32))
+            for i in range(spec["requests"])]
+
+
+def drive_engine(engine, pairs, new):
+    """``engine.run`` step by step, each admission and tick on the host clock (each ends
+    reading its tokens).  Returns {done, ticks [(live slots, s)], admission s, wall s,
+    peak device memory B}."""
+    import torch
+
+    from repro_torch.serving.engine import Request
+
+    pending = [Request(rid=i, prompt=p, max_new_tokens=new) for i, p in pairs]
+    done, ticks, t_admit = [], [], 0.0
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.perf_counter()
+    while pending or any(s is not None for s in engine.slots):
+        t0 = time.perf_counter()
+        while pending and engine.try_admit(pending[0]):
+            pending.pop(0)
+        t_admit += time.perf_counter() - t0
+        live = sum(s is not None for s in engine.slots)
+        t0 = time.perf_counter()
+        done += engine.tick()
+        ticks.append((live, time.perf_counter() - t0))
+    return {"done": done, "ticks": ticks, "admit": t_admit,
+            "wall": time.perf_counter() - t_run, "peak": torch.cuda.max_memory_allocated()}
+
+
+def profile_ticks(engine, pairs, new, n_ticks):
+    """The first wave admitted and one tick run, then ``n_ticks`` ticks under one
+    torch.profiler session (the device's own records): (wall s, busy s, device launches,
+    largest kernels)."""
+    from repro_torch.serving.engine import Request
+
+    pending = [Request(rid=i, prompt=p, max_new_tokens=new) for i, p in pairs]
+    while pending and engine.try_admit(pending[0]):
+        pending.pop(0)
+    engine.tick()
+    check(new - 2 > n_ticks, "phase 14: the profiled ticks would outlast the first wave")
+    _, wall, busy, n_dev, krows = profile_device(lambda: [engine.tick() for _ in range(n_ticks)])
+    check(busy > 0, "phase 14: the profiler recorded no device time")
+    return wall, busy, n_dev, krows
+
+
+def report_serve(label, run, prof, n_ticks, smi_line):
+    """Print a run's tokens a second, ms a tick, launches a tick, idle share and peak."""
+    import statistics
+
+    done, ticks = run["done"], run["ticks"]
+    tokens = sum(len(r.out_tokens) for r in done)
+    t_ticks = sum(t for _, t in ticks)
+    decoded = sum(n for n, _ in ticks)                     # live slots' tokens from ticks
+    by_live = {n: statistics.median(t for m, t in ticks if m == n)
+               for n in sorted({n for n, _ in ticks})}
+    wall, busy, n_dev, krows = prof
+    print(f"phase 14 {label} ({smi_line}): {len(done)} requests, {tokens} tokens in "
+          f"{run['wall']:.4f} s, {tokens / run['wall']:.1f} tokens/s; {len(ticks)} ticks, "
+          f"{t_ticks:.4f} s in ticks ({decoded / t_ticks:.1f} decoded tokens/s), median "
+          f"{statistics.median(t for _, t in ticks) * 1e3:.3f} ms a tick (by live slots: "
+          + ", ".join(f"{n}: {s * 1e3:.3f}" for n, s in by_live.items())
+          + f"), admission {run['admit']:.4f} s for {len(done)} prefills; peak device memory "
+          f"{run['peak']} B; profile of {n_ticks} ticks with {SERVE_SLOTS} live slots: wall "
+          f"{wall:.4f} s, device busy {busy:.4f} s, idle share {1.0 - busy / wall:.4f}, "
+          f"{n_dev / n_ticks:.1f} device launches a tick; largest: "
+          + ", ".join(f"{k[:40]} {us / 1e3:.2f} ms x{c}" for k, us, c in krows[:5]), flush=True)
+
+
+def check_served(label, done, n, new):
+    check(len(done) == n and sorted(r.rid for r in done) == list(range(n)),
+          f"phase 14 {label}: requests came back as {sorted(r.rid for r in done)}")
+    check(all(r.done and len(r.out_tokens) == new for r in done),
+          f"phase 14 {label}: token counts {[len(r.out_tokens) for r in done]}")
+
+
+def dropped_fraction(cfg, routes):
+    """The dispatch's dropped share over the recorded routings: an expert's tokens past
+    ``capacity(cfg, T)`` are dropped, as ``_dispatch_global`` drops them."""
+    import torch
+
+    from repro_torch.models.moe import capacity
+
+    drop = total = 0
+    for topi, _ in routes:
+        T, k = topi.shape
+        counts = torch.bincount(topi.reshape(-1), minlength=cfg.moe.num_experts)
+        drop += int(torch.clamp_min(counts - capacity(cfg, T), 0).sum())
+        total += T * k
+    return drop / total
+
+
+def phase_serve_dense(smi_line, device):
+    """(a): ``smollm-135m`` at full width and depth, bf16, through ``ServingEngine``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    from repro_torch.serving.engine import ServingEngine
+
+    spec = SERVE_DENSE
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg, device, seed=0)
+    check(count_params(model) == LM_PARAMS, f"phase 14 (a): {count_params(model)} parameters")
+    pairs = serve_requests(cfg.vocab_size, spec, 14)
+    engine = lambda m=model: ServingEngine(cfg, m, max_batch=SERVE_SLOTS,
+                                           max_len=spec["max_len"], device=device)
+    run = drive_engine(engine(), pairs, spec["new"])
+    check_served("(a)", run["done"], spec["requests"], spec["new"])
+    report_serve(f"(a) {LM_ARCH} bf16, {SERVE_SLOTS} slots, {spec['requests']} requests of "
+                 f"{spec['prompt']} + {spec['new']}", run,
+                 profile_ticks(engine(), pairs, spec["new"], 8), 8, smi_line)
+    # the requests past the first four were served in recycled slots: each alone in a
+    # fresh engine with the same slots gives the same tokens, bit for bit
+    tokens = {r.rid: r.out_tokens for r in run["done"]}
+    recycled = pairs[SERVE_SLOTS:]
+    for rid, prompt in recycled:
+        [alone] = drive_engine(engine(), [(rid, prompt)], spec["new"])["done"]
+        check(alone.out_tokens == tokens[rid],
+              f"phase 14 (a): request {rid} in a recycled slot differs from a fresh engine's")
+    print(f"phase 14 (a): requests {[r for r, _ in recycled]} (recycled slots) == each alone "
+          f"in a fresh {SERVE_SLOTS}-slot engine, bit for bit", flush=True)
+
+    # kv_quant: the same parameters with an int8 cache
+    cfg_q = dataclasses.replace(cfg, kv_quant=True)
+    model_q = build_model(cfg_q, device="meta")
+    model_q.load_state_dict(model.state_dict(), assign=True)
+    nbytes = lambda cs: sum(t.numel() * t.element_size() for c in cs for t in c.values())
+    ratio = nbytes(model_q.init_cache(SERVE_SLOTS, spec["max_len"], abstract=True)) / nbytes(
+        model.init_cache(SERVE_SLOTS, spec["max_len"], abstract=True))
+    check(ratio < 0.65, f"phase 14 (a): the int8 cache takes {ratio:.4f} of the bf16 bytes")
+    tf = torch.as_tensor(np.random.default_rng(16).integers(
+        0, cfg.vocab_size, (2, spec["prompt"] + SERVE_TF_STEPS)), device=device)
+    rels = []
+    c, cq = model.init_cache(2, spec["max_len"]), model_q.init_cache(2, spec["max_len"])
+    _, c = model.prefill(tf[:, :spec["prompt"]], c)
+    _, cq = model_q.prefill(tf[:, :spec["prompt"]], cq)
+    for i in range(spec["prompt"], spec["prompt"] + SERVE_TF_STEPS):
+        idx = torch.full((2,), i, device=device)
+        l_fp, c = model.decode_step(tf[:, i:i + 1], c, idx)
+        l_q, cq = model_q.decode_step(tf[:, i:i + 1], cq, idx)
+        l_fp, l_q = l_fp.float(), l_q.float()
+        rels.append(float((l_q - l_fp).abs().max()) / max(float(l_fp.std()), 1e-6))
+    check(max(rels) < 0.2, f"phase 14 (a): int8-cache decode logits off by {rels} of their std")
+    run_q = drive_engine(engine(model_q), pairs, spec["new"])
+    check_served("(a) kv_quant", run_q["done"], spec["requests"], spec["new"])
+    same_q = sum(r.out_tokens == tokens[r.rid] for r in run_q["done"])
+    print(f"phase 14 (a) kv_quant: the int8 cache takes {ratio:.5f} of the bf16 cache's "
+          f"bytes; teacher-forced decode logits within {max(rels):.4f} of the bf16 run's std "
+          f"(limit 0.2) over {SERVE_TF_STEPS} steps; {same_q} of {spec['requests']} requests "
+          f"give the bf16 engine's tokens", flush=True)
+    report_serve("(a) kv_quant", run_q, profile_ticks(engine(model_q), pairs, spec["new"], 8), 8,
+                 smi_line)
+    del model_q
+
+    # float32, teacher-forced: prefill and decode logits against forward of the sequence
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    m32 = build_model(cfg32, device, seed=0)
+    with torch.no_grad():
+        full, _ = m32.forward(tf)
+    caches = m32.init_cache(2, spec["max_len"])
+    lg, caches = m32.prefill(tf[:, :spec["prompt"]], caches)
+    errs = [float((lg[:, 0] - full[:, spec["prompt"] - 1]).abs().max())]
+    ok = torch.allclose(lg[:, 0], full[:, spec["prompt"] - 1], rtol=2e-3, atol=2e-3)
+    for i in range(spec["prompt"], spec["prompt"] + SERVE_TF_STEPS):
+        lg, caches = m32.decode_step(tf[:, i:i + 1], caches, torch.full((2,), i, device=device))
+        errs.append(float((lg[:, 0] - full[:, i]).abs().max()))
+        ok = ok and torch.allclose(lg[:, 0], full[:, i], rtol=2e-3, atol=2e-3)
+    check(ok, f"phase 14 (a): float32 prefill / decode logits off forward's: {errs}")
+    print(f"phase 14 (a) float32 teacher-forced (2 x {spec['prompt']} prompt, "
+          f"{SERVE_TF_STEPS} decode steps): logits within rtol / atol 2e-3 of LM.forward of the "
+          f"whole sequence, max abs err {max(errs):.3e}", flush=True)
+
+
+def phase_serve_moe(smi_line, device):
+    """(b): ``qwen2-moe-a2.7b`` at full width and depth with top-k routing; returns its
+    config."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    from repro_torch.serving.engine import ServingEngine
+
+    spec = SERVE_MOE
+    cfg = get_config(SERVE_MOE_ARCH)
+    sync()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device, seed=0)
+    sync()
+    t_init = time.perf_counter() - t0
+    n = count_params(model)
+    check(n == SERVE_MOE_PARAMS, f"phase 14 (b): {n} parameters, not {SERVE_MOE_PARAMS}")
+    check(next(model.parameters()).dtype == torch.bfloat16, "phase 14 (b): params not bf16")
+    print(f"phase 14 (b) {SERVE_MOE_ARCH}: {n} parameters ({cfg.num_layers} layers, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, {cfg.moe.num_shared_experts} "
+          f"shared, bf16) drawn on the card in {t_init:.2f} s; "
+          f"{torch.cuda.memory_allocated()} B allocated", flush=True)
+    pairs = serve_requests(cfg.vocab_size, spec, 15)
+    engine = lambda: ServingEngine(cfg, model, max_batch=SERVE_SLOTS, max_len=spec["max_len"],
+                                   device=device)
+    for block in model.blocks:
+        block.moe.routes = []
+    run = drive_engine(engine(), pairs, spec["new"])
+    routes = [r for block in model.blocks for r in block.moe.routes]
+    for block in model.blocks:
+        block.moe.routes = None
+    again = drive_engine(engine(), pairs, spec["new"])
+    check_served("(b)", run["done"], spec["requests"], spec["new"])
+    check({r.rid: r.out_tokens for r in run["done"]}
+          == {r.rid: r.out_tokens for r in again["done"]},
+          "phase 14 (b): a second run gave other tokens (the combine is not deterministic)")
+    dropped = dropped_fraction(cfg, routes)
+    prefill = [r for r in routes if r[0].shape[0] == spec["prompt"]]
+    print(f"phase 14 (b): a second run gives the same tokens bit for bit; dropped fraction "
+          f"{dropped:.6f} over {len(routes)} routings ({dropped_fraction(cfg, prefill):.6f} "
+          f"over the {len(prefill)} at prefill; capacity factor {cfg.moe.capacity_factor})",
+          flush=True)
+    report_serve(f"(b) {SERVE_MOE_ARCH} top-k, {SERVE_SLOTS} slots, {spec['requests']} "
+                 f"requests of {spec['prompt']} + {spec['new']}", run,
+                 profile_ticks(engine(), pairs, spec["new"], 4), 4, smi_line)
+    return cfg
+
+
+def skewed_router_check(device):
+    """tests/test_ot_routing.py's property on the card: on a skewed router (4 sequences of
+    32 tokens, 8 experts, top 2; experts 0-1 preferred) ``ot_route`` balances the load
+    better than top-k, with finite weights summing to 1.  Returns (OT, top-k) load_cv."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.moe import top_k
+    from repro_torch.training import ot_routing
+
+    B, S, E, k = 4, 32, 8, 2
+    logits = np.random.default_rng(0).normal(size=(B * S, E)).astype(np.float32)
+    logits[:, 0] += 2.0
+    logits[:, 1] += 1.5
+    logits = torch.from_numpy(logits).to(device)
+    base = ot_routing.routing_stats(top_k(torch.softmax(logits, -1), k)[1], E, B, S)
+    topi, w = ot_routing.ot_route(logits, num_seqs=B, seq_len=S, top_k=k, gamma=5.0, rho=0.5)
+    ot = ot_routing.routing_stats(topi, E, B, S)
+    cv_ot, cv_tk = float(ot["load_cv"]), float(base["load_cv"])
+    check(cv_ot < cv_tk, f"phase 14 (c): on the skewed router OT's load_cv {cv_ot:.4f} is not "
+          f"below top-k's {cv_tk:.4f}")
+    check(bool(torch.isfinite(w).all()) and float((w.sum(-1) - 1).abs().max()) < 1e-4,
+          "phase 14 (c): the skewed router's weights are not finite or do not sum to 1")
+    return cv_ot, cv_tk
+
+
+def phase_serve_ot(cfg, smi_line, device):
+    """(c): ``qwen2-moe-a2.7b`` at full width cut to 2 layers with ``ot_balance``: one OT
+    solve per MoE layer and forward pass on the card.  Returns the run's kernel launches."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import top_k
+    from repro_torch.ot import diff
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training import ot_routing
+
+    spec = SERVE_MOE
+    cfg_c = dataclasses.replace(cfg, num_layers=SERVE_OT_LAYERS,
+                                moe=dataclasses.replace(cfg.moe, ot_balance=True))
+    model = build_model(cfg_c, device, seed=0)
+    pairs = serve_requests(cfg.vocab_size, spec, 15)
+    engine = lambda: ServingEngine(cfg_c, model, max_batch=SERVE_SLOTS,
+                                   max_len=spec["max_len"], device=device)
+    inputs = []                           # the first MoE layer's input, at every forward
+    hook = model.blocks[0].moe.register_forward_pre_hook(
+        lambda mod, args: inputs.append(args[0].detach().clone()))
+    for block in model.blocks:
+        block.moe.routes = []
+    route, solve_s = ot_routing.ot_route, []
+
+    def timed_route(*args, **kwargs):
+        sync()
+        t = time.perf_counter()
+        out = route(*args, **kwargs)
+        sync()
+        solve_s.append(time.perf_counter() - t)
+        return out
+
+    ot_routing.ot_route = timed_route
+    try:
+        diff.reset_solve_count()
+        _build.reset_launch_counts()
+        run = drive_engine(engine(), pairs, spec["new"])
+        launches = _build.launch_counts()
+        solves = diff.solve_count()
+    finally:
+        ot_routing.ot_route = route
+        hook.remove()
+    routes0 = list(model.blocks[0].moe.routes)
+    routes = [r for block in model.blocks for r in block.moe.routes]
+    for block in model.blocks:
+        block.moe.routes = None
+    check_served("(c)", run["done"], spec["requests"], spec["new"])
+    forwards = SERVE_OT_LAYERS * (spec["requests"] + len(run["ticks"]))
+    check(solves == len(solve_s) == len(routes) == forwards,
+          f"phase 14 (c): {solves} OT solves, {len(routes)} routings for {forwards} MoE passes")
+    bad = [(tuple(t.shape), float((w.sum(-1) - 1).abs().max())) for t, w in routes
+           if not (torch.isfinite(w).all() and float((w.sum(-1) - 1).abs().max()) < 1e-4)]
+    check(not bad, f"phase 14 (c): routing weights not finite or not summing to 1: {bad[:4]}")
+    check(launches.get(ROW_DOT, 0) > 0, f"phase 14 (c): the router launched no {ROW_DOT}")
+    other = {k: v for k, v in launches.items() if k not in (ROW_SUM, ROW_DOT)}
+    check(not other, f"phase 14 (c): the router launched other kernels than the row sums: {other}")
+
+    # the first layer at the prefills: the served OT routing beside top-k on the same logits
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    router = model.blocks[0].moe.router.detach()
+    pre = [i for i, x in enumerate(inputs) if tuple(x.shape[:2]) == (1, spec["prompt"])]
+    check(len(pre) == spec["requests"], f"phase 14 (c): {len(pre)} prefills recorded")
+    logits = [(inputs[i].reshape(-1, cfg.d_model) @ router.to(inputs[i].dtype)).float()
+              for i in pre]
+    tk = torch.cat([top_k(torch.softmax(x, dim=-1), k)[1] for x in logits])
+    served = torch.cat([routes0[i][0] for i in pre])
+    st_ot = ot_routing.routing_stats(served, E, len(pre), spec["prompt"])
+    st_tk = ot_routing.routing_stats(tk, E, len(pre), spec["prompt"])
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    np.savez(os.path.join(SERVE_DIR, "router_prefill.npz"),
+             logits=torch.stack(logits).cpu().numpy(), ot_topi=served.cpu().numpy(),
+             topk_topi=tk.cpu().numpy())
+    cv_ot, cv_tk = skewed_router_check(device)
+    print(f"phase 14 (c) {SERVE_MOE_ARCH} with ot_balance ({SERVE_OT_LAYERS} layers, full "
+          f"width; {smi_line}): {solves} OT solves (one per MoE layer and forward pass), "
+          f"{sum(solve_s) / len(solve_s):.4f} s a solve (median "
+          f"{statistics.median(solve_s):.4f}, max {max(solve_s):.4f}; host clock, synchronized "
+          f"on each side); row_dot {launches.get(ROW_DOT, 0)} launches "
+          f"({launches.get(ROW_DOT, 0) / solves:.1f} a solve), row_sum "
+          f"{launches.get(ROW_SUM, 0)} ({launches.get(ROW_SUM, 0) / solves:.1f} a solve), no "
+          f"other port kernel; every weight finite, summing to 1 within 1e-4; dropped "
+          f"fraction {dropped_fraction(cfg_c, routes):.6f}", flush=True)
+    print(f"phase 14 (c) routing: the first layer at the {len(pre)} prefills (logits in "
+          f"{SERVE_DIR}): load_cv OT {float(st_ot['load_cv']):.4f}, top-k "
+          f"{float(st_tk['load_cv']):.4f}; experts per sequence OT "
+          f"{float(st_ot['experts_per_seq']):.2f}, top-k {float(st_tk['experts_per_seq']):.2f}; "
+          f"the skewed router of tests/test_ot_routing.py on the card: load_cv OT {cv_ot:.4f} "
+          f"< top-k {cv_tk:.4f}", flush=True)
+    report_serve("(c) OT router", run, profile_ticks(engine(), pairs, spec["new"], 1), 1,
+                 smi_line)
+    return launches
+
+
+def phase_serve(smi_line, device):
+    """Phase 14 (see the module docstring): LM serving and the MoE family on the card.
+    Returns the OT router's kernel launches over its run."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    phase_serve_dense(smi_line, device)
+    print(f"[phase 14 +{time.perf_counter() - t_phase:.1f} s] (a)", flush=True)
+    cfg = phase_serve_moe(smi_line, device)
+    torch.cuda.empty_cache()
+    print(f"[phase 14 +{time.perf_counter() - t_phase:.1f} s] (b)", flush=True)
+    launches = phase_serve_ot(cfg, smi_line, device)
+    torch.cuda.empty_cache()
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 COMPARE_DIR = os.path.join(HERE, "_archive", "compare")     # git-ignored
 
 
@@ -3184,6 +3598,9 @@ def main() -> None:
                          "NCCL with a card a rank)")
     ap.add_argument("--lm-only", action="store_true",
                     help="instead: build, then run phase 13 (the LM trainer) alone")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="instead: build, then run phase 14 (LM serving, the MoE family and "
+                         "the OT router) alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -3232,6 +3649,11 @@ def main() -> None:
     if args.lm_only:
         print(json.dumps({"kernels": phase_lm(smi_line, device)}), flush=True)
         print(f"{smi_line}; phase 13 alone took {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return
+    if args.serve_only:
+        print(json.dumps({"ot_router_launches": phase_serve(smi_line, device)}), flush=True)
+        print(f"{smi_line}; phase 14 alone took {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return
 
@@ -3300,6 +3722,11 @@ def main() -> None:
     # 13. the LM trainer with the OT alignment loss
     lap("phase 13")
     lm_rows = phase_lm(smi_line, device)
+    # 14. LM serving, the MoE family and the OT router
+    lap("phase 14")
+    router_launches = phase_serve(smi_line, device)
+    for row in reduce_rows:                 # the OT router's L-BFGS runs them
+        row["launches_ot_router"] = router_launches.get(row["name"], 0)
     for row in solo_rows:
         if row["name"] == B12:          # the layer's grad_refine path runs it
             row["launches"] = refine_launches[B12]

@@ -21,12 +21,15 @@ only dicts and numpy arrays (it imports nothing of ``repro``):
     leaves, the layers stacked on a leading axis of ``blocks``) into the
     port's ``LM`` state dict, bit for bit; :func:`lm_params_to_tree` and
     :func:`lm_params_to_numpy` go back (the trainer's checkpoint uses the
-    tree, so a checkpoint of either package restores in the other).
+    tree, so a checkpoint of either package restores in the other);
+  * :func:`lm_cache_from_numpy` and :func:`lm_cache_to_numpy` do the same
+    for the LM's KV cache: the JAX dict of leaves stacked over the layers
+    against the port's list of one cache dict per block, bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -223,3 +226,45 @@ def lm_params_to_numpy(cfg: ModelConfig, state: Mapping[str, torch.Tensor]) -> D
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
     return to_np(lm_params_to_tree(cfg, state))
+
+
+# -- LM caches ------------------------------------------------------------------
+
+def lm_cache_from_numpy(cfg: ModelConfig, cache: Mapping,
+                        device: DeviceLike = "cpu") -> List[Dict[str, torch.Tensor]]:
+    """The port's per-block KV caches from the JAX LM's cache, bit for bit.
+
+    ``cache`` is ``repro.models.build_model(cfg).init_cache(...)`` or a cache
+    that ``prefill`` / ``decode_step`` returned (numpy arrays or tensors,
+    each leaf stacked over the layers); block ``i`` gets ``{name: leaf[i]}``.
+    The leaves are checked against ``cfg``'s cache (names, dtypes, the
+    trailing shape).
+    """
+    dev = torch.device(device)
+    leaves = {k: _as_tensor(v) for k, v in cache.items()}
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import torch_dtype
+
+    want = attn.cache_struct(cfg, 1, 1, torch_dtype(cfg.compute_dtype))
+    bad = [k for k in set(want) | set(leaves)
+           if k not in want or k not in leaves or leaves[k].dtype != want[k].dtype
+           or leaves[k].ndim != want[k].ndim + 1 or leaves[k].shape[0] != cfg.num_layers
+           or tuple(leaves[k].shape[4:]) != tuple(want[k].shape[3:])
+           or leaves[k].shape[3] != want[k].shape[2]]
+    if bad:
+        raise ValueError(f"the cache does not fit {cfg.arch_id}: leaves {sorted(bad)}")
+    return [{k: t[i].to(dev, copy=True) for k, t in leaves.items()}
+            for i in range(cfg.num_layers)]
+
+
+def lm_cache_to_numpy(cfg: ModelConfig, caches: List[Mapping[str, torch.Tensor]]) -> Dict:
+    """The JAX LM's cache layout (each leaf stacked over the layers, numpy) of the port's
+    per-block caches, the inverse of :func:`lm_cache_from_numpy`; bfloat16 leaves come
+    out as float32 (exactly), int8 ones as int8."""
+    if len(caches) != cfg.num_layers:
+        raise ValueError(f"{len(caches)} caches for {cfg.num_layers} layers")
+    out = {}
+    for k in caches[0]:
+        t = torch.stack([c[k].detach() for c in caches]).cpu()
+        out[k] = (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+    return out

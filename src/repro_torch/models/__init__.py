@@ -1,4 +1,4 @@
-"""Model zoo of the port: the dense decoder-only LM (``repro.models``)."""
+"""Model zoo of the port: the decoder-only LM, dense and MoE (``repro.models``)."""
 from __future__ import annotations
 
 import torch

@@ -1,0 +1,145 @@
+"""Batched LM serving: continuous request batching over a decode step (torch).
+
+Counterpart of ``repro.serving.engine``, with the same behaviour step for
+step (for an MoE model it decides the routing of the live slots):
+  * requests arrive with a prompt and a ``max_new_tokens`` budget; the
+    engine packs up to ``max_batch`` of them into fixed slots;
+  * admission prefills the request at batch 1 into a fresh ``max_len``
+    cache and splices it into the slot's row of the engine's caches (so
+    the row holds zeros past the prompt, whatever the slot held before),
+    and takes the prefill's greedy token as the first output;
+  * every ``tick`` runs ONE decode step for ALL slots, each at its own
+    position (a per-slot index vector): an inactive slot decodes at index
+    0 with its last token, which is never reset when a request finishes
+    (its row is overwritten at the next admission);
+  * a request ends once it holds ``max_new_tokens`` tokens, the prefill's
+    included, and its slot is recycled.
+
+Greedy decoding takes the first index among equal logits, as
+``jnp.argmax`` does.  The engine runs on ``device`` (``None`` is the card)
+and never falls back to the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import build_model
+from repro_torch.models.lm import LM
+from repro_torch.utils.logging import get_logger
+
+log = get_logger("serving")
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray             # (S,) int32
+    max_new_tokens: int
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServingEngine:
+    """Serves ``cfg`` with ``max_batch`` slots of ``max_len`` positions on ``device``.
+
+    ``params`` is the model: an :class:`~repro_torch.models.lm.LM` on the device
+    (used as it is), or a state dict in the port's layout (for instance
+    ``convert.lm_params_from_numpy`` of a JAX parameter tree), loaded into a
+    model built on the device.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Union[LM, Mapping], max_batch: int = 4,
+                 max_len: int = 512, device: DeviceLike = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if isinstance(params, LM):
+            if params.embed.device.type != self.device.type:
+                raise ValueError(f"the model is on {params.embed.device}, the engine on "
+                                 f"{self.device}")
+            self.model = params
+        else:
+            self.model = build_model(cfg, device="meta")
+            self.model.load_state_dict({k: torch.as_tensor(v).to(self.device)
+                                        for k, v in params.items()}, assign=True)
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.lengths = np.zeros((max_batch,), np.int32)
+        self.caches = self.model.init_cache(max_batch, max_len)
+        self._last_tokens = np.zeros((max_batch, 1), np.int32)
+
+    @torch.no_grad()
+    def _decode(self, tokens: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+        logits, self.caches = self.model.decode_step(tokens, self.caches, index)
+        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+
+    # -- slot management -----------------------------------------------------
+    def try_admit(self, req: Request) -> bool:
+        for i, s in enumerate(self.slots):
+            if s is None:
+                self._prefill_slot(i, req)
+                return True
+        return False
+
+    @torch.no_grad()
+    def _prefill_slot(self, slot: int, req: Request):
+        S = len(req.prompt)
+        if S + req.max_new_tokens > self.max_len:
+            raise ValueError(f"request {req.rid}: {S} prompt + {req.max_new_tokens} new "
+                             f"tokens exceed max_len {self.max_len}")
+        tokens = torch.as_tensor(np.asarray(req.prompt, np.int32)[None, :], device=self.device)
+        # batch-1 prefill into a fresh cache, then its whole row into the slot's (the
+        # batch axis located from the cache's logical axes, as in the JAX engine)
+        one_cache = self.model.init_cache(1, self.max_len)
+        logits, one_cache = self.model.prefill(tokens, one_cache)
+        for full, one, axes in zip(self.caches, one_cache, self.model.cache_logical_axes()):
+            for name, ax in axes.items():
+                b = ax.index("batch")
+                full[name].narrow(b, slot, 1).copy_(one[name])
+        nxt = int(torch.argmax(logits[0, -1]))
+        req.out_tokens.append(nxt)
+        self.slots[slot] = req
+        self.lengths[slot] = S
+        self._last_tokens[slot, 0] = nxt
+        log.info("admitted request %d into slot %d (prompt %d tokens)", req.rid, slot, S)
+
+    # -- one engine tick -------------------------------------------------------
+    def tick(self) -> List[Request]:
+        """One decode step for every slot; returns the requests that finished."""
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if not active:
+            return []
+        # per-slot positions (continuous batching): each slot decodes at its own
+        # frontier; inactive slots decode at index 0 (their cache rows are
+        # overwritten at the next prefill)
+        index = torch.tensor(self.lengths, device=self.device)
+        tokens = torch.tensor(self._last_tokens, device=self.device)
+        nxt = self._decode(tokens, index).cpu().numpy()
+        finished = []
+        for i in active:
+            req = self.slots[i]
+            req.out_tokens.append(int(nxt[i, 0]))
+            self.lengths[i] += 1
+            self._last_tokens[i, 0] = int(nxt[i, 0])
+            if len(req.out_tokens) >= req.max_new_tokens:
+                req.done = True
+                finished.append(req)
+                self.slots[i] = None
+                self.lengths[i] = 0
+                log.info("request %d finished (%d tokens)", req.rid, len(req.out_tokens))
+        return finished
+
+    def run(self, requests: List[Request]) -> List[Request]:
+        pending = list(requests)
+        done: List[Request] = []
+        while pending or any(s is not None for s in self.slots):
+            while pending and self.try_admit(pending[0]):
+                pending.pop(0)
+            done.extend(self.tick())
+        return done

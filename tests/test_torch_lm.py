@@ -35,8 +35,9 @@ from repro_torch.models.common import count_params
 
 SMALL = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=128)
 DENSE = ("smollm-135m", "yi-6b", "yi-9b")
-NOT_PORTED = ("qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "xlstm-1.3b", "whisper-medium",
-              "minicpm3-4b", "jamba-1.5-large-398b", "llama-3.2-vision-90b")
+MOE = ("qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b")      # tests/test_torch_moe.py
+NOT_PORTED = ("xlstm-1.3b", "whisper-medium", "minicpm3-4b", "jamba-1.5-large-398b",
+              "llama-3.2-vision-90b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -67,7 +68,7 @@ def test_arch_ids_match():
     assert list_archs() == jlist_archs()
 
 
-@pytest.mark.parametrize("arch", sorted(DENSE + NOT_PORTED))
+@pytest.mark.parametrize("arch", sorted(DENSE + MOE + NOT_PORTED))
 def test_config_fields_match(arch):
     j, p = jget_config(arch), get_config(arch)
     assert dataclasses.asdict(p) == dataclasses.asdict(j)
@@ -82,7 +83,7 @@ def test_shape_and_train_configs_match():
     assert dataclasses.asdict(base.TrainConfig()) == dataclasses.asdict(jbase.TrainConfig())
     assert dataclasses.asdict(base.OptimizerConfig()) == dataclasses.asdict(
         jbase.OptimizerConfig())
-    for arch in DENSE + NOT_PORTED:
+    for arch in DENSE + MOE + NOT_PORTED:
         for s, js in zip(base.SHAPES, jbase.SHAPES):
             assert base.shape_applicable(get_config(arch), s) == jbase.shape_applicable(
                 jget_config(arch), js)
