@@ -32,8 +32,12 @@ Phases:
      bitwise K2's / K5's (and K8 == K7), K4 (both loaders) torch.equal to
      its plain version, all deterministic across runs; then the bf16
      instantiations of K2-K8 on the bf16 cost forms, held to their plain
-     versions as the f32 ones are; once more at d = 64 on a narrower
-     problem (the d-chunk loop, K8 == K5 there too); the row-sum and
+     versions as the f32 ones are; K7 / K8 where a batch of the fused
+     kernels holds many live tiles (one whole tile row live) and where only
+     the launch's last tile is live, f32 and bf16, each with FUSED_RERUNS
+     = 20 runs back to back bitwise equal; once more at d = 64 on a
+     narrower problem, f32 and bf16 (the chunked loader, the tile one
+     block: K8 == K5 and K7 there too, flags == K1's); the row-sum and
      row-dot kernels against their plain versions and across batch sizes,
      row_dot(a, b) bitwise row_sum(a * b), over row lengths 1 to 33280;
   4. end to end through ``repro_torch.ot``: the default plan (factorized)
@@ -73,7 +77,9 @@ Phases:
      boundary with the plain torch.sum snapshot norms
      against K4's body; K2/K3/K5-K8 times across live shares (with every
      tile live they go into their kernel rows beside the bound), and
-     K2/K5/K7/K8 on bf16 costs;
+     K2/K5/K7/K8 on bf16 costs; at the final state and fully live, K7 / K8
+     device time (torch.profiler, a call's launches summed) beside K1 + K2 /
+     K1 + K5, the two launches each fused call replaces;
   6. solo vs batched (B = 2) at L = 64, n = 1024, dense and factorized,
      pallas and fused, grid and compact: bitwise equal (duals, value,
      rounds, stats), or the smoke fails;
@@ -145,8 +151,9 @@ Phases:
      memory, a profile of 2 steps (idle share, launches per step) and each OT
      kernel's launches per step; K1, K4, K5, K6 and K8 at the step-0 OT
      operands (L_pad 8, g 4, n_pad 128, d 576: the chunked loader, 18 chunks
-     of 32, and K4's FactCost body) held to their plain versions as at d =
-     64; a 3-step run with ``ot_grad_impl='fused'`` whose step-0 OT distance
+     of 32, the tile one block, shared by K4-K8) held to their plain versions
+     as at d = 64, f32 and bf16 (K8 == K5 bitwise, flags == K1's), and timed;
+     a 3-step run with ``ot_grad_impl='fused'`` whose step-0 OT distance
      is the pallas run's bit for bit; and a restart at full width cut to 2
      layers (save at step 3, resume to 6) bitwise an uninterrupted 6-step
      run, under ``torch.use_deterministic_algorithms(True)``.
@@ -167,13 +174,15 @@ Phases:
      kernel) per MoE layer and forward pass, every routing weight finite and
      summing to 1 within 1e-4, the router's seconds a solve and launches; the
      first layer's prefill routing beside top-k's (load_cv, experts per
-     sequence; the logits saved in ``_archive/phase14``), and
-     tests/test_ot_routing.py's property on the card: on its skewed router
-     ``ot_route``'s load_cv below top-k's.  For each run tokens a second, ms a
+     sequence; the logits saved in ``_archive/phase14``, as the CPU test's
+     fixture ``tests/fixtures/router_prefill.npz`` was); the same logits
+     solved to convergence (``max_iters=400``), whose load_cv must be below
+     top-k's; and tests/test_ot_routing.py's property on the card: on its
+     skewed router ``ot_route``'s load_cv below top-k's.  For each run tokens a second, ms a
      tick, peak memory, and a profile of a few ticks (idle share, launches a
      tick).
-Phase 3 also runs K2/K3/K5-K8 at tile_n 4, 20, 40 and 128 on a narrow
-problem, and phase 4 holds the main path's solve to the fingerprint it had
+Phase 3 also runs K2-K8 at tile_n 4, 20, 40 and 128 on a narrow problem,
+and at 1024 (d = 2) and 256 (d = 64), the kernels' wide builds, and phase 4 holds the main path's solve to the fingerprint it had
 before the kernels took any tile width.
 The second-to-last line is the kernel table as JSON (K1-K8, B9-B14, and
 row_sum / row_dot, the solver's batch-invariant reductions, which stand in
@@ -382,8 +391,10 @@ class Operands:
 
 # -- phase 3 inputs ------------------------------------------------------------
 
-def kernel_inputs(rng, C, L_pad: int, tau_val: float, live_share: float, device):
-    """Snapshot state, deltas and duals whose tile flags are live at ~live_share.
+def kernel_inputs(rng, C, L_pad: int, tau_val: float, live_share: float, device,
+                  live_tiles=None):
+    """Snapshot state, deltas and duals whose tile flags are live at ~live_share
+    (or where the (B, Lt, Nt) bool array ``live_tiles`` says).
 
     Dead tiles get z~ far under tau and an empty active set, so every entry
     is ZERO; live tiles get z~ spread across tau, some active entries and
@@ -395,7 +406,8 @@ def kernel_inputs(rng, C, L_pad: int, tau_val: float, live_share: float, device)
     B, m_pad, n_pad = C.shape
     g = m_pad // L_pad
     Lt, Nt = L_pad // TILE_L, n_pad // TILE_N
-    live_tiles = rng.random((B, Lt, Nt)) < live_share
+    if live_tiles is None:
+        live_tiles = rng.random((B, Lt, Nt)) < live_share
     live = np.repeat(np.repeat(live_tiles, TILE_L, axis=1), TILE_N, axis=2)
     z = np.where(live, rng.uniform(0.0, 3.0 * tau_val, live.shape),
                  rng.uniform(0.0, 0.2 * tau_val, live.shape)).astype(np.float32)
@@ -520,8 +532,98 @@ def phase_kernels(ops, reg, device):
             del r, again, inp, k4_plain, k4d_plain, C, leaves
 
 
+FUSED_RERUNS = 20            # back-to-back K7 / K8 runs held bitwise equal
+
+
+def fused_patterns(B, Lt, Nt):
+    """Live-tile patterns that stress the fused kernels' batches: every tile of one
+    tile row (the middle one), and the last tile alone."""
+    import numpy as np
+
+    row = np.zeros((B, Lt, Nt), bool)
+    row[:, Lt // 2] = True
+    last = np.zeros((B, Lt, Nt), bool)
+    last[-1, -1, -1] = True
+    return {"one tile row": row, "last tile only": last}
+
+
+def phase_fused_stress(ops, reg, device):
+    """K7 / K8 where a batch holds many live tiles or the launch's last tile is the only
+    live one, f32 and bf16: flags == K1's, sums bitwise K2's / K5's on them, and
+    FUSED_RERUNS runs back to back (no synchronize between) bitwise equal, at those
+    patterns and at a live share of 0.1."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import gradpsi as kg
+    from repro_torch.kernels import screen as ks
+
+    tau_val = float(reg.tau)
+    L_pad = ops.fp.L_pad
+    tau_p = torch.full((L_pad,), tau_val, dtype=torch.float32, device=device)
+    Lt, Nt = L_pad // TILE_L, ops.fp.n_pad // TILE_N
+    pats = dict(fused_patterns(1, Lt, Nt))
+    pats["share 0.1"] = None
+    for storage in ("f32", "bf16"):
+        C, leaves = ops.cost_forms(storage)
+        rng = np.random.default_rng(2)
+        for name, live_tiles in pats.items():
+            inp = kernel_inputs(rng, ops.pp.Cp, L_pad, tau_val, 0.1, device, live_tiles)
+            sargs = screen_args(inp)
+            kw = dict(num_groups=L_pad, group_size=inp["g"], tau=tau_p, gamma=reg.gamma,
+                      tile_l=TILE_L, tile_n=TILE_N)
+            a, b = inp["alpha"], inp["beta"]
+            _, f1 = ks.screen_batched(*sargs, tau=tau_p, tile_l=TILE_L, tile_n=TILE_N,
+                                      emit_verdict=False)
+            if live_tiles is not None:
+                check(torch.equal(f1.cpu(), torch.from_numpy(live_tiles.astype(np.int32))),
+                      f"the pattern '{name}' did not give its flags")
+            k2 = kg.gradpsi_batched(a, b, C, f1, **kw)
+            k5 = kg.gradpsi_fact_batched(a, b, *leaves, f1, **kw)
+            k7 = [kg.gradpsi_fused_batched(a, b, C, *sargs, **kw) for _ in range(FUSED_RERUNS)]
+            k8 = [kg.gradpsi_fused_fact_batched(a, b, *leaves, *sargs, **kw)
+                  for _ in range(FUSED_RERUNS)]
+            at = f"({name}, {storage})"
+            check(torch.equal(k7[0][3], f1) and torch.equal(k8[0][3], f1),
+                  f"K7/K8 flags differ from K1's {at}")
+            check(same(k7[0][:3], k2), f"K7 not bitwise K2 on K1's flags {at}")
+            check(same(k8[0][:3], k5), f"K8 not bitwise K5 on K1's flags {at}")
+            check(all(same(r, k7[0]) for r in k7) and all(same(r, k8[0]) for r in k8),
+                  f"K7/K8 not bitwise equal across {FUSED_RERUNS} runs {at}")
+            print(f"fused stress {at}: {int(f1.sum())} of {f1.numel()} tiles live; K7/K8 flags "
+                  f"== K1's, sums bitwise K2's / K5's, {FUSED_RERUNS} back-to-back runs each "
+                  f"bitwise equal", flush=True)
+            del k7, k8, k2, k5, inp, sargs
+
+
+def device_split(fn, calls: int = 20):
+    """{kernel name: device us a call} of ``fn`` over ``calls`` calls (torch.profiler,
+    the device's own records), names cut at the template's '<'."""
+    fn()
+    sync()
+    _, _, _, _, rows = profile_device(lambda: [fn() for _ in range(calls)])
+    out = {}
+    for key, us, _ in rows:
+        name = key.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0]
+        name = name.replace("void ", "").strip()
+        out[name] = out.get(name, 0.0) + us / calls
+    return out
+
+
+def fused_beside_pairs(label, calls):
+    """Print K7 / K8 device time beside K1 + K2 / K1 + K5 (each pair's sum) for the
+    callables in ``calls`` ({K1, K2, K5, K7, K8: fn}); returns {name: device us}."""
+    dev = {k: sum(device_split(f).values()) for k, f in calls.items()}
+    print(f"fused vs two launches {label} (device us a call, torch.profiler, each call's "
+          f"launches summed): K7 {dev[K7]:.2f} vs K1 + K2 {dev[K1] + dev[K2]:.2f} "
+          f"({dev[K1]:.2f} + {dev[K2]:.2f}); K8 {dev[K8]:.2f} vs K1 + K5 "
+          f"{dev[K1] + dev[K5]:.2f} ({dev[K1]:.2f} + {dev[K5]:.2f})", flush=True)
+    return dev
+
+
 def phase_kernels_wide_d(device):
-    """K4-K6 at d = 64 (two 32-column chunks) on a narrower problem."""
+    """K4-K8 at d = 64 (two 32-column chunks of the chunked loader) on a narrower
+    problem, f32 and bf16 storage."""
     import numpy as np
     import torch
 
@@ -543,37 +645,46 @@ def phase_kernels_wide_d(device):
     flags = (rng.random((B, L_pad // TILE_L, n_pad // TILE_N)) < 0.5).astype(np.int32)
     tau = np.linspace(0.0, 0.4, L_pad).astype(np.float32)
     t = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-    a, b, xx, xs, yy, ys, fl, tp, mk = (t(v) for v in (alpha, beta, x, x_sq, y, y_sq, flags,
-                                                         tau, mask))
+    a, b, fl, tp, mk = (t(v) for v in (alpha, beta, flags, tau, mask))
+    leaves32 = tuple(t(v) for v in (x, x_sq, y, y_sq))
     kw = dict(num_groups=L_pad, group_size=g, tau=tp, gamma=0.25, tile_l=TILE_L, tile_n=TILE_N)
     check(kg.d_chunk(TILE_L, g, TILE_N, d) == 32 and kg.fact_loader_dc(TILE_L, g, TILE_N, d) == 32,
           "d = 64 should run the chunked loader, two 32-column chunks")
-    k5 = kg.gradpsi_fact_batched(a, b, xx, xs, yy, ys, fl, **kw)
-    ref = kg.gradpsi_fact_batched_ref(a, b, xx, xs, yy, ys, fl, **kw)
-    err = max(float((p - q).abs().max()) for p, q in zip(k5, ref))
-    check(all(torch.allclose(p, q, rtol=1e-5, atol=1e-6) for p, q in zip(k5, ref)),
-          f"K5 at d = 64 off its plain version: max abs err {err:.3e}")
-    sched, nact = kg.build_batch_tile_schedule(fl)
-    k6 = kg.gradpsi_fact_compact_batched(a, b, xx, xs, yy, ys, sched, nact, **kw)
-    C = kg.factorized_cost_tile(xx, xs, yy, ys)
-    k2 = kg.gradpsi_batched(a, b, C, fl, **kw)
-    check(same(k5, k2) and same(k6[:3], k5), "K5/K6 at d = 64 not bitwise equal to K2")
     # K8: its own flags (K1's on random screening operands), K5 on them
-    inp = kernel_inputs(rng, C, L_pad, 0.2, 0.5, device)
+    inp = kernel_inputs(rng, kg.factorized_cost_tile(*leaves32), L_pad, 0.2, 0.5, device)
     sargs = screen_args(inp)
     _, f1 = ks.screen_batched(*sargs, tau=tp, tile_l=TILE_L, tile_n=TILE_N, emit_verdict=False)
-    k8 = kg.gradpsi_fused_fact_batched(a, b, xx, xs, yy, ys, *sargs, **kw)
-    k5f = kg.gradpsi_fact_batched(a, b, xx, xs, yy, ys, f1, **kw)
-    check(torch.equal(k8[3], f1) and same(k8[:3], k5f),
-          "K8 at d = 64 not K1's flags and K5's sums bit for bit")
     skw = dict(num_groups=L_pad, group_size=g, tile_l=TILE_L, tile_n=TILE_N)
-    k4 = ks.snapshot_norms_fact_batched(a, b, xx, xs, yy, ys, mk, **skw)
-    k4p = ks.snapshot_norms_fact_ref(a, b, xx, xs, yy, ys, mk, num_groups=L_pad, group_size=g)
-    check(same(k4, k4p), "K4 at d = 64 differs from its plain version")
-    print(f"kernels @ d = 64 (B = 2, L_pad = 64, g = 16, n_pad = 1024, 2 chunks of 32): K5 max "
-          f"abs err {err:.3e} (rtol 1e-5, atol 1e-6), K5 == K2 and K6 == K5 bitwise, K8 == "
-          f"K1's flags and K5's sums bitwise (live share "
-          f"{int(f1.count_nonzero()) / f1.numel():.3f}), K4 == plain bitwise", flush=True)
+    for storage in ("f32", "bf16"):
+        leaves = leaves32 if storage == "f32" else tuple(v.bfloat16() for v in leaves32)
+        xx, xs, yy, ys = leaves
+        check(kg.fact_loader(TILE_L, g, TILE_N, d, xx.element_size()) == (32, TILE_L),
+              f"d = 64 ({storage}) should stage the whole tile in 32-column chunks")
+        k5 = kg.gradpsi_fact_batched(a, b, *leaves, fl, **kw)
+        ref = kg.gradpsi_fact_batched_ref(a, b, *leaves, fl, **kw)
+        err = max(float((p - q).abs().max()) for p, q in zip(k5, ref))
+        check(all(torch.allclose(p, q, rtol=1e-5, atol=1e-6) for p, q in zip(k5, ref)),
+              f"K5 at d = 64 ({storage}) off its plain version: max abs err {err:.3e}")
+        sched, nact = kg.build_batch_tile_schedule(fl)
+        k6 = kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw)
+        C = kg.factorized_cost_tile(*leaves)          # the f32 cost of the stored leaves
+        k2 = kg.gradpsi_batched(a, b, C, fl, **kw)
+        check(same(k5, k2) and same(k6[:3], k5),
+              f"K5/K6 at d = 64 ({storage}) not bitwise equal to K2")
+        k8 = kg.gradpsi_fused_fact_batched(a, b, *leaves, *sargs, **kw)
+        k5f = kg.gradpsi_fact_batched(a, b, *leaves, f1, **kw)
+        k7 = kg.gradpsi_fused_batched(a, b, C, *sargs, **kw)
+        check(torch.equal(k8[3], f1) and same(k8[:3], k5f) and torch.equal(k7[3], f1)
+              and same(k7[:3], k5f),
+              f"K8 (K7) at d = 64 ({storage}) not K1's flags and K5's sums bit for bit")
+        k4 = ks.snapshot_norms_fact_batched(a, b, *leaves, mk, **skw)
+        k4p = ks.snapshot_norms_fact_ref(a, b, *leaves, mk, num_groups=L_pad, group_size=g)
+        check(same(k4, k4p), f"K4 at d = 64 ({storage}) differs from its plain version")
+        print(f"kernels @ d = 64 ({storage}; B = 2, L_pad = 64, g = 16, n_pad = 1024, 2 chunks "
+              f"of 32, the whole tile one block): K5 max abs err {err:.3e} (rtol 1e-5, atol "
+              f"1e-6), K5 == K2 and K6 == K5 bitwise, K8 == K1's flags and K5's sums bitwise "
+              f"(live share {int(f1.count_nonzero()) / f1.numel():.3f}), K7 == K8 on the "
+              f"materialized cost, K4 == plain bitwise", flush=True)
 
 
 def device_us_per_call(fn, calls: int = 50):
@@ -663,11 +774,13 @@ def phase_row_sum(device):
 
 
 def phase_tile_widths(device):
-    """K2/K3/K5-K8 at tile widths that are not whole warps (4, 20, 40), and at 128.
+    """K2/K3/K5-K8 at tile widths that are not whole warps (4, 20, 40), at 128, and
+    wider than 128 (the kernels' wide builds: 1024 at d = 2, 256 at d = 64, where
+    K4 takes its wide build too).
 
     The stochastic solver runs the kernels with tile_n = its column block,
     so a CTA rounds tile_n up to whole warps and the extra lanes add zeros.
-    B = 2, L_pad = 64, g = 16, tile_l = 8, d = 2, n_pad about 1000.
+    B = 2, L_pad = 64, g = 16, tile_l = 8, n_pad about 1000.
     """
     import numpy as np
     import torch
@@ -675,13 +788,13 @@ def phase_tile_widths(device):
     from repro_torch.kernels import gradpsi as kg
     from repro_torch.kernels import screen as ks
 
-    for tile_n in (4, 20, 40, 128):
+    for tile_n, d in ((4, 2), (20, 2), (40, 2), (128, 2), (1024, 2), (256, 64)):
         rng = np.random.default_rng(tile_n)
-        B, L_pad, g, d, tile_l = 2, 64, 16, 2, 8
+        B, L_pad, g, tile_l = 2, 64, 16, 8
         Nt = -(-1000 // tile_n)
         n_pad, m_pad = Nt * tile_n, L_pad * g
-        x = (rng.normal(size=(B, m_pad, d)) * 0.3).astype(np.float32)
-        y = (rng.normal(size=(B, n_pad, d)) * 0.3).astype(np.float32)
+        x = (rng.normal(size=(B, m_pad, d)) * 0.3 / np.sqrt(d / 2)).astype(np.float32)
+        y = (rng.normal(size=(B, n_pad, d)) * 0.3 / np.sqrt(d / 2)).astype(np.float32)
         t = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
         leaves = tuple(t(v) for v in (x, (x * x).sum(-1), y, (y * y).sum(-1)))
         C = kg.factorized_cost_tile(*leaves)
@@ -713,11 +826,17 @@ def phase_tile_widths(device):
               and same(k7[:3], kg.gradpsi_batched(a, b, C, f1, **kw))
               and same(k8[:3], kg.gradpsi_fact_batched(a, b, *leaves, f1, **kw)),
               f"K7/K8 at tile_n = {tile_n} not K1's flags and K2's / K5's sums")
-        print(f"tile width {tile_n} (B = 2, L_pad = 64, g = 16, n_pad = {n_pad}, "
+        mask = torch.ones(L_pad * g, dtype=torch.int8, device=device)
+        skw = dict(num_groups=L_pad, group_size=g)
+        check(same(ks.snapshot_norms_fact_batched(a, b, *leaves, mask, tile_l=tile_l,
+                                                  tile_n=tile_n, **skw),
+                   ks.snapshot_norms_fact_ref(a, b, *leaves, mask, **skw)),
+              f"K4 at tile_n = {tile_n} differs from its plain version")
+        print(f"tile width {tile_n} (d = {d}, B = 2, L_pad = 64, g = 16, n_pad = {n_pad}, "
               f"{-(-tile_n // 32) * 32} threads per CTA): K2, K5 within rtol 1e-5 / atol 1e-6 "
               f"of plain (max abs err {err:.3e}); K3 == K2, K5 == K2, K6 == K5, K7/K8 == K1's "
               f"flags (live share {int(f1.count_nonzero()) / f1.numel():.3f}) and K2's / K5's "
-              f"sums, bitwise", flush=True)
+              f"sums, bitwise; K4 == plain", flush=True)
 
 
 def _narrow_screen_args(rng, B, L_pad, n_pad, device):
@@ -1186,9 +1305,12 @@ def kernel_work(pp, d, live, T, real_rows=None):
         K5: (sample_bytes + vec_bytes + 4 * T, fact_ops_per_entry(d) * entries),
         K6: (sample_bytes + vec_bytes + 12 * live + 4, fact_ops_per_entry(d) * entries),
     }
-    # the fused kernels: K1's reads and flags, then K2's or K5's live-tile work
-    work[K7] = (work[K1][0] + work[K2][0] - 4 * T, work[K1][1] + work[K2][1])
-    work[K8] = (work[K1][0] + work[K5][0] - 4 * T, work[K1][1] + work[K5][1])
+    # the fused kernels: the flags' reads (z~ and the active mask, 5 bytes an
+    # entry: the flag does not depend on k~, o~, da_full or da_neg, rt::live),
+    # the flags, then K2's or K5's live-tile work
+    flag_work = (5 * E + 4 * (3 * pp.L + cols) + 4 * T, 6 * E)
+    work[K7] = (flag_work[0] + work[K2][0] - 4 * T, flag_work[1] + work[K2][1])
+    work[K8] = (flag_work[0] + work[K5][0] - 4 * T, flag_work[1] + work[K5][1])
     # the slot reduction after a grid kernel: each live tile's slots (its rows'
     # and columns' partial sums and psi), the flags, then the sums it writes
     slot_floats = pp.tile_l * pp.g + pp.tile_n + 1
@@ -1332,6 +1454,8 @@ def phase_times(sol, ops, reg, launches, device):
               f"flops), plain {plain_ms:.4f} ms, live share {share:.6f}; {checks[name]}: "
               f"{'pass' if ok[name] else 'FAIL'} (max abs err {err:.3e}, max rel err "
               f"{rel:.3e}); launches on {path}: {launches[path].get(name, 0)}", flush=True)
+    fused_beside_pairs(f"at the final state (live share {share:.4f})",
+                       {k: fns[k][0] for k in (K1, K2, K5, K7, K8)})
     full = kernel_work(pp, fp.d, T, T)[SLOT]
     print(f"bound {SLOT} (each gradient call's second launch): {bound(*work[SLOT])[0]:.6f} ms "
           f"at the final state ({work[SLOT][0]} B), {bound(*full)[0]:.6f} ms with every tile "
@@ -1448,6 +1572,7 @@ def phase_density_times(ops, reg, device):
             f"{k} {v:.4f} ms" for k, v in ms.items()) + f" (+ schedule build {ts:.4f} ms)",
               flush=True)
         if target == 1.0:
+            fused_beside_pairs("fully live", {k: t[k] for k in (K1, K2, K5, K7, K8)})
             work = kernel_work(ops.fp, ops.fp.d, int(nact), flags.numel())
             live = {k: (min(ms[k], ms.get(k + " again", ms[k])),) + bound(*work[k]) + (share,)
                     for k in (K2, K3, K5, K6, K7, K8)}
@@ -2701,16 +2826,6 @@ def phase_lm_kernels(fp, a, b, mask, reg, launches, fused_launches, smi_line, de
     for share in (0.0, 1.0):
         flags = torch.full((1, L_pad // TILE_L, n_pad // TILE_N), int(share), dtype=torch.int32,
                            device=device)
-        k5 = kg.gradpsi_fact_batched(a, b, *leaves, flags, **kw)
-        ref = kg.gradpsi_fact_batched_ref(a, b, *leaves, flags, **kw)
-        errs.append(max(float((p - q).abs().max()) for p, q in zip(k5, ref)))
-        check(all(torch.allclose(p, q, rtol=1e-5, atol=1e-6) for p, q in zip(k5, ref)),
-              f"K5 at d = {d} (share {share}) off its plain version: max abs err {errs[-1]:.3e}")
-        sched, nact = kg.build_batch_tile_schedule(flags)
-        k6 = kg.gradpsi_fact_compact_batched(a, b, *leaves, sched, nact, **kw)
-        k2 = kg.gradpsi_batched(a, b, C, flags, **kw)
-        check(same(k5, k2) and same(k6[:3], k5),
-              f"K5/K6 at d = {d} (share {share}) not bitwise equal to K2 on the cost")
         inp = kernel_inputs(rng, C, L_pad, float(reg.tau), share, device)
         sargs = screen_args(inp)
         v1, f1 = ks.screen_batched(*sargs, tau=tp, tile_l=TILE_L, tile_n=TILE_N,
@@ -2718,18 +2833,31 @@ def phase_lm_kernels(fp, a, b, mask, reg, launches, fused_launches, smi_line, de
         v1p, f1p = ks.screen_batched_ref(*sargs, tau=tp, tile_l=TILE_L, tile_n=TILE_N)
         check(torch.equal(v1, v1p) and torch.equal(f1, f1p),
               f"K1 at the trainer's shapes (share {share}) differs from its plain version")
-        k8 = kg.gradpsi_fused_fact_batched(a, b, *leaves, *sargs, **kw)
-        k5f = kg.gradpsi_fact_batched(a, b, *leaves, f1, **kw)
-        check(torch.equal(k8[3], f1) and same(k8[:3], k5f),
-              f"K8 at d = {d} (share {share}) not K1's flags and K5's sums bit for bit")
-    k4 = ks.snapshot_norms_fact_batched(a, b, *leaves, mask, **skw)
-    k4p = ks.snapshot_norms_fact_ref(a, b, *leaves, mask, num_groups=L_pad, group_size=g)
-    check(same(k4, k4p), f"K4 at d = {d} differs from its plain version")
+        for storage in ("f32", "bf16"):
+            lv = leaves if storage == "f32" else tuple(v.bfloat16() for v in leaves)
+            at = f"at d = {d} (share {share}, {storage})"
+            k5 = kg.gradpsi_fact_batched(a, b, *lv, flags, **kw)
+            ref = kg.gradpsi_fact_batched_ref(a, b, *lv, flags, **kw)
+            errs.append(max(float((p - q).abs().max()) for p, q in zip(k5, ref)))
+            check(all(torch.allclose(p, q, rtol=1e-5, atol=1e-6) for p, q in zip(k5, ref)),
+                  f"K5 {at} off its plain version: max abs err {errs[-1]:.3e}")
+            sched, nact = kg.build_batch_tile_schedule(flags)
+            k6 = kg.gradpsi_fact_compact_batched(a, b, *lv, sched, nact, **kw)
+            k2 = kg.gradpsi_batched(a, b, kg.factorized_cost_tile(*lv), flags, **kw)
+            check(same(k5, k2) and same(k6[:3], k5),
+                  f"K5/K6 {at} not bitwise equal to K2 on the cost")
+            k8 = kg.gradpsi_fused_fact_batched(a, b, *lv, *sargs, **kw)
+            k5f = kg.gradpsi_fact_batched(a, b, *lv, f1, **kw)
+            check(torch.equal(k8[3], f1) and same(k8[:3], k5f),
+                  f"K8 {at} not K1's flags and K5's sums bit for bit")
+            k4 = ks.snapshot_norms_fact_batched(a, b, *lv, mask, **skw)
+            k4p = ks.snapshot_norms_fact_ref(a, b, *lv, mask, num_groups=L_pad, group_size=g)
+            check(same(k4, k4p), f"K4 {at} differs from its plain version")
     print(f"kernels @ the trainer's step-0 OT operands (B = 1, L_pad = {L_pad}, g = {g}, "
-          f"n_pad = {n_pad}, d = {d}: {-(-d // dc)} chunks of {dc}; the solve's duals): K5 max "
-          f"abs err {max(errs):.3e} (rtol 1e-5, atol 1e-6), K5 == K2 and K6 == K5 bitwise, "
-          f"K1 == plain, K8 == K1's flags and K5's sums bitwise (live shares 0 and 1), K4 == "
-          f"plain bitwise", flush=True)
+          f"n_pad = {n_pad}, d = {d}: {-(-d // dc)} chunks of {dc}, the tile one block; the "
+          f"solve's duals; f32 and bf16): K5 max abs err {max(errs):.3e} (rtol 1e-5, atol "
+          f"1e-6), K5 == K2 and K6 == K5 bitwise, K1 == plain, K8 == K1's flags and K5's sums "
+          f"bitwise (live shares 0 and 1), K4 == plain bitwise", flush=True)
 
     # times at the live state (the one tile live), beside bound and plain version
     flags = torch.ones((1, 1, 1), dtype=torch.int32, device=device)
@@ -2939,6 +3067,7 @@ SERVE_MOE = dict(requests=6, prompt=32, new=16, max_len=56)        # (b) and (c)
 SERVE_OT_LAYERS = 2                  # (c)'s depth cut (PERF.md §4)
 SERVE_TF_STEPS = 8                   # teacher-forced decode steps of the float32 check
 SERVE_DIR = os.path.join(HERE, "_archive", "phase14")  # git-ignored: (c)'s router logits
+SERVE_OT_CONVERGED_ITERS = 400       # where the router's solve converges (ROADMAP §C)
 
 
 def serve_requests(vocab, spec, seed):
@@ -3280,6 +3409,15 @@ def phase_serve_ot(cfg, smi_line, device):
              logits=torch.stack(logits).cpu().numpy(), ot_topi=served.cpu().numpy(),
              topk_topi=tk.cpu().numpy())
     cv_ot, cv_tk = skewed_router_check(device)
+    # the same prefills' logits solved to convergence (the served router stops at
+    # max_iters=40, where the solve has not converged: ROADMAP §C)
+    conv = torch.cat([ot_routing.ot_route(x, num_seqs=1, seq_len=spec["prompt"], top_k=k,
+                                          max_iters=SERVE_OT_CONVERGED_ITERS)[0]
+                      for x in logits])
+    cv_conv = float(ot_routing.routing_stats(conv, E, len(pre), spec["prompt"])["load_cv"])
+    check(cv_conv < float(st_tk["load_cv"]),
+          f"phase 14 (c): converged OT routing's load_cv {cv_conv:.4f} is not below top-k's "
+          f"{float(st_tk['load_cv']):.4f} on the prefills' logits")
     print(f"phase 14 (c) {SERVE_MOE_ARCH} with ot_balance ({SERVE_OT_LAYERS} layers, full "
           f"width; {smi_line}): {solves} OT solves (one per MoE layer and forward pass), "
           f"{sum(solve_s) / len(solve_s):.4f} s a solve (median "
@@ -3291,7 +3429,8 @@ def phase_serve_ot(cfg, smi_line, device):
           f"fraction {dropped_fraction(cfg_c, routes):.6f}", flush=True)
     print(f"phase 14 (c) routing: the first layer at the {len(pre)} prefills (logits in "
           f"{SERVE_DIR}): load_cv OT {float(st_ot['load_cv']):.4f}, top-k "
-          f"{float(st_tk['load_cv']):.4f}; experts per sequence OT "
+          f"{float(st_tk['load_cv']):.4f}; converged (max_iters={SERVE_OT_CONVERGED_ITERS}) "
+          f"OT {cv_conv:.4f} < top-k; experts per sequence OT "
           f"{float(st_ot['experts_per_seq']):.2f}, top-k {float(st_tk['experts_per_seq']):.2f}; "
           f"the skewed router of tests/test_ot_routing.py on the card: load_cv OT {cv_ot:.4f} "
           f"< top-k {cv_tk:.4f}", flush=True)
@@ -3334,18 +3473,21 @@ def main_problem():
 
 
 def compare_bits(device):
-    """K2/K3/K5-K8 (and B9-B14 at d = 2, tile_n = 128) on seeded inputs across g in
-    {1, 3, 16, 17, 33}, d in {1, 2, 3, 8, 64}, tile_n in {4, 20, 128}, f32 and
-    bf16 storage -> {case: tuple of CPU tensors}."""
+    """K2-K8 (and B9-B14 at d = 2, tile_n = 128) on seeded inputs across g in
+    {1, 3, 16, 17, 33}, d in {1, 2, 3, 8, 64} (and the trainer's 576 at g 3 and
+    16), tile_n in {4, 20, 128}, f32 and bf16 storage -> {case: tuple of CPU
+    tensors}."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import gradpsi as kg
 
+    from repro_torch.kernels import screen as ks
+
     out = {}
     t = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
     for g in (1, 3, 16, 17, 33):
-        for d in (1, 2, 3, 8, 64):
+        for d in (1, 2, 3, 8, 64) + ((576,) if g in (3, 16) else ()):
             for tile_n in (4, 20, 128):
                 rng = np.random.default_rng(1000 * g + 10 * d + tile_n)
                 B, L_pad, tile_l = 2, 16, 8
@@ -3382,6 +3524,9 @@ def compare_bits(device):
                                                                        nact, **kw)
                     out[key + " K7"] = kg.gradpsi_fused_batched(a, b, C, *sargs, **kw)
                     out[key + " K8"] = kg.gradpsi_fused_fact_batched(a, b, *leaves, *sargs, **kw)
+                    out[key + " K4"] = ks.snapshot_norms_fact_batched(
+                        a, b, *leaves, torch.ones(L_pad * g, dtype=torch.int8, device=device),
+                        num_groups=L_pad, group_size=g, tile_l=tile_l, tile_n=tile_n)
                     if d == 2 and tile_n == 128:
                         one = lambda *ts: tuple(v[0] for v in ts)
                         f1 = flags[0]
@@ -3508,10 +3653,57 @@ def compare_run(out_path: str, with_bits: bool) -> None:
     live[K1] = lambda: ks.screen_batched(*sargs, tau=st["gkw"]["tau"], tile_l=TILE_L,
                                          tile_n=TILE_N, emit_verdict=False)
     res["live_ms"] = {k: median_ms(f, 20) for k, f in live.items()}
+    # device us a call (profiler, a call's launches summed) at the final state and
+    # fully live: the fused kernels beside the two-launch pairs they replace
+    res["final_device_us"] = {k: sum(device_split(final[k]).values())
+                              for k in (K1, K2, K5, K7, K8)}
+    res["live_device_us"] = {k: sum(device_split(live[k]).values())
+                             for k in (K1, K2, K5, K7, K8)}
+    res["lm_ms"], res["lm_device_us"] = {}, {}
+    for k, f in lm_shape_calls(device).items():
+        res["lm_ms"][k] = median_ms(f, 50)
+        res["lm_device_us"][k] = sum(device_split(f).values())
     if with_bits:
         bits.update(compare_bits(device))
     torch.save({"res": res, "bits": bits}, out_path)
     print(json.dumps(res), flush=True)
+
+
+def lm_shape_calls(device):
+    """{K1, K4-K8 (f32; K4, K5, K8 also bf16): call} at the trainer's OT shape (B = 1,
+    L_pad 8, g 4, n_pad 128, d 576, the one tile live), on seeded samples."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import gradpsi as kg
+    from repro_torch.kernels import screen as ks
+
+    rng = np.random.default_rng(21)
+    L_pad, g, n_pad, d = 8, 4, 128, 576
+    t = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    x = (rng.normal(size=(1, L_pad * g, d)) / np.sqrt(d)).astype(np.float32)
+    y = (rng.normal(size=(1, n_pad, d)) / np.sqrt(d)).astype(np.float32)
+    f32 = tuple(t(v) for v in (x, (x * x).sum(-1), y, (y * y).sum(-1)))
+    bf16 = tuple(v.bfloat16() for v in f32)
+    a = t(rng.uniform(0.0, 0.5, (1, L_pad * g)).astype(np.float32))
+    b = t(rng.uniform(0.0, 0.5, (1, n_pad)).astype(np.float32))
+    tp = torch.full((L_pad,), 0.3, dtype=torch.float32, device=device)
+    kw = dict(num_groups=L_pad, group_size=g, tau=tp, gamma=0.5, tile_l=TILE_L, tile_n=TILE_N)
+    skw = dict(num_groups=L_pad, group_size=g, tile_l=TILE_L, tile_n=TILE_N)
+    flags = torch.ones((1, 1, 1), dtype=torch.int32, device=device)
+    sched, nact = kg.build_batch_tile_schedule(flags)
+    mask = torch.ones(L_pad * g, dtype=torch.int8, device=device)
+    C = kg.factorized_cost_tile(*f32)
+    sargs = screen_args(kernel_inputs(rng, C, L_pad, 0.3, 1.0, device))
+    calls = {K1: lambda: ks.screen_batched(*sargs, tau=tp, tile_l=TILE_L, tile_n=TILE_N,
+                                           emit_verdict=False),
+             K6: lambda: kg.gradpsi_fact_compact_batched(a, b, *f32, sched, nact, **kw),
+             K7: lambda: kg.gradpsi_fused_batched(a, b, C, *sargs, **kw)}
+    for tag, lv in (("", f32), (" bf16", bf16)):
+        calls[K4 + tag] = lambda lv=lv: ks.snapshot_norms_fact_batched(a, b, *lv, mask, **skw)
+        calls[K5 + tag] = lambda lv=lv: kg.gradpsi_fact_batched(a, b, *lv, flags, **kw)
+        calls[K8 + tag] = lambda lv=lv: kg.gradpsi_fused_fact_batched(a, b, *lv, *sargs, **kw)
+    return calls
 
 
 def compare(other: str, pairs: int) -> None:
@@ -3557,7 +3749,8 @@ def compare(other: str, pairs: int) -> None:
     span = lambda v: f"{statistics.median(v):.4f} [{min(v):.4f}, {max(v):.4f}]"
     print(f"{pairs} runs of each tree: median [min, max]; ratio = this / other per pair "
           f"(the k-th run of each)", flush=True)
-    for section in ("final_ms", "final_host_us", "device_us", "live_ms", "profile"):
+    for section in ("final_ms", "final_host_us", "device_us", "final_device_us", "live_ms",
+                    "live_device_us", "lm_ms", "lm_device_us", "profile"):
         for k in a[0][section]:
             va, vb = [r[section][k] for r in a], [r[section][k] for r in b]
             ratio = [x / y for x, y in zip(va, vb) if y]
@@ -3637,7 +3830,8 @@ def main() -> None:
     path, secs, log = _build.build(verbose=True)
     print(f"build: {path.name} in {secs:.1f} s", flush=True)
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "registers" in line or "spill" in line or line.startswith("==") \
+                or "Compiling entry" in line:
             print(f"  {line.strip()}", flush=True)
     if args.mesh_only:
         check(os.path.exists(os.path.join(MESH_DIR, "dense_duals.pt")),
@@ -3673,6 +3867,7 @@ def main() -> None:
     # 3. kernels vs plain versions
     lap("phase 3")
     phase_kernels(ops, reg, device)
+    phase_fused_stress(ops, reg, device)
     phase_kernels_wide_d(device)
     reduce_rows = phase_row_sum(device)
     phase_tile_widths(device)

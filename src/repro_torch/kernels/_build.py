@@ -65,11 +65,11 @@ SIGNATURES = {
     "screen_launch": [_P] * 12 + [_I] * 5 + [_P],
     "gradpsi_grid_launch": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     "gradpsi_compact_launch": [_P, _I] + [_P] * 11 + [_I] * 7 + [_F, _F, _P],
-    "gradpsi_fact_grid_launch": [_P] * 14 + [_I] * 9 + [_F, _F, _P],
-    "gradpsi_fact_compact_launch": [_P, _I] + [_P] * 14 + [_I] * 9 + [_F, _F, _P],
-    "gradpsi_fused_launch": [_P] * 20 + [_I] * 7 + [_F, _F, _P],
-    "gradpsi_fused_fact_launch": [_P] * 23 + [_I] * 9 + [_F, _F, _P],
-    "snapshot_fact_launch": [_P] * 10 + [_I] * 10 + [_P],
+    "gradpsi_fact_grid_launch": [_P] * 14 + [_I] * 10 + [_F, _F, _P],
+    "gradpsi_fact_compact_launch": [_P, _I] + [_P] * 14 + [_I] * 10 + [_F, _F, _P],
+    "gradpsi_fused_launch": [_P] * 21 + [_I] * 7 + [_F, _F, _P],
+    "gradpsi_fused_fact_launch": [_P] * 24 + [_I] * 10 + [_F, _F, _P],
+    "snapshot_fact_launch": [_P] * 10 + [_I] * 11 + [_P],
     "snapshot_dense_launch": [_P] * 7 + [_I] * 8 + [_P],
     "row_sum_launch": [_P, _P, _I, _I, _I, _P],
     "row_dot_launch": [_P, _P, _P, _I, _I, _I, _P],

@@ -60,6 +60,18 @@ static __device__ __forceinline__ int verdict(float z, float k, float o, int8_t 
   return v;
 }
 
+// Whether verdict(z, k, o, act, dap, daf, dan, db, sg, tau) != ZERO: that
+// depends on the upper bound zbar and the active mask alone (the lower
+// bound zlow only tells CHECK from ACTIVE), so a tile's flag needs neither
+// k~, o~ nor daf, dan.  zbar and its test are verdict's, op for op, so the
+// flags are K1's bit for bit (a NaN zbar is live in both).
+static __device__ __forceinline__ bool live(float z, int8_t act, float dap, float db, float sg,
+                                            float tau) {
+  const float dbp = db < 0.0f ? 0.0f : db;
+  const float zbar = __fadd_rn(__fadd_rn(z, dap), __fmul_rn(sg, dbp));
+  return act != 0 || !(zbar <= tau);
+}
+
 // Sum of `v` over the 32 lanes of a warp, by a fixed xor butterfly: the
 // same inputs always give the same bits, in every lane.
 static __device__ __forceinline__ float warp_sum(float v) {

@@ -21,14 +21,13 @@
 // bf16 and computed on in f32.  Same body, same slots, so K5 equals K2 and
 // K6 equals K3 bit for bit on the cost materialized with the same recipe.
 //
-// K7/K8, the fused oracle: each CTA first computes its tile's screening
-// verdicts in registers (rt::verdict, the screening kernel's op order with
-// every step rounded on its own, so the flags equal K1's bit for bit
-// although this file is built without -fmad=false), ORs them across the
-// CTA, and writes the tile's flag.  On a flag-0 tile the CTA goes on to its
-// next tile; on a live one it runs the grid kernel's body unchanged.  So
-// one launch replaces K1 + K2 (or K1 + K5) per evaluation, and its sums
-// equal theirs bit for bit.
+// K7/K8, the fused oracle: one launch computes K1's tile flags and K2's
+// (or K5's) sums on them.  A warp screens one tile at a time (rt::live, the
+// screening kernel's upper bound and active mask with every step rounded on
+// its own, so the flags equal K1's bit for bit although this file is built
+// without -fmad=false); a tile with a live entry runs the grid kernel's
+// body unchanged, by the CTA that screened it.  So one launch replaces K1 +
+// K2 (or K1 + K5) per evaluation, and its sums equal theirs bit for bit.
 //
 // What bounds them.  K2/K3: bytes.  A live tile reads its (tile_l * g,
 // tile_n) f32 block of the padded cost once (half of it in bf16) and does
@@ -37,21 +36,34 @@
 // live tiles.  K5/K6: operations.  A live tile reads only (tile_l * g +
 // tile_n) * (d + 1) values but does about 2d + 13 flops per entry (the
 // rebuilt cost, then the body), about 0.07 ms at 67 TFLOP/s for every tile
-// live at d = 2.  K7/K8: K1's 13 bytes per (l, j) entry of the screening
-// operands (213 MB, 0.064 ms), plus K2's or K5's work on the live tiles.
-// At the sparse end of a solve every kernel is far under its launch cost,
-// so there the number that counts is launches per call: two (the kernel
-// and the slot reduction), nothing filled.
+// live at d = 2; at d = 576 (the trainer's OT problem, one tile) the
+// rebuilt cost is 2 d flops an entry that one CTA must do, about 20 us on
+// one SM.  K7/K8: bytes at the sparse end.  A tile's flag depends on z~
+// and the active mask only (rt::live), 5 bytes per (l, j) entry (82 MB at
+// L_pad = 1280, n_pad = 12800, 0.025 ms; K1 reads 13, k~ and o~ too, for
+// its verdicts), plus K2's or K5's work on the live tiles.  At the sparse
+// end of a solve every kernel is far under its launch cost, so there the
+// number that counts is launches per call: two (the kernel and the slot
+// reduction), nothing filled.
 //
 // Design:
 //  * One CTA at a time per tile, one thread per column, any tile_n in [1,
 //    1024]: the CTA takes tile_n rounded up to whole warps, and the lanes
 //    past the last column load nothing of their own and add exact zeros to
-//    the warp sums.  The grid is persistent (CTA c walks tiles c, c + P,
-//    ...): a tile whose flag is 0 (grid, fused) or a schedule slot past
-//    `num_active` (compact) costs a flag read (32 at once in the grid
-//    kernel), not a CTA, touches neither cost nor samples, and writes
-//    nothing.
+//    the warp sums.  The grid is persistent (CTA c of the grid kernel walks
+//    tiles c, c + P, ...; the fused kernel's CTAs take batches): a tile
+//    whose flag is 0 (grid, fused) or a schedule slot past `num_active`
+//    (compact) costs a flag read (32 at once in the grid kernel) or a
+//    warp's screening, not a CTA, touches neither cost nor samples, and
+//    writes nothing but the fused kernel's flag.
+//  * The fused kernels' screening: a warp per tile, 16-byte loads of four
+//    columns of z~ and one 4-byte load of their four act bytes a lane
+//    (tile_n a multiple of 4; one column a lane otherwise), eight entries'
+//    loads in flight, the tile's flag a warp vote.  Batches of one tile
+//    per warp go out by an atomic counter, so a CTA that runs a live tile's
+//    body takes fewer batches and the rest keep the pass at their pace;
+//    the counter and the CTAs' exit count live in a per-stream pair the
+//    last CTA out returns to 0.  No CTA waits on another.
 //  * Per tile, once: the loader stages one record per row of the tile in
 //    shared memory (alpha, and for FactRegTile x_sq and the row of x), the
 //    tile's groups their tau_l and tau_l / gamma, and the thread's column
@@ -61,9 +73,11 @@
 //    than GC rows takes its rows GC at a time and computes each chunk
 //    twice, once for Z and once for T: the same ops on the same operands,
 //    so the same bits.  FactRegTile (cost.cuh, shared with K4) holds the
-//    records; FactChunkTile, for d above FACT_REG_D, is cost.cuh's chunked
-//    shared-memory loader, which stages each group's x and y through
-//    shared memory with two barriers per chunk of feature columns.
+//    records; FactChunkTile, for d above FACT_REG_D, is cost.cuh's FactCost,
+//    which sums every inner product of the tile (or of a block of its
+//    groups) chunk by chunk of feature columns while staging, each chunk of
+//    x and y copied once with the next one's copy in flight; its CTAs take
+//    at least 8 warps (MinThreads), so the sums run two warps a scheduler.
 //  * Row sums by a reduce-scatter: at each xor step a lane sends the half
 //    of its rows its partner keeps and adds the partner's copy of the half
 //    it keeps, so 16 rows cost 8 + 4 + 2 + 1 + 1 = 16 shuffles (the xor
@@ -110,6 +124,7 @@
 
 #include <algorithm>
 #include <mutex>
+#include <type_traits>
 
 #include "common.cuh"
 #include "cost.cuh"
@@ -161,32 +176,31 @@ struct DenseTile {
   }
 };
 
-// The factorized cost for wider d: cost.cuh's chunked loader, which stages
-// each group's x and the tile's y through shared memory `dc` feature
-// columns at a time and accumulates the inner products in `acc` (g,
-// tile_n).  A record is the row's alpha.
+// The factorized cost for wider d: cost.cuh's FactCost, which sums the
+// inner products of the tile's rows (a block of gb groups at a time) chunk
+// by chunk of feature columns in `stage`, before the body walks the
+// groups.  A record is the row's alpha.
 template <class T>
 struct FactChunkTile {
   static constexpr int STRIDE = 1;
   rt::FactCost<T> c;
 
   __device__ __forceinline__ void setup(float* extra) {
-    c.setup(extra, extra + (size_t)c.g * c.tile_n);
+    // the loader's cp.async buffers want 16-byte alignment (smem_bytes leaves room)
+    c.setup(reinterpret_cast<float*>((reinterpret_cast<size_t>(extra) + 15) & ~size_t(15)));
   }
   __device__ __forceinline__ void begin(int b, int jt, int j, bool col) {
     c.begin(b, jt, j, col);
   }
-  __device__ __forceinline__ void stage(float* rec, const float* alpha_rows, size_t, int rows) {
+  __device__ __forceinline__ void stage(float* rec, const float* alpha_rows, size_t row_base,
+                                        int rows) {
     for (int q = threadIdx.x; q < rows; q += blockDim.x) rec[q] = alpha_rows[q];
+    c.stage_rows(row_base, rows);
   }
   __device__ __forceinline__ void load_group(size_t row0, bool col) { c.load_group(row0, col); }
-  // FactCost::at with the column clamped into the tile, so lanes past it
-  // read in bounds (their values are dropped)
-  __device__ __forceinline__ float at(const float* rec, size_t, int i, float& a) const {
+  __device__ __forceinline__ float at(const float* rec, size_t row, int, float& a) const {
     a = rec[0];
-    const int t = min((int)threadIdx.x, c.tile_n - 1);
-    return rt::pos_part(
-        __fsub_rn(__fadd_rn(c.xsq[i], c.ysq_j), __fmul_rn(2.0f, c.acc[i * c.tile_n + t])));
+    return c.at(row, 0);
   }
 };
 
@@ -350,13 +364,21 @@ __device__ __forceinline__ void tile_coords(const TileArgs& A, int t, int& b, in
   b = t / (A.Nt * A.Lt);
 }
 
+// Each kernel comes in two builds: for CTAs of at most NARROW_THREADS (any
+// register count launches there: 256 x 255 fit an SM's 65 536), and a
+// `_wide` one held to 1024 threads a CTA, so to 64 registers a thread, for
+// wider tiles: a kernel of more registers (K2's grid kernel takes 80) would
+// not launch there.
+constexpr int NARROW_THREADS = 256;
+#define WIDE_BOUNDS __launch_bounds__(1024)
+
 // The kernels run a persistent grid: CTA c takes tiles c, c + P, c + 2P, ...
 // (P = gridDim.x, at most 32 CTAs per SM), so a dead tile costs a flag
 // read, not a CTA.  The grid kernel's first warp reads the flags of 32 of
 // its tiles at once into a bit mask.
 template <class Tile>
-__global__ void gradpsi_grid_kernel(const int32_t* __restrict__ flags, int T, TileArgs A,
-                                    Tile cost) {
+__device__ __forceinline__ void grid_body(const int32_t* __restrict__ flags, int T,
+                                          const TileArgs& A, const Tile& cost) {
   __shared__ unsigned live_mask;
   if (blockIdx.x == 0 && threadIdx.x == 0) *A.counter = 0u;   // for the slot reduction
   const int P = gridDim.x;
@@ -379,11 +401,22 @@ __global__ void gradpsi_grid_kernel(const int32_t* __restrict__ flags, int T, Ti
   }
 }
 
+template <class Tile>
+__global__ void gradpsi_grid_kernel(const int32_t* __restrict__ flags, int T, TileArgs A,
+                                    Tile cost) {
+  grid_body(flags, T, A, cost);
+}
+template <class Tile>
+__global__ void WIDE_BOUNDS gradpsi_grid_kernel_wide(const int32_t* __restrict__ flags, int T,
+                                                     TileArgs A, Tile cost) {
+  grid_body(flags, T, A, cost);
+}
+
 // sched: (3, BT) rows (b, l, j), or with sched_rows = 2 a solo (2, BT) (l, j).
 template <class Tile>
-__global__ void gradpsi_compact_kernel(const int32_t* __restrict__ sched, int sched_rows,
-                                       const int32_t* __restrict__ num_active, int BT,
-                                       TileArgs A, Tile cost) {
+__device__ __forceinline__ void compact_body(const int32_t* __restrict__ sched, int sched_rows,
+                                             const int32_t* __restrict__ num_active, int BT,
+                                             const TileArgs& A, const Tile& cost) {
   if (blockIdx.x == 0 && threadIdx.x == 0) *A.counter = 0u;   // for the slot reduction
   const int n = *num_active;
   const int32_t* lj = sched_rows == 3 ? sched + BT : sched;
@@ -393,43 +426,193 @@ __global__ void gradpsi_compact_kernel(const int32_t* __restrict__ sched, int sc
     if (threadIdx.x == 0) A.mark[((size_t)b * A.Lt + lt) * A.Nt + jt] = s;
   }
 }
+template <class Tile>
+__global__ void gradpsi_compact_kernel(const int32_t* __restrict__ sched, int sched_rows,
+                                       const int32_t* __restrict__ num_active, int BT,
+                                       TileArgs A, Tile cost) {
+  compact_body(sched, sched_rows, num_active, BT, A, cost);
+}
+template <class Tile>
+__global__ void WIDE_BOUNDS gradpsi_compact_kernel_wide(const int32_t* __restrict__ sched,
+                                                        int sched_rows,
+                                                        const int32_t* __restrict__ num_active,
+                                                        int BT, TileArgs A, Tile cost) {
+  compact_body(sched, sched_rows, num_active, BT, A, cost);
+}
 
-// The screening operands of the fused kernels, laid out as screen_launch's.
+// The screening operands of the fused kernels that a tile's flag depends
+// on, laid out as screen_launch's (rt::live: k~, o~ and the other deltas
+// only tell CHECK from ACTIVE).  The fused launch checks that a tile's
+// entries are 32-bit offsets apart.
 struct ScreenArgs {
   const float* z;       // (B, L_pad, n_pad)
-  const float* k;
-  const float* o;
   const int8_t* act;    // (B, L_pad, n_pad)
   const float* dap;     // (B, L_pad)
-  const float* daf;
-  const float* dan;
   const float* db;      // (B, n_pad)
   const float* sg;      // (B, L_pad)
   int32_t* flags;       // (B, Lt, Nt) out
 };
 
-template <class Tile>
-__global__ void gradpsi_fused_kernel(ScreenArgs S, int T, TileArgs A, Tile cost) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) *A.counter = 0u;   // for the slot reduction
-  const bool col = threadIdx.x < A.tile_n;   // lanes past the last column vote 0
-  for (int t = blockIdx.x; t < T; t += gridDim.x) {
-    int b, lt, jt;
-    tile_coords(A, t, b, lt, jt);
-    const int j = jt * A.tile_n + threadIdx.x;
-    const float dbj = col ? S.db[(size_t)b * A.n_pad + j] : 0.0f;
-    int any = 0;
-    for (int r = 0; col && r < A.tile_l; ++r) {
-      const int l = lt * A.tile_l + r;
-      const size_t row = (size_t)b * A.L_pad + l;
-      const size_t e = row * A.n_pad + j;
-      const int v = rt::verdict(S.z[e], S.k[e], S.o[e], S.act[e], S.dap[row], S.daf[row],
-                                S.dan[row], dbj, S.sg[row], A.tau[l]);
-      any |= (v != rt::ZERO);
-    }
-    any = __syncthreads_or(any);
-    if (threadIdx.x == 0) S.flags[t] = any ? 1 : 0;
-    if (any) gradpsi_tile(A, cost, b, lt, jt);
+constexpr unsigned FULL = 0xffffffffu;
+
+// Where a lane's entries of a tile lie: entry q = lane + 32 k is row q / ncg,
+// column group q % ncg (ncg = tile_n / V), walked without a division: each
+// step of 32 adds dr rows and dc groups, carrying a row when the group
+// passes ncg.  The same for every tile of a launch.
+struct LaneMap {
+  int r, c, dr, dc, ncg;
+};
+
+template <int V>
+__device__ __forceinline__ LaneMap lane_map(const TileArgs& A, int lane) {
+  const int ncg = A.tile_n / V;
+  return LaneMap{lane / ncg, lane % ncg, 32 / ncg, 32 % ncg, ncg};
+}
+
+__device__ __forceinline__ void lane_step(const LaneMap& M, int& r, int& c) {
+  c += M.dc;
+  r += M.dr;
+  if (c >= M.ncg) {
+    c -= M.ncg;
+    ++r;
   }
+}
+
+// The flag of tile (b, lt, jt), by one warp: whether any of its entries'
+// verdicts is not ZERO (rt::live, K1's bits).  Each lane takes its entries
+// (LaneMap) of the tile's tile_l rows of tile_n / V column groups; with V =
+// 4 each is one 16-byte load of z~ and one 4-byte load of the four act
+// bytes, U of them in flight (V = 4: 4, 80 bytes a lane; V = 1: 8), read
+// once (evict-first).  Offsets from the tile's first entry are 32-bit, so
+// the pass holds few registers beside the body's (occupancy).
+template <int V>
+__device__ __forceinline__ int screen_tile(const ScreenArgs& S, const TileArgs& A, int b, int lt,
+                                           int jt, const LaneMap& M) {
+  using ZV = typename std::conditional<V == 4, float4, float>::type;
+  using AV = typename std::conditional<V == 4, int, int8_t>::type;
+  constexpr int U = V == 4 ? 4 : 8;
+  const size_t row0 = (size_t)b * A.L_pad + (size_t)lt * A.tile_l;
+  const int col0 = jt * A.tile_n;
+  const size_t e0 = row0 * A.n_pad + col0;
+  const float* zt = S.z + e0;
+  const int8_t* ac = S.act + e0;
+  const float* dbb = S.db + (size_t)b * A.n_pad + col0;
+  const float* tau = A.tau + lt * A.tile_l;
+  int any = 0;
+  for (int r0 = M.r, c0 = M.c; r0 < A.tile_l;) {
+    ZV zv[U];
+    AV av[U];
+    int r = r0, c = c0;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (r < A.tile_l) {
+        const unsigned off = (unsigned)r * A.n_pad + c * V;
+        zv[u] = __ldcs(reinterpret_cast<const ZV*>(zt + off));
+        av[u] = __ldcs(reinterpret_cast<const AV*>(ac + off));
+      }
+      lane_step(M, r, c);
+    }
+    r = r0;
+    c = c0;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (r < A.tile_l) {
+        const float dap = S.dap[row0 + r], sg = S.sg[row0 + r], t = tau[r];
+        if constexpr (V == 4) {
+          const float4 db = *reinterpret_cast<const float4*>(dbb + c * 4);
+          const float zs[4] = {zv[u].x, zv[u].y, zv[u].z, zv[u].w};
+          const float dbs[4] = {db.x, db.y, db.z, db.w};
+#pragma unroll
+          for (int v = 0; v < 4; ++v)
+            any |= rt::live(zs[v], static_cast<int8_t>((av[u] >> (8 * v)) & 0xff), dap, dbs[v],
+                            sg, t);
+        } else {
+          any |= rt::live(zv[u], av[u], dap, dbb[c], sg, t);
+        }
+      }
+      lane_step(M, r, c);
+    }
+    r0 = r;
+    c0 = c;
+  }
+  return __any_sync(FULL, any);
+}
+
+// K7/K8.  Work is handed out in batches of one tile per warp, by an
+// atomicAdd on work[0] (the next batch), so a CTA busy with a live tile
+// takes fewer batches and the screening pass runs on at the others' pace;
+// a batch's warps screen tiles nbatch apart (tile w * nbatch + k of batch
+// k), so a run of live neighbours spreads over many CTAs.  Each CTA
+// asks for its next batch before it screens this one.  The CTA runs the
+// grid kernel's body on each live tile of its batch.  Each tile writes only
+// its own flag and slots, so which CTA took it and in what order moves no
+// bit.  Nothing waits on another CTA.  The last CTA to leave (work[1])
+// returns both counters to 0 for the next launch on this stream.
+template <class Tile, int V>
+__device__ __forceinline__ void fused_body(const ScreenArgs& S, int T, const TileArgs& A,
+                                           const Tile& cost, unsigned* __restrict__ work) {
+  __shared__ int next_batch;
+  __shared__ int live[32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  const int nbatch = (T + nw - 1) / nw;
+  const LaneMap M = lane_map<V>(A, lane);
+  if (blockIdx.x == 0 && tid == 0) *A.counter = 0u;   // for the slot reduction
+  if (tid == 0) next_batch = static_cast<int>(atomicAdd(&work[0], 1u));
+  __syncthreads();
+  int batch = next_batch;
+  while (batch < nbatch) {
+    const unsigned claim = tid == 0 ? atomicAdd(&work[0], 1u) : 0u;   // in flight meanwhile
+    const int t = warp * nbatch + batch;
+    int flag = 0;
+    if (t < T) {
+      int b, lt, jt;
+      tile_coords(A, t, b, lt, jt);
+      flag = screen_tile<V>(S, A, b, lt, jt, M);
+      if (lane == 0) S.flags[t] = flag;
+    }
+    if (lane == 0) live[warp] = flag;
+    if (tid == 0) next_batch = static_cast<int>(claim);
+    __syncthreads();
+    for (int w = 0; w < nw; ++w) {
+      if (live[w]) {
+        int b, lt, jt;
+        tile_coords(A, w * nbatch + batch, b, lt, jt);
+        gradpsi_tile(A, cost, b, lt, jt);
+      }
+    }
+    batch = next_batch;
+    __syncthreads();                                 // live / next_batch are free to refill
+  }
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(&work[1], 1u) == gridDim.x - 1) {
+      work[0] = 0u;
+      work[1] = 0u;
+    }
+  }
+}
+// The narrow fused build asks for 3 CTAs of 256 threads an SM (6 of the
+// main path's 128), so at most 80 registers a thread: the screening's
+// registers beside the body's then cost the body no occupancy.  The chunked
+// loader's build keeps its registers (one CTA a tile at the trainer's shape).
+template <class Tile>
+struct FusedMinCtas {
+  static constexpr int value = 3;
+};
+template <class T>
+struct FusedMinCtas<FactChunkTile<T>> {
+  static constexpr int value = 1;
+};
+
+template <class Tile, int V>
+__global__ void __launch_bounds__(NARROW_THREADS, FusedMinCtas<Tile>::value)
+    gradpsi_fused_kernel(ScreenArgs S, int T, TileArgs A, Tile cost, unsigned* work) {
+  fused_body<Tile, V>(S, T, A, cost, work);
+}
+template <class Tile, int V>
+__global__ void WIDE_BOUNDS gradpsi_fused_kernel_wide(ScreenArgs S, int T, TileArgs A, Tile cost,
+                                                      unsigned* work) {
+  fused_body<Tile, V>(S, T, A, cost, work);
 }
 
 // -- the slot reduction -------------------------------------------------------
@@ -437,7 +620,6 @@ __global__ void gradpsi_fused_kernel(ScreenArgs S, int T, TileArgs A, Tile cost)
 constexpr int REDUCE_THREADS = 128;
 constexpr int REDUCE_BATCH = 16;   // slots whose loads a thread issues together
 constexpr int GATHER = 16;         // live slots whose loads a lane issues together
-constexpr unsigned FULL = 0xffffffffu;
 
 struct ReduceArgs {
   const int32_t* flags;   // (B, Lt, Nt), or null after the compact kernel:
@@ -610,15 +792,32 @@ __global__ void slot_reduce_kernel(ReduceArgs R) {
 
 // -- launch helpers -------------------------------------------------------------
 
-// Threads of a CTA: tile_n rounded up to whole warps.
-int cta_threads(int tile_n) { return (tile_n + 31) / 32 * 32; }
+// Threads of a CTA on loader `Tile`: tile_n rounded up to whole warps, and
+// at least 8 warps on the chunked loader, whose sums of a tile's inner
+// products then run two warps a scheduler (the body's lanes past the last
+// column add exact zeros after the real ones: the same bits).
+template <class Tile>
+struct MinThreads {
+  static constexpr int value = 32;
+};
+template <class T>
+struct MinThreads<FactChunkTile<T>> {
+  static constexpr int value = 256;
+};
+
+template <class Tile>
+int cta_threads(int tile_n) {
+  return std::max((tile_n + 31) / 32 * 32, MinThreads<Tile>::value);
+}
 
 // Shared memory of a gradient CTA: the row records, the warp partials of
-// the row sums and of psi, the groups' tau_l and tau_l / gamma, and the
-// loader's own floats.
-size_t smem_bytes(int tile_l, int g, int tile_n, int stride, size_t extra_floats) {
-  const size_t rows = (size_t)tile_l * g, nwarps = cta_threads(tile_n) / 32;
-  return sizeof(float) * (rows * stride + rows * nwarps + nwarps + 2 * tile_l + extra_floats);
+// the row sums and of psi, the groups' tau_l and tau_l / gamma, then the
+// loader's own bytes from a 16-byte boundary (mirrored by
+// kernels/gradpsi.py:cta_smem_bytes and fact_smem_bytes).
+size_t smem_bytes(int tile_l, int g, int threads, int stride, size_t loader_bytes) {
+  const size_t rows = (size_t)tile_l * g, nwarps = threads / 32;
+  const size_t body = sizeof(float) * (rows * stride + rows * nwarps + nwarps + 2 * tile_l);
+  return loader_bytes == 0 ? body : (body + 15) / 16 * 16 + loader_bytes;
 }
 
 // The slots of a call: ga_part, gb_part, psi_part as in TileArgs, then the
@@ -648,17 +847,12 @@ TileArgs make_args(const void* alpha, const void* beta, const void* tau, void* g
   return A;
 }
 
-ScreenArgs make_screen_args(const void* z, const void* k, const void* o, const void* act,
-                            const void* dap, const void* daf, const void* dan, const void* db,
+ScreenArgs make_screen_args(const void* z, const void* act, const void* dap, const void* db,
                             const void* sg, void* flags) {
   ScreenArgs S;
   S.z = static_cast<const float*>(z);
-  S.k = static_cast<const float*>(k);
-  S.o = static_cast<const float*>(o);
   S.act = static_cast<const int8_t*>(act);
   S.dap = static_cast<const float*>(dap);
-  S.daf = static_cast<const float*>(daf);
-  S.dan = static_cast<const float*>(dan);
   S.db = static_cast<const float*>(db);
   S.sg = static_cast<const float*>(sg);
   S.flags = static_cast<int32_t*>(flags);
@@ -678,23 +872,26 @@ template <class T, class F>
 int with_dense(const void* C, int L_pad, int g, int n_pad, int tile_l, int tile_n, F&& fn) {
   DenseTile<T> t;
   t.c = rt::make_dense_cost<T>(C, L_pad, g, n_pad);
-  return fn(t, smem_bytes(tile_l, g, tile_n, t.STRIDE, 0));
+  return fn(t, smem_bytes(tile_l, g, cta_threads<decltype(t)>(tile_n), t.STRIDE, 0));
 }
 
 // The factorized cost's loader: FactRegTile for dc == 0 (d <= FACT_REG_D,
-// the paper's case), else FactChunkTile staging dc feature columns at a time.
+// the paper's case), else FactChunkTile staging dc feature columns at a
+// time for blocks of gb groups.
 template <class T, class F>
 int with_fact(const void* x, const void* x_sq, const void* y, const void* y_sq, int L_pad,
-              int g, int n_pad, int d, int dc, int tile_l, int tile_n, F&& fn) {
+              int g, int n_pad, int d, int dc, int gb, int tile_l, int tile_n, F&& fn) {
   if (dc == 0) {
     if (d < 1 || d > FACT_REG_D) return static_cast<int>(cudaErrorInvalidValue);
     FactRegTile<T> t = rt::make_fact_reg<T>(x, x_sq, y, y_sq, L_pad, g, n_pad, d);
-    return fn(t, smem_bytes(tile_l, g, tile_n, t.STRIDE, 0));
+    return fn(t, smem_bytes(tile_l, g, cta_threads<decltype(t)>(tile_n), t.STRIDE, 0));
   }
+  if (dc > d || gb < 1 || gb > tile_l || dc > rt::FactCost<T>::DC_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   FactChunkTile<T> t;
-  t.c = rt::make_fact_cost<T>(x, x_sq, y, y_sq, L_pad, g, n_pad, d, dc, tile_n);
-  return fn(t, smem_bytes(tile_l, g, tile_n, t.STRIDE,
-                          (size_t)g * tile_n + rt::fact_extra_floats(g, dc, tile_n)));
+  t.c = rt::make_fact_cost<T>(x, x_sq, y, y_sq, L_pad, g, n_pad, d, dc, gb, tile_n);
+  return fn(t, smem_bytes(tile_l, g, cta_threads<decltype(t)>(tile_n), t.STRIDE,
+                          rt::fact_loader_bytes(g, gb, dc, tile_n, sizeof(T))));
 }
 
 // SMs of the current device.
@@ -706,16 +903,17 @@ int sm_count() {
   return sms;
 }
 
-// CTAs of a persistent grid or fused launch over `work` tiles: 32 per SM
-// (the most one SM takes), so the CTAs still queue for SMs and a tile mix
-// of live and dead spreads over them as they free up.
+// CTAs of a persistent grid launch over `work` tiles: 32 per SM (the most
+// one SM takes), so the CTAs still queue for SMs and a tile mix of live and
+// dead spreads over them as they free up.
 int persistent_ctas(int work) {
   const int sms = sm_count();
   return sms > 0 ? std::min(work, 32 * sms) : work;
 }
 
-// CTAs of a compact launch: one wave, as many as the SMs hold at once
-// (every scheduled tile is live, so the slots spread evenly).  The
+// CTAs of a compact or fused launch: one wave, as many as the SMs hold at
+// once (every scheduled tile is live, so the slots spread evenly; the fused
+// kernel hands out its batches itself).  The
 // occupancy query is remembered per (kernel, threads, shared memory,
 // device): a call at the sparse end of a solve costs mostly host time.
 template <typename Kernel>
@@ -752,11 +950,13 @@ int one_wave_ctas(Kernel kernel, int threads, size_t smem, int work) {
 template <class Tile>
 int launch_grid(const void* flags, const TileArgs& A, const Tile& cost, int B, size_t smem,
                 void* stream) {
-  const int err = allow_smem(gradpsi_grid_kernel<Tile>, smem);
+  const int threads = cta_threads<Tile>(A.tile_n);
+  const auto kernel = threads > NARROW_THREADS ? gradpsi_grid_kernel_wide<Tile>
+                                               : gradpsi_grid_kernel<Tile>;
+  const int err = allow_smem(kernel, smem);
   if (err != 0) return err;
   const int T = B * A.Lt * A.Nt;
-  gradpsi_grid_kernel<Tile><<<persistent_ctas(T), cta_threads(A.tile_n), smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<persistent_ctas(T), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(flags), T, A, cost);
   return static_cast<int>(cudaGetLastError());
 }
@@ -766,26 +966,44 @@ int launch_compact(const void* sched, int sched_rows, const void* num_active,
                    const TileArgs& A, const Tile& cost, int B, size_t smem, void* stream) {
   if (sched_rows != 3 && !(sched_rows == 2 && B == 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int err = allow_smem(gradpsi_compact_kernel<Tile>, smem);
+  const int threads = cta_threads<Tile>(A.tile_n);
+  const auto kernel = threads > NARROW_THREADS ? gradpsi_compact_kernel_wide<Tile>
+                                               : gradpsi_compact_kernel<Tile>;
+  const int err = allow_smem(kernel, smem);
   if (err != 0) return err;
   const int BT = B * A.Lt * A.Nt;
-  const int threads = cta_threads(A.tile_n);
-  gradpsi_compact_kernel<Tile><<<one_wave_ctas(gradpsi_compact_kernel<Tile>, threads, smem, BT),
-                                 threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<one_wave_ctas(kernel, threads, smem, BT), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(sched), sched_rows, static_cast<const int32_t*>(num_active),
       BT, A, cost);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Tile>
-int launch_fused(const ScreenArgs& S, const TileArgs& A, const Tile& cost, int B, size_t smem,
-                 void* stream) {
-  const int err = allow_smem(gradpsi_fused_kernel<Tile>, smem);
+template <int V, class Tile>
+int launch_fused_v(const ScreenArgs& S, const TileArgs& A, const Tile& cost, int B, size_t smem,
+                   unsigned* work, void* stream) {
+  const int threads = cta_threads<Tile>(A.tile_n);
+  const auto kernel = threads > NARROW_THREADS ? gradpsi_fused_kernel_wide<Tile, V>
+                                               : gradpsi_fused_kernel<Tile, V>;
+  const int err = allow_smem(kernel, smem);
   if (err != 0) return err;
   const int T = B * A.Lt * A.Nt;
-  gradpsi_fused_kernel<Tile><<<persistent_ctas(T), cta_threads(A.tile_n), smem,
-                               static_cast<cudaStream_t>(stream)>>>(S, T, A, cost);
+  const int nbatch = (T + threads / 32 - 1) / (threads / 32);
+  kernel<<<one_wave_ctas(kernel, threads, smem, nbatch), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(S, T, A, cost, work);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fused kernel with 16-byte screening loads (V = 4) where the tile's
+// columns come in fours and the operands are aligned for them, else V = 1.
+template <class Tile>
+int launch_fused(const ScreenArgs& S, const TileArgs& A, const Tile& cost, int B, size_t smem,
+                 unsigned* work, void* stream) {
+  if ((size_t)A.tile_l * A.n_pad >= (size_t)1 << 32) return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* p, size_t n) { return reinterpret_cast<size_t>(p) % n == 0; };
+  if (A.tile_n % 4 == 0 && aligned(S.z, 16) && aligned(S.act, 4) && aligned(S.db, 16))
+    return launch_fused_v<4>(S, A, cost, B, smem, work, stream);
+  return launch_fused_v<1>(S, A, cost, B, smem, work, stream);
 }
 
 // The slot reduction after a gradient kernel: flags (B, Lt, Nt), or null
@@ -885,21 +1103,22 @@ extern "C" int gradpsi_compact_launch(const void* sched, int sched_rows, const v
 // Grid kernel on the factorized cost (K5).  x: (B, L_pad*g, d), x_sq: (B,
 // L_pad*g), y: (B, n_pad, d), y_sq: (B, n_pad), all four stored as
 // `cost_dtype`; dc: 0 to keep the row of y in registers (1 <= d <=
-// FACT_REG_D), else the feature columns staged per chunk (1 <= dc <= d).
+// FACT_REG_D), else the feature columns staged per chunk (1 <= dc <= min(d,
+// 32)) for blocks of gb groups (1 <= gb <= tile_l; kernels/gradpsi.py:fact_chunks).
 // Otherwise as gradpsi_grid_launch.
 extern "C" int gradpsi_fact_grid_launch(const void* flags, const void* alpha,
                                         const void* beta, const void* x, const void* x_sq,
                                         const void* y, const void* y_sq, const void* tau,
                                         void* ga_part, void* gb_part, void* psi_part,
                                         void* rowsum, void* colsum, void* psi, int B,
-                                        int L_pad, int g, int n_pad, int d, int dc,
+                                        int L_pad, int g, int n_pad, int d, int dc, int gb,
                                         int tile_l, int tile_n, int cost_dtype, float gamma,
                                         float inv_gamma, void* stream) {
   const TileArgs A = make_args(alpha, beta, tau, ga_part, gb_part, psi_part, B, L_pad, g,
                                n_pad, tile_l, tile_n, gamma, inv_gamma);
   const int err = rt::with_storage(cost_dtype, [&](auto st) {
     using T = typename decltype(st)::type;
-    return with_fact<T>(x, x_sq, y, y_sq, L_pad, g, n_pad, d, dc, tile_l, tile_n,
+    return with_fact<T>(x, x_sq, y, y_sq, L_pad, g, n_pad, d, dc, gb, tile_l, tile_n,
                         [&](const auto& t, size_t smem) {
                           return launch_grid(flags, A, t, B, smem, stream);
                         });
@@ -917,14 +1136,14 @@ extern "C" int gradpsi_fact_compact_launch(const void* sched, int sched_rows,
                                            const void* y_sq, const void* tau, void* ga_part,
                                            void* gb_part, void* psi_part, void* rowsum,
                                            void* colsum, void* psi, int B, int L_pad, int g,
-                                           int n_pad, int d, int dc, int tile_l, int tile_n,
-                                           int cost_dtype, float gamma, float inv_gamma,
-                                           void* stream) {
+                                           int n_pad, int d, int dc, int gb, int tile_l,
+                                           int tile_n, int cost_dtype, float gamma,
+                                           float inv_gamma, void* stream) {
   const TileArgs A = make_args(alpha, beta, tau, ga_part, gb_part, psi_part, B, L_pad, g,
                                n_pad, tile_l, tile_n, gamma, inv_gamma);
   const int err = rt::with_storage(cost_dtype, [&](auto st) {
     using T = typename decltype(st)::type;
-    return with_fact<T>(x, x_sq, y, y_sq, L_pad, g, n_pad, d, dc, tile_l, tile_n,
+    return with_fact<T>(x, x_sq, y, y_sq, L_pad, g, n_pad, d, dc, gb, tile_l, tile_n,
                         [&](const auto& t, size_t smem) {
                           return launch_compact(sched, sched_rows, num_active, A, t, B, smem,
                                                 stream);
@@ -937,24 +1156,26 @@ extern "C" int gradpsi_fact_compact_launch(const void* sched, int sched_rows,
 
 // Fused screen + gradient on the dense cost (K7).  The screening operands
 // as screen_launch's (z, k, o, act: (B, L_pad, n_pad); dap, daf, dan, sg:
-// (B, L_pad); db: (B, n_pad)); flags: (B, Lt, Nt) int32, written by every
-// CTA and read by the reduction; the rest as gradpsi_grid_launch.
+// (B, L_pad); db: (B, n_pad)), of which the flags read z, act, dap, db and
+// sg; flags: (B, Lt, Nt) int32, written by the kernel and read by the
+// reduction; work: two unsigned ints, 0 at the launch and left 0 by it (one
+// pair per stream); the rest as gradpsi_grid_launch.
 extern "C" int gradpsi_fused_launch(const void* alpha, const void* beta, const void* C,
                                     const void* tau, const void* z, const void* k,
                                     const void* o, const void* act, const void* dap,
                                     const void* daf, const void* dan, const void* db,
-                                    const void* sg, void* flags, void* ga_part, void* gb_part,
-                                    void* psi_part, void* rowsum, void* colsum, void* psi,
-                                    int B, int L_pad, int g, int n_pad, int tile_l, int tile_n,
-                                    int cost_dtype, float gamma, float inv_gamma,
+                                    const void* sg, void* flags, void* work, void* ga_part,
+                                    void* gb_part, void* psi_part, void* rowsum, void* colsum,
+                                    void* psi, int B, int L_pad, int g, int n_pad, int tile_l,
+                                    int tile_n, int cost_dtype, float gamma, float inv_gamma,
                                     void* stream) {
   const TileArgs A = make_args(alpha, beta, tau, ga_part, gb_part, psi_part, B, L_pad, g,
                                n_pad, tile_l, tile_n, gamma, inv_gamma);
-  const ScreenArgs S = make_screen_args(z, k, o, act, dap, daf, dan, db, sg, flags);
+  const ScreenArgs S = make_screen_args(z, act, dap, db, sg, flags);
   const int err = rt::with_storage(cost_dtype, [&](auto st) {
     using T = typename decltype(st)::type;
     return with_dense<T>(C, L_pad, g, n_pad, tile_l, tile_n, [&](const auto& t, size_t smem) {
-      return launch_fused(S, A, t, B, smem, stream);
+      return launch_fused(S, A, t, B, smem, static_cast<unsigned*>(work), stream);
     });
   });
   return err != 0 ? err
@@ -968,20 +1189,21 @@ extern "C" int gradpsi_fused_fact_launch(const void* alpha, const void* beta, co
                                          const void* tau, const void* z, const void* k,
                                          const void* o, const void* act, const void* dap,
                                          const void* daf, const void* dan, const void* db,
-                                         const void* sg, void* flags, void* ga_part,
-                                         void* gb_part, void* psi_part, void* rowsum,
-                                         void* colsum, void* psi, int B, int L_pad, int g,
-                                         int n_pad, int d, int dc, int tile_l, int tile_n,
-                                         int cost_dtype, float gamma, float inv_gamma,
-                                         void* stream) {
+                                         const void* sg, void* flags, void* work,
+                                         void* ga_part, void* gb_part, void* psi_part,
+                                         void* rowsum, void* colsum, void* psi, int B,
+                                         int L_pad, int g, int n_pad, int d, int dc, int gb,
+                                         int tile_l, int tile_n, int cost_dtype, float gamma,
+                                         float inv_gamma, void* stream) {
   const TileArgs A = make_args(alpha, beta, tau, ga_part, gb_part, psi_part, B, L_pad, g,
                                n_pad, tile_l, tile_n, gamma, inv_gamma);
-  const ScreenArgs S = make_screen_args(z, k, o, act, dap, daf, dan, db, sg, flags);
+  const ScreenArgs S = make_screen_args(z, act, dap, db, sg, flags);
   const int err = rt::with_storage(cost_dtype, [&](auto st) {
     using T = typename decltype(st)::type;
-    return with_fact<T>(x, x_sq, y, y_sq, L_pad, g, n_pad, d, dc, tile_l, tile_n,
+    return with_fact<T>(x, x_sq, y, y_sq, L_pad, g, n_pad, d, dc, gb, tile_l, tile_n,
                         [&](const auto& t, size_t smem) {
-                          return launch_fused(S, A, t, B, smem, stream);
+                          return launch_fused(S, A, t, B, smem, static_cast<unsigned*>(work),
+                                              stream);
                         });
   });
   return err != 0 ? err

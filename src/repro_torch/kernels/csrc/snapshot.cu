@@ -40,8 +40,9 @@
 //
 // Elsewhere, `snapshot_kernel<Cost>`: one CTA per (b, l-tile, j-tile), one
 // thread per column, over the dense cost or, above FACT_REG_D, the
-// factorized cost staged through shared memory in chunks of feature
-// columns with two barriers per group (cost.cuh's FactCost).
+// factorized cost of cost.cuh's FactCost, the gradient kernels' loader:
+// the inner products of the tile's rows computed once, chunk by chunk of
+// feature columns, before the groups are walked.
 #include <algorithm>
 
 #include "common.cuh"
@@ -76,13 +77,14 @@ __device__ __forceinline__ void store_norms(const SnapArgs& A, size_t e, float z
 }
 
 template <class Cost>
-__global__ void snapshot_kernel(SnapArgs A, Cost cost) {
-  extern __shared__ float smem[];
+__device__ __forceinline__ void snapshot_body(const SnapArgs& A, Cost& cost) {
+  extern __shared__ float4 smem4[];
   const int jt = blockIdx.x, lt = blockIdx.y, b = blockIdx.z;
   const int g = A.g, tile_n = A.tile_n;
-  cost.setup(smem, smem + g * tile_n);
+  cost.setup(reinterpret_cast<float*>(smem4));
   const int j = jt * tile_n + threadIdx.x;
   cost.begin(b, jt, j);
+  cost.stage_rows((size_t)lt * A.tile_l * g, A.tile_l * g);
   const size_t m_pad = (size_t)A.L_pad * g;
   const float bj = A.beta[(size_t)b * A.n_pad + j];
   const float* ab = A.alpha + (size_t)b * m_pad;
@@ -98,6 +100,17 @@ __global__ void snapshot_kernel(SnapArgs A, Cost cost) {
     }
     store_norms(A, ((size_t)b * A.L_pad + l) * A.n_pad + j, zsq, ksq, osq);
   }
+}
+
+// Two builds, as the gradient kernels': CTAs of at most 256 threads, and a
+// `_wide` one held to 64 registers a thread so that any tile_n launches.
+template <class Cost>
+__global__ void snapshot_kernel(SnapArgs A, Cost cost) {
+  snapshot_body(A, cost);
+}
+template <class Cost>
+__global__ void __launch_bounds__(1024) snapshot_kernel_wide(SnapArgs A, Cost cost) {
+  snapshot_body(A, cost);
 }
 
 constexpr int REG_THREADS = 128;   // threads of a snapshot_reg_kernel CTA
@@ -206,14 +219,14 @@ SnapArgs make_args(const void* alpha, const void* beta, const void* mask, int ma
 
 template <class Cost>
 int launch(const SnapArgs& A, const Cost& cost, int B, size_t smem, void* stream) {
+  const auto kernel = A.tile_n > 256 ? snapshot_kernel_wide<Cost> : snapshot_kernel<Cost>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        snapshot_kernel<Cost>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(A.n_pad / A.tile_n, A.L_pad / A.tile_l, B);
-  snapshot_kernel<Cost><<<grid, A.tile_n, smem, static_cast<cudaStream_t>(stream)>>>(A, cost);
+  kernel<<<grid, A.tile_n, smem, static_cast<cudaStream_t>(stream)>>>(A, cost);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -238,14 +251,17 @@ int launch_reg(const SnapArgs& A, const RegTile<T>& cost, int B, void* stream) {
 
 // K4 on the factorized cost.  alpha: (B, L_pad*g), beta: (B, n_pad), x:
 // (B, L_pad*g, d), x_sq: (B, L_pad*g), y: (B, n_pad, d), y_sq: (B, n_pad),
-// the four stored as `cost_dtype` (cost.cuh); mask: int8, (L_pad*g,) shared by
+// the four stored as `cost_dtype` (cost.cuh); dc: 0 for the register kernel
+// (d <= FACT_REG_D), else FactCost's chunk of feature columns, for blocks of
+// gb groups (kernels/gradpsi.py:fact_chunks); mask: int8, (L_pad*g,) shared by
 // the batch with mask_stride 0, or (B, L_pad*g) with mask_stride L_pad*g; z,
 // k, o: (B, L_pad, n_pad).  Returns cudaGetLastError().
 extern "C" int snapshot_fact_launch(const void* alpha, const void* beta, const void* x,
                                     const void* x_sq, const void* y, const void* y_sq,
                                     const void* mask, void* z, void* k, void* o, int B,
                                     int mask_stride, int L_pad, int g, int n_pad, int d, int dc,
-                                    int tile_l, int tile_n, int cost_dtype, void* stream) {
+                                    int gb, int tile_l, int tile_n, int cost_dtype,
+                                    void* stream) {
   const SnapArgs A =
       make_args(alpha, beta, mask, mask_stride, z, k, o, L_pad, g, n_pad, tile_l, tile_n);
   if (dc == 0) {
@@ -256,12 +272,12 @@ extern "C" int snapshot_fact_launch(const void* alpha, const void* beta, const v
                         stream);
     });
   }
-  const size_t smem =
-      sizeof(float) * ((size_t)g * tile_n + rt::fact_extra_floats(g, dc, tile_n));
+  if (dc < 1 || dc > d || gb < 1 || gb > tile_l || dc > rt::FactCost<float>::DC_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   return rt::with_storage(cost_dtype, [&](auto st) {
     using T = typename decltype(st)::type;
-    return launch(A, rt::make_fact_cost<T>(x, x_sq, y, y_sq, L_pad, g, n_pad, d, dc, tile_n),
-                  B, smem, stream);
+    return launch(A, rt::make_fact_cost<T>(x, x_sq, y, y_sq, L_pad, g, n_pad, d, dc, gb, tile_n),
+                  B, rt::fact_loader_bytes(g, gb, dc, tile_n, sizeof(T)), stream);
   });
 }
 

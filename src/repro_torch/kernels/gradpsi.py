@@ -15,8 +15,9 @@ Counterpart of ``repro.kernels.gradpsi``; the batched kernels:
                              K6, replaces ``gradpsi_fact_pallas_compact_batched``:
                              K3 on the factorized cost.
 ``gradpsi_fused_batched``    K7, replaces ``gradpsi_fused_pallas_batched``: K1's
-                             verdicts in registers, then K2's body on the live
-                             tiles, in one launch; also returns the flags.
+                             tile flags (from z~ and the active mask alone,
+                             :func:`fused_flags_ref`), then K2's body on the
+                             live tiles, in one launch; also returns the flags.
 ``gradpsi_fused_fact_batched``
                              K8, replaces ``gradpsi_fused_fact_pallas_batched``:
                              K7 on the factorized cost.
@@ -87,16 +88,17 @@ def record_floats(d=None) -> int:
     return 1 if d is None or d > FACT_REG_D else -(-(2 + d) // 4) * 4
 
 
-def cta_smem_bytes(tile_l: int, g: int, tile_n: int, d=None) -> int:
+def cta_smem_bytes(tile_l: int, g: int, tile_n: int, d=None, threads: int = 0) -> int:
     """Dynamic shared memory of one gradient CTA (mirrors ``smem_bytes`` in gradpsi.cu).
 
     The row records ``(tile_l * g, record_floats(d))`` (``d=None``: the
     dense cost), the warp partials of the row sums ``(tile_l * g, nwarps)``
     and of psi ``(nwarps,)``, and the groups' tau_l and tau_l / gamma
     ``(tile_l, 2)``, in f32, with ``nwarps`` the warps of ``tile_n``
-    threads rounded up to whole warps.  [f]_+ lives in registers.
+    threads rounded up to whole warps (or of ``threads``, where the CTA
+    has more).  [f]_+ lives in registers.
     """
-    rows, nwarps = tile_l * g, -(-tile_n // 32)
+    rows, nwarps = tile_l * g, max(-(-tile_n // 32), threads // 32)
     return 4 * (rows * record_floats(d) + rows * nwarps + nwarps + 2 * tile_l)
 
 
@@ -118,8 +120,11 @@ def resolve_tile_l(L: int, g: int, tile_n: int) -> int:
 
 # -- the factorized cost ------------------------------------------------------
 
-# Feature columns of x and y a factorized CTA stages in shared memory at once.
+# Feature columns of x and y a factorized CTA stages in shared memory at once
+# (FactCost::DC_MAX in csrc/cost.cuh).
 D_CHUNK_MAX = 32
+# Fewest threads of a CTA on the chunked loader (MinThreads in csrc/gradpsi.cu).
+FACT_CHUNK_THREADS = 256
 
 
 def factorized_cost_tile(x: torch.Tensor, x_sq: torch.Tensor, y: torch.Tensor,
@@ -145,30 +150,75 @@ def factorized_cost_tile(x: torch.Tensor, x_sq: torch.Tensor, y: torch.Tensor,
     return torch.clamp_min(c, 0.0)
 
 
-def fact_smem_bytes(tile_l: int, g: int, tile_n: int, dc: int) -> int:
+def fact_pitch(dc: int, itemsize: int = 4) -> int:
+    """Elements of a row the chunked loader stages: ``dc`` rounded up to whole
+    16-byte pieces, plus one piece (``fact_pitch`` in csrc/cost.cuh)."""
+    q = 16 // itemsize
+    return -(-dc // q) * q + q
+
+
+def fact_loader_bytes(g: int, tile_n: int, dc: int, gb: int, itemsize: int = 4) -> int:
+    """Shared memory of the chunked loader (cost.cuh's ``FactCost``, ``fact_loader_bytes``).
+
+    For blocks of ``gb`` groups: the inner products ``(gb * g, tile_n)`` and
+    x_sq ``(gb * g,)`` in f32, rounded up to 16 bytes, then two staging
+    buffers, each the block's x chunk ``(gb * g, pitch)`` and the tile's y
+    chunk ``(tile_n, pitch)`` in the stored type (``itemsize`` bytes).
+    """
+    rows = gb * g
+    return 4 * (-(-(rows * tile_n + rows) // 4) * 4) + \
+        2 * (rows + tile_n) * fact_pitch(dc, itemsize) * itemsize
+
+
+def fact_smem_bytes(tile_l: int, g: int, tile_n: int, dc: int, gb: int = 1,
+                    itemsize: int = 4) -> int:
     """Shared memory of one factorized CTA on the chunked loader (``FactChunkTile``).
 
-    The dense CTA's buffers plus the loader's: the inner products ``(g,
-    tile_n)``, the x chunk ``(g, dc)``, the group's x_sq ``(g,)`` and the y
-    chunk ``(dc, tile_n)``.  K4 stages the same chunks with less beside them.
+    The dense CTA's buffers (:func:`cta_smem_bytes`, for a CTA of at least
+    ``FACT_CHUNK_THREADS``), then from a 16-byte boundary the loader's
+    (:func:`fact_loader_bytes`).  K4 stages the same chunks with nothing
+    beside them.
     """
-    return cta_smem_bytes(tile_l, g, tile_n) + 4 * (g * tile_n + g * dc + g + dc * tile_n)
+    body = cta_smem_bytes(tile_l, g, tile_n, threads=FACT_CHUNK_THREADS)
+    return -(-body // 16) * 16 + fact_loader_bytes(g, tile_n, dc, gb, itemsize)
 
 
-def d_chunk(tile_l: int, g: int, tile_n: int, d: int) -> int:
-    """Feature columns staged per chunk: the most (<= ``D_CHUNK_MAX``, <= d) that fit."""
+def fact_chunks(tile_l: int, g: int, tile_n: int, d: int, itemsize: int = 4) -> Tuple[int, int]:
+    """``(dc, gb)`` of the chunked loader: feature columns a chunk, groups a block.
+
+    ``dc`` is ``min(d, D_CHUNK_MAX)``, halved only if no block fits; ``gb``
+    the most groups (<= ``tile_l``) whose inner products fit beside it, so
+    that the whole tile is one block (y staged once a tile) wherever it fits
+    the shared-memory budget.
+    """
     dc = max(min(d, D_CHUNK_MAX), 1)
-    while dc > 1 and fact_smem_bytes(tile_l, g, tile_n, dc) > CTA_SMEM_BUDGET_BYTES:
+    while True:
+        for gb in range(tile_l, 0, -1):
+            if fact_smem_bytes(tile_l, g, tile_n, dc, gb, itemsize) <= CTA_SMEM_BUDGET_BYTES:
+                return dc, gb
+        if dc == 1:
+            return 1, 1
         dc //= 2
-    return dc
 
 
-def fact_loader_dc(tile_l: int, g: int, tile_n: int, d: int) -> int:
+def d_chunk(tile_l: int, g: int, tile_n: int, d: int, itemsize: int = 4) -> int:
+    """Feature columns staged per chunk: :func:`fact_chunks`'s ``dc``."""
+    return fact_chunks(tile_l, g, tile_n, d, itemsize)[0]
+
+
+def fact_loader_dc(tile_l: int, g: int, tile_n: int, d: int, itemsize: int = 4) -> int:
     """The ``dc`` argument of the factorized launches: 0 for the register loader
     (``d <= FACT_REG_D`` and its records fit), else :func:`d_chunk`."""
+    return fact_loader(tile_l, g, tile_n, d, itemsize)[0]
+
+
+def fact_loader(tile_l: int, g: int, tile_n: int, d: int, itemsize: int = 4) -> Tuple[int, int]:
+    """The ``(dc, gb)`` arguments of the factorized launches: ``(0, 0)`` for the
+    register loader (``d <= FACT_REG_D`` and its records fit), else
+    :func:`fact_chunks`."""
     if d <= FACT_REG_D and cta_smem_bytes(tile_l, g, tile_n, d) <= CTA_SMEM_BUDGET_BYTES:
-        return 0
-    return d_chunk(tile_l, g, tile_n, d)
+        return 0, 0
+    return fact_chunks(tile_l, g, tile_n, d, itemsize)
 
 
 def tau_row(tau, L: int, device=None) -> torch.Tensor:
@@ -544,13 +594,13 @@ def gradpsi_fact_batched(alpha, beta, x, x_sq, y, y_sq, flags, *, num_groups, gr
     _check_flags(flags, B, Lt, Nt)
     _check_tile_n(tile_n)
     lib = _build.library()
-    dc = fact_loader_dc(tile_l, g, tile_n, d)
+    dc, gbk = fact_loader(tile_l, g, tile_n, d, x.element_size())
     return _launch(
         lambda ga, gb, ps, ro, co, po, st: lib.gradpsi_fact_grid_launch(
             flags.data_ptr(), alpha.data_ptr(), beta.data_ptr(), x.data_ptr(),
             x_sq.data_ptr(), y.data_ptr(), y_sq.data_ptr(), tau_g.data_ptr(),
-            ga, gb, ps, ro, co, po, B, L_pad, g, n_pad, d, dc, tile_l, tile_n, code, float(gamma),
-            float(1.0 / gamma), st),
+            ga, gb, ps, ro, co, po, B, L_pad, g, n_pad, d, dc, gbk, tile_l, tile_n, code,
+            float(gamma), float(1.0 / gamma), st),
         "gradpsi_fact_grid_launch", B, L_pad, g, n_pad, tile_l, tile_n, alpha.device,
         launch_name)
 
@@ -572,32 +622,40 @@ def gradpsi_fact_compact_batched(alpha, beta, x, x_sq, y, y_sq, sched, num_activ
                              (("sched", sched), ("num_active", num_active)))
     _check_tile_n(tile_n)
     lib = _build.library()
-    dc = fact_loader_dc(tile_l, g, tile_n, d)
+    dc, gbk = fact_loader(tile_l, g, tile_n, d, x.element_size())
     return _launch(
         lambda ga, gb, ps, ro, co, po, st: lib.gradpsi_fact_compact_launch(
             sched.data_ptr(), sched.shape[0], num_active.data_ptr(), alpha.data_ptr(),
             beta.data_ptr(), x.data_ptr(), x_sq.data_ptr(), y.data_ptr(),
             y_sq.data_ptr(), tau_g.data_ptr(), ga, gb, ps, ro, co, po, B, L_pad, g, n_pad, d, dc,
-            tile_l, tile_n, code, float(gamma), float(1.0 / gamma), st),
+            gbk, tile_l, tile_n, code, float(gamma), float(1.0 / gamma), st),
         "gradpsi_fact_compact_launch", B, L_pad, g, n_pad, tile_l, tile_n, alpha.device,
         launch_name) + (num_active,)
 
 
 # -- K7 / K8: fused screen + gradient ------------------------------------------
 
-def _screen_flags_ref(screen, tau, tile_l, tile_n):
-    from repro_torch.kernels.screen import screen_batched_ref
-
-    return screen_batched_ref(*screen, tau=tau, tile_l=tile_l, tile_n=tile_n,
-                              emit_verdict=False)[1]
+def fused_flags_ref(z, act, da_plus, db, sqrt_g, *, tau, tile_l, tile_n):
+    """The fused kernels' tile flags (``rt::live``): a tile is live where an entry's
+    verdict is not ZERO, which the upper bound ``z_bar`` and the active mask decide
+    alone (``z_low`` only tells CHECK from ACTIVE), so K1's flags without k~, o~,
+    ``da_full`` or ``da_neg``.  ``z_bar`` in K1's op order."""
+    B, L, n = z.shape
+    tau_c = tau_row(tau, L, z.device)[:, None]
+    zbar = z + da_plus[..., :, None] + sqrt_g[..., :, None] * torch.clamp_min(db[..., None, :],
+                                                                             0.0)
+    live = torch.logical_or(act != 0, torch.logical_not(zbar <= tau_c))
+    lt = live.reshape(B, L // tile_l, tile_l, n // tile_n, tile_n)
+    return torch.any(torch.any(lt, dim=-1), dim=-2).to(torch.int32)
 
 
 def gradpsi_fused_batched_ref(alpha, beta, C, z, k, o, act, da_plus, da_full, da_neg, db,
                               sqrt_g, *, num_groups, group_size, tau, gamma, tile_l,
                               tile_n=DEFAULT_TILE_N):
-    """Plain version of K7: K1's plain flags, then K2's plain version on them."""
-    flags = _screen_flags_ref((z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g), tau,
-                              tile_l, tile_n)
+    """Plain version of K7: K1's flags (:func:`fused_flags_ref`), then K2's plain
+    version on them."""
+    flags = fused_flags_ref(z, act, da_plus, db, sqrt_g, tau=tau, tile_l=tile_l,
+                            tile_n=tile_n)
     return gradpsi_batched_ref(alpha, beta, C, flags, num_groups=num_groups,
                                group_size=group_size, tau=tau, gamma=gamma, tile_l=tile_l,
                                tile_n=tile_n) + (flags,)
@@ -606,12 +664,28 @@ def gradpsi_fused_batched_ref(alpha, beta, C, z, k, o, act, da_plus, da_full, da
 def gradpsi_fused_fact_batched_ref(alpha, beta, x, x_sq, y, y_sq, z, k, o, act, da_plus,
                                    da_full, da_neg, db, sqrt_g, *, num_groups, group_size,
                                    tau, gamma, tile_l, tile_n=DEFAULT_TILE_N):
-    """Plain version of K8: K1's plain flags, then K5's plain version on them."""
-    flags = _screen_flags_ref((z, k, o, act, da_plus, da_full, da_neg, db, sqrt_g), tau,
-                              tile_l, tile_n)
+    """Plain version of K8: K1's flags (:func:`fused_flags_ref`), then K5's plain
+    version on them."""
+    flags = fused_flags_ref(z, act, da_plus, db, sqrt_g, tau=tau, tile_l=tile_l,
+                            tile_n=tile_n)
     return gradpsi_fact_batched_ref(alpha, beta, x, x_sq, y, y_sq, flags,
                                     num_groups=num_groups, group_size=group_size, tau=tau,
                                     gamma=gamma, tile_l=tile_l, tile_n=tile_n) + (flags,)
+
+
+# The fused kernels' work counters, one pair of int32 per (device, stream):
+# zeroed once here, each launch leaves them 0 for the next (gradpsi.cu).
+# Launches on one stream run in order, so they never share a pair at once.
+_FUSED_WORK = {}
+
+
+def _fused_work(device, stream: int) -> int:
+    """Pointer to the fused kernels' counters for ``stream`` on ``device``."""
+    key = (device.index, stream)
+    work = _FUSED_WORK.get(key)
+    if work is None:
+        work = _FUSED_WORK[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return work.data_ptr()
 
 
 def _fused_prelude(alpha, beta, screen, tau, tile_l, tile_n, Lt, Nt, L_pad):
@@ -650,8 +724,8 @@ def gradpsi_fused_batched(alpha, beta, C, z, k, o, act, da_plus, da_full, da_neg
     return _launch(
         lambda ga, gb, ps, ro, co, po, st: lib.gradpsi_fused_launch(
             alpha.data_ptr(), beta.data_ptr(), C.data_ptr(), tau_g.data_ptr(), *ptrs,
-            flags.data_ptr(), ga, gb, ps, ro, co, po, B, L_pad, g, n_pad, tile_l, tile_n, code,
-            float(gamma), float(1.0 / gamma), st),
+            flags.data_ptr(), _fused_work(alpha.device, st), ga, gb, ps, ro, co, po, B, L_pad,
+            g, n_pad, tile_l, tile_n, code, float(gamma), float(1.0 / gamma), st),
         "gradpsi_fused_launch", B, L_pad, g, n_pad, tile_l, tile_n, alpha.device,
         launch_name) + (flags,)
 
@@ -673,13 +747,13 @@ def gradpsi_fused_fact_batched(alpha, beta, x, x_sq, y, y_sq, z, k, o, act, da_p
     code = _fact_cuda_checks(alpha, beta, x, x_sq, y, y_sq, tau_g, ())
     lib = _build.library()
     ptrs = tuple(t.data_ptr() for t in screen)
-    dc = fact_loader_dc(tile_l, g, tile_n, d)
+    dc, gbk = fact_loader(tile_l, g, tile_n, d, x.element_size())
     return _launch(
         lambda ga, gb, ps, ro, co, po, st: lib.gradpsi_fused_fact_launch(
             alpha.data_ptr(), beta.data_ptr(), x.data_ptr(), x_sq.data_ptr(), y.data_ptr(),
-            y_sq.data_ptr(), tau_g.data_ptr(), *ptrs, flags.data_ptr(), ga, gb, ps, ro, co, po, B,
-            L_pad, g, n_pad, d, dc, tile_l, tile_n, code, float(gamma), float(1.0 / gamma),
-            st),
+            y_sq.data_ptr(), tau_g.data_ptr(), *ptrs, flags.data_ptr(),
+            _fused_work(alpha.device, st), ga, gb, ps, ro, co, po, B, L_pad, g, n_pad, d, dc,
+            gbk, tile_l, tile_n, code, float(gamma), float(1.0 / gamma), st),
         "gradpsi_fused_fact_launch", B, L_pad, g, n_pad, tile_l, tile_n, alpha.device,
         launch_name) + (flags,)
 

@@ -41,7 +41,7 @@ from repro_torch.kernels.gradpsi import (
     FACT_REG_D,
     _check_cuda_inputs,
     _check_screen_operands,
-    d_chunk,
+    fact_chunks,
     factorized_cost_tile,
     tau_row,
 )
@@ -120,13 +120,14 @@ def snapshot_norms_fact_ref(alpha, beta, x, x_sq, y, y_sq, mask, *, num_groups: 
                                     num_groups=num_groups, group_size=group_size)
 
 
-def snapshot_loader_dc(tile_l: int, g: int, tile_n: int, d: int) -> int:
-    """The ``dc`` argument of K4's launch: 0 for ``snapshot_reg_kernel`` (``d <=
-    FACT_REG_D``, one group's records, real-row count and mask in shared
-    memory), else the chunked loader's :func:`d_chunk`."""
+def snapshot_loader(tile_l: int, g: int, tile_n: int, d: int, itemsize: int = 4):
+    """The ``(dc, gb)`` arguments of K4's launch: ``(0, 0)`` for
+    ``snapshot_reg_kernel`` (``d <= FACT_REG_D``, one group's records, real-row
+    count and mask in shared memory), else the gradient kernels' chunked
+    loader, :func:`fact_chunks` (K4 needs less shared memory beside it)."""
     if d <= FACT_REG_D and 17 * g + 4 <= CTA_SMEM_BUDGET_BYTES:
-        return 0
-    return d_chunk(tile_l, g, tile_n, d)
+        return 0, 0
+    return fact_chunks(tile_l, g, tile_n, d, itemsize)
 
 
 def _snapshot_checks(alpha, beta, mask, num_groups, group_size, tile_l, tile_n):
@@ -192,8 +193,9 @@ def snapshot_norms_fact_batched(alpha, beta, x, x_sq, y, y_sq, mask, *, num_grou
     err = _build.library().snapshot_fact_launch(
         alpha.data_ptr(), beta.data_ptr(), x.data_ptr(), x_sq.data_ptr(), y.data_ptr(),
         y_sq.data_ptr(), mask.data_ptr(), z.data_ptr(), k.data_ptr(), o.data_ptr(), B, stride,
-        num_groups, group_size, n_pad, d, snapshot_loader_dc(tile_l, group_size, tile_n, d),
-        tile_l, tile_n, code, _build.stream_handle(alpha.device))
+        num_groups, group_size, n_pad, d,
+        *snapshot_loader(tile_l, group_size, tile_n, d, x.element_size()), tile_l, tile_n, code,
+        _build.stream_handle(alpha.device))
     _build.check(err, "snapshot_fact_launch")
     _build.record_launch("snapshot_norms_fact_batched")
     return z, k, o

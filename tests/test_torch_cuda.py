@@ -337,8 +337,9 @@ def _snapshot_nan_outputs(kind, alpha, beta, cost, mask, L, g, tile_l, tile_n):
     if kind == "fact":
         d = cost[0].shape[-1]
         err = lib.snapshot_fact_launch(*ptrs, B, stride, L, g, n_pad, d,
-                                       tsc.snapshot_loader_dc(tile_l, g, tile_n, d), tile_l,
-                                       tile_n, code, stream)
+                                       *tsc.snapshot_loader(tile_l, g, tile_n, d,
+                                                            cost[0].element_size()),
+                                       tile_l, tile_n, code, stream)
     else:
         err = lib.snapshot_dense_launch(*ptrs, B, stride, L, g, n_pad, tile_l, tile_n, code,
                                         stream)

@@ -285,19 +285,22 @@ def test_ot_routed_engine_serves():
     assert 0 < float(stats["experts_per_seq"]) <= cfg.moe.num_experts
 
 
-def reference_on_served_logits(path):
+def reference_on_served_logits(path, max_iters=40):
     """The JAX reference and the port on the CPU, on router logits a card run of
     ``chip_smoke.py`` phase 14 (c) saved (the first MoE layer at each prefill, one OT
-    solve per prefill): each routing's load_cv and experts per sequence, and how many
-    tokens route as the card routed them."""
+    solve per prefill, at the router's ``max_iters``): each routing's load_cv and
+    experts per sequence, and how many tokens route as the card routed them."""
     d = np.load(path)
     logits, served, tk = d["logits"], d["ot_topi"], d["topk_topi"]
     n, S, E = logits.shape
     k = served.shape[1]
+    print(f"max_iters={max_iters} (the card served at 40)")
     jx = np.concatenate([np.asarray(jot.ot_route(jnp.asarray(x), num_seqs=1, seq_len=S,
-                                                 top_k=k)[0]) for x in logits])
+                                                 top_k=k, max_iters=max_iters)[0])
+                         for x in logits])
     cpu = torch.cat([ot_routing.ot_route(torch.from_numpy(x), num_seqs=1, seq_len=S,
-                                         top_k=k)[0] for x in logits]).numpy()
+                                         top_k=k, max_iters=max_iters)[0]
+                     for x in logits]).numpy()
     jtk = np.concatenate([np.asarray(jax.lax.top_k(jax.nn.softmax(jnp.asarray(x), -1), k)[1])
                           for x in logits])
     for name, topi in (("JAX OT", jx), ("port OT, CPU", cpu), ("port OT, card", served),
@@ -311,7 +314,10 @@ def reference_on_served_logits(path):
 
 
 if __name__ == "__main__":
-    # python tests/test_torch_moe.py _archive/phase14/router_prefill.npz
+    # python tests/test_torch_moe.py [router_prefill.npz]
     import sys
+    from pathlib import Path
 
-    reference_on_served_logits(sys.argv[1])
+    fixture = Path(__file__).resolve().parent / "fixtures" / "router_prefill.npz"
+    for iters in (40, 400):                    # the router's default; where it converges
+        reference_on_served_logits(sys.argv[1] if len(sys.argv) > 1 else fixture, iters)
