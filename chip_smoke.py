@@ -40,6 +40,10 @@ Phases:
      block: K8 == K5 and K7 there too, flags == K1's); the row-sum and
      row-dot kernels against their plain versions and across batch sizes,
      row_dot(a, b) bitwise row_sum(a * b), over row lengths 1 to 33280;
+     at every share and storage the dense loader each of K2, K3 and K7 ran,
+     read from its kernel's full name in the profiler's records: K2 and K7
+     the staged one (tensor copies into shared memory), K3 the direct loads,
+     so K3 == K2 and K7 == K2 hold the two loaders to each other bitwise;
   4. end to end through ``repro_torch.ot``: the default plan (factorized)
      with grid / compact / auto, the dense route (``geometry='dense'``)
      with grid / compact / auto, the dense route on
@@ -79,7 +83,12 @@ Phases:
      tile live they go into their kernel rows beside the bound), and
      K2/K5/K7/K8 on bf16 costs; at the final state and fully live, K7 / K8
      device time (torch.profiler, a call's launches summed) beside K1 + K2 /
-     K1 + K5, the two launches each fused call replaces;
+     K1 + K5, the two launches each fused call replaces; the dense loader
+     K2, K3 and K7 run at the paper's scale, f32 and bf16 (from the
+     profiler); K2, K3 and K7 a call split into the gradient kernel and
+     slot_reduce_kernel at the final state (with the cost in L2, and with
+     the L2 flushed before each call, as the solver's calls find it) and
+     fully live;
   6. solo vs batched (B = 2) at L = 64, n = 1024, dense and factorized,
      pallas and fused, grid and compact: bitwise equal (duals, value,
      rounds, stats), or the smoke fails;
@@ -181,7 +190,10 @@ Phases:
      skewed router ``ot_route``'s load_cv below top-k's.  For each run tokens a second, ms a
      tick, peak memory, and a profile of a few ticks (idle share, launches a
      tick).
-Phase 3 also runs K2-K8 at tile_n 4, 20, 40 and 128 on a narrow problem,
+Phase 3 also runs K2-K8 at tile_n 4, 20, 40 and 128 on a narrow problem
+(K2, K3 and K7 in f32 and bf16; K2 and K7 on the staged loader at 128, 1024
+and 256, on the direct loads where a warp has lanes past the tile; K3 on the
+direct loads: each read from the profiler),
 and at 1024 (d = 2) and 256 (d = 64), the kernels' wide builds, and phase 4 holds the main path's solve to the fingerprint it had
 before the kernels took any tile width.
 The second-to-last line is the kernel table as JSON (K1-K8, B9-B14, and
@@ -308,6 +320,91 @@ def same(a, b) -> bool:
     import torch
 
     return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+STAGED, DIRECT = "StagedTile", "DenseTile"     # the dense loaders, as kernel names show them
+DENSE_KERNELS = {"gradpsi_grid_kernel": K2, "gradpsi_compact_kernel": K3,
+                 "gradpsi_fused_kernel": K7}
+
+
+def expected_loaders(C, tile_l, g, tile_n):
+    """{K2, K3, K7: the dense loader its launch takes on the cost ``C``}: K2 and K7 the
+    staged one where ``gradpsi.dense_staged_fits``, K3 the direct loads."""
+    from repro_torch.kernels import gradpsi as kg
+
+    fits = kg.dense_staged_fits(tile_l, g, tile_n, C.element_size(), C.data_ptr() % 16 == 0)
+    return {K2: STAGED if fits else DIRECT, K3: DIRECT, K7: STAGED if fits else DIRECT}
+
+
+def launched_loaders(call, repeats: int = 3, tries: int = 5):
+    """{K2 / K3 / K7: the dense loader its kernel ran} in profiled calls of ``call()``:
+    the template argument of each dense gradient kernel's full name in
+    torch.profiler's device records (the wide builds count as their kernel).
+    The profiler now and then misses records, even all of one profile's (both
+    seen on an H100), so each profile runs ``repeats`` calls and is taken
+    again, up to ``tries`` times, until every kernel of the call shows; two
+    loaders for one kernel fail at once."""
+    out = {}
+    for _ in range(tries):
+        _, _, _, _, rows = profile_device(lambda: [call() for _ in range(repeats)])
+        for key, _, _ in rows:
+            kind = DENSE_KERNELS.get(kernel_name(key).removesuffix("_wide"))
+            if kind is None:
+                continue
+            tiles = [t for t in (STAGED, DIRECT) if f"{t}<" in key]
+            check(len(tiles) == 1 and out.get(kind, tiles[0]) == tiles[0],
+                  f"{kind}: no single dense loader in its kernels' names ({key})")
+            out[kind] = tiles[0]
+        if len(out) == len(DENSE_KERNELS):
+            break
+    return out
+
+
+def check_loaders(label, C, a, b, flags, sched, nact, sargs, kw):
+    """Launch K2, K3 and K7 once each on ``C`` under the profiler and check that each ran
+    the loader its launch takes at this shape; returns {name: loader}."""
+    from repro_torch.kernels import gradpsi as kg
+
+    ran = launched_loaders(lambda: (kg.gradpsi_batched(a, b, C, flags, **kw),
+                                    kg.gradpsi_compact_batched(a, b, C, sched, nact, **kw),
+                                    kg.gradpsi_fused_batched(a, b, C, *sargs, **kw)))
+    want = expected_loaders(C, kw["tile_l"], kw["group_size"], kw["tile_n"])
+    check(ran == want, f"K2/K3/K7 ran the loaders {ran}, not {want}, {label}")
+    return ran
+
+
+def kernel_slot_split(fn, cold=False, rows=None):
+    """(gradient kernel us, slot_reduce_kernel us) of a call of ``fn`` on the device;
+    with ``cold`` the L2 is flushed before each call by writing 128 MiB (more than
+    the H100's 50 MB L2), as the solver's calls find the cost after K1's pass (the
+    flush's own kernel is left out; its buffer is freed on return).  ``rows``, a
+    list, receives the profile's (kernel, device us, records)."""
+    import torch
+
+    buf = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda") if cold else None
+    split = device_split((lambda: (buf.fill_(1.0), fn())) if cold else fn, rows=rows)
+    del buf
+    return (sum(us for name, us in split.items() if name.startswith("gradpsi")),
+            split.get(SLOT, 0.0))
+
+
+def print_splits(label, fns, cold=False):
+    """Print each call's device time split into the gradient kernel and the slot
+    reduction; ``fns`` = {name: call}.  Returns {name: (kernel us, reduction us)}."""
+    out = {}
+    for name, fn in fns.items():
+        rows = []
+        k, r = out[name] = kernel_slot_split(fn, cold, rows)
+        # beside it the earlier count, every record of the two kernels / calls
+        mine = [(kernel_name(n), us, c) for n, us, c in rows]
+        summed = sum(us for n, us, _ in mine if n.startswith("gradpsi") or n == SLOT)
+        print(f"device split {label}{' (L2 flushed before each call)' if cold else ''} {name}: "
+              f"gradient kernel {k:.2f} us + {SLOT} {r:.2f} us = {k + r:.2f} us a call (the "
+              f"reduction {r / max(k + r, 1e-9):.3f} of it; torch.profiler, {SPLIT_CALLS} "
+              f"calls; records a kernel {', '.join(f'{n} {c}' for n, _, c in mine)}; the two "
+              f"kernels' records summed / {SPLIT_CALLS}: {summed / SPLIT_CALLS:.2f} us)",
+              flush=True)
+    return out
 
 
 def bound(nbytes, ops):
@@ -517,6 +614,10 @@ def phase_kernels(ops, reg, device):
                 inp["alpha"], inp["beta"], C, ops.mask, num_groups=L_pad, group_size=inp["g"])
             check(same(r["k4d"], k4d_plain), f"K4's body on the dense cost differs from its "
                   f"plain version {at}")
+            ran = check_loaders(at, C, inp["alpha"], inp["beta"], r["flags"], r["sched"],
+                                r["nact"], screen_args(inp), gkw)
+            check(ran == {K2: STAGED, K3: DIRECT, K7: STAGED}, f"K2/K7 did not run the staged "
+                  f"loader, or K3 not the direct loads, at the paper's tile {at}: {ran}")
             again = run_kernels(inp, ops, tau_p, reg.gamma, storage)
             check(torch.equal(r["flags"], again["flags"]), "K1 not deterministic")
             for key in ("k2", "k3", "k5", "k6", "k7", "k8", "k4", "k4d"):
@@ -528,6 +629,7 @@ def phase_kernels(ops, reg, device):
                   f"K8 == K5 on K1's flags (K7/K8 flags == K1's) bitwise"
                   f"{', K5 == K2, K8 == K7 bitwise' if storage == 'f32' else ''}, "
                   f"num_active={live}; K4 (factorized and dense loaders) == plain bitwise; "
+                  f"loaders run (profiler): {', '.join(f'{k} {v}' for k, v in ran.items())}; "
                   f"rerun bitwise equal", flush=True)
             del r, again, inp, k4_plain, k4d_plain, C, leaves
 
@@ -596,17 +698,30 @@ def phase_fused_stress(ops, reg, device):
             del k7, k8, k2, k5, inp, sargs
 
 
-def device_split(fn, calls: int = 20):
+def kernel_name(key: str) -> str:
+    """A profiler record's kernel name cut at the template's '<'."""
+    name = key.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0]
+    return name.replace("void ", "").strip()
+
+
+SPLIT_CALLS = 20
+
+
+def device_split(fn, calls: int = SPLIT_CALLS, rows=None):
     """{kernel name: device us a call} of ``fn`` over ``calls`` calls (torch.profiler,
-    the device's own records), names cut at the template's '<'."""
+    the device's own records), names cut at the template's '<'.  The profiler
+    drops a record now and then, so each kernel's time is the mean of its
+    records times their nearest whole number a call (0 for a kernel seen in
+    fewer than half the calls).  ``rows``, a list, receives the records."""
     fn()
     sync()
-    _, _, _, _, rows = profile_device(lambda: [fn() for _ in range(calls)])
+    _, _, _, _, recs = profile_device(lambda: [fn() for _ in range(calls)])
+    if rows is not None:
+        rows.extend(recs)
     out = {}
-    for key, us, _ in rows:
-        name = key.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0]
-        name = name.replace("void ", "").strip()
-        out[name] = out.get(name, 0.0) + us / calls
+    for key, us, n in recs:
+        name = kernel_name(key)
+        out[name] = out.get(name, 0.0) + us / max(n, 1) * round(n / calls)
     return out
 
 
@@ -832,11 +947,30 @@ def phase_tile_widths(device):
                                                   tile_n=tile_n, **skw),
                    ks.snapshot_norms_fact_ref(a, b, *leaves, mask, **skw)),
               f"K4 at tile_n = {tile_n} differs from its plain version")
+        # K2/K3/K7 on the bf16 cost too, and the dense loader each ran
+        loaders = []
+        for storage, Cs in (("f32", C), ("bf16", C.bfloat16())):
+            at = f"at tile_n = {tile_n} ({storage})"
+            k2s = kg.gradpsi_batched(a, b, Cs, flags, **kw)
+            want = kg.gradpsi_batched_ref(a, b, Cs, flags, **kw)
+            check(all(torch.allclose(p, q, rtol=1e-5, atol=1e-6) for p, q in zip(k2s, want)),
+                  f"K2 off its plain version {at}")
+            check(same(kg.gradpsi_compact_batched(a, b, Cs, sched, nact, **kw)[:3], k2s)
+                  and same(kg.gradpsi_fused_batched(a, b, Cs, *sargs, **kw)[:3],
+                           kg.gradpsi_batched(a, b, Cs, f1, **kw)),
+                  f"K3 not bitwise K2, or K7 not K2's sums on K1's flags, {at}")
+            ran = check_loaders(at, Cs, a, b, flags, sched, nact, sargs, kw)
+            staged = STAGED if tile_n % 32 == 0 else DIRECT
+            check(ran == {K2: staged, K3: DIRECT, K7: staged}, f"K2/K7 did not run the "
+                  f"{staged} loader, or K3 not the direct loads, {at}: {ran}")
+            loaders.append(f"{storage} " + "/".join(ran[k] for k in (K2, K3, K7)))
         print(f"tile width {tile_n} (d = {d}, B = 2, L_pad = 64, g = 16, n_pad = {n_pad}, "
               f"{-(-tile_n // 32) * 32} threads per CTA): K2, K5 within rtol 1e-5 / atol 1e-6 "
               f"of plain (max abs err {err:.3e}); K3 == K2, K5 == K2, K6 == K5, K7/K8 == K1's "
               f"flags (live share {int(f1.count_nonzero()) / f1.numel():.3f}) and K2's / K5's "
-              f"sums, bitwise; K4 == plain", flush=True)
+              f"sums, bitwise; K4 == plain; K2/K3/K7 ran (profiler) {', '.join(loaders)}; "
+              f"bf16 K2 within rtol 1e-5 of plain, K3 == K2 and K7 == K2 on K1's flags",
+              flush=True)
 
 
 def _narrow_screen_args(rng, B, L_pad, n_pad, device):
@@ -1456,6 +1590,26 @@ def phase_times(sol, ops, reg, launches, device):
               f"{rel:.3e}); launches on {path}: {launches[path].get(name, 0)}", flush=True)
     fused_beside_pairs(f"at the final state (live share {share:.4f})",
                        {k: fns[k][0] for k in (K1, K2, K5, K7, K8)})
+    # the dense loader K2 / K3 / K7 ran at the paper's scale (from the profiler),
+    # then a call split into the gradient kernel and the slot reduction, with the
+    # cost in L2 (calls back to back) and in device memory (as the solver's
+    # calls find it after K1's pass)
+    ran = {}
+    for C_, what in ((pp.Cp, "f32"), (ops.cost_forms("bf16")[0], "bf16")):
+        ran[what] = check_loaders(f"at the paper's scale ({what})", C_, a, b, flags, sched,
+                                  nact, sargs, gkw)
+        check(ran[what] == {K2: STAGED, K3: DIRECT, K7: STAGED}, f"K2/K7 did not run the "
+              f"staged loader, or K3 not the direct loads, at the paper's scale ({what})")
+        print(f"loaders run at the paper's scale (tile_n {pp.tile_n}, {what}; profiler): "
+              + ", ".join(f"{k} {v}" for k, v in ran[what].items()), flush=True)
+    at = f"at the final state (live share {share:.4f})"
+    for cold in (False, True):
+        split = print_splits(at, {k: fns[k][0] for k in (K2, K3, K7)}, cold)
+        for row in rows:
+            if row["name"] in split:
+                row["loader"] = ran["f32"][row["name"]]
+                tag = "cold" if cold else "hot"
+                row[f"{tag}_kernel_us"], row[f"{tag}_{SLOT}_us"] = split[row["name"]]
     full = kernel_work(pp, fp.d, T, T)[SLOT]
     print(f"bound {SLOT} (each gradient call's second launch): {bound(*work[SLOT])[0]:.6f} ms "
           f"at the final state ({work[SLOT][0]} B), {bound(*full)[0]:.6f} ms with every tile "
@@ -1573,6 +1727,7 @@ def phase_density_times(ops, reg, device):
               flush=True)
         if target == 1.0:
             fused_beside_pairs("fully live", {k: t[k] for k in (K1, K2, K5, K7, K8)})
+            print_splits("fully live", {k: t[k] for k in (K2, K3, K7)})
             work = kernel_work(ops.fp, ops.fp.d, int(nact), flags.numel())
             live = {k: (min(ms[k], ms.get(k + " again", ms[k])),) + bound(*work[k]) + (share,)
                     for k in (K2, K3, K5, K6, K7, K8)}
@@ -3654,11 +3809,24 @@ def compare_run(out_path: str, with_bits: bool) -> None:
                                          tile_n=TILE_N, emit_verdict=False)
     res["live_ms"] = {k: median_ms(f, 20) for k, f in live.items()}
     # device us a call (profiler, a call's launches summed) at the final state and
-    # fully live: the fused kernels beside the two-launch pairs they replace
-    res["final_device_us"] = {k: sum(device_split(final[k]).values())
-                              for k in (K1, K2, K5, K7, K8)}
-    res["live_device_us"] = {k: sum(device_split(live[k]).values())
-                             for k in (K1, K2, K5, K7, K8)}
+    # fully live: the fused kernels beside the two-launch pairs they replace, and
+    # K2 / K3 / K7 split into the gradient kernel and the slot reduction
+    for tag, fns in (("final", final), ("live", live)):
+        res[f"{tag}_device_us"], res[f"{tag}_split_us"] = {}, {}
+        for k in (K1, K2, K3, K5, K7, K8):
+            split = device_split(fns[k])
+            res[f"{tag}_device_us"][k] = sum(split.values())
+            if k in (K2, K3, K7):
+                slot = split.get(SLOT, 0.0)
+                res[f"{tag}_split_us"][f"{k} kernel"] = sum(split.values()) - slot
+                res[f"{tag}_split_us"][f"{k} {SLOT}"] = slot
+    # at the final state with the L2 flushed before each call, as the solver's
+    # calls find the cost after K1's pass
+    res["final_cold_split_us"] = {}
+    for k in (K2, K3, K7):
+        kern, slot = kernel_slot_split(final[k], cold=True)
+        res["final_cold_split_us"][f"{k} kernel"] = kern
+        res["final_cold_split_us"][f"{k} {SLOT}"] = slot
     res["lm_ms"], res["lm_device_us"] = {}, {}
     for k, f in lm_shape_calls(device).items():
         res["lm_ms"][k] = median_ms(f, 50)
@@ -3749,13 +3917,28 @@ def compare(other: str, pairs: int) -> None:
     span = lambda v: f"{statistics.median(v):.4f} [{min(v):.4f}, {max(v):.4f}]"
     print(f"{pairs} runs of each tree: median [min, max]; ratio = this / other per pair "
           f"(the k-th run of each)", flush=True)
-    for section in ("final_ms", "final_host_us", "device_us", "final_device_us", "live_ms",
-                    "live_device_us", "lm_ms", "lm_device_us", "profile"):
+    for section in ("final_ms", "final_host_us", "device_us", "final_device_us",
+                    "final_split_us", "final_cold_split_us", "live_ms", "live_device_us",
+                    "live_split_us", "lm_ms", "lm_device_us", "profile"):
         for k in a[0][section]:
             va, vb = [r[section][k] for r in a], [r[section][k] for r in b]
             ratio = [x / y for x, y in zip(va, vb) if y]
             print(f"{section} {k:30s} this {span(va)}  other {span(vb)}  ratio "
                   f"{span(ratio) if ratio else '-'}", flush=True)
+    for section, what in (("final_device_us", "at the final state"),
+                          ("live_device_us", "fully live")):
+        for k in (K2, K3, K7):
+            ma = statistics.median(r[section][k] for r in a)
+            mb = statistics.median(r[section][k] for r in b)
+            print(f"{k} device us a call {what}: median {ma:.2f} vs {mb:.2f} the other tree's "
+                  f"({ma / mb:.3f} of it)", flush=True)
+    for k in (K2, K3, K7):
+        tot = lambda runs: statistics.median(r["final_cold_split_us"][f"{k} kernel"]
+                                             + r["final_cold_split_us"][f"{k} {SLOT}"]
+                                             for r in runs)
+        print(f"{k} device us a call at the final state, L2 flushed before each call: median "
+              f"{tot(a):.2f} vs {tot(b):.2f} the other tree's ({tot(a) / tot(b):.3f} of it)",
+              flush=True)
     for section, k, what, unit in (("final_ms", K4, "K4 at the final state", "ms"),
                                    ("device_us", K4, "K4's device time a call", "us"),
                                    ("device_us", ROW_DOT, "row_dot's device time a call", "us")):

@@ -130,6 +130,91 @@ static __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+// Hopper's tensor copies from global into shared memory, each completing its
+// bytes on an mbarrier in shared memory (gradpsi.cu's StagedTile).
+static __device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+static __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// Makes the barriers' initialization visible to the tensor copies' completions.
+static __device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Arrives on `bar` and adds `bytes` to the bytes its current phase waits for.
+static __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Waits until the phase of `bar` whose parity is `parity` has completed.
+static __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// The box of the 2-D tensor map `map` (in the kernel's parameter space) at
+// column x, row y into `dst` (128-byte aligned), completed on `bar`.
+static __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int x, int y,
+                                                   uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
+      : "memory");
+}
+// Orders this thread's (and, after a barrier, its peers') shared-memory
+// accesses before its next tensor copies' writes.
+static __device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One CTA's shared memory on Hopper (227 KiB), of which the gradient
+// kernels' static shared memory keeps STATIC_SMEM_RESERVE; mirrored by
+// kernels/gradpsi.py (CTA_SMEM_BUDGET_BYTES, STATIC_SMEM_RESERVE).
+constexpr size_t CTA_SMEM_BUDGET = 227 * 1024;
+constexpr size_t STATIC_SMEM_RESERVE = 1024;
+
+// Bytes of one buffer of the staged dense loader: a warp's (g, 32) values of
+// `item` bytes, rounded up to 128 (the tensor copies' alignment).
+static __host__ __device__ __forceinline__ unsigned dense_buffer_bytes(int g, int item) {
+  return (unsigned)((g * 32 * item + 127) / 128 * 128);
+}
+
+// Buffers each warp of the staged dense loader keeps: two, so the next
+// group's copy runs while the warp works on this one.
+constexpr int DENSE_STAGES = 2;
+
+// Shared memory of the staged dense loader: per warp of the tile_n / 32,
+// DENSE_STAGES buffers and one 8-byte mbarrier each, then 128 bytes of
+// slack to align the buffers.
+inline size_t dense_loader_bytes(int g, int tile_n, int item) {
+  return (size_t)(tile_n / 32) * DENSE_STAGES * ((size_t)dense_buffer_bytes(g, item) + 8) + 128;
+}
+
+// Whether the staged dense loader (gradpsi.cu's StagedTile) takes a tile of
+// these dims beside a CTA body of `body` bytes: whole warps of columns
+// (tile_n a multiple of 32, so no lane lies past the tile and every row of a
+// box is whole 16-byte pieces), g <= 256 (a box's rows), at least two groups
+// a tile, a 16-byte aligned cost, and its buffers within the budget.  THE
+// rule of the launches; mirrored by kernels/gradpsi.py:dense_staged_fits.
+inline bool dense_staged_fits(int tile_l, int g, int tile_n, int item, size_t body,
+                              const void* C) {
+  if (tile_n % 32 != 0 || g > 256 || tile_l < DENSE_STAGES ||
+      reinterpret_cast<size_t>(C) % 16 != 0)
+    return false;
+  return (body + 15) / 16 * 16 + STATIC_SMEM_RESERVE + dense_loader_bytes(g, tile_n, item) <=
+         CTA_SMEM_BUDGET;
+}
+
 template <class T>
 struct FactCost {
   static constexpr int Q = 16 / (int)sizeof(T);   // elements of a 16-byte piece (copies)
@@ -347,6 +432,8 @@ struct FactRegTile {
   const T *xb, *xsqb;
   float yr[DR];
   float ysq;
+
+  __device__ __forceinline__ FactRegTile per_cta(const FactRegTile*) const { return *this; }
 
   __device__ __forceinline__ void setup(float*) {}
 

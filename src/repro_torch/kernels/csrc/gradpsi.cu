@@ -1,15 +1,17 @@
 // K2, K3, K5-K8: the screened dual gradient of group-sparse OT, batched.
 //
-//   K2 `gradpsi_grid_kernel<DenseTile>`       replaces `gradpsi_pallas_batched`,
+//   K2 `gradpsi_grid_kernel<StagedTile>`      replaces `gradpsi_pallas_batched`,
 //   K3 `gradpsi_compact_kernel<DenseTile>`    replaces `gradpsi_pallas_compact_batched`,
 //   K5 `gradpsi_grid_kernel<FactRegTile>`     replaces `gradpsi_fact_pallas_batched`,
 //   K6 `gradpsi_compact_kernel<FactRegTile>`  replaces `gradpsi_fact_pallas_compact_batched`,
-//   K7 `gradpsi_fused_kernel<DenseTile>`      replaces `gradpsi_fused_pallas_batched`,
+//   K7 `gradpsi_fused_kernel<StagedTile>`     replaces `gradpsi_fused_pallas_batched`,
 //   K8 `gradpsi_fused_kernel<FactRegTile>`    replaces `gradpsi_fused_fact_pallas_batched`
 //
 // (all in src/repro/kernels/gradpsi.py; K5/K6/K8 take `FactChunkTile` for d
-// above FACT_REG_D).  All six run one per-tile body, the counterpart of
-// `_gradpsi_tile`:
+// above FACT_REG_D).  K2 and K7 take the staged loader where the shape
+// allows it (rt::dense_staged_fits) and the direct loads elsewhere; K3 takes
+// the direct loads, which measured no slower for it (PERF.md §6).  All six
+// run one per-tile body, the counterpart of `_gradpsi_tile`:
 //
 //   f = alpha + beta_j - c,  Z = ||[f]_+|| per group,  s = [1 - tau_l/Z]_+,
 //   T = s [f]_+ / gamma,     psi in closed form,
@@ -33,8 +35,13 @@
 // tile_n) f32 block of the padded cost once (half of it in bf16) and does
 // about 10 flops per entry; the whole cost at L_pad * g = 20480, n_pad =
 // 12800 is 1.05 GB, about 0.31 ms at 3.35 TB/s, scaled by the share of
-// live tiles.  K5/K6: operations.  A live tile reads only (tile_l * g +
-// tile_n) * (d + 1) values but does about 2d + 13 flops per entry (the
+// live tiles.  At the sparse end the few live tiles run at once, so a
+// call takes about one tile's chain of groups: on an H100 a group costs a
+// warp over a thousand cycles of dependent arithmetic, plus a memory latency
+// with the direct loads, which the staged loader hides at the price of its
+// own waits and shared memory (PERF.md §6).
+// K5/K6: operations.  A live tile reads only (tile_l * g + tile_n) * (d + 1)
+// values but does about 2d + 13 flops per entry (the
 // rebuilt cost, then the body), about 0.07 ms at 67 TFLOP/s for every tile
 // live at d = 2; at d = 576 (the trainer's OT problem, one tile) the
 // rebuilt cost is 2 d flops an entry that one CTA must do, about 20 us on
@@ -51,7 +58,8 @@
 //    1024]: the CTA takes tile_n rounded up to whole warps, and the lanes
 //    past the last column load nothing of their own and add exact zeros to
 //    the warp sums.  The grid is persistent (CTA c of the grid kernel walks
-//    tiles c, c + P, ...; the fused kernel's CTAs take batches): a tile
+//    tiles c, c + P, ...; the compact kernel's one wave of CTAs its schedule
+//    entries the same way; the fused kernel's CTAs take batches): a tile
 //    whose flag is 0 (grid, fused) or a schedule slot past `num_active`
 //    (compact) costs a flag read (32 at once in the grid kernel) or a
 //    warp's screening, not a CTA, touches neither cost nor samples, and
@@ -120,9 +128,11 @@
 //    schedule or a solo (2, T) one (b = 0).
 //  * Every launch function takes `cost_dtype` (cost.cuh: STORE_F32 or
 //    STORE_BF16) and instantiates the kernel on that storage type.
+#include <cuda.h>
 #include <math_constants.h>
 
 #include <algorithm>
+#include <atomic>
 #include <mutex>
 #include <type_traits>
 
@@ -150,13 +160,15 @@ struct TileArgs {
 
 // -- tile loaders -----------------------------------------------------------
 //
-// Per CTA: `setup(extra)` with the loader's own shared memory, `begin(b, jt,
-// j, col)` for its problem, tile and column, `stage(rec, alpha_rows, row_base,
-// rows)` writes one record of `STRIDE` floats per row of the tile (the
-// body's barrier follows); per group `load_group(row0, col)`
-// (block-uniform, FactChunkTile only); per entry `at(rec_row, row, i, a)`
-// returns the cost of tile row `rec_row` (global row `row`, member i of its
-// group) in this thread's column and sets `a` to its alpha.
+// Per CTA: `per_cta(param)`, the CTA's copy of the kernel's parameter
+// `param`, which serves its whole walk.  Per tile: `setup(extra)` with the
+// loader's own shared memory, `begin(b, jt, j, col)` for its problem, tile
+// and column, `stage(rec, alpha_rows, row_base, rows)` writes one record of
+// `STRIDE` floats per row of the tile (the body's barrier follows); per
+// group `load_group(row0, col)` (block-uniform: FactChunkTile and StagedTile
+// act there); per entry `at(rec_row, row, i, a)` returns the cost of tile
+// row `rec_row` (global row `row`, member i of its group) in this thread's
+// column and sets `a` to its alpha.
 
 // The dense padded cost; a record is the row's alpha.
 template <class T>
@@ -164,6 +176,7 @@ struct DenseTile {
   static constexpr int STRIDE = 1;
   rt::DenseCost<T> c;
 
+  __device__ __forceinline__ DenseTile per_cta(const DenseTile*) const { return *this; }
   __device__ __forceinline__ void setup(float*) {}
   __device__ __forceinline__ void begin(int b, int jt, int j, bool col) { c.begin(b, jt, j, col); }
   __device__ __forceinline__ void stage(float* rec, const float* alpha_rows, size_t, int rows) {
@@ -176,6 +189,96 @@ struct DenseTile {
   }
 };
 
+// The dense padded cost staged into shared memory by Hopper's tensor memory
+// accelerator, each warp for itself.  A warp's 32 columns of a group of the
+// tile, (g, 32) values, are one box of a 2-D tensor map over the cost (rows
+// b * m_pad + row, columns j), copied by one instruction of lane 0
+// (cp.async.bulk.tensor) into one of the warp's S = 2 buffers and completed
+// on the buffer's mbarrier: the next group's copy runs while the warp works
+// on this one, so a group costs the body's arithmetic and a wait, not a
+// memory latency on top of the arithmetic.  No warp waits on another: a
+// buffer is refilled only after the warp's own lanes read it (__syncwarp,
+// then a proxy fence orders their reads before the copy's writes).  A
+// tile's first two groups are copied in `stage`; the buffers' phases carry
+// over from tile to tile (one loader a CTA for its whole walk), and the
+// barriers are set up at the first tile.  `at` reads buffer[i * 32 + lane]:
+// neighbouring lanes, neighbouring words.  The values are those DenseTile
+// reads, upcast as it does, so every bit of the body is the same.  The
+// tensor map lives in the kernel's parameter (per_cta points there).  K2's
+// and K7's launches take it where rt::dense_staged_fits.
+template <class T>
+struct StagedTile {
+  static constexpr int STRIDE = 1;
+  static constexpr int S = rt::DENSE_STAGES;
+  CUtensorMap map;            // the cost, (B * m_pad, n_pad), boxes of (g, 32)
+  const CUtensorMap* param;   // `map` in the kernel's parameter
+  int m_pad, g, tile_n, tile_l;
+  // per CTA
+  char* ring;                 // this warp's buffers, (S, buffer bytes)
+  uint64_t* full;             // this warp's barriers, (S,)
+  const T* cur;               // the buffer of the group being read
+  int x, y, r;                // the warp's first column, the tile's first row; the group
+  unsigned phase;             // each buffer's next phase parity, a bit a buffer
+  bool ready;                 // the barriers are set up
+
+  __device__ __forceinline__ StagedTile per_cta(const StagedTile* in_param) const {
+    StagedTile c = *this;
+    c.param = &in_param->map;
+    return c;
+  }
+  __device__ __forceinline__ void setup(float* extra) {
+    char* base = reinterpret_cast<char*>((reinterpret_cast<size_t>(extra) + 127) & ~size_t(127));
+    const unsigned bytes = rt::dense_buffer_bytes(g, sizeof(T));
+    const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+    ring = base + (size_t)warp * S * bytes;
+    full = reinterpret_cast<uint64_t*>(base + (size_t)nw * S * bytes) + warp * S;
+  }
+  __device__ __forceinline__ void begin(int b, int jt, int, bool) {
+    x = jt * tile_n + (int)(threadIdx.x & ~31u);
+    y = b * m_pad;
+  }
+  // Lane 0: group q of the tile into buffer q % S.
+  __device__ __forceinline__ void fill(int q) {
+    const int s = q % S;
+    rt::mbar_expect_tx(&full[s], 32u * g * sizeof(T));
+    rt::tma_load_2d(ring + (size_t)s * rt::dense_buffer_bytes(g, sizeof(T)), param, x,
+                    y + q * g, &full[s]);
+  }
+  __device__ __forceinline__ void stage(float* rec, const float* alpha_rows, size_t row_base,
+                                        int rows) {
+    for (int q = threadIdx.x; q < rows; q += blockDim.x) rec[q] = alpha_rows[q];
+    y += (int)row_base;
+    r = 0;
+    if ((threadIdx.x & 31) == 0) {
+      if (!ready) {
+        for (int s = 0; s < S; ++s) rt::mbar_init(&full[s], 1);
+        rt::mbar_init_fence();
+      }
+      for (int q = 0; q < S; ++q) fill(q);        // tile_l >= S (rt::dense_staged_fits)
+    }
+    ready = true;                    // the body's barrier follows: every lane sees the barriers
+  }
+  // Once per group r of the tile, after the warp's reads of group r - 1.
+  __device__ __forceinline__ void load_group(size_t, bool) {
+    if (r > 0 && r - 1 + S < tile_l) {           // group r - 1's buffer takes group r - 1 + S
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) {
+        rt::fence_proxy_async();
+        fill(r - 1 + S);
+      }
+    }
+    const int s = r % S;
+    rt::mbar_wait(&full[s], (phase >> s) & 1u);
+    phase ^= 1u << s;
+    cur = reinterpret_cast<const T*>(ring + (size_t)s * rt::dense_buffer_bytes(g, sizeof(T)));
+    ++r;
+  }
+  __device__ __forceinline__ float at(const float* rec, size_t, int i, float& a) const {
+    a = rec[0];
+    return rt::to_f32(cur[i * 32 + (threadIdx.x & 31)]);
+  }
+};
+
 // The factorized cost for wider d: cost.cuh's FactCost, which sums the
 // inner products of the tile's rows (a block of gb groups at a time) chunk
 // by chunk of feature columns in `stage`, before the body walks the
@@ -185,6 +288,7 @@ struct FactChunkTile {
   static constexpr int STRIDE = 1;
   rt::FactCost<T> c;
 
+  __device__ __forceinline__ FactChunkTile per_cta(const FactChunkTile*) const { return *this; }
   __device__ __forceinline__ void setup(float* extra) {
     // the loader's cp.async buffers want 16-byte alignment (smem_bytes leaves room)
     c.setup(reinterpret_cast<float*>((reinterpret_cast<size_t>(extra) + 15) & ~size_t(15)));
@@ -270,7 +374,7 @@ __device__ __forceinline__ void group_chunk(const Tile& cost, const float* rec, 
 }
 
 template <class Tile>
-__device__ __forceinline__ void gradpsi_tile(const TileArgs& A, Tile cost, int b, int lt,
+__device__ __forceinline__ void gradpsi_tile(const TileArgs& A, Tile& cost, int b, int lt,
                                              int jt) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -372,13 +476,15 @@ __device__ __forceinline__ void tile_coords(const TileArgs& A, int t, int& b, in
 constexpr int NARROW_THREADS = 256;
 #define WIDE_BOUNDS __launch_bounds__(1024)
 
-// The kernels run a persistent grid: CTA c takes tiles c, c + P, c + 2P, ...
-// (P = gridDim.x, at most 32 CTAs per SM), so a dead tile costs a flag
-// read, not a CTA.  The grid kernel's first warp reads the flags of 32 of
-// its tiles at once into a bit mask.
+// The grid kernel runs a persistent grid: CTA c takes tiles c, c + P, c + 2P,
+// ... (P = gridDim.x, at most 32 CTAs per SM), so a dead tile costs a flag
+// read, not a CTA.  The first warp reads the flags of 32 of its tiles at
+// once into a bit mask.  The bodies take the loader by value, one per CTA
+// for its whole walk (the staged loader's ring carries over from tile to
+// tile).
 template <class Tile>
 __device__ __forceinline__ void grid_body(const int32_t* __restrict__ flags, int T,
-                                          const TileArgs& A, const Tile& cost) {
+                                          const TileArgs& A, Tile cost) {
   __shared__ unsigned live_mask;
   if (blockIdx.x == 0 && threadIdx.x == 0) *A.counter = 0u;   // for the slot reduction
   const int P = gridDim.x;
@@ -403,20 +509,21 @@ __device__ __forceinline__ void grid_body(const int32_t* __restrict__ flags, int
 
 template <class Tile>
 __global__ void gradpsi_grid_kernel(const int32_t* __restrict__ flags, int T, TileArgs A,
-                                    Tile cost) {
-  grid_body(flags, T, A, cost);
+                                    const __grid_constant__ Tile cost) {
+  grid_body(flags, T, A, cost.per_cta(&cost));
 }
 template <class Tile>
 __global__ void WIDE_BOUNDS gradpsi_grid_kernel_wide(const int32_t* __restrict__ flags, int T,
-                                                     TileArgs A, Tile cost) {
-  grid_body(flags, T, A, cost);
+                                                     TileArgs A,
+                                                     const __grid_constant__ Tile cost) {
+  grid_body(flags, T, A, cost.per_cta(&cost));
 }
 
 // sched: (3, BT) rows (b, l, j), or with sched_rows = 2 a solo (2, BT) (l, j).
 template <class Tile>
 __device__ __forceinline__ void compact_body(const int32_t* __restrict__ sched, int sched_rows,
                                              const int32_t* __restrict__ num_active, int BT,
-                                             const TileArgs& A, const Tile& cost) {
+                                             const TileArgs& A, Tile cost) {
   if (blockIdx.x == 0 && threadIdx.x == 0) *A.counter = 0u;   // for the slot reduction
   const int n = *num_active;
   const int32_t* lj = sched_rows == 3 ? sched + BT : sched;
@@ -429,15 +536,16 @@ __device__ __forceinline__ void compact_body(const int32_t* __restrict__ sched, 
 template <class Tile>
 __global__ void gradpsi_compact_kernel(const int32_t* __restrict__ sched, int sched_rows,
                                        const int32_t* __restrict__ num_active, int BT,
-                                       TileArgs A, Tile cost) {
-  compact_body(sched, sched_rows, num_active, BT, A, cost);
+                                       TileArgs A, const __grid_constant__ Tile cost) {
+  compact_body(sched, sched_rows, num_active, BT, A, cost.per_cta(&cost));
 }
 template <class Tile>
 __global__ void WIDE_BOUNDS gradpsi_compact_kernel_wide(const int32_t* __restrict__ sched,
                                                         int sched_rows,
                                                         const int32_t* __restrict__ num_active,
-                                                        int BT, TileArgs A, Tile cost) {
-  compact_body(sched, sched_rows, num_active, BT, A, cost);
+                                                        int BT, TileArgs A,
+                                                        const __grid_constant__ Tile cost) {
+  compact_body(sched, sched_rows, num_active, BT, A, cost.per_cta(&cost));
 }
 
 // The screening operands of the fused kernels that a tile's flag depends
@@ -550,7 +658,7 @@ __device__ __forceinline__ int screen_tile(const ScreenArgs& S, const TileArgs& 
 // returns both counters to 0 for the next launch on this stream.
 template <class Tile, int V>
 __device__ __forceinline__ void fused_body(const ScreenArgs& S, int T, const TileArgs& A,
-                                           const Tile& cost, unsigned* __restrict__ work) {
+                                           Tile cost, unsigned* __restrict__ work) {
   __shared__ int next_batch;
   __shared__ int live[32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
@@ -606,13 +714,15 @@ struct FusedMinCtas<FactChunkTile<T>> {
 
 template <class Tile, int V>
 __global__ void __launch_bounds__(NARROW_THREADS, FusedMinCtas<Tile>::value)
-    gradpsi_fused_kernel(ScreenArgs S, int T, TileArgs A, Tile cost, unsigned* work) {
-  fused_body<Tile, V>(S, T, A, cost, work);
+    gradpsi_fused_kernel(ScreenArgs S, int T, TileArgs A, const __grid_constant__ Tile cost,
+                         unsigned* work) {
+  fused_body<Tile, V>(S, T, A, cost.per_cta(&cost), work);
 }
 template <class Tile, int V>
-__global__ void WIDE_BOUNDS gradpsi_fused_kernel_wide(ScreenArgs S, int T, TileArgs A, Tile cost,
+__global__ void WIDE_BOUNDS gradpsi_fused_kernel_wide(ScreenArgs S, int T, TileArgs A,
+                                                      const __grid_constant__ Tile cost,
                                                       unsigned* work) {
-  fused_body<Tile, V>(S, T, A, cost, work);
+  fused_body<Tile, V>(S, T, A, cost.per_cta(&cost), work);
 }
 
 // -- the slot reduction -------------------------------------------------------
@@ -866,13 +976,84 @@ int allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
+// The tensor map of the staged dense loader over the cost C, (rows, n_pad)
+// values of `item` bytes, boxes of (g, 32): encoded through the driver's
+// cuTensorMapEncodeTiled (found by cudaGetDriverEntryPoint, so the library
+// links no driver library) and remembered per (C, rows, n_pad, g, item): a
+// solve's calls all take one cost.
+int dense_tensor_map(CUtensorMap* out, const void* C, int rows, int n_pad, int g, int item) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  struct Entry {
+    const void* C;
+    int rows, n_pad, g, item;
+    CUtensorMap map;
+  };
+  static Entry seen[16];
+  static int n_seen = 0, next = 0;
+  static Encode encode = nullptr;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int e = 0; e < n_seen; ++e)
+    if (seen[e].C == C && seen[e].rows == rows && seen[e].n_pad == n_pad && seen[e].g == g &&
+        seen[e].item == item) {
+      *out = seen[e].map;
+      return 0;
+    }
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)n_pad, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)n_pad * item};
+  const cuuint32_t box[2] = {32, (cuuint32_t)g};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult rc = encode(out, item == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                             2, const_cast<void*>(C), dims, strides, box, step,
+                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (rc != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  seen[next] = Entry{C, rows, n_pad, g, item, *out};
+  next = (next + 1) % 16;
+  if (n_seen < 16) ++n_seen;
+  return 0;
+}
+
 // A launch of one of the three kernels on one tile loader: `fn(tile, smem)`.
-// The dense cost's loader.
-template <class T, class F>
-int with_dense(const void* C, int L_pad, int g, int n_pad, int tile_l, int tile_n, F&& fn) {
+// The dense cost's loader: with `Staged` (K2, K7), StagedTile where
+// rt::dense_staged_fits (the shape rule, in one place), else DenseTile (the
+// direct loads; at tile_n = 4 or 20, say, whose warps have lanes past the
+// tile).  K3 takes DenseTile at every shape.
+template <class T, bool Staged, class F>
+int with_dense(const void* C, int B, int L_pad, int g, int n_pad, int tile_l, int tile_n,
+               F&& fn) {
+  const int threads = cta_threads<DenseTile<T>>(tile_n);
+  const size_t body = smem_bytes(tile_l, g, threads, 1, 0);
+  if constexpr (Staged) {
+    if (rt::dense_staged_fits(tile_l, g, tile_n, sizeof(T), body, C)) {
+      StagedTile<T> t = {};
+      const int err = dense_tensor_map(&t.map, C, B * L_pad * g, n_pad, g, sizeof(T));
+      if (err != 0) return err;
+      t.m_pad = L_pad * g;
+      t.g = g;
+      t.tile_n = tile_n;
+      t.tile_l = tile_l;
+      return fn(t, smem_bytes(tile_l, g, threads, t.STRIDE,
+                              rt::dense_loader_bytes(g, tile_n, sizeof(T))));
+    }
+  }
   DenseTile<T> t;
   t.c = rt::make_dense_cost<T>(C, L_pad, g, n_pad);
-  return fn(t, smem_bytes(tile_l, g, cta_threads<decltype(t)>(tile_n), t.STRIDE, 0));
+  return fn(t, body);
 }
 
 // The factorized cost's loader: FactRegTile for dc == 0 (d <= FACT_REG_D,
@@ -894,18 +1075,23 @@ int with_fact(const void* x, const void* x_sq, const void* y, const void* y_sq, 
                           rt::fact_loader_bytes(g, gb, dc, tile_n, sizeof(T))));
 }
 
-// SMs of the current device.
+// SMs of the current device, asked of the runtime once per device: a call at
+// the sparse end of a solve costs mostly host time.
 int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
+  static std::atomic<int> seen[64];        // 0 until asked
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  int sms = seen[dev].load(std::memory_order_relaxed);
+  if (sms == 0 &&
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+    seen[dev].store(sms, std::memory_order_relaxed);
   return sms;
 }
 
-// CTAs of a persistent grid launch over `work` tiles: 32 per SM (the most
-// one SM takes), so the CTAs still queue for SMs and a tile mix of live and
-// dead spreads over them as they free up.
+// CTAs of a grid-kernel launch over `work` tiles: 32 per SM (the most one SM
+// takes), so the CTAs queue for SMs and the hardware hands them out as SMs
+// free up.  A mix of live and dead tiles so spreads over the SMs better than
+// over one resident wave of CTAs walking fixed strides (PERF.md §6).
 int persistent_ctas(int work) {
   const int sms = sm_count();
   return sms > 0 ? std::min(work, 32 * sms) : work;
@@ -913,9 +1099,8 @@ int persistent_ctas(int work) {
 
 // CTAs of a compact or fused launch: one wave, as many as the SMs hold at
 // once (every scheduled tile is live, so the slots spread evenly; the fused
-// kernel hands out its batches itself).  The
-// occupancy query is remembered per (kernel, threads, shared memory,
-// device): a call at the sparse end of a solve costs mostly host time.
+// kernel hands out its batches itself).  The occupancy query is remembered
+// per (kernel, threads, shared memory, device).
 template <typename Kernel>
 int one_wave_ctas(Kernel kernel, int threads, size_t smem, int work) {
   struct Entry {
@@ -1067,9 +1252,10 @@ extern "C" int gradpsi_grid_launch(const void* flags, const void* alpha, const v
                                n_pad, tile_l, tile_n, gamma, inv_gamma);
   const int err = rt::with_storage(cost_dtype, [&](auto st) {
     using T = typename decltype(st)::type;
-    return with_dense<T>(C, L_pad, g, n_pad, tile_l, tile_n, [&](const auto& t, size_t smem) {
-      return launch_grid(flags, A, t, B, smem, stream);
-    });
+    return with_dense<T, true>(C, B, L_pad, g, n_pad, tile_l, tile_n,
+                               [&](const auto& t, size_t smem) {
+                                 return launch_grid(flags, A, t, B, smem, stream);
+                               });
   });
   return err != 0 ? err
                   : launch_reduce(flags, nullptr, 0, nullptr, A, rowsum, colsum, psi, B, stream);
@@ -1091,9 +1277,11 @@ extern "C" int gradpsi_compact_launch(const void* sched, int sched_rows, const v
                                n_pad, tile_l, tile_n, gamma, inv_gamma);
   const int err = rt::with_storage(cost_dtype, [&](auto st) {
     using T = typename decltype(st)::type;
-    return with_dense<T>(C, L_pad, g, n_pad, tile_l, tile_n, [&](const auto& t, size_t smem) {
-      return launch_compact(sched, sched_rows, num_active, A, t, B, smem, stream);
-    });
+    return with_dense<T, false>(C, B, L_pad, g, n_pad, tile_l, tile_n,
+                                [&](const auto& t, size_t smem) {
+                                  return launch_compact(sched, sched_rows, num_active, A, t, B,
+                                                        smem, stream);
+                                });
   });
   return err != 0 ? err
                   : launch_reduce(nullptr, sched, sched_rows, num_active, A, rowsum, colsum, psi,
@@ -1174,9 +1362,11 @@ extern "C" int gradpsi_fused_launch(const void* alpha, const void* beta, const v
   const ScreenArgs S = make_screen_args(z, act, dap, db, sg, flags);
   const int err = rt::with_storage(cost_dtype, [&](auto st) {
     using T = typename decltype(st)::type;
-    return with_dense<T>(C, L_pad, g, n_pad, tile_l, tile_n, [&](const auto& t, size_t smem) {
-      return launch_fused(S, A, t, B, smem, static_cast<unsigned*>(work), stream);
-    });
+    return with_dense<T, true>(C, B, L_pad, g, n_pad, tile_l, tile_n,
+                               [&](const auto& t, size_t smem) {
+                                 return launch_fused(S, A, t, B, smem,
+                                                     static_cast<unsigned*>(work), stream);
+                               });
   });
   return err != 0 ? err
                   : launch_reduce(flags, nullptr, 0, nullptr, A, rowsum, colsum, psi, B, stream);

@@ -49,6 +49,10 @@ from as the keyword ``flags``.
 The cost operands (``C``, or ``x, x_sq, y, y_sq``) may be stored in
 float32 or bfloat16 (``precision='bf16'``); the kernels upcast each value
 as they load it and compute in float32, and so do the plain versions.
+K2 and K7 read the dense cost staged into shared memory by tensor copies,
+a warp's group at a time, where the shape allows it
+(:func:`dense_staged_fits`), and each thread's loads of its column
+elsewhere; K3 always by the direct loads.  Both loaders give the same bits.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
 plain version, ``*_ref``, only for CPU tensors.  The CUDA sources are in
@@ -116,6 +120,59 @@ def resolve_tile_l(L: int, g: int, tile_n: int) -> int:
     while t > 1 and L % t:
         t //= 2
     return max(t, 1)
+
+
+# -- the staged dense loader ----------------------------------------------------
+
+# Bytes of a CTA's shared memory kept for the kernels' static shared memory
+# when the staged loader's buffers are sized (STATIC_SMEM_RESERVE in csrc/cost.cuh).
+STATIC_SMEM_RESERVE = 1024
+# Buffers each warp of the staged loader keeps (DENSE_STAGES in csrc/cost.cuh).
+DENSE_STAGES = 2
+
+
+def dense_buffer_bytes(g: int, itemsize: int = 4) -> int:
+    """One buffer of the staged dense loader: a warp's ``(g, 32)`` values, rounded up
+    to 128 bytes (``dense_buffer_bytes`` in csrc/cost.cuh)."""
+    return -(-(g * 32 * itemsize) // 128) * 128
+
+
+def dense_loader_bytes(g: int, tile_n: int, itemsize: int = 4) -> int:
+    """Shared memory of the staged dense loader (``dense_loader_bytes`` in
+    csrc/cost.cuh): per warp of the ``tile_n / 32``, :data:`DENSE_STAGES`
+    buffers and one 8-byte mbarrier each, then 128 bytes of slack to align
+    the buffers."""
+    return tile_n // 32 * DENSE_STAGES * (dense_buffer_bytes(g, itemsize) + 8) + 128
+
+
+def dense_staged_fits(tile_l: int, g: int, tile_n: int, itemsize: int = 4,
+                      aligned: bool = True) -> bool:
+    """Whether a K2/K7 launch takes the staged loader (K3 never does).
+
+    THE rule of the launches (``rt::dense_staged_fits`` in csrc/cost.cuh):
+    whole warps of columns (``tile_n`` a multiple of 32), ``g <= 256`` (a
+    tensor-map box's rows), at least :data:`DENSE_STAGES` groups a tile, a
+    16-byte aligned cost (``aligned``: ``C.data_ptr() % 16 == 0``), and the
+    CTA's body (:func:`cta_smem_bytes`, from a 16-byte boundary) and the
+    loader's buffers within :data:`CTA_SMEM_BUDGET_BYTES` less
+    :data:`STATIC_SMEM_RESERVE`.  Elsewhere the launch takes the direct loads.
+    """
+    if tile_n % 32 or g > 256 or tile_l < DENSE_STAGES or not aligned:
+        return False
+    body = -(-cta_smem_bytes(tile_l, g, tile_n) // 16) * 16
+    return body + STATIC_SMEM_RESERVE + dense_loader_bytes(g, tile_n, itemsize) \
+        <= CTA_SMEM_BUDGET_BYTES
+
+
+def dense_smem_bytes(tile_l: int, g: int, tile_n: int, itemsize: int = 4,
+                     staged: bool = True, aligned: bool = True) -> int:
+    """Dynamic shared memory of a dense CTA (``smem_bytes`` in gradpsi.cu): the
+    body's, then from a 16-byte boundary the staged loader's buffers where the
+    kernel takes it (``staged``: K2 and K7, not K3) and :func:`dense_staged_fits`."""
+    body = cta_smem_bytes(tile_l, g, tile_n)
+    if not staged or not dense_staged_fits(tile_l, g, tile_n, itemsize, aligned):
+        return body
+    return -(-body // 16) * 16 + dense_loader_bytes(g, tile_n, itemsize)
 
 
 # -- the factorized cost ------------------------------------------------------
