@@ -9,6 +9,8 @@
                                # phase 13 alone (the LM trainer)
     python3 chip_smoke.py --serve-only
                                # phase 14 alone (LM serving, MoE, the OT router)
+    python3 chip_smoke.py --families-only
+                               # phase 15 alone (MLA, the encoder-decoder, the VLM)
 
 The main path is the default plan at the paper's largest scale:
 ``repro_torch.ot.compile(Problem.from_samples(...), ExecutionPlan(grad_impl=
@@ -190,6 +192,31 @@ Phases:
      skewed router ``ot_route``'s load_cv below top-k's.  For each run tokens a second, ms a
      tick, peak memory, and a profile of a few ticks (idle share, launches a
      tick).
+ 15. the attention families at full width, random bf16 weights from seed 0, each
+     sub-phase's model freed and the peak reset before the next: (a) ``minicpm3-4b``
+     (MLA; 62 layers, 4 261 902 848 parameters) served through ``ServingEngine`` as
+     14 (a) (eight requests of 64 + 32, four slots): each back once, those in
+     recycled slots bit for bit each alone in a fresh engine, the cache 35 712 B a
+     token, and in float32 the absorbed path (prefill, teacher-forced decode)
+     within rtol / atol 2e-3 of the expanded one (``forward``); (b) the same trained
+     with the OT alignment loss on phase 13's data for 4 steps, at full depth where
+     an AdamW step fits (16 B a parameter plus 12 GiB), else cut and said so: losses
+     finite, the OT term present, K1, K4 and K5 or K6 launched; the step split, a
+     profile of one step, the fused OT term of one step (K8 or K6); K1, K4, K5, K6
+     and K8 at the step-0 OT operands (L_pad 8, g 4, n_pad 128, d 2560: 80 chunks
+     of 32) held as in phase 13 and timed; (c) ``whisper-medium`` (24 + 24 layers)
+     at full width and depth: one AdamW step of ``make_train_step`` on 8 x 128
+     tokens and 8 x 1500 frames, then ``make_prefill_step`` (the encoder, then the
+     decoder's prefill) of 4 x 32 tokens and 32 ``make_serve_step`` decode steps:
+     the loss finite, each layer's ``cross_kv`` after prefill the projection of the
+     encoder's output bit for bit, other frames other prefill logits, and in
+     float32 prefill and decode within 2e-3 of the decoder without a cache; (d)
+     ``llama-3.2-vision-90b`` cut to one period (5 of 100 layers, 6 379 634 689
+     parameters), ``cross_gate`` set to 0.5 (at its zero init the cross path adds
+     nothing): forward and backward of ``train_loss`` on 4 x 128 tokens and 1601
+     image tokens (no optimizer: its state does not fit), the loss and gradient
+     norm finite and ``cross.wq``'s gradient nonzero, then (c)'s serving and checks
+     with the image tokens.
 Phase 3 also runs K2-K8 at tile_n 4, 20, 40 and 128 on a narrow problem
 (K2, K3 and K7 in f32 and bf16; K2 and K7 on the staged loader at 128, 1024
 and 256, on the direct loads where a warp has lanes past the tile; K3 on the
@@ -199,7 +226,8 @@ before the kernels took any tile width.
 The second-to-last line is the kernel table as JSON (K1-K8, B9-B14, and
 row_sum / row_dot, the solver's batch-invariant reductions, which stand in
 for XLA's reductions and have no TPU kernel; their ``launches_ot_router``
-are phase 14 (c)'s), the last line
+are phase 14 (c)'s; K1, K4, K5, K6 and K8 once more at phase 13's trainer
+shapes, ``@lm_step``, d = 576, and phase 15 (b)'s, ``@mla_step``, d = 2560), the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 from __future__ import annotations
@@ -2955,11 +2983,14 @@ def lm_ot_operands(tr, batch, device):
     return fp, alphap, betap, kops._padded_mask(row_mask, fp), layer.reg, res
 
 
-def phase_lm_kernels(fp, a, b, mask, reg, launches, fused_launches, smi_line, device):
-    """K1, K4, K5, K6 and K8 at the trainer's step-0 OT operands (L_pad 8, g 4, n_pad 128,
-    d 576: the chunked loader and K4's FactCost body), on the solve's duals, each held
-    to its plain version as ``phase_kernels_wide_d`` holds them at d = 64, then timed
-    beside its bound and its plain version.  Returns the kernel-table rows."""
+def phase_lm_kernels(fp, a, b, mask, reg, counts, smi_line, device, phase="phase 13",
+                     suffix=LM_ROW):
+    """K1, K4, K5, K6 and K8 at a trainer's step-0 OT operands (phase 13: L_pad 8, g 4,
+    n_pad 128, d 576; phase 15: d 2560; the chunked loader and K4's FactCost body), on the
+    solve's duals, each held to its plain version as ``phase_kernels_wide_d`` holds them at
+    d = 64, then timed (CUDA events; device us from the profiler's records) beside its
+    bound and its plain version.  ``counts`` is {kernel: (the path, its launches there)}.
+    Returns the kernel-table rows."""
     import numpy as np
     import torch
 
@@ -2967,9 +2998,13 @@ def phase_lm_kernels(fp, a, b, mask, reg, launches, fused_launches, smi_line, de
     from repro_torch.kernels import screen as ks
 
     L_pad, g, n_pad, d = fp.L_pad, fp.g, fp.n_pad, fp.d
-    check((fp.tile_l, fp.tile_n) == (TILE_L, TILE_N), f"phase 13 tiles {fp.tile_l} x {fp.tile_n}")
+    check((fp.tile_l, fp.tile_n) == (TILE_L, TILE_N), f"{phase} tiles {fp.tile_l} x {fp.tile_n}")
     dc = kg.fact_loader_dc(TILE_L, g, TILE_N, d)
     check(0 < dc < d, f"d = {d} should take the chunked loader, got dc = {dc}")
+    loaders = {st: kg.fact_loader(TILE_L, g, TILE_N, d, size)
+               for st, size in (("f32", 4), ("bf16", 2))}
+    check(all(dcg[0] == 32 for dcg in loaders.values()),
+          f"{phase}: d = {d} should load 32-column chunks: fact_loader (dc, gb) {loaders}")
     leaves = fp.leaves()
     tp = torch.full((L_pad,), float(reg.tau), dtype=torch.float32, device=device)
     kw = dict(num_groups=L_pad, group_size=g, tau=tp, gamma=reg.gamma, tile_l=TILE_L,
@@ -3008,9 +3043,9 @@ def phase_lm_kernels(fp, a, b, mask, reg, launches, fused_launches, smi_line, de
             k4 = ks.snapshot_norms_fact_batched(a, b, *lv, mask, **skw)
             k4p = ks.snapshot_norms_fact_ref(a, b, *lv, mask, num_groups=L_pad, group_size=g)
             check(same(k4, k4p), f"K4 {at} differs from its plain version")
-    print(f"kernels @ the trainer's step-0 OT operands (B = 1, L_pad = {L_pad}, g = {g}, "
-          f"n_pad = {n_pad}, d = {d}: {-(-d // dc)} chunks of {dc}, the tile one block; the "
-          f"solve's duals; f32 and bf16): K5 max abs err {max(errs):.3e} (rtol 1e-5, atol "
+    print(f"{phase} kernels @ the trainer's step-0 OT operands (B = 1, L_pad = {L_pad}, g = "
+          f"{g}, n_pad = {n_pad}, d = {d}: {-(-d // dc)} chunks of {dc}, fact_loader (dc, gb) "
+          f"{loaders}; the solve's duals; f32 and bf16): K5 max abs err {max(errs):.3e} (rtol 1e-5, atol "
           f"1e-6), K5 == K2 and K6 == K5 bitwise, K1 == plain, K8 == K1's flags and K5's sums "
           f"bitwise (live shares 0 and 1), K4 == plain bitwise", flush=True)
 
@@ -3041,22 +3076,39 @@ def phase_lm_kernels(fp, a, b, mask, reg, launches, fused_launches, smi_line, de
         err, rel = max_errs(got[:3], want[:3])
         ms = median_ms(fn, 50)
         plain_ms = median_ms(plain, 10, warmup=1)
+        split = device_split(fn)
+        # None where the profiler kept no record of the kernel in the session
+        dev_us = sum(split.values()) if any(v > 0 for v in split.values()) else None
         bms, by = bound(*work[name])
-        path, count = ((f"phase 13 {LM_ARCH} trainer, 3 steps, grad_impl 'fused'",
-                        fused_launches.get(name, 0)) if name == K8 else
-                       (f"phase 13 {LM_ARCH} trainer, {LM_STEPS} steps, grad_impl 'pallas'",
-                        launches.get(name, 0)))
+        path, count = counts[name]
         source, replaces = SOURCES[name]
-        rows.append({"name": name + LM_ROW, "route": "cuda", "source": source,
+        rows.append({"name": name + suffix, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": count, "launches_path": path,
-                     "max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bms, "bound_by": by, "library_ms": None,
-                     "check": "phase 13: held to the plain version as at d = 64",
+                     "max_abs_err": err, "max_rel_err": rel, "ms": ms, "device_us": dev_us,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     "check": f"{phase}: held to the plain version as at d = 64",
                      "result": "pass"})
-        print(f"time {name}{LM_ROW} ({smi_line}): {ms:.4f} ms (bound {bms:.6f} ms by {by}), "
-              f"plain {plain_ms:.4f} ms, max abs err {err:.3e}; launches on {path}: {count}",
-              flush=True)
+        dev = "not recorded by the profiler" if dev_us is None else f"{dev_us:.2f} us"
+        print(f"time {name}{suffix} ({smi_line}): {ms:.4f} ms a call, device {dev} (bound "
+              f"{bms:.6f} ms by {by}), plain {plain_ms:.4f} ms, max abs err {err:.3e}; "
+              f"launches on {path}: {count}", flush=True)
     return rows
+
+
+def print_split_steps(phase, tr, first, n, smi_line):
+    """Time ``n`` steps of ``tr`` on batches ``first``, ``first + 1``, ... piece by piece
+    (each piece of ``tr.step_fn`` ending in a synchronize) and print the medians."""
+    import statistics
+
+    def split_step(batch):
+        marks = [("start", time.perf_counter())]
+        tr.step_fn(batch, mark=lambda piece: (sync(), marks.append((piece, time.perf_counter()))))
+        return {p: t - marks[i][1] for i, (p, t) in enumerate(marks[1:])}
+
+    splits = [split_step(tr.batch(first + i)) for i in range(n)]
+    print(f"{phase} step split (median of {n}, {smi_line}): "
+          + ", ".join(f"{p} {statistics.median(r[p] for r in splits):.4f} s" for p in splits[0])
+          + f"; total {statistics.median(sum(r.values()) for r in splits):.4f} s", flush=True)
 
 
 def phase_lm(smi_line, device):
@@ -3132,17 +3184,7 @@ def phase_lm(smi_line, device):
               f"held before); OT kernel launches per step {per_step}", flush=True)
         lap13(f"{LM_STEPS} steps")
 
-        def split_step(batch):
-            """Seconds of each piece of one ``tr.step_fn``, each piece ending in a synchronize."""
-            marks = [("start", time.perf_counter())]
-            tr.step_fn(batch, mark=lambda piece: (sync(), marks.append((piece, time.perf_counter()))))
-            return {p: t - marks[i][1] for i, (p, t) in enumerate(marks[1:])}
-
-        splits = [split_step(tr.batch(LM_STEPS + i)) for i in range(LM_SPLIT_STEPS)]
-        print(f"phase 13 step split (median of {LM_SPLIT_STEPS}, {smi_line}): "
-              + ", ".join(f"{p} {statistics.median(r[p] for r in splits):.4f} s"
-                          for p in splits[0])
-              + f"; total {statistics.median(sum(r.values()) for r in splits):.4f} s", flush=True)
+        print_split_steps("phase 13", tr, LM_STEPS, LM_SPLIT_STEPS, smi_line)
         lap13("split steps")
 
         s0 = LM_STEPS + LM_SPLIT_STEPS
@@ -3172,7 +3214,11 @@ def phase_lm(smi_line, device):
         del trf
         lap13("fused")
 
-        rows = phase_lm_kernels(*ops[:5], launches, fused_launches, smi_line, device)
+        counts = {k: (f"phase 13 {LM_ARCH} trainer, {LM_STEPS} steps, grad_impl 'pallas'",
+                      launches.get(k, 0)) for k in (K1, K4, K5, K6)}
+        counts[K8] = (f"phase 13 {LM_ARCH} trainer, 3 steps, grad_impl 'fused'",
+                      fused_launches.get(K8, 0))
+        rows = phase_lm_kernels(*ops[:5], counts, smi_line, device)
         del ops
         lap13("kernels")
 
@@ -3261,7 +3307,7 @@ def drive_engine(engine, pairs, new):
             "wall": time.perf_counter() - t_run, "peak": torch.cuda.max_memory_allocated()}
 
 
-def profile_ticks(engine, pairs, new, n_ticks):
+def profile_ticks(engine, pairs, new, n_ticks, phase="phase 14"):
     """The first wave admitted and one tick run, then ``n_ticks`` ticks under one
     torch.profiler session (the device's own records): (wall s, busy s, device launches,
     largest kernels)."""
@@ -3271,13 +3317,13 @@ def profile_ticks(engine, pairs, new, n_ticks):
     while pending and engine.try_admit(pending[0]):
         pending.pop(0)
     engine.tick()
-    check(new - 2 > n_ticks, "phase 14: the profiled ticks would outlast the first wave")
+    check(new - 2 > n_ticks, f"{phase}: the profiled ticks would outlast the first wave")
     _, wall, busy, n_dev, krows = profile_device(lambda: [engine.tick() for _ in range(n_ticks)])
-    check(busy > 0, "phase 14: the profiler recorded no device time")
+    check(busy > 0, f"{phase}: the profiler recorded no device time")
     return wall, busy, n_dev, krows
 
 
-def report_serve(label, run, prof, n_ticks, smi_line):
+def report_serve(label, run, prof, n_ticks, smi_line, phase="phase 14"):
     """Print a run's tokens a second, ms a tick, launches a tick, idle share and peak."""
     import statistics
 
@@ -3288,7 +3334,7 @@ def report_serve(label, run, prof, n_ticks, smi_line):
     by_live = {n: statistics.median(t for m, t in ticks if m == n)
                for n in sorted({n for n, _ in ticks})}
     wall, busy, n_dev, krows = prof
-    print(f"phase 14 {label} ({smi_line}): {len(done)} requests, {tokens} tokens in "
+    print(f"{phase} {label} ({smi_line}): {len(done)} requests, {tokens} tokens in "
           f"{run['wall']:.4f} s, {tokens / run['wall']:.1f} tokens/s; {len(ticks)} ticks, "
           f"{t_ticks:.4f} s in ticks ({decoded / t_ticks:.1f} decoded tokens/s), median "
           f"{statistics.median(t for _, t in ticks) * 1e3:.3f} ms a tick (by live slots: "
@@ -3300,11 +3346,11 @@ def report_serve(label, run, prof, n_ticks, smi_line):
           + ", ".join(f"{k[:40]} {us / 1e3:.2f} ms x{c}" for k, us, c in krows[:5]), flush=True)
 
 
-def check_served(label, done, n, new):
+def check_served(label, done, n, new, phase="phase 14"):
     check(len(done) == n and sorted(r.rid for r in done) == list(range(n)),
-          f"phase 14 {label}: requests came back as {sorted(r.rid for r in done)}")
+          f"{phase} {label}: requests came back as {sorted(r.rid for r in done)}")
     check(all(r.done and len(r.out_tokens) == new for r in done),
-          f"phase 14 {label}: token counts {[len(r.out_tokens) for r in done]}")
+          f"{phase} {label}: token counts {[len(r.out_tokens) for r in done]}")
 
 
 def dropped_fraction(cfg, routes):
@@ -3321,6 +3367,23 @@ def dropped_fraction(cfg, routes):
         drop += int(torch.clamp_min(counts - capacity(cfg, T), 0).sum())
         total += T * k
     return drop / total
+
+
+def teacher_forced_check(label, full, prefill, decode, prompt, steps):
+    """Prefill's last logits and ``steps`` teacher-forced decode steps' against the no-cache
+    logits ``full`` (B, prompt + steps, V), within rtol / atol 2e-3 (float32).
+    ``prefill()`` gives the last prompt position's logits (B, 1, V), ``decode(i)``
+    position i's, called in order."""
+    import torch
+
+    got = [prefill()] + [decode(i) for i in range(prompt, prompt + steps)]
+    want = [full[:, prompt - 1 + j] for j in range(steps + 1)]
+    errs = [float((g[:, 0] - w).abs().max()) for g, w in zip(got, want)]
+    check(all(torch.allclose(g[:, 0], w, rtol=2e-3, atol=2e-3) for g, w in zip(got, want)),
+          f"{label}: prefill / decode logits off the no-cache logits: {errs}")
+    print(f"{label} float32 teacher-forced ({full.shape[0]} x {prompt} prompt, {steps} decode "
+          f"steps): logits within rtol / atol 2e-3 of the no-cache path, max abs err "
+          f"{max(errs):.3e}", flush=True)
 
 
 def phase_serve_dense(smi_line, device):
@@ -3396,17 +3459,11 @@ def phase_serve_dense(smi_line, device):
     with torch.no_grad():
         full, _ = m32.forward(tf)
     caches = m32.init_cache(2, spec["max_len"])
-    lg, caches = m32.prefill(tf[:, :spec["prompt"]], caches)
-    errs = [float((lg[:, 0] - full[:, spec["prompt"] - 1]).abs().max())]
-    ok = torch.allclose(lg[:, 0], full[:, spec["prompt"] - 1], rtol=2e-3, atol=2e-3)
-    for i in range(spec["prompt"], spec["prompt"] + SERVE_TF_STEPS):
-        lg, caches = m32.decode_step(tf[:, i:i + 1], caches, torch.full((2,), i, device=device))
-        errs.append(float((lg[:, 0] - full[:, i]).abs().max()))
-        ok = ok and torch.allclose(lg[:, 0], full[:, i], rtol=2e-3, atol=2e-3)
-    check(ok, f"phase 14 (a): float32 prefill / decode logits off forward's: {errs}")
-    print(f"phase 14 (a) float32 teacher-forced (2 x {spec['prompt']} prompt, "
-          f"{SERVE_TF_STEPS} decode steps): logits within rtol / atol 2e-3 of LM.forward of the "
-          f"whole sequence, max abs err {max(errs):.3e}", flush=True)
+    teacher_forced_check(
+        "phase 14 (a) prefill / decode vs LM.forward of the whole sequence,", full,
+        lambda: m32.prefill(tf[:, :spec["prompt"]], caches)[0],
+        lambda i: m32.decode_step(tf[:, i:i + 1], caches, torch.full((2,), i, device=device))[0],
+        spec["prompt"], SERVE_TF_STEPS)
 
 
 def phase_serve_moe(smi_line, device):
@@ -3610,6 +3667,441 @@ def phase_serve(smi_line, device):
     torch.cuda.empty_cache()
     print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
+
+
+# -- phase 15: the attention families (MLA, the encoder-decoder, the VLM) --------------
+
+FAM_MLA_ARCH = "minicpm3-4b"
+FAM_MLA_PARAMS = 4_261_902_848       # its parameter count (the JAX abstract init's)
+FAM_MLA_CACHE_B = 35_712             # its cache a token: 62 layers x (256 + 32) x 2 B
+FAM_MLA_STEPS = 4                    # (b)'s trainer steps, then 2 split, 1 profiled
+FAM_STEP_HEADROOM = 12 * 2**30       # (b): a step's activations and temporaries
+FAM_ED_ARCH = "whisper-medium"
+FAM_ED_PARAMS = 791_827_456
+FAM_VLM_ARCH = "llama-3.2-vision-90b"
+FAM_VLM_LAYERS = 5                   # (d)'s depth cut: one period of 5 of 100 layers
+FAM_VLM_PARAMS = 6_379_634_689       # the period's parameter count
+FAM_VLM_GATE = 0.5                   # (d)'s cross_gate (its init, 0, hides the cross path)
+FAM_TRAIN = {FAM_ED_ARCH: (8, 128), FAM_VLM_ARCH: (4, 128)}       # (batch, tokens)
+FAM_SERVE = dict(batch=4, prompt=32, new=32)                       # (c) and (d)
+
+
+def fresh_memory():
+    """Free what earlier sub-phases left and reset the peak, so that each printed peak is
+    its own sub-phase's."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def cache_bytes(caches) -> int:
+    import torch
+
+    if isinstance(caches, torch.Tensor):
+        return caches.numel() * caches.element_size()
+    items = caches.values() if isinstance(caches, dict) else caches
+    return sum(cache_bytes(c) for c in items)
+
+
+def phase_fam_mla_serve(smi_line, device):
+    """(a): ``minicpm3-4b`` at full width and depth, bf16, through ``ServingEngine``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    from repro_torch.serving.engine import ServingEngine
+
+    spec = SERVE_DENSE
+    cfg = get_config(FAM_MLA_ARCH)
+    model = build_model(cfg, device, seed=0)
+    n = count_params(model)
+    check(n == FAM_MLA_PARAMS, f"phase 15 (a): {n} parameters, not {FAM_MLA_PARAMS}")
+    check(next(model.parameters()).dtype == torch.bfloat16, "phase 15 (a): params not bf16")
+    per_token = cache_bytes(model.init_cache(1, 1, abstract=True))
+    check(per_token == FAM_MLA_CACHE_B, f"phase 15 (a): {per_token} cache B a token")
+    pairs = serve_requests(cfg.vocab_size, spec, 17)
+    engine = lambda: ServingEngine(cfg, model, max_batch=SERVE_SLOTS, max_len=spec["max_len"],
+                                   device=device)
+    run = drive_engine(engine(), pairs, spec["new"])
+    check_served("(a)", run["done"], spec["requests"], spec["new"], phase="phase 15")
+    report_serve(f"(a) {FAM_MLA_ARCH} bf16 ({n} params, MLA cache {per_token} B a token, "
+                 f"{per_token * SERVE_SLOTS * spec['max_len']} B for {SERVE_SLOTS} slots), "
+                 f"{SERVE_SLOTS} slots, {spec['requests']} requests of {spec['prompt']} + "
+                 f"{spec['new']}", run,
+                 profile_ticks(engine(), pairs, spec["new"], 8, "phase 15"), 8, smi_line,
+                 phase="phase 15")
+    tokens = {r.rid: r.out_tokens for r in run["done"]}
+    recycled = pairs[SERVE_SLOTS:]
+    for rid, prompt in recycled:
+        [alone] = drive_engine(engine(), [(rid, prompt)], spec["new"])["done"]
+        check(alone.out_tokens == tokens[rid],
+              f"phase 15 (a): request {rid} in a recycled slot differs from a fresh engine's")
+    print(f"phase 15 (a): requests {[r for r, _ in recycled]} (recycled slots) == each alone "
+          f"in a fresh {SERVE_SLOTS}-slot engine, bit for bit", flush=True)
+    del model
+    fresh_memory()
+
+    # float32: the absorbed path (prefill, decode) against the expanded one (forward)
+    m32 = build_model(dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32"),
+                      device, seed=0)
+    P = spec["prompt"]
+    tf = torch.as_tensor(np.random.default_rng(18).integers(
+        0, cfg.vocab_size, (2, P + SERVE_TF_STEPS)), device=device)
+    with torch.no_grad():
+        full, _ = m32.forward(tf)
+    caches = m32.init_cache(2, spec["max_len"])
+    teacher_forced_check(
+        "phase 15 (a) MLA, absorbed (cache) vs expanded (no cache),", full,
+        lambda: m32.prefill(tf[:, :P], caches)[0],
+        lambda i: m32.decode_step(tf[:, i:i + 1], caches, torch.full((2,), i, device=device))[0],
+        P, SERVE_TF_STEPS)
+
+
+def train_depth(cfg, free_bytes: int):
+    """(layers, parameters) of the deepest cut of ``cfg`` whose AdamW step fits in
+    ``free_bytes``: 16 B a parameter (bf16 weights and gradients, float32 master, m and v)
+    plus ``FAM_STEP_HEADROOM`` of activations and temporaries (remat per block)."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+
+    n = lambda layers: count_params(build_model(dataclasses.replace(cfg, num_layers=layers),
+                                                device="meta"))
+    base, per_layer = n(1), n(2) - n(1)
+    for layers in range(cfg.num_layers, 0, -1):
+        params = base + (layers - 1) * per_layer
+        if 16 * params + FAM_STEP_HEADROOM <= free_bytes:
+            return layers, params
+    fail(f"not even one layer of {cfg.arch_id} trains in {free_bytes} B")
+
+
+def phase_fam_mla_train(smi_line, device):
+    """(b): ``minicpm3-4b`` trained with the OT alignment loss at full width, on phase 13's
+    data; K1, K4, K5, K6 and K8 held at the step-0 OT operands (d = 2560).  Returns the
+    kernel-table rows."""
+    import dataclasses
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build as kbuild
+    from repro_torch.ot import diff
+
+    cfg = get_config(FAM_MLA_ARCH)
+    held = torch.cuda.memory_allocated()
+    free = torch.cuda.mem_get_info()[1] - held
+    layers, n_params = train_depth(cfg, free)
+    cut = layers < cfg.num_layers
+    if cut:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    print(f"phase 15 (b) {FAM_MLA_ARCH}: {layers} of {get_config(FAM_MLA_ARCH).num_layers} "
+          f"layers ({'CUT: ' if cut else 'full depth; '}{n_params} parameters, an AdamW step "
+          f"estimated at {16 * n_params + FAM_STEP_HEADROOM} B of {free} B free, {held} B held)",
+          flush=True)
+    tr = lm_trainer(cfg, "pallas", FAM_MLA_STEPS, device)
+    ops = lm_ot_operands(tr, tr.batch(0), device)
+    check(ops[0].d == cfg.d_model, f"phase 15 (b): OT at d = {ops[0].d}")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kbuild.reset_launch_counts()
+    diff.reset_solve_count()
+    t0 = time.perf_counter()
+    tr.run()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = kbuild.launch_counts()
+    solves = diff.solve_count()
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.metrics_history
+    durations = list(tr.watchdog.window)
+    losses = [m["loss"] for m in hist]
+    dists = [m.get("ot_distance", float("nan")) for m in hist]
+    print(f"phase 15 (b) {FAM_MLA_ARCH} ({layers} layers, d_model {cfg.d_model}, bf16) "
+          f"{FAM_MLA_STEPS} steps of {LM_BATCH} x {LM_SEQ} tokens, ot_align (pallas, L = "
+          f"{LM_CLASSES}, g = {ops[0].g}, n = {ops[0].n}, d = {ops[0].d}): loss {losses}; ce "
+          f"{[m['ce'] for m in hist]}; ot_distance {dists}", flush=True)
+    check(len(hist) == FAM_MLA_STEPS and all(math.isfinite(v) for v in losses + dists),
+          f"phase 15 (b): a loss or OT distance is not finite: {losses} {dists}")
+    check(all(v > 0 for v in dists), f"phase 15 (b): the OT term is missing: {dists}")
+    check(solves == FAM_MLA_STEPS, f"phase 15 (b) ran {solves} OT solves")
+    check(launches.get(K1, 0) > 0 and launches.get(K4, 0) > 0
+          and launches.get(K5, 0) + launches.get(K6, 0) > 0,
+          f"phase 15 (b): the trainer did not launch K1, K4 and K5 or K6: {launches}")
+    med = statistics.median(durations[1:])
+    print(f"phase 15 (b) ({smi_line}): {wall:.3f} s for {FAM_MLA_STEPS} steps; step wall "
+          f"median {med:.4f} s (steps 1-{FAM_MLA_STEPS - 1}; step 0 {durations[0]:.4f} s), "
+          f"{LM_BATCH * LM_SEQ / med:.1f} tokens/s; peak device memory {peak} B ({base} B held "
+          f"before); OT kernel launches per step "
+          f"{ {k: v / FAM_MLA_STEPS for k, v in sorted(launches.items())} }", flush=True)
+    print_split_steps("phase 15 (b)", tr, FAM_MLA_STEPS, 2, smi_line)
+    s0 = FAM_MLA_STEPS + 2
+    _, pwall, busy, n_dev, krows = profile_device(lambda: tr.step_fn(tr.batch(s0)))
+    check(busy > 0, "phase 15 (b): the profiler recorded no device time")
+    print(f"phase 15 (b) profile (1 step, torch.profiler, {smi_line}): wall {pwall:.4f} s, "
+          f"device busy {busy:.4f} s, idle share {1 - busy / pwall:.4f}, {n_dev} device "
+          f"launches a step; largest: "
+          + ", ".join(f"{k[:48]} {us / 1e3:.2f} ms x{c}" for k, us, c in krows[:8]), flush=True)
+    # the fused oracle on the OT term of step 0's batch (a second trainer would not fit)
+    tcfg = tr.tcfg
+    tr.tcfg = dataclasses.replace(tcfg, ot_grad_impl="fused")
+    kbuild.reset_launch_counts()
+    ot, _ = tr.ot_loss(tr.batch(0))
+    torch.autograd.grad(ot, [tr.state["params"]["embed"]])
+    sync()
+    del ot
+    fused_launches = kbuild.launch_counts()
+    tr.tcfg = tcfg
+    check(fused_launches.get(K8, 0) + fused_launches.get(K6, 0) > 0,
+          f"phase 15 (b): the fused OT term launched no K8 or K6: {fused_launches}")
+    print(f"phase 15 (b) fused OT term (step 0's batch, forward + backward): launches "
+          f"{fused_launches}", flush=True)
+    del tr
+    fresh_memory()
+    path = f"phase 15 (b) {FAM_MLA_ARCH} trainer, {FAM_MLA_STEPS} steps, grad_impl 'pallas'"
+    counts = {k: (path, launches.get(k, 0)) for k in (K1, K4, K5, K6)}
+    counts[K8] = (f"phase 15 (b) {FAM_MLA_ARCH}, the OT term of one step, grad_impl 'fused'",
+                  fused_launches.get(K8, 0))
+    return phase_lm_kernels(*ops[:5], counts, smi_line, device, phase="phase 15 (b)",
+                            suffix="@mla_step")
+
+
+def serve_through_steps(label, cfg, model, memory_of, smi_line, device):
+    """Prefill (``make_prefill_step``, with the stub frontend's memory from seed 1) then
+    ``FAM_SERVE['new']`` decode steps (``make_serve_step``) of ``FAM_SERVE['batch']``
+    prompts; ``memory_of(seed)`` is the step's memory argument (frames or image tokens)
+    and the memory its cross-attention reads.  Gates: each layer's ``cross_kv`` after
+    prefill is the memory's projection bit for bit, and other memory gives other logits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import steps
+
+    B, P, new = FAM_SERVE["batch"], FAM_SERVE["prompt"], FAM_SERVE["new"]
+    max_len = P + new + 8
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    prompts = torch.as_tensor(np.random.default_rng(19).integers(0, cfg.vocab_size, (B, P)),
+                              dtype=torch.int32, device=device)
+    arg, mem = memory_of(1)
+    prefill_step, serve_step = steps.make_prefill_step(cfg), steps.make_serve_step(cfg)
+    prefill_step(params, prompts, model.init_cache(B, max_len), arg)       # warm
+    caches = model.init_cache(B, max_len)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = prefill_step(params, prompts, caches, arg)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    t0 = time.perf_counter()
+    for i in range(new):
+        token, caches = serve_step(params, token, caches, P + i)
+    sync()
+    t_decode = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    blocks = model.decoder if cfg.family == "encdec" else model.blocks
+    with torch.no_grad():
+        for block, c in zip(blocks, caches):
+            for name, w in (("k", block.cross.wk), ("v", block.cross.wv)):
+                check(torch.equal(c["cross_kv"][name], torch.einsum("bmd,dhk->bmhk", mem, w)),
+                      f"{label}: cross_kv/{name} after prefill is not the memory's projection")
+    other, _ = prefill_step(params, prompts, model.init_cache(B, max_len), memory_of(2)[0])
+    diff = float((other.float() - logits.float()).abs().max())
+    check(diff > 0, f"{label}: two memories gave the same prefill logits")
+    print(f"{label} serving ({smi_line}): prefill of {B} x {P} tokens {t_prefill * 1e3:.3f} ms, "
+          f"{new} decode steps {t_decode / new * 1e3:.3f} ms a step, "
+          f"{B * (new + 1) / (t_prefill + t_decode):.1f} tokens/s; peak device memory {peak} B; "
+          f"cross_kv after prefill == the memory's projection bit for bit in all "
+          f"{len(caches)} blocks; another memory moves the prefill logits by up to {diff:.4f}",
+          flush=True)
+
+
+def phase_fam_encdec(smi_line, device):
+    """(c): ``whisper-medium`` at full width and depth: one AdamW step through
+    ``make_train_step``, then prefill (the encoder) and decode through the steps."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import modality_stub
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    from repro_torch.training.optim import init_opt_state
+
+    label = "phase 15 (c)"
+    cfg = get_config(FAM_ED_ARCH)
+    model = build_model(cfg, device, seed=0)
+    n = count_params(model)
+    check(n == FAM_ED_PARAMS, f"{label}: {n} parameters, not {FAM_ED_PARAMS}")
+    frames_of = lambda batch, seed: torch.as_tensor(
+        modality_stub(cfg, batch, seed)["frames"], device=device).to(torch.bfloat16)
+    Bt, St = FAM_TRAIN[FAM_ED_ARCH]
+    tcfg = TrainConfig()
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    state = {"params": params, "opt": init_opt_state(params, tcfg.optimizer)}
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (Bt, St + 1)), dtype=torch.int32, device=device),
+        "frames": frames_of(Bt, 0)}
+    train_step = steps.make_train_step(cfg, tcfg)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, met = train_step(state, batch)
+    loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+    t_step = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(loss) and math.isfinite(gnorm),
+          f"{label}: the train step's loss {loss} or grad norm {gnorm} is not finite")
+    print(f"{label} {FAM_ED_ARCH} ({n} params, {cfg.encoder_layers} + {cfg.num_layers} layers, "
+          f"bf16; {smi_line}): one AdamW step (make_train_step, remat per block) on {Bt} x {St} "
+          f"tokens and {Bt} x {cfg.num_audio_frames} frames: loss {loss:.4f}, grad norm "
+          f"{gnorm:.4f}, {t_step:.4f} s (the first step; host clock, ending in a read), "
+          f"{Bt * St / t_step:.1f} tokens/s; peak device memory {peak} B", flush=True)
+    del state, batch, met
+    fresh_memory()
+    frames4 = frames_of(FAM_SERVE["batch"], 1)
+    with torch.no_grad():
+        enc_ms = median_ms(lambda: model.encode(frames4), 5)
+    print(f"{label} encode of {FAM_SERVE['batch']} x {cfg.num_audio_frames} frames: "
+          f"{enc_ms:.3f} ms (CUDA events, median of 5)", flush=True)
+
+    def memory_of(seed):
+        frames = frames_of(FAM_SERVE["batch"], seed)
+        with torch.no_grad():
+            return frames, model.encode(frames)
+
+    serve_through_steps(label, cfg, model, memory_of, smi_line, device)
+    del model, params
+    fresh_memory()
+    m32 = build_model(dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32"),
+                      device, seed=0)
+    P, steps_tf = FAM_SERVE["prompt"], SERVE_TF_STEPS
+    tf = torch.as_tensor(np.random.default_rng(20).integers(0, cfg.vocab_size,
+                                                            (2, P + steps_tf)), device=device)
+    with torch.no_grad():
+        mem = m32.encode(torch.as_tensor(modality_stub(cfg, 2, 3)["frames"], device=device))
+        full, _ = m32.forward(tf, mem)
+    caches = m32.init_cache(2, P + steps_tf + 8)
+    teacher_forced_check(f"{label} {FAM_ED_ARCH}, prefill and decode (cache) vs the decoder "
+                         f"without one,", full,
+                         lambda: m32.prefill(tf[:, :P], caches, mem)[0],
+                         lambda i: m32.decode_step(tf[:, i:i + 1], caches, i)[0], P, steps_tf)
+
+
+def phase_fam_vlm(smi_line, device):
+    """(d): ``llama-3.2-vision-90b`` cut to one period (5 of 100 layers) at full width:
+    forward and backward of ``train_loss`` (no optimizer: AdamW's state for the period
+    does not fit), then prefill and decode through the steps."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import modality_stub
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    from repro_torch.utils.tree import tree_global_norm
+
+    label = "phase 15 (d)"
+    cfg = dataclasses.replace(get_config(FAM_VLM_ARCH), num_layers=FAM_VLM_LAYERS)
+    model = build_model(cfg, device, seed=0)
+    n = count_params(model)
+    check(n == FAM_VLM_PARAMS, f"{label}: {n} parameters, not {FAM_VLM_PARAMS}")
+
+    def set_gates(m):
+        with torch.no_grad():
+            for block in m.blocks:
+                block.cross_gate.fill_(FAM_VLM_GATE)
+
+    set_gates(model)
+    image_of = lambda batch, seed, dtype=torch.bfloat16: torch.as_tensor(
+        modality_stub(cfg, batch, seed)["memory"], device=device).to(dtype)
+    Bt, St = FAM_TRAIN[FAM_VLM_ARCH]
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (Bt, St + 1)), dtype=torch.int32, device=device),
+        "memory": image_of(Bt, 0)}
+    names = [k for k, _ in model.named_parameters()]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _ = model.train_loss(batch, z_loss=1e-4, remat=True)
+    grads = dict(zip(names, torch.autograd.grad(loss, list(model.parameters()))))
+    loss, gnorm = float(loss.detach()), float(tree_global_norm(grads))
+    t_step = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    wq = float(grads["blocks.0.cross.wq"].float().abs().max())
+    check(math.isfinite(loss) and math.isfinite(gnorm),
+          f"{label}: the loss {loss} or the gradient norm {gnorm} is not finite")
+    check(wq > 0, f"{label}: cross.wq got no gradient")
+    print(f"{label} {FAM_VLM_ARCH} cut to {cfg.num_layers} of 100 layers ({n} params, bf16, "
+          f"cross_gate set to {FAM_VLM_GATE}; {smi_line}): train_loss forward + backward (no "
+          f"optimizer, remat per block) on {Bt} x {St} tokens and {Bt} x "
+          f"{cfg.num_image_tokens} image tokens: loss {loss:.4f}, gradient norm {gnorm:.4f}, "
+          f"|grad cross.wq| max {wq:.3e}; {t_step:.4f} s (host clock, ending in a read), "
+          f"{Bt * St / t_step:.1f} tokens/s; peak device memory {peak} B", flush=True)
+    del grads, batch
+    fresh_memory()
+
+    def memory_of(seed):
+        img = image_of(FAM_SERVE["batch"], seed)
+        return img, img
+
+    serve_through_steps(label, cfg, model, memory_of, smi_line, device)
+    del model
+    fresh_memory()
+    m32 = build_model(dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32"),
+                      device, seed=0)
+    set_gates(m32)
+    P, steps_tf = FAM_SERVE["prompt"], SERVE_TF_STEPS
+    tf = torch.as_tensor(np.random.default_rng(21).integers(0, cfg.vocab_size,
+                                                            (2, P + steps_tf)), device=device)
+    img = image_of(2, 3, torch.float32)
+    with torch.no_grad():
+        full, _ = m32.forward(tf, img)
+    caches = m32.init_cache(2, P + steps_tf + 8)
+    teacher_forced_check(f"{label} one period, prefill and decode (cache) vs forward,", full,
+                         lambda: m32.prefill(tf[:, :P], caches, img)[0],
+                         lambda i: m32.decode_step(tf[:, i:i + 1], caches, i)[0], P, steps_tf)
+
+
+def phase_families(smi_line, device):
+    """Phase 15 (see the module docstring): MLA, the encoder-decoder and the VLM at full
+    width.  Returns the kernel-table rows at (b)'s OT shapes."""
+    t_phase = time.perf_counter()
+    lap = lambda what: print(f"[phase 15 +{time.perf_counter() - t_phase:.1f} s] {what}",
+                             flush=True)
+    fresh_memory()
+    phase_fam_mla_serve(smi_line, device)
+    fresh_memory()
+    lap("(a)")
+    rows = phase_fam_mla_train(smi_line, device)
+    fresh_memory()
+    lap("(b)")
+    phase_fam_encdec(smi_line, device)
+    fresh_memory()
+    lap("(c)")
+    phase_fam_vlm(smi_line, device)
+    fresh_memory()
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
 
 
 COMPARE_DIR = os.path.join(HERE, "_archive", "compare")     # git-ignored
@@ -3974,6 +4466,9 @@ def main() -> None:
                          "NCCL with a card a rank)")
     ap.add_argument("--lm-only", action="store_true",
                     help="instead: build, then run phase 13 (the LM trainer) alone")
+    ap.add_argument("--families-only", action="store_true",
+                    help="instead: build, then run phase 15 (MLA, the encoder-decoder and "
+                         "the VLM at full width) alone")
     ap.add_argument("--serve-only", action="store_true",
                     help="instead: build, then run phase 14 (LM serving, the MoE family and "
                          "the OT router) alone")
@@ -4026,6 +4521,11 @@ def main() -> None:
     if args.lm_only:
         print(json.dumps({"kernels": phase_lm(smi_line, device)}), flush=True)
         print(f"{smi_line}; phase 13 alone took {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return
+    if args.families_only:
+        print(json.dumps({"kernels": phase_families(smi_line, device)}), flush=True)
+        print(f"{smi_line}; phase 15 alone took {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return
     if args.serve_only:
@@ -4105,11 +4605,14 @@ def main() -> None:
     router_launches = phase_serve(smi_line, device)
     for row in reduce_rows:                 # the OT router's L-BFGS runs them
         row["launches_ot_router"] = router_launches.get(row["name"], 0)
+    # 15. the attention families: MLA, the encoder-decoder, the VLM
+    lap("phase 15")
+    fam_rows = phase_families(smi_line, device)
     for row in solo_rows:
         if row["name"] == B12:          # the layer's grad_refine path runs it
             row["launches"] = refine_launches[B12]
             row["launches_path"] = "layer from_samples, grad_refine=20"
-    rows += solo_rows + reduce_rows + lm_rows
+    rows += solo_rows + reduce_rows + lm_rows + fam_rows
 
     print(f"{smi_line}; smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -17,18 +17,21 @@ only dicts and numpy arrays (it imports nothing of ``repro``):
     its ``x, x_sq, y, y_sq`` attributes) or from the four arrays, so both
     packages compute on the same operand bits; bfloat16 leaves (the JAX
     package's ``precision='bf16'`` storage) stay bfloat16;
-  * :func:`lm_params_from_numpy` turns the JAX LM's parameter tree (numpy
-    leaves, the layers stacked on a leading axis of ``blocks``) into the
-    port's ``LM`` state dict, bit for bit; :func:`lm_params_to_tree` and
-    :func:`lm_params_to_numpy` go back (the trainer's checkpoint uses the
-    tree, so a checkpoint of either package restores in the other);
+  * :func:`lm_params_from_numpy` turns a JAX model's parameter tree (numpy
+    leaves, the layers stacked on a leading axis of ``blocks``, of a VLM's
+    ``blocks/self`` on two, of an encoder-decoder's ``encoder`` and
+    ``decoder``) into the port's state dict, bit for bit;
+    :func:`lm_params_to_tree` and :func:`lm_params_to_numpy` go back (the
+    trainer's checkpoint uses the tree, so a checkpoint of either package
+    restores in the other);
   * :func:`lm_cache_from_numpy` and :func:`lm_cache_to_numpy` do the same
-    for the LM's KV cache: the JAX dict of leaves stacked over the layers
-    against the port's list of one cache dict per block, bit for bit.
+    for the model's cache: the JAX tree of leaves stacked over the blocks
+    against the port's list of one cache tree per block, bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, List, Mapping, Optional
 
 import numpy as np
@@ -148,21 +151,39 @@ def _as_tensor(v) -> torch.Tensor:
     return torch.from_numpy(np.array(v, copy=True))
 
 
-def _expected_lm_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+def _model(cfg: ModelConfig):
     from repro_torch.models import build_model
 
-    return {k: tuple(p.shape) for k, p in build_model(cfg, device="meta").named_parameters()}
+    return build_model(cfg, device="meta")
+
+
+def _stack_sizes(cfg: ModelConfig, path: tuple) -> tuple:
+    """The stacked axes that lead a JAX parameter leaf at ``path``: the layers of
+    ``blocks`` (the VLM's periods, and within them ``self``'s period - 1 layers), or of
+    the encoder-decoder's ``encoder`` and ``decoder``; () for an unstacked leaf.  The
+    port's name puts each axis's index after the path part that stacks it."""
+    if cfg.family == "encdec":
+        return {"encoder": (cfg.encoder_layers,), "decoder": (cfg.num_layers,)}.get(path[0], ())
+    if path[0] != "blocks":
+        return ()
+    from repro_torch.models.lm import num_scan_steps
+
+    if cfg.family == "vlm" and path[1] == "self":
+        return (num_scan_steps(cfg), cfg.cross_attn_period - 1)
+    return (num_scan_steps(cfg),)
 
 
 def lm_params_from_numpy(cfg: ModelConfig, params: Mapping,
                          device: DeviceLike = "cpu") -> Dict[str, torch.Tensor]:
-    """The port's ``LM`` state dict from a JAX LM parameter tree, bit for bit.
+    """The port's model state dict from a JAX model's parameter tree, bit for bit.
 
     ``params`` is the nested dict ``repro.models.build_model(cfg).init(...)[0]``
-    holds (numpy arrays or tensors; ``blocks`` leaves stacked over the
-    layers).  Block ``i``'s leaf ``blocks/attn/wq`` becomes
-    ``blocks.{i}.attn.wq``.  Names and shapes are checked against the port's
-    model of ``cfg``; load the result with ``model.load_state_dict``.
+    holds (numpy arrays or tensors; stacked leaves with the layers leading).
+    Block ``i``'s leaf ``blocks/attn/wq`` becomes ``blocks.{i}.attn.wq``; a VLM's
+    ``blocks/self/attn/wq`` (periods, period - 1, ...) becomes
+    ``blocks.{i}.self.{j}.attn.wq``; an encoder-decoder's ``encoder/attn/wq``
+    becomes ``encoder.{i}.attn.wq``.  Names and shapes are checked against the
+    port's model of ``cfg``; load the result with ``model.load_state_dict``.
     """
     dev = torch.device(device)
     out = {}
@@ -171,15 +192,18 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping,
         for k, v in tree.items():
             if isinstance(v, Mapping):
                 walk(v, path + (k,))
-            elif path[:1] == ("blocks",):
-                t = _as_tensor(v)
-                for i in range(t.shape[0]):
-                    out[".".join(("blocks", str(i)) + path[1:] + (k,))] = t[i].to(dev, copy=True)
-            else:
-                out[".".join(path + (k,))] = _as_tensor(v).to(dev, copy=True)
+                continue
+            leaf = path + (k,)
+            sizes = _stack_sizes(cfg, leaf)
+            t = _as_tensor(v)
+            for idx in itertools.product(*(range(n) for n in t.shape[:len(sizes)])):
+                parts = []
+                for j, part in enumerate(leaf):
+                    parts += [part, str(idx[j])] if j < len(idx) else [part]
+                out[".".join(parts)] = t[idx].to(dev, copy=True)
 
     walk(params, ())
-    want = _expected_lm_shapes(cfg)
+    want = {k: tuple(p.shape) for k, p in _model(cfg).named_parameters()}
     got = {k: tuple(t.shape) for k, t in out.items()}
     if got != want:
         diff = sorted(set(got.items()) ^ set(want.items()))
@@ -188,29 +212,32 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping,
 
 
 def lm_params_to_tree(cfg: ModelConfig, state: Mapping[str, torch.Tensor]) -> Dict:
-    """The JAX LM's parameter layout (nested dict, ``blocks`` stacked) of a port state
+    """The JAX model's parameter layout (nested dict, stacked leaves) of a port state
     dict (parameters, or any per-parameter state such as AdamW's moments), as tensors
     on the state's device."""
-    tree: Dict = {}
-    blocks: Dict[tuple, list] = {}
+    groups: Dict[tuple, Dict[tuple, torch.Tensor]] = {}
     for name, t in state.items():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            blocks.setdefault(tuple(parts[2:]), []).append((int(parts[1]), t))
-            continue
+        path = tuple(p for p in parts if not p.isdigit())
+        idx = tuple(int(p) for p in parts if p.isdigit())
+        groups.setdefault(path, {})[idx] = t.detach()
+    tree: Dict = {}
+    for path, by_idx in groups.items():
+        sizes = _stack_sizes(cfg, path)
+        grid = list(itertools.product(*(range(n) for n in sizes)))
+        if sorted(by_idx) != grid:
+            raise ValueError(f"{'.'.join(path)}: blocks {sorted(by_idx)[:8]}, expected the "
+                             f"grid {sizes}")
+
+        def stack(prefix):
+            if len(prefix) == len(sizes):
+                return by_idx[prefix]
+            return torch.stack([stack(prefix + (i,)) for i in range(sizes[len(prefix)])])
+
         node = tree
-        for part in parts[:-1]:
+        for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[parts[-1]] = t.detach()
-    for rest, layers in blocks.items():
-        layers.sort(key=lambda it: it[0])
-        if [i for i, _ in layers] != list(range(cfg.num_layers)):
-            raise ValueError(f"blocks.*.{'.'.join(rest)}: layers {[i for i, _ in layers]}, "
-                             f"expected 0..{cfg.num_layers - 1}")
-        node = tree.setdefault("blocks", {})
-        for part in rest[:-1]:
-            node = node.setdefault(part, {})
-        node[rest[-1]] = torch.stack([t.detach() for _, t in layers])
+        node[path[-1]] = stack(())
     return tree
 
 
@@ -218,53 +245,80 @@ def lm_params_to_numpy(cfg: ModelConfig, state: Mapping[str, torch.Tensor]) -> D
     """:func:`lm_params_to_tree` with numpy leaves, the inverse of
     :func:`lm_params_from_numpy`.  numpy has no bfloat16 of its own, so bfloat16
     leaves come out as float32 (exactly)."""
-
-    def to_np(node):
-        if isinstance(node, dict):
-            return {k: to_np(v) for k, v in node.items()}
-        t = node.cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
-
-    return to_np(lm_params_to_tree(cfg, state))
+    return _tree_map(_to_numpy, lm_params_to_tree(cfg, state))
 
 
 # -- LM caches ------------------------------------------------------------------
 
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def _cache_misfits(have, want, axes, path=()) -> List[str]:
+    """Leaves of ``have`` (stacked over the blocks) that do not fit the block cache
+    ``want`` (names, dtypes, every axis but ``batch`` and ``kv_seq``)."""
+    if not isinstance(have, Mapping) or set(have) != set(want):
+        return ["/".join(path) or "the cache"]
+    bad = []
+    for k, w in want.items():
+        if isinstance(w, Mapping):
+            bad += _cache_misfits(have[k], w, axes[k], path + (k,))
+            continue
+        h, ax = have[k], axes[k]
+        free = {i for i, a in enumerate(ax) if a in ("batch", "kv_seq")}
+        if (not isinstance(h, torch.Tensor) or h.dtype != w.dtype or h.ndim != w.ndim + 1
+                or any(h.shape[i + 1] != n for i, n in enumerate(w.shape) if i not in free)):
+            bad.append("/".join(path + (k,)))
+    return bad
+
+
 def lm_cache_from_numpy(cfg: ModelConfig, cache: Mapping,
-                        device: DeviceLike = "cpu") -> List[Dict[str, torch.Tensor]]:
-    """The port's per-block KV caches from the JAX LM's cache, bit for bit.
+                        device: DeviceLike = "cpu") -> List[Dict]:
+    """The port's per-block caches from the JAX model's cache, bit for bit.
 
     ``cache`` is ``repro.models.build_model(cfg).init_cache(...)`` or a cache
     that ``prefill`` / ``decode_step`` returned (numpy arrays or tensors,
-    each leaf stacked over the layers); block ``i`` gets ``{name: leaf[i]}``.
-    The leaves are checked against ``cfg``'s cache (names, dtypes, the
-    trailing shape).
+    each leaf stacked over the blocks: layers, a VLM's periods, an
+    encoder-decoder's decoder layers); block ``i`` gets the same tree with
+    ``leaf[i]``.  The leaves are checked against ``cfg``'s cache (names,
+    dtypes, every axis but the batch and the cached positions).
     """
     dev = torch.device(device)
-    leaves = {k: _as_tensor(v) for k, v in cache.items()}
-    from repro_torch.models import attention as attn
-    from repro_torch.models.common import torch_dtype
-
-    want = attn.cache_struct(cfg, 1, 1, torch_dtype(cfg.compute_dtype))
-    bad = [k for k in set(want) | set(leaves)
-           if k not in want or k not in leaves or leaves[k].dtype != want[k].dtype
-           or leaves[k].ndim != want[k].ndim + 1 or leaves[k].shape[0] != cfg.num_layers
-           or tuple(leaves[k].shape[4:]) != tuple(want[k].shape[3:])
-           or leaves[k].shape[3] != want[k].shape[2]]
+    leaves = _tree_map(_as_tensor, cache)
+    model = _model(cfg)
+    want = model.init_cache(1, 1, abstract=True)
+    bad = _cache_misfits(leaves, want[0], model.cache_logical_axes()[0])
+    if not bad and {t.shape[0] for t in _leaves(leaves)} != {len(want)}:
+        bad = [f"the blocks (not {len(want)})"]
     if bad:
-        raise ValueError(f"the cache does not fit {cfg.arch_id}: leaves {sorted(bad)}")
-    return [{k: t[i].to(dev, copy=True) for k, t in leaves.items()}
-            for i in range(cfg.num_layers)]
+        raise ValueError(f"the cache does not fit {cfg.arch_id}: {sorted(bad)}")
+    return [_tree_map(lambda t: t[i].to(dev, copy=True), leaves) for i in range(len(want))]
 
 
-def lm_cache_to_numpy(cfg: ModelConfig, caches: List[Mapping[str, torch.Tensor]]) -> Dict:
-    """The JAX LM's cache layout (each leaf stacked over the layers, numpy) of the port's
-    per-block caches, the inverse of :func:`lm_cache_from_numpy`; bfloat16 leaves come
-    out as float32 (exactly), int8 ones as int8."""
-    if len(caches) != cfg.num_layers:
-        raise ValueError(f"{len(caches)} caches for {cfg.num_layers} layers")
-    out = {}
-    for k in caches[0]:
-        t = torch.stack([c[k].detach() for c in caches]).cpu()
-        out[k] = (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
-    return out
+def _leaves(tree) -> list:
+    if isinstance(tree, Mapping):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
+
+
+def lm_cache_to_numpy(cfg: ModelConfig, caches: List[Mapping]) -> Dict:
+    """The JAX model's cache layout (each leaf stacked over the blocks, numpy) of the
+    port's per-block caches, the inverse of :func:`lm_cache_from_numpy`; bfloat16
+    leaves come out as float32 (exactly), int8 ones as int8."""
+    n = len(_model(cfg).cache_logical_axes())
+    if len(caches) != n:
+        raise ValueError(f"{len(caches)} caches for {n} blocks")
+
+    def stack(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: stack([c[k] for c in nodes]) for k in nodes[0]}
+        return _to_numpy(torch.stack([t.detach() for t in nodes]))
+
+    return stack(list(caches))

@@ -5,7 +5,9 @@ Two generators: :class:`SyntheticLM`, the LM token stream of the trainer
 resumes on the same data; a Zipf-like marginal with a class-conditioned
 drift, so the LM loss falls), and :func:`make_domain_pair`, the inputs of
 the paper's experiments and of ``chip_smoke.py``.  Same seed, same arrays
-as the JAX package.
+as the JAX package.  :func:`modality_stub` stands in for the stubbed
+frontends (audio frames, image tokens), whose shapes alone the JAX
+package's ``launch/specs.py`` gives.
 """
 from __future__ import annotations
 
@@ -13,6 +15,20 @@ import dataclasses
 from typing import Dict, Iterator
 
 import numpy as np
+
+
+def modality_stub(cfg, batch: int, seed: int) -> Dict[str, np.ndarray]:
+    """The stub frontend's output for a model config ``cfg`` that takes a modality,
+    standard normal float32 drawn from ``seed``: an encoder-decoder's frame embeddings
+    ``{"frames": (batch, num_audio_frames, d_model)}``, a VLM's image tokens ``{"memory":
+    (batch, num_image_tokens, d_model)}``; ``{}`` for the other families."""
+    lengths = {"encdec": ("frames", cfg.num_audio_frames),
+               "vlm": ("memory", cfg.num_image_tokens)}
+    if cfg.family not in lengths:
+        return {}
+    name, n = lengths[cfg.family]
+    rng = np.random.default_rng(seed)
+    return {name: rng.standard_normal((batch, n, cfg.d_model), dtype=np.float32)}
 
 
 @dataclasses.dataclass

@@ -4,16 +4,25 @@ Example (CPU-runnable):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --reduced \
       --requests 6 --prompt-len 16 --new-tokens 8 --device cpu
 
-Without ``--device`` it serves on the card.
+Without ``--device`` it serves on the card.  An encoder-decoder
+(``whisper-medium``) or a VLM (``llama-3.2-vision-90b``) is served through
+``launch.steps`` instead of the engine, whose requests carry no frames or
+image: the requests in one batch, the stub frontend's frames or image
+tokens drawn from ``--seed``, one prefill (the encoder runs there) and one
+decode step a token.
 """
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import modality_stub
+from repro_torch.launch import steps
 from repro_torch.models import build_model
+from repro_torch.models.common import torch_dtype
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.utils.logging import get_logger
 
@@ -28,6 +37,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the stub frames or image tokens of an encoder-decoder or a VLM")
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain PyTorch versions on the host; default the card")
     args = ap.parse_args(argv)
@@ -36,8 +47,7 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg, args.device, seed=0)
-    engine = ServingEngine(cfg, model, max_batch=args.max_batch,
-                           max_len=args.prompt_len + args.new_tokens + 8, device=args.device)
+    max_len = args.prompt_len + args.new_tokens + 8
     rng = np.random.default_rng(0)
     reqs = [
         Request(
@@ -47,11 +57,39 @@ def main(argv=None):
         )
         for i in range(args.requests)
     ]
-    done = engine.run(reqs)
+    if cfg.family in ("encdec", "vlm"):
+        done = serve_with_memory(cfg, model, reqs, max_len, args.seed)
+    else:
+        engine = ServingEngine(cfg, model, max_batch=args.max_batch, max_len=max_len,
+                               device=args.device)
+        done = engine.run(reqs)
     for r in done:
         log.info("request %d -> %s", r.rid, r.out_tokens)
     print(f"served {len(done)} requests")
     return done
+
+
+def serve_with_memory(cfg, model, reqs, max_len: int, seed: int):
+    """Greedy decoding of ``reqs`` (prompts of one length) in one batch through the step
+    functions, with the stub frontend's memory drawn from ``seed``."""
+    dev = model.embed.device
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    prompts = torch.as_tensor(np.stack([r.prompt for r in reqs]), device=dev)
+    (memory,) = modality_stub(cfg, len(reqs), seed).values()
+    memory = torch.as_tensor(memory, device=dev).to(torch_dtype(cfg.compute_dtype))
+    caches = model.init_cache(len(reqs), max_len)
+    logits, caches = steps.make_prefill_step(cfg)(params, prompts, caches, memory)
+    token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    out = [token]
+    serve_step = steps.make_serve_step(cfg)
+    for i in range(max(r.max_new_tokens for r in reqs) - 1):
+        token, caches = serve_step(params, token, caches, prompts.shape[1] + i)
+        out.append(token)
+    out = torch.cat(out, dim=1).cpu().numpy()
+    for r, row in zip(reqs, out):
+        r.out_tokens = [int(t) for t in row[:r.max_new_tokens]]
+        r.done = True
+    return reqs
 
 
 if __name__ == "__main__":

@@ -9,9 +9,15 @@ tensor, as ``dict(model.named_parameters())`` or
 the optimizer's state as ``training.optim.init_opt_state`` makes it; the
 step updates both in place and returns them.
 
+The modality memory, as in the JAX steps: ``make_train_step`` takes an
+encoder-decoder's ``batch["frames"]`` or a VLM's ``batch["memory"]``;
+``make_prefill_step``'s ``memory`` is the frames (which it encodes) or the
+image tokens, whose keys and values the prefill writes into the cache;
+``make_serve_step`` takes none: decode reads them from the cache, so the
+encoder never runs during decode.
+
 Not ported yet: ``constrain_grads`` (it pins gradients to the parameter
-shardings of the LM mesh, ROADMAP A4 (d)) and the enc-dec ``memory``
-(ROADMAP A4 (c)).
+shardings of the LM mesh, ROADMAP A4 (d)).
 """
 from __future__ import annotations
 
@@ -21,18 +27,17 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, OptimizerConfig, TrainConfig
-from repro_torch.models import build_model
-from repro_torch.models.lm import LM
+from repro_torch.models import Model, build_model
 from repro_torch.training.optim import adamw_update, init_opt_state
 
 Params = Mapping[str, torch.Tensor]
 
 
 class _Bound(nn.Module):
-    """Holds an ``LM`` so that ``functional_call`` can bind parameters to it; its forward
-    calls ``fn(lm, *args)`` with them bound."""
+    """Holds a model (an ``LM`` or an ``EncDec``) so that ``functional_call`` can bind
+    parameters to it; its forward calls ``fn(model, *args)`` with them bound."""
 
-    def __init__(self, lm: LM):
+    def __init__(self, lm: Model):
         super().__init__()
         self.lm = lm
 
@@ -41,7 +46,7 @@ class _Bound(nn.Module):
 
 
 def _binder(cfg: ModelConfig) -> Callable:
-    """``bind(params, fn, *args)``: ``fn(lm, *args)`` with ``lm`` the model of ``cfg``
+    """``bind(params, fn, *args)``: ``fn(model, *args)`` with ``model`` the model of ``cfg``
     holding ``params``."""
     bound = _Bound(build_model(cfg, device="meta"))
 
@@ -66,7 +71,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         params = state["params"]
         live = {k: p.detach().requires_grad_(True) for k, p in params.items()}
 
-        def loss_and_grads(lm: LM):
+        def loss_and_grads(lm: Model):
             # the backward runs while the parameters are bound: remat recomputes
             # the blocks' forward in it
             loss, metrics = lm.train_loss(batch, z_loss=tcfg.z_loss, remat=remat)
@@ -81,12 +86,20 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     return train_step
 
 
+def _prefill(model: Model, tokens, caches, memory):
+    if model.cfg.family == "encdec" and memory is not None:
+        memory = model.encode(memory)
+    return model.prefill(tokens, caches, memory=memory)
+
+
 def make_prefill_step(cfg: ModelConfig):
-    """(params, tokens, caches) -> (last-token logits, caches)."""
+    """(params, tokens, caches, memory=None) -> (last-token logits, caches); ``memory``
+    is an encoder-decoder's frames (encoded here) or a VLM's image tokens."""
     bind = _binder(cfg)
 
-    def prefill_step(params: Params, tokens: torch.Tensor, caches):
-        return bind(params, LM.prefill, tokens, caches)
+    def prefill_step(params: Params, tokens: torch.Tensor, caches, memory=None):
+        with torch.no_grad():
+            return bind(params, _prefill, tokens, caches, memory)
 
     return prefill_step
 
@@ -97,7 +110,7 @@ def make_serve_step(cfg: ModelConfig):
     bind = _binder(cfg)
 
     def serve_step(params: Params, token: torch.Tensor, caches, index):
-        logits, caches = bind(params, LM.decode_step, token, caches, index)
+        logits, caches = bind(params, lambda m, *a: m.decode_step(*a), token, caches, index)
         next_token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
         return next_token, caches
 

@@ -1,14 +1,20 @@
-"""Model zoo of the port: the decoder-only LM, dense and MoE (``repro.models``)."""
+"""Model zoo of the port (``repro.models``): the decoder-only LM (dense, MLA, MoE, VLM)
+and the encoder-decoder."""
 from __future__ import annotations
+
+from typing import Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.encdec import EncDec, build_encdec
 from repro_torch.models.lm import LM, build_lm
 
+Model = Union[LM, EncDec]
 
-def build_model(cfg: ModelConfig, device: DeviceLike = None, seed: int = 0) -> LM:
+
+def build_model(cfg: ModelConfig, device: DeviceLike = None, seed: int = 0) -> Model:
     """The model of ``cfg`` with its parameters on ``device`` (``None`` is the card).
 
     Its normal inits come from a generator on the device seeded with
@@ -16,7 +22,8 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None, seed: int = 0) -> L
     (the JAX package's abstract init).  Families not yet ported raise
     ``NotImplementedError``.
     """
+    build = build_encdec if cfg.family == "encdec" else build_lm
     if torch.device(device if device is not None else "cuda").type == "meta":
-        return build_lm(cfg, torch.device("meta"))
+        return build(cfg, torch.device("meta"))
     dev = resolve_device(device)
-    return build_lm(cfg, dev, torch.Generator(device=dev).manual_seed(seed))
+    return build(cfg, dev, torch.Generator(device=dev).manual_seed(seed))

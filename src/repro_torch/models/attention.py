@@ -1,6 +1,7 @@
-"""Grouped-query attention with its KV cache (torch), as ``repro.models.attention``.
+"""Attention with its caches (torch), as ``repro.models.attention``: GQA, MLA and
+cross-attention.
 
-Ported: GQA, with and without a cache.  The cache of one block is a dict
+GQA, with and without a cache.  The cache of one block is a dict
 ``{"k", "v"}`` of ``(B, max_len, K, hd)`` tensors in the compute dtype, or,
 with ``cfg.kv_quant``, int8 ``k`` / ``v`` and float32 ``k_scale`` /
 ``v_scale`` ``(B, max_len, K)`` (one scale per token and head).
@@ -9,7 +10,22 @@ at ``cache_index``: a scalar (every row at one position) or a ``(B,)``
 vector (each slot at its own position, continuous batching).  The start
 is clamped so that the write fits, as ``jax.lax.dynamic_update_slice``
 clamps it; the mask keeps the unclamped positions, as the JAX one does.
-MLA and cross-attention stay with ROADMAP A4 (c).
+
+MLA (``MLA``) caches the compressed latent instead, ``{"latent" (B, max_len,
+kv_lora_rank), "k_rope" (B, max_len, qk_rope_head_dim)}``, written the same
+way.  Without a cache it expands the latent into per-head keys and
+values; with one (prefill and decode) it runs the JAX "absorbed" path:
+scores over the latent through ``kv_up``'s key half, the context in
+latent space expanded through its value half.  The two paths add in
+different orders.
+
+Cross-attention (``Cross``) reads keys and values projected from a
+``memory`` (encoder frames, image tokens).  Its cache ``{"k", "v"}``
+(B, M, K, hd) holds that projection: with ``memory`` given (prefill) the
+projection is written into it, with ``memory=None`` (decode) it is read.
+The JAX package's cached path attends over the cache's initial zeros
+instead (its prefill never reads the memory); the port does what the JAX
+steps' comment says is meant (ROADMAP queue C).
 
 Attention is plain PyTorch that follows ``_gqa_scores_ctx``: scores in
 float32 plus the additive mask (0 or -1e30), then ``softmax_fp32``, cast
@@ -25,7 +41,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamInit, apply_rotary, softmax_fp32
+from repro_torch.models.common import ParamInit, apply_rotary, rmsnorm, softmax_fp32
 
 Cache = Dict[str, torch.Tensor]
 Index = Union[int, torch.Tensor]
@@ -89,6 +105,21 @@ def cache_mask(index: Index, S: int, T: int, device) -> torch.Tensor:
         return torch.where(k_pos[None, None, :] <= q_pos, zero, neg)[:, None, None]
     q_pos = int(index) + torch.arange(S, device=device)[:, None]
     return torch.where(k_pos[None, :] <= q_pos, zero, neg)
+
+
+def cache_len(cache: Dict, axes: Dict) -> Optional[int]:
+    """The positions a block's cache holds (its ``max_len``): the size of the
+    ``"kv_seq"`` axis of the first leaf that has one, found through the cache's logical
+    axes, so for every family's layout (GQA's ``k``, MLA's ``latent``, a VLM period's
+    stacked ``self``, an encoder-decoder layer's ``self``)."""
+    for name, ax in axes.items():
+        if isinstance(ax, dict):
+            n = cache_len(cache[name], ax)
+            if n is not None:
+                return n
+        elif "kv_seq" in ax:
+            return int(cache[name].shape[ax.index("kv_seq")])
+    return None
 
 
 def _write(buf: torch.Tensor, val: torch.Tensor, index: Index) -> None:
@@ -160,3 +191,146 @@ class GQA(nn.Module):
                 k, v = cache["k"].to(dt), cache["v"].to(dt)
         ctx = _gqa_scores_ctx(q, k, v, mask)
         return torch.einsum("bshk,hkd->bsd", ctx, self.wo.to(dt)), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder / vlm layers)
+
+
+class Cross(nn.Module):
+    """``init_cross`` / ``apply_cross``: wq (d, H, hd), wk / wv (kv_dim, K, hd), wo (H, hd,
+    d), q_norm (d,)."""
+
+    def __init__(self, mk: ParamInit, cfg: ModelConfig, kv_dim: Optional[int] = None):
+        super().__init__()
+        d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        kv_dim = kv_dim or d
+        self.eps = cfg.rms_eps
+        self.wq = mk((d, H, hd))
+        self.wk = mk((kv_dim, K, hd))
+        self.wv = mk((kv_dim, K, hd))
+        self.wo = mk((H, hd, d))
+        self.q_norm = mk((d,), init="ones")
+
+    def forward(self, x: torch.Tensor, memory: Optional[torch.Tensor] = None,
+                cache: Optional[Cache] = None) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """x (B, S, D) queries; ``memory`` (B, M, Dm), cast to x's dtype, projected into
+        keys and values (and written into ``cache`` in place where one is given), or,
+        with ``memory=None``, the keys and values ``cache`` holds.  Returns ``(out,
+        cache)``."""
+        dt = x.dtype
+        q = torch.einsum("bsd,dhk->bshk", rmsnorm(x, self.q_norm, self.eps), self.wq.to(dt))
+        if memory is not None:
+            memory = memory.to(dt)
+            k = torch.einsum("bmd,dhk->bmhk", memory, self.wk.to(dt))
+            v = torch.einsum("bmd,dhk->bmhk", memory, self.wv.to(dt))
+            if cache is not None:
+                cache["k"].copy_(k)
+                cache["v"].copy_(v)
+        elif cache is None:
+            raise ValueError("cross-attention needs a memory or a cache that holds its "
+                             "keys and values")
+        else:
+            k, v = cache["k"].to(dt), cache["v"].to(dt)
+        mask = torch.zeros((x.shape[1], k.shape[1]), dtype=torch.float32, device=x.device)
+        ctx = _gqa_scores_ctx(q, k, v, mask)
+        return torch.einsum("bshk,hkd->bsd", ctx, self.wo.to(dt)), cache
+
+
+def cross_cache(cfg: ModelConfig, batch: int, mem_len: int, dtype: torch.dtype,
+                device=None) -> Cache:
+    """One cross-attention layer's zero cache ``{"k", "v"}`` (B, mem_len, K, hd)."""
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {name: torch.zeros((batch, mem_len, K, hd), dtype=dtype, device=device)
+            for name in ("k", "v")}
+
+
+def cross_cache_logical_axes(mem_axis: str) -> Dict[str, Tuple[str, ...]]:
+    return {name: ("batch", mem_axis, "kv_heads", "head_dim") for name in ("k", "v")}
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, minicpm3 / deepseek family)
+
+
+def mla_make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
+                   device=None) -> Cache:
+    m = cfg.mla
+    return {
+        "latent": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dtype,
+                              device=device),
+    }
+
+
+def mla_cache_struct(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype) -> Cache:
+    """The MLA cache's shapes and dtypes on the ``meta`` device."""
+    return mla_make_cache(cfg, batch, max_len, dtype, device="meta")
+
+
+def mla_cache_logical_axes() -> Dict[str, Tuple[Optional[str], ...]]:
+    return {
+        "latent": ("batch", "kv_seq", "kv_lora"),
+        "k_rope": ("batch", "kv_seq", None),
+    }
+
+
+class MLA(nn.Module):
+    """``init_mla`` / ``apply_mla``: q_down (d, q_lora), q_norm (q_lora,), q_up (q_lora, H,
+    nope + rope), kv_down (d, kv_lora + rope), kv_norm (kv_lora,), kv_up (kv_lora, H, nope +
+    v), wo (H, v, d)."""
+
+    def __init__(self, mk: ParamInit, cfg: ModelConfig):
+        super().__init__()
+        d, H, m = cfg.d_model, cfg.num_heads, cfg.mla
+        self.m, self.eps = m, cfg.rms_eps
+        self.q_down = mk((d, m.q_lora_rank))
+        self.q_norm = mk((m.q_lora_rank,), init="ones")
+        self.q_up = mk((m.q_lora_rank, H, m.qk_nope_head_dim + m.qk_rope_head_dim))
+        self.kv_down = mk((d, m.kv_lora_rank + m.qk_rope_head_dim))
+        self.kv_norm = mk((m.kv_lora_rank,), init="ones")
+        self.kv_up = mk((m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim))
+        self.wo = mk((H, m.v_head_dim, d))
+
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                mask: torch.Tensor, cache: Optional[Cache] = None,
+                cache_index: Index = 0) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """As ``GQA.forward``; ``cos`` / ``sin`` are over ``qk_rope_head_dim``.  ``mask``
+        is (S, S) without a cache, else ``cache_mask(cache_index, S, max_len)`` (its
+        per-slot form's (B, 1, 1, S, T) is taken as the (B, 1, S, T) of these scores)."""
+        dt, m = x.dtype, self.m
+        nope = m.qk_nope_head_dim
+        ql = rmsnorm(x @ self.q_down.to(dt), self.q_norm, self.eps)
+        q = torch.einsum("bsr,rhk->bshk", ql, self.q_up.to(dt))
+        q_nope, q_rope = q[..., :nope], q[..., nope:]
+        kv = x @ self.kv_down.to(dt)
+        latent = rmsnorm(kv[..., :m.kv_lora_rank], self.kv_norm, self.eps)
+        q_rope = apply_rotary(q_rope, cos, sin)
+        k_rope = apply_rotary(kv[..., m.kv_lora_rank:][:, :, None, :], cos, sin)[:, :, 0, :]
+        scale = 1.0 / math.sqrt(nope + m.qk_rope_head_dim)
+
+        if cache is not None:
+            _write(cache["latent"], latent.to(cache["latent"].dtype), cache_index)
+            _write(cache["k_rope"], k_rope.to(cache["k_rope"].dtype), cache_index)
+            latent_all, k_rope_all = cache["latent"].to(dt), cache["k_rope"].to(dt)
+            if mask.ndim == 5:
+                mask = mask[:, 0]
+            # absorbed: scores over the latent through kv_up's key half
+            kv_up = self.kv_up.to(dt)
+            q_lat = torch.einsum("bshk,rhk->bshr", q_nope, kv_up[..., :nope])
+            scores = (torch.einsum("bshr,btr->bhst", q_lat, latent_all)
+                      + torch.einsum("bshk,btk->bhst", q_rope, k_rope_all)).float()
+            w = softmax_fp32(scores * scale + mask).to(dt)
+            ctx_lat = torch.einsum("bhst,btr->bshr", w, latent_all)
+            ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, kv_up[..., nope:])
+        else:
+            B, S, _ = x.shape
+            kvu = torch.einsum("bsr,rhk->bshk", latent, self.kv_up.to(dt))
+            H = kvu.shape[2]
+            k = torch.cat([kvu[..., :nope],
+                           k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)], dim=-1)
+            qf = torch.cat([q_nope, q_rope], dim=-1)
+            scores = torch.einsum("bshk,bthk->bhst", qf, k).float() * scale
+            w = softmax_fp32(scores + mask).to(dt)
+            ctx = torch.einsum("bhst,bthv->bshv", w, kvu[..., nope:])
+        return torch.einsum("bshv,hvd->bsd", ctx, self.wo.to(dt)), cache

@@ -1,25 +1,35 @@
-"""Decoder-only LM for the dense and MoE families (torch), as ``repro.models.lm``.
+"""Decoder-only LM for the dense, MoE and VLM families (torch), as ``repro.models.lm``.
 
-Ported: the ``dense`` family without MLA (``smollm-135m``, ``yi-6b``,
-``yi-9b``) and the ``moe`` family (``qwen2-moe-a2.7b``,
-``phi3.5-moe-42b-a6.6b``; ``models/moe.py``): ``init`` (module
-construction), ``forward``, ``train_loss``, ``init_cache``,
-``cache_logical_axes``, ``prefill`` and ``decode_step``.  The JAX
-``lax.scan`` over the stacked ``blocks`` is a loop over an
-``nn.ModuleList``; its ``remat`` (``jax.checkpoint`` of the scan body) is
-``torch.utils.checkpoint`` per block.  Every other family, and
-``cfg.mla``, raises ``NotImplementedError`` naming its ROADMAP item.
+Ported: the ``dense`` family (``smollm-135m``, ``yi-6b``, ``yi-9b``, and
+with MLA ``minicpm3-4b``), the ``moe`` family (``qwen2-moe-a2.7b``,
+``phi3.5-moe-42b-a6.6b``; ``models/moe.py``) and the ``vlm`` family
+(``llama-3.2-vision-90b``): ``init`` (module construction), ``forward``,
+``train_loss``, ``init_cache``, ``cache_logical_axes``, ``prefill`` and
+``decode_step``.  The JAX ``lax.scan`` over the stacked ``blocks`` is a
+loop over an ``nn.ModuleList``; its ``remat`` (``jax.checkpoint`` of the
+scan body) is ``torch.utils.checkpoint`` per block.  The ``ssm`` and
+``hybrid`` families raise ``NotImplementedError`` naming their ROADMAP
+item; ``encdec`` is ``models/encdec.py``.
 
-Parameters keep the JAX leaves' names and shapes, one block per layer:
-the JAX leaf ``blocks/attn/wq`` (layers, d, H, hd) is the port's
-``blocks.{i}.attn.wq`` (d, H, hd) (``repro_torch.convert`` carries a
-parameter tree across both ways).  The KV cache is likewise a list with
-one cache dict per block (``convert.lm_cache_from_numpy`` /
-``lm_cache_to_numpy`` carry the JAX stacked cache across); ``prefill`` and
-``decode_step`` write it in place and return it.
+Parameters keep the JAX leaves' names and shapes, one block per scan
+step: the JAX leaf ``blocks/attn/wq`` (layers, d, H, hd) is the port's
+``blocks.{i}.attn.wq`` (d, H, hd); a VLM block is one period of
+``cross_attn_period`` layers, its JAX ``blocks/self/...`` (periods,
+period - 1, ...) the port's ``blocks.{i}.self.{j}...``
+(``repro_torch.convert`` carries a parameter tree across both ways).  The
+cache is likewise a list with one cache per block (``convert.lm_cache_from_numpy``
+/ ``lm_cache_to_numpy`` carry the JAX stacked cache across): a dict of
+tensors (GQA's ``{k, v}``, MLA's ``{latent, k_rope}``), for a VLM block
+``{"self": {k, v} stacked over its period - 1 layers, "cross_kv": {k, v}}``.
+``prefill`` and ``decode_step`` write it in place and return it.  A VLM
+takes its image tokens as ``memory`` (B, num_image_tokens, d_model):
+``forward`` and ``train_loss`` (``batch["memory"]``) need it, ``prefill``
+projects it into each period's ``cross_kv`` and raises ``ValueError``
+without it, ``decode_step`` reads the cache.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -29,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.attention import GQA, Cache, Index
+from repro_torch.models.attention import GQA, MLA, Cache, Cross, Index
 from repro_torch.models.common import (
     Norm,
     ParamInit,
@@ -43,25 +53,27 @@ from repro_torch.models.moe import MoE
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_dropped_frac")
 
-#: ROADMAP items (queue A4) of the families this slice does not port.
+#: ROADMAP items (queue A4) of the families the port does not have yet.
 NOT_PORTED = {
-    "hybrid": "A4 (c), the hybrid family",
+    "hybrid": "A4 (c), Mamba and the hybrid family",
     "ssm": "A4 (c), xLSTM",
-    "vlm": "A4 (c), the VLM family",
-    "encdec": "A4 (c), encoder-decoder",
 }
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family (or MLA) the port does not have yet."""
+    """Raise ``NotImplementedError`` for a family the port does not have yet."""
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet "
                                   f"(ROADMAP {NOT_PORTED[cfg.family]})")
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.arch_id}: MLA attention is not ported yet "
-                                  "(ROADMAP A4 (c), MLA)")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"family {cfg.family!r} is not a decoder-only LM's")
+
+
+def num_scan_steps(cfg: ModelConfig) -> int:
+    """Blocks of the model: its layers, or for a VLM its periods."""
+    if cfg.family == "vlm":
+        return cfg.num_layers // cfg.cross_attn_period
+    return cfg.num_layers
 
 
 def _zero_aux(device) -> torch.Tensor:
@@ -69,13 +81,13 @@ def _zero_aux(device) -> torch.Tensor:
 
 
 class DenseBlock(nn.Module):
-    """``_init_dense_block`` / ``_apply_dense_block`` without MLA: GQA, then the MLP or,
-    with ``cfg.moe``, the MoE layer."""
+    """``_init_dense_block`` / ``_apply_dense_block``: GQA (MLA with ``cfg.mla``), then the
+    MLP or, with ``cfg.moe``, the MoE layer."""
 
     def __init__(self, mk: ParamInit, cfg: ModelConfig):
         super().__init__()
         self.norm_attn = Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps)
-        self.attn = GQA(mk, cfg)
+        self.attn = MLA(mk, cfg) if cfg.mla is not None else GQA(mk, cfg)
         self.norm_ffn = Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps)
         if cfg.moe is not None:
             self.moe = MoE(mk, cfg)
@@ -94,8 +106,35 @@ class DenseBlock(nn.Module):
         return x + self.mlp(h), cache, None
 
 
+class VLMBlock(nn.Module):
+    """``_init_vlm_block`` / ``_apply_vlm_block``: one period, ``cross_attn_period - 1``
+    dense blocks (``self``, without MoE), then cross-attention to the image tokens under
+    a ``tanh(cross_gate)`` gate and its own MLP."""
+
+    def __init__(self, mk: ParamInit, cfg: ModelConfig):
+        super().__init__()
+        dense = dataclasses.replace(cfg, moe=None)
+        self.self = nn.ModuleList(DenseBlock(mk, dense) for _ in range(cfg.cross_attn_period - 1))
+        self.norm_cross = Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps)
+        self.cross = Cross(mk, cfg)
+        self.norm_cross_ffn = Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps)
+        self.cross_mlp = MLP(mk, cfg.d_model, cfg.d_ff, cfg.act)
+        self.cross_gate = mk((1,), init="zeros")
+
+    def forward(self, x, cos, sin, mask, cache: Optional[Dict] = None, index: Index = 0,
+                memory: Optional[torch.Tensor] = None):
+        """-> (x, cache (written in place, or None), None: the JAX block's zero aux)."""
+        for j, block in enumerate(self.self):
+            c = None if cache is None else {k: t[j] for k, t in cache["self"].items()}
+            x, _, _ = block(x, cos, sin, mask, c, index)
+        y, _ = self.cross(self.norm_cross(x), memory,
+                          None if cache is None else cache["cross_kv"])
+        x = x + torch.tanh(self.cross_gate.to(x.dtype)) * y
+        return x + self.cross_mlp(self.norm_cross_ffn(x)), cache, None
+
+
 class LM(nn.Module):
-    """The decoder-only LM of the dense and MoE families.
+    """The decoder-only LM of the dense, MoE and VLM families.
 
     ``device`` holds the parameters (``meta``: shapes only, the JAX
     abstract init); ``generator``, on that device, draws their normal inits.
@@ -108,7 +147,8 @@ class LM(nn.Module):
         self.cfg = cfg
         mk = ParamInit(cfg.param_dtype, device, generator)
         self.embed = mk((cfg.vocab_size, cfg.d_model))
-        self.blocks = nn.ModuleList(DenseBlock(mk, cfg) for _ in range(cfg.num_layers))
+        block = VLMBlock if cfg.family == "vlm" else DenseBlock
+        self.blocks = nn.ModuleList(block(mk, cfg) for _ in range(num_scan_steps(cfg)))
         self.final_norm = Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps)
         if not cfg.tie_embeddings:
             self.head = mk((cfg.d_model, cfg.vocab_size))
@@ -129,73 +169,109 @@ class LM(nn.Module):
         return x @ w
 
     def _backbone(self, x, pos, mask, caches: Optional[List[Cache]], index: Index,
-                  remat: bool = False):
+                  memory: Optional[torch.Tensor] = None, remat: bool = False):
         """The blocks in order: (x, aux summed over the layers, caches)."""
-        cos, sin = rotary_cos_sin(pos, self.cfg.resolved_head_dim, self.cfg.rope_theta)
+        cfg = self.cfg
+        rot = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
+        cos, sin = rotary_cos_sin(pos, rot, cfg.rope_theta)
+        kw = {"memory": memory} if cfg.family == "vlm" else {}
         aux = _zero_aux(x.device)
         for i, block in enumerate(self.blocks):
             c = None if caches is None else caches[i]
             if remat:
-                x, c, a = checkpoint(block, x, cos, sin, mask, c, index, use_reentrant=False)
+                x, c, a = checkpoint(block, x, cos, sin, mask, c, index, use_reentrant=False,
+                                     **kw)
             else:
-                x, c, a = block(x, cos, sin, mask, c, index)
+                x, c, a = block(x, cos, sin, mask, c, index, **kw)
             if a is not None:
                 aux = aux + a
         return x, aux, caches
 
+    def _memory(self, memory: Optional[torch.Tensor], what: str) -> None:
+        if self.cfg.family == "vlm" and memory is None:
+            raise ValueError(f"{self.cfg.arch_id}: {what} needs the image tokens (memory)")
+
     # -- entry points ---------------------------------------------------------
-    def forward(self, tokens: torch.Tensor, remat: bool = False
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens (B, S) -> (logits (B, S, V) in the compute dtype, aux (3,) float32)."""
+    def forward(self, tokens: torch.Tensor, memory: Optional[torch.Tensor] = None,
+                remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, S) (and for a VLM its image tokens ``memory`` (B, M, d_model)) ->
+        (logits (B, S, V) in the compute dtype, aux (3,) float32)."""
+        self._memory(memory, "forward")
         B, S = tokens.shape
         dev = tokens.device
         pos = torch.arange(S, device=dev)[None, :].expand(B, S)
         x, aux, _ = self._backbone(self._embed(tokens), pos, causal_mask(S, S, device=dev),
-                                   None, 0, remat)
+                                   None, 0, memory, remat)
         return self._logits(x), aux
 
     def train_loss(self, batch: Dict[str, torch.Tensor], z_loss: float = 0.0,
                    remat: bool = True, aux_weights: Tuple[float, float] = (0.01, 1e-3)):
         """Next-token loss of ``batch['tokens']`` (B, S + 1), or of ``tokens`` against
-        ``labels``; returns ``(total, metrics)`` as the JAX ``train_loss``."""
+        ``labels`` (a VLM's image tokens in ``batch['memory']``); returns ``(total,
+        metrics)`` as the JAX ``train_loss``."""
         tokens = batch["tokens"]
         if "labels" in batch:
             inputs, labels = tokens, batch["labels"]
         else:
             inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        logits, aux = self.forward(inputs, remat)
+        logits, aux = self.forward(inputs, batch.get("memory"), remat)
         loss, ce = cross_entropy(logits, labels, z_loss)
         lb, zr, dropped = aux[0], aux[1], aux[2]
         total = loss + aux_weights[0] * lb + aux_weights[1] * zr
         metrics = {"ce": ce, "loss": total, "moe_lb": lb, "moe_dropped": dropped}
         return total, metrics
 
-    def init_cache(self, batch: int, max_len: int, abstract: bool = False) -> List[Cache]:
+    def init_cache(self, batch: int, max_len: int, abstract: bool = False) -> List[Dict]:
         """One zero cache per block, on the parameters' device (``abstract``: on
         ``meta``), in the compute dtype (int8 and float32 scales with ``kv_quant``)."""
+        cfg = self.cfg
         dev = "meta" if abstract else self.embed.device
-        dtype = torch_dtype(self.cfg.compute_dtype)
-        return [attn.make_cache(self.cfg, batch, max_len, dtype, dev)
-                for _ in range(self.cfg.num_layers)]
+        dtype = torch_dtype(cfg.compute_dtype)
+        if cfg.mla is not None:
+            return [attn.mla_make_cache(cfg, batch, max_len, dtype, dev)
+                    for _ in range(cfg.num_layers)]
+        if cfg.family != "vlm":
+            return [attn.make_cache(cfg, batch, max_len, dtype, dev)
+                    for _ in range(cfg.num_layers)]
+        n = cfg.cross_attn_period - 1
+        return [{"self": {k: torch.zeros((n,) + tuple(t.shape), dtype=t.dtype, device=dev)
+                          for k, t in attn.cache_struct(cfg, batch, max_len, dtype).items()},
+                 "cross_kv": attn.cross_cache(cfg, batch, cfg.num_image_tokens, dtype, dev)}
+                for _ in range(num_scan_steps(cfg))]
 
-    def cache_logical_axes(self) -> List[Dict[str, Tuple[str, ...]]]:
+    def cache_logical_axes(self) -> List[Dict]:
         """Each block's cache leaves' logical axes (the JAX tree without ``layers``)."""
-        return [attn.cache_logical_axes(self.cfg) for _ in range(self.cfg.num_layers)]
+        cfg = self.cfg
+        if cfg.mla is not None:
+            one = attn.mla_cache_logical_axes()
+        elif cfg.family == "vlm":
+            one = {"self": {k: (None,) + ax for k, ax in attn.cache_logical_axes(cfg).items()},
+                   "cross_kv": attn.cross_cache_logical_axes("image")}
+        else:
+            one = attn.cache_logical_axes(cfg)
+        return [one for _ in range(num_scan_steps(cfg))]
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, caches: List[Cache]):
-        """Fill the caches from position 0; returns (last-token logits (B, 1, V), caches)."""
+    def prefill(self, tokens: torch.Tensor, caches: List[Dict],
+                memory: Optional[torch.Tensor] = None):
+        """Fill the caches from position 0 (a VLM's ``cross_kv`` from ``memory``, which
+        it needs); returns (last-token logits (B, 1, V), caches)."""
+        self._memory(memory, "prefill")
         B, S = tokens.shape
         dev = tokens.device
         pos = torch.arange(S, device=dev)[None, :].expand(B, S)
-        mask = attn.cache_mask(0, S, caches[0]["k"].shape[1], dev)
-        x, _, caches = self._backbone(self._embed(tokens), pos, mask, caches, 0)
+        T = attn.cache_len(caches[0], self.cache_logical_axes()[0])
+        mask = attn.cache_mask(0, S, T, dev)
+        x, _, caches = self._backbone(self._embed(tokens), pos, mask, caches, 0, memory)
         return self._logits(x[:, -1:, :]), caches
 
     @torch.no_grad()
-    def decode_step(self, token: torch.Tensor, caches: List[Cache], index: Index):
+    def decode_step(self, token: torch.Tensor, caches: List[Dict], index: Index,
+                    memory: Optional[torch.Tensor] = None):
         """token (B, 1) at position ``index`` (an int or 0-d tensor, or a (B,) per-slot
-        vector for continuous batching); returns (logits (B, 1, V), caches)."""
+        vector for continuous batching); returns (logits (B, 1, V), caches).  A VLM reads
+        its image tokens' keys and values from the cache (``memory`` given: projects
+        them anew into it)."""
         B = token.shape[0]
         dev = token.device
         if isinstance(index, torch.Tensor) and index.ndim == 1:
@@ -204,8 +280,9 @@ class LM(nn.Module):
         else:
             index = int(index)
             pos = torch.full((B, 1), index, dtype=torch.int32, device=dev)
-        mask = attn.cache_mask(index, 1, caches[0]["k"].shape[1], dev)
-        x, _, caches = self._backbone(self._embed(token), pos, mask, caches, index)
+        T = attn.cache_len(caches[0], self.cache_logical_axes()[0])
+        mask = attn.cache_mask(index, 1, T, dev)
+        x, _, caches = self._backbone(self._embed(token), pos, mask, caches, index, memory)
         return self._logits(x), caches
 
 

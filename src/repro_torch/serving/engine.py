@@ -17,7 +17,10 @@ step (for an MoE model it decides the routing of the live slots):
 
 Greedy decoding takes the first index among equal logits, as
 ``jnp.argmax`` does.  The engine runs on ``device`` (``None`` is the card)
-and never falls back to the host.
+and never falls back to the host.  It serves the decoder-only families
+with a self-attention cache (GQA's or MLA's); an encoder-decoder or a VLM
+raises ``NotImplementedError``: a request carries no frames or image, so
+those are driven through ``launch.steps`` (``launch/serve.py``).
 """
 from __future__ import annotations
 
@@ -56,6 +59,12 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, params: Union[LM, Mapping], max_batch: int = 4,
                  max_len: int = 512, device: DeviceLike = None):
+        if cfg.family in ("encdec", "vlm"):
+            raise NotImplementedError(
+                f"{cfg.arch_id}: a request carries no frames or image for the "
+                f"{cfg.family!r} family's cross-attention; drive it through "
+                "repro_torch.launch.steps (make_prefill_step with the memory, then "
+                "make_serve_step), as launch/serve.py does")
         self.cfg = cfg
         self.device = resolve_device(device)
         if isinstance(params, LM):

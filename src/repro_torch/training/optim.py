@@ -4,7 +4,9 @@ This is the JAX package's own AdamW, not ``torch.optim.AdamW`` (whose
 update differs): bias correction, decoupled weight decay on the leaves
 the caller marks (the JAX rule: leaves of 2 or more dimensions, read on
 the layer-stacked layout; ``LM.decay_mask``), float32 master weights for
-low-precision parameters, and clipping by the global norm in float32.
+low-precision parameters, and clipping by the global norm in float32
+(each gradient scaled as ``adamw_update`` reaches it: the bits of JAX's
+``clip_by_global_norm`` without a second copy of every gradient).
 
 State over flat name -> tensor dicts:
   {"m": float32 like params, "v": float32 like params,
@@ -55,13 +57,6 @@ def init_opt_state(params: Params, cfg: OptimizerConfig) -> Dict:
     return state
 
 
-def clip_by_global_norm(grads: Params, max_norm: float) -> Tuple[Params, torch.Tensor]:
-    """Scale every gradient by ``min(1, max_norm / norm)``, in float32 then its dtype."""
-    gnorm = tree_global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
-    return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}, gnorm
-
-
 @torch.no_grad()
 def adamw_update(params: Params, grads: Params, state: Dict, cfg: OptimizerConfig,
                  decay: Optional[Dict[str, bool]] = None) -> Tuple[Params, Dict, Dict]:
@@ -74,17 +69,19 @@ def adamw_update(params: Params, grads: Params, state: Dict, cfg: OptimizerConfi
     state["step"] += 1
     step = state["step"]
     lr = lr_schedule(cfg, step)
-    if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    else:
-        gnorm = tree_global_norm(grads)
+    gnorm = tree_global_norm(grads)
+    scale = (torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
+             if cfg.grad_clip > 0 else None)
 
     b1, b2, eps = cfg.b1, cfg.b2, cfg.eps
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
     master = state.get("master")
     for name, p in params.items():
-        g = grads[name].float()
+        g = grads[name]
+        if scale is not None:           # clipped by the global norm, then its dtype
+            g = (g.float() * scale).to(g.dtype)
+        g = g.float()
         m, v = state["m"][name], state["v"][name]
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * g * g)

@@ -23,9 +23,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.convert import lm_params_from_numpy, lm_params_to_tree
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import SyntheticLM, modality_stub
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import build_model
+from repro_torch.models.common import torch_dtype
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.compression import apply_error_feedback, init_error_state
 from repro_torch.training.elastic import StragglerWatchdog
@@ -158,9 +159,16 @@ class Trainer:
         return dict(metrics, **om)
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
-        """``data.batch(step)`` as tensors on the device."""
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in self.data.batch(step).items()}
+        """``data.batch(step)`` as tensors on the device; for an encoder-decoder or a VLM
+        with the stub frontend's frames or image tokens (``modality_stub``, seeded by the
+        seed and the step) in the compute dtype."""
+        out = {k: torch.as_tensor(v, device=self.device)
+               for k, v in self.data.batch(step).items()}
+        stub = modality_stub(self.cfg, out["tokens"].shape[0],
+                             self.tcfg.seed * 1_000_003 + step)
+        dt = torch_dtype(self.cfg.compute_dtype)
+        out.update({k: torch.as_tensor(v, device=self.device).to(dt) for k, v in stub.items()})
+        return out
 
     # -- the loop ---------------------------------------------------------------
     def run(self, steps: Optional[int] = None) -> Dict:
