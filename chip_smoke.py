@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py      # needs one CUDA card; takes about ten minutes
+    python3 chip_smoke.py      # needs one CUDA card; takes about fifteen minutes
     python3 chip_smoke.py --compare _archive/parent [--pairs 10]
                                # this tree's kernels against another checkout's
     python3 chip_smoke.py --mesh-only
@@ -11,6 +11,8 @@
                                # phase 14 alone (LM serving, MoE, the OT router)
     python3 chip_smoke.py --families-only
                                # phase 15 alone (MLA, the encoder-decoder, the VLM)
+    python3 chip_smoke.py --xlstm-only
+                               # phase 16 alone (xlstm-1.3b served, float32, trained)
 
 The main path is the default plan at the paper's largest scale:
 ``repro_torch.ot.compile(Problem.from_samples(...), ExecutionPlan(grad_impl=
@@ -199,8 +201,9 @@ Phases:
      recycled slots bit for bit each alone in a fresh engine, the cache 35 712 B a
      token, and in float32 the absorbed path (prefill, teacher-forced decode)
      within rtol / atol 2e-3 of the expanded one (``forward``); (b) the same trained
-     with the OT alignment loss on phase 13's data for 4 steps, at full depth where
-     an AdamW step fits (16 B a parameter plus 12 GiB), else cut and said so: losses
+     with the OT alignment loss on phase 13's data for 4 steps, cut to 16 of its 62
+     layers for the smoke's time (full depth fits: an AdamW step of 16 B a
+     parameter plus 12 GiB; a deeper cut where it would not), said so: losses
      finite, the OT term present, K1, K4 and K5 or K6 launched; the step split, a
      profile of one step, the fused OT term of one step (K8 or K6); K1, K4, K5, K6
      and K8 at the step-0 OT operands (L_pad 8, g 4, n_pad 128, d 2560: 80 chunks
@@ -217,6 +220,20 @@ Phases:
      image tokens (no optimizer: its state does not fit), the loss and gradient
      norm finite and ``cross.wq``'s gradient nonzero, then (c)'s serving and checks
      with the image tokens.
+ 16. the xLSTM family at full width and depth, ``xlstm-1.3b`` (48 layers in 6 periods of
+     an sLSTM and 7 mLSTMs, d_model 2048, 4 heads, 2 020 751 696 parameters, a recurrent
+     state of 706 560 000 B a sequence), random bf16 weights from seed 0: (a) served
+     through ``ServingEngine`` (four slots, eight requests with prompts of 2, 37, 64, 64,
+     128, 129, 257 and 300 tokens, 32 new tokens each): each back once, those in recycled
+     slots bit for bit each alone in a fresh engine (a slot's whole state replaced at
+     admission); (b) in float32, prefill and 8 teacher-forced decode steps within rtol /
+     atol 2e-3 of ``LM.forward``, and a chunkwise prefill of 257 tokens (chunks of 128,
+     128 and 1) against 257 decode steps from the zero state, its last logits and every
+     state leaf within rtol / atol 2e-3; (c) trained with the OT alignment loss on phase
+     13's data for 4 steps, as 15 (b) (the depth ``train_depth`` confirms, losses, OT
+     distances and gradient norms finite, the step split, a profile of one step, the
+     fused OT term), K1, K4, K5, K6 and K8 at its step-0 OT operands (d = 2048: 64 chunks
+     of 32) held to their plain versions and timed.
 Phase 3 also runs K2-K8 at tile_n 4, 20, 40 and 128 on a narrow problem
 (K2, K3 and K7 in f32 and bf16; K2 and K7 on the staged loader at 128, 1024
 and 256, on the direct loads where a warp has lanes past the tile; K3 on the
@@ -227,7 +244,8 @@ The second-to-last line is the kernel table as JSON (K1-K8, B9-B14, and
 row_sum / row_dot, the solver's batch-invariant reductions, which stand in
 for XLA's reductions and have no TPU kernel; their ``launches_ot_router``
 are phase 14 (c)'s; K1, K4, K5, K6 and K8 once more at phase 13's trainer
-shapes, ``@lm_step``, d = 576, and phase 15 (b)'s, ``@mla_step``, d = 2560), the last line
+shapes, ``@lm_step``, d = 576, phase 15 (b)'s, ``@mla_step``, d = 2560, and phase 16
+(c)'s, ``@xlstm_step``, d = 2048), the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 from __future__ import annotations
@@ -3675,6 +3693,7 @@ FAM_MLA_ARCH = "minicpm3-4b"
 FAM_MLA_PARAMS = 4_261_902_848       # its parameter count (the JAX abstract init's)
 FAM_MLA_CACHE_B = 35_712             # its cache a token: 62 layers x (256 + 32) x 2 B
 FAM_MLA_STEPS = 4                    # (b)'s trainer steps, then 2 split, 1 profiled
+FAM_MLA_TRAIN_LAYERS = 16            # (b)'s depth cut, for the smoke's time (PERF.md §4)
 FAM_STEP_HEADROOM = 12 * 2**30       # (b): a step's activations and temporaries
 FAM_ED_ARCH = "whisper-medium"
 FAM_ED_PARAMS = 791_827_456
@@ -3768,26 +3787,33 @@ def phase_fam_mla_serve(smi_line, device):
 def train_depth(cfg, free_bytes: int):
     """(layers, parameters) of the deepest cut of ``cfg`` whose AdamW step fits in
     ``free_bytes``: 16 B a parameter (bf16 weights and gradients, float32 master, m and v)
-    plus ``FAM_STEP_HEADROOM`` of activations and temporaries (remat per block)."""
+    plus ``FAM_STEP_HEADROOM`` of activations and temporaries (remat per block).  A cut
+    keeps whole blocks (a period of layers for the periodic families)."""
     import dataclasses
 
     from repro_torch.models import build_model
     from repro_torch.models.common import count_params
+    from repro_torch.models.lm import num_scan_steps
 
-    n = lambda layers: count_params(build_model(dataclasses.replace(cfg, num_layers=layers),
-                                                device="meta"))
-    base, per_layer = n(1), n(2) - n(1)
-    for layers in range(cfg.num_layers, 0, -1):
-        params = base + (layers - 1) * per_layer
+    unit = cfg.num_layers // num_scan_steps(cfg)            # layers a block
+    n = lambda blocks: count_params(build_model(
+        dataclasses.replace(cfg, num_layers=blocks * unit), device="meta"))
+    base, per_block = n(1), n(2) - n(1)
+    for blocks in range(cfg.num_layers // unit, 0, -1):
+        params = base + (blocks - 1) * per_block
         if 16 * params + FAM_STEP_HEADROOM <= free_bytes:
-            return layers, params
-    fail(f"not even one layer of {cfg.arch_id} trains in {free_bytes} B")
+            return blocks * unit, params
+    fail(f"not even one block of {cfg.arch_id} trains in {free_bytes} B")
 
 
-def phase_fam_mla_train(smi_line, device):
-    """(b): ``minicpm3-4b`` trained with the OT alignment loss at full width, on phase 13's
-    data; K1, K4, K5, K6 and K8 held at the step-0 OT operands (d = 2560).  Returns the
-    kernel-table rows."""
+def family_train(arch, n_steps, phase, suffix, smi_line, device, max_layers=None):
+    """``arch`` trained with the OT alignment loss at full width for ``n_steps`` steps on
+    phase 13's data, at the depth ``train_depth`` allows, at most ``max_layers`` (said
+    when cut): losses, OT
+    distances and gradient norms finite, the OT term present, K1, K4 and K5 or K6
+    launched; the step split, a profile of one step, the fused OT term of one step (K8 or
+    K6); then K1, K4, K5, K6 and K8 held at the step-0 OT operands (d = d_model) and
+    timed.  Returns the kernel-table rows, named with ``suffix``."""
     import dataclasses
     import math
     import statistics
@@ -3796,22 +3822,27 @@ def phase_fam_mla_train(smi_line, device):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build as kbuild
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
     from repro_torch.ot import diff
 
-    cfg = get_config(FAM_MLA_ARCH)
+    cfg = get_config(arch)
     held = torch.cuda.memory_allocated()
     free = torch.cuda.mem_get_info()[1] - held
     layers, n_params = train_depth(cfg, free)
+    if max_layers is not None and max_layers < layers:
+        layers, n_params = max_layers, count_params(build_model(
+            dataclasses.replace(cfg, num_layers=max_layers), device="meta"))
     cut = layers < cfg.num_layers
     if cut:
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    print(f"phase 15 (b) {FAM_MLA_ARCH}: {layers} of {get_config(FAM_MLA_ARCH).num_layers} "
+    print(f"{phase} {arch}: {layers} of {get_config(arch).num_layers} "
           f"layers ({'CUT: ' if cut else 'full depth; '}{n_params} parameters, an AdamW step "
           f"estimated at {16 * n_params + FAM_STEP_HEADROOM} B of {free} B free, {held} B held)",
           flush=True)
-    tr = lm_trainer(cfg, "pallas", FAM_MLA_STEPS, device)
+    tr = lm_trainer(cfg, "pallas", n_steps, device)
     ops = lm_ot_operands(tr, tr.batch(0), device)
-    check(ops[0].d == cfg.d_model, f"phase 15 (b): OT at d = {ops[0].d}")
+    check(ops[0].d == cfg.d_model, f"{phase}: OT at d = {ops[0].d}")
     sync()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -3828,28 +3859,30 @@ def phase_fam_mla_train(smi_line, device):
     durations = list(tr.watchdog.window)
     losses = [m["loss"] for m in hist]
     dists = [m.get("ot_distance", float("nan")) for m in hist]
-    print(f"phase 15 (b) {FAM_MLA_ARCH} ({layers} layers, d_model {cfg.d_model}, bf16) "
-          f"{FAM_MLA_STEPS} steps of {LM_BATCH} x {LM_SEQ} tokens, ot_align (pallas, L = "
+    norms = [m.get("grad_norm", float("nan")) for m in hist]
+    print(f"{phase} {arch} ({layers} layers, d_model {cfg.d_model}, bf16) "
+          f"{n_steps} steps of {LM_BATCH} x {LM_SEQ} tokens, ot_align (pallas, L = "
           f"{LM_CLASSES}, g = {ops[0].g}, n = {ops[0].n}, d = {ops[0].d}): loss {losses}; ce "
-          f"{[m['ce'] for m in hist]}; ot_distance {dists}", flush=True)
-    check(len(hist) == FAM_MLA_STEPS and all(math.isfinite(v) for v in losses + dists),
-          f"phase 15 (b): a loss or OT distance is not finite: {losses} {dists}")
-    check(all(v > 0 for v in dists), f"phase 15 (b): the OT term is missing: {dists}")
-    check(solves == FAM_MLA_STEPS, f"phase 15 (b) ran {solves} OT solves")
+          f"{[m['ce'] for m in hist]}; ot_distance {dists}; grad_norm {norms}", flush=True)
+    check(len(hist) == n_steps and all(math.isfinite(v) for v in losses + dists + norms),
+          f"{phase}: a loss, OT distance or gradient norm is not finite: {losses} {dists} "
+          f"{norms}")
+    check(all(v > 0 for v in dists), f"{phase}: the OT term is missing: {dists}")
+    check(solves == n_steps, f"{phase} ran {solves} OT solves")
     check(launches.get(K1, 0) > 0 and launches.get(K4, 0) > 0
           and launches.get(K5, 0) + launches.get(K6, 0) > 0,
-          f"phase 15 (b): the trainer did not launch K1, K4 and K5 or K6: {launches}")
+          f"{phase}: the trainer did not launch K1, K4 and K5 or K6: {launches}")
     med = statistics.median(durations[1:])
-    print(f"phase 15 (b) ({smi_line}): {wall:.3f} s for {FAM_MLA_STEPS} steps; step wall "
-          f"median {med:.4f} s (steps 1-{FAM_MLA_STEPS - 1}; step 0 {durations[0]:.4f} s), "
+    print(f"{phase} ({smi_line}): {wall:.3f} s for {n_steps} steps; step wall "
+          f"median {med:.4f} s (steps 1-{n_steps - 1}; step 0 {durations[0]:.4f} s), "
           f"{LM_BATCH * LM_SEQ / med:.1f} tokens/s; peak device memory {peak} B ({base} B held "
           f"before); OT kernel launches per step "
-          f"{ {k: v / FAM_MLA_STEPS for k, v in sorted(launches.items())} }", flush=True)
-    print_split_steps("phase 15 (b)", tr, FAM_MLA_STEPS, 2, smi_line)
-    s0 = FAM_MLA_STEPS + 2
+          f"{ {k: v / n_steps for k, v in sorted(launches.items())} }", flush=True)
+    print_split_steps(phase, tr, n_steps, 2, smi_line)
+    s0 = n_steps + 2
     _, pwall, busy, n_dev, krows = profile_device(lambda: tr.step_fn(tr.batch(s0)))
-    check(busy > 0, "phase 15 (b): the profiler recorded no device time")
-    print(f"phase 15 (b) profile (1 step, torch.profiler, {smi_line}): wall {pwall:.4f} s, "
+    check(busy > 0, f"{phase}: the profiler recorded no device time")
+    print(f"{phase} profile (1 step, torch.profiler, {smi_line}): wall {pwall:.4f} s, "
           f"device busy {busy:.4f} s, idle share {1 - busy / pwall:.4f}, {n_dev} device "
           f"launches a step; largest: "
           + ", ".join(f"{k[:48]} {us / 1e3:.2f} ms x{c}" for k, us, c in krows[:8]), flush=True)
@@ -3864,17 +3897,16 @@ def phase_fam_mla_train(smi_line, device):
     fused_launches = kbuild.launch_counts()
     tr.tcfg = tcfg
     check(fused_launches.get(K8, 0) + fused_launches.get(K6, 0) > 0,
-          f"phase 15 (b): the fused OT term launched no K8 or K6: {fused_launches}")
-    print(f"phase 15 (b) fused OT term (step 0's batch, forward + backward): launches "
+          f"{phase}: the fused OT term launched no K8 or K6: {fused_launches}")
+    print(f"{phase} fused OT term (step 0's batch, forward + backward): launches "
           f"{fused_launches}", flush=True)
     del tr
     fresh_memory()
-    path = f"phase 15 (b) {FAM_MLA_ARCH} trainer, {FAM_MLA_STEPS} steps, grad_impl 'pallas'"
+    path = f"{phase} {arch} trainer, {n_steps} steps, grad_impl 'pallas'"
     counts = {k: (path, launches.get(k, 0)) for k in (K1, K4, K5, K6)}
-    counts[K8] = (f"phase 15 (b) {FAM_MLA_ARCH}, the OT term of one step, grad_impl 'fused'",
+    counts[K8] = (f"{phase} {arch}, the OT term of one step, grad_impl 'fused'",
                   fused_launches.get(K8, 0))
-    return phase_lm_kernels(*ops[:5], counts, smi_line, device, phase="phase 15 (b)",
-                            suffix="@mla_step")
+    return phase_lm_kernels(*ops[:5], counts, smi_line, device, phase=phase, suffix=suffix)
 
 
 def serve_through_steps(label, cfg, model, memory_of, smi_line, device):
@@ -4092,7 +4124,8 @@ def phase_families(smi_line, device):
     phase_fam_mla_serve(smi_line, device)
     fresh_memory()
     lap("(a)")
-    rows = phase_fam_mla_train(smi_line, device)
+    rows = family_train(FAM_MLA_ARCH, FAM_MLA_STEPS, "phase 15 (b)", "@mla_step", smi_line,
+                        device, max_layers=FAM_MLA_TRAIN_LAYERS)
     fresh_memory()
     lap("(b)")
     phase_fam_encdec(smi_line, device)
@@ -4101,6 +4134,127 @@ def phase_families(smi_line, device):
     phase_fam_vlm(smi_line, device)
     fresh_memory()
     print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+XL_ARCH = "xlstm-1.3b"
+XL_PARAMS = 2_020_751_696            # its parameter count (the JAX abstract init's)
+XL_STATE_B = 706_560_000             # its recurrent state a sequence (the JAX abstract init's)
+XL_SERVE = dict(prompts=(2, 37, 64, 64, 128, 129, 257, 300), new=32, max_len=340)    # (a)
+XL_TF = dict(prompt=64, steps=8)     # (b): the teacher-forced check
+XL_CHUNKED = 257                     # (b): chunkwise prefill (128, 128, 1) vs decode steps
+XL_STEPS = 4                         # (c)'s trainer steps, then 2 split, 1 profiled
+
+
+def phase_xlstm_serve(smi_line, device):
+    """(a): ``xlstm-1.3b`` at full width and depth, bf16, through ``ServingEngine``: eight
+    requests of 2-300 prompt tokens and 32 new ones through four slots; each back once, and
+    those in recycled slots bit for bit each alone in a fresh engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    from repro_torch.serving.engine import ServingEngine
+
+    spec = XL_SERVE
+    cfg = get_config(XL_ARCH)
+    model = build_model(cfg, device, seed=0)
+    n = count_params(model)
+    check(n == XL_PARAMS, f"phase 16 (a): {n} parameters, not {XL_PARAMS}")
+    check(next(model.parameters()).dtype == torch.bfloat16, "phase 16 (a): params not bf16")
+    per_seq = cache_bytes(model.init_cache(1, 1, abstract=True))
+    check(per_seq == XL_STATE_B, f"phase 16 (a): {per_seq} state B a sequence")
+    rng = np.random.default_rng(21)
+    pairs = [(i, rng.integers(0, cfg.vocab_size, p).astype(np.int32))
+             for i, p in enumerate(spec["prompts"])]
+    engine = lambda: ServingEngine(cfg, model, max_batch=SERVE_SLOTS, max_len=spec["max_len"],
+                                   device=device)
+    run = drive_engine(engine(), pairs, spec["new"])
+    check_served("(a)", run["done"], len(pairs), spec["new"], phase="phase 16")
+    report_serve(f"(a) {XL_ARCH} bf16 ({n} params, recurrent state {per_seq} B a sequence, "
+                 f"{per_seq * SERVE_SLOTS} B for {SERVE_SLOTS} slots), {SERVE_SLOTS} slots, "
+                 f"{len(pairs)} requests of {list(spec['prompts'])} + {spec['new']}", run,
+                 profile_ticks(engine(), pairs, spec["new"], 8, "phase 16"), 8, smi_line,
+                 phase="phase 16")
+    tokens = {r.rid: r.out_tokens for r in run["done"]}
+    recycled = pairs[SERVE_SLOTS:]
+    for rid, prompt in recycled:
+        [alone] = drive_engine(engine(), [(rid, prompt)], spec["new"])["done"]
+        check(alone.out_tokens == tokens[rid],
+              f"phase 16 (a): request {rid} in a recycled slot differs from a fresh engine's")
+    print(f"phase 16 (a): requests {[r for r, _ in recycled]} (recycled slots, prompts "
+          f"{[len(p) for _, p in recycled]}) == each alone in a fresh {SERVE_SLOTS}-slot "
+          f"engine, bit for bit", flush=True)
+
+
+def phase_xlstm_f32(device):
+    """(b), float32 at full width and depth: prefill and teacher-forced decode against
+    ``LM.forward``, and a chunkwise prefill of ``XL_CHUNKED`` tokens (chunks of 128, 128
+    and 1) against as many decode steps from the zero state: logits and every state leaf
+    within rtol / atol 2e-3."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(XL_ARCH)
+    m32 = build_model(dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32"),
+                      device, seed=0)
+    P, steps = XL_TF["prompt"], XL_TF["steps"]
+    tf = torch.as_tensor(np.random.default_rng(22).integers(
+        0, cfg.vocab_size, (2, P + steps)), device=device)
+    with torch.no_grad():
+        full, _ = m32.forward(tf)
+    caches = m32.init_cache(2, P + steps)
+    teacher_forced_check(
+        "phase 16 (b) xLSTM prefill / decode vs LM.forward of the whole sequence,", full,
+        lambda: m32.prefill(tf[:, :P], caches)[0],
+        lambda i: m32.decode_step(tf[:, i:i + 1], caches, torch.full((2,), i, device=device))[0],
+        P, steps)
+    S = XL_CHUNKED
+    tok = torch.as_tensor(np.random.default_rng(23).integers(0, cfg.vocab_size, (1, S)),
+                          device=device)
+    lg, chunked = m32.prefill(tok, m32.init_cache(1, S))
+    stepped = m32.init_cache(1, S)
+    for i in range(S):
+        lg_s, stepped = m32.decode_step(tok[:, i:i + 1], stepped, i)
+    errs = {"logits": float((lg - lg_s).abs().max())}
+    ok = torch.allclose(lg, lg_s, rtol=2e-3, atol=2e-3)
+    for b, (c, s_) in enumerate(zip(chunked, stepped)):
+        for part in ("slstm", "mlstm"):
+            for k in c[part]:
+                a, w = c[part][k].float(), s_[part][k].float()
+                key = f"{part}/{k}"
+                errs[key] = max(errs.get(key, 0.0), float((a - w).abs().max()))
+                ok = ok and torch.allclose(a, w, rtol=2e-3, atol=2e-3)
+    check(ok, f"phase 16 (b): the chunkwise prefill of {S} off {S} decode steps: {errs}")
+    print(f"phase 16 (b) float32 chunkwise prefill of {S} tokens (chunks of 128, 128 and 1) "
+          f"vs {S} decode steps from the zero state: last logits and every state leaf within "
+          f"rtol / atol 2e-3; max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+
+
+def phase_xlstm(smi_line, device):
+    """Phase 16 (see the module docstring): ``xlstm-1.3b`` served, checked in float32 and
+    trained at full width and depth.  Returns the kernel-table rows at (c)'s OT shapes."""
+    t_phase = time.perf_counter()
+    lap = lambda what: print(f"[phase 16 +{time.perf_counter() - t_phase:.1f} s] {what}",
+                             flush=True)
+    fresh_memory()
+    phase_xlstm_serve(smi_line, device)
+    fresh_memory()
+    lap("(a)")
+    phase_xlstm_f32(device)
+    fresh_memory()
+    lap("(b)")
+    rows = family_train(XL_ARCH, XL_STEPS, "phase 16 (c)", "@xlstm_step", smi_line, device)
+    fresh_memory()
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
 
 
@@ -4469,6 +4623,9 @@ def main() -> None:
     ap.add_argument("--families-only", action="store_true",
                     help="instead: build, then run phase 15 (MLA, the encoder-decoder and "
                          "the VLM at full width) alone")
+    ap.add_argument("--xlstm-only", action="store_true",
+                    help="instead: build, then run phase 16 (xlstm-1.3b served, checked in "
+                         "float32 and trained at full width and depth) alone")
     ap.add_argument("--serve-only", action="store_true",
                     help="instead: build, then run phase 14 (LM serving, the MoE family and "
                          "the OT router) alone")
@@ -4526,6 +4683,11 @@ def main() -> None:
     if args.families_only:
         print(json.dumps({"kernels": phase_families(smi_line, device)}), flush=True)
         print(f"{smi_line}; phase 15 alone took {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return
+    if args.xlstm_only:
+        print(json.dumps({"kernels": phase_xlstm(smi_line, device)}), flush=True)
+        print(f"{smi_line}; phase 16 alone took {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return
     if args.serve_only:
@@ -4608,11 +4770,14 @@ def main() -> None:
     # 15. the attention families: MLA, the encoder-decoder, the VLM
     lap("phase 15")
     fam_rows = phase_families(smi_line, device)
+    # 16. the xLSTM family: recurrent-state serving, float32 checks, training
+    lap("phase 16")
+    xl_rows = phase_xlstm(smi_line, device)
     for row in solo_rows:
         if row["name"] == B12:          # the layer's grad_refine path runs it
             row["launches"] = refine_launches[B12]
             row["launches_path"] = "layer from_samples, grad_refine=20"
-    rows += solo_rows + reduce_rows + lm_rows + fam_rows
+    rows += solo_rows + reduce_rows + lm_rows + fam_rows + xl_rows
 
     print(f"{smi_line}; smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

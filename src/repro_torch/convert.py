@@ -159,9 +159,10 @@ def _model(cfg: ModelConfig):
 
 def _stack_sizes(cfg: ModelConfig, path: tuple) -> tuple:
     """The stacked axes that lead a JAX parameter leaf at ``path``: the layers of
-    ``blocks`` (the VLM's periods, and within them ``self``'s period - 1 layers), or of
-    the encoder-decoder's ``encoder`` and ``decoder``; () for an unstacked leaf.  The
-    port's name puts each axis's index after the path part that stacks it."""
+    ``blocks`` (the VLM's or xLSTM's periods, and within them ``self``'s or ``mlstm``'s
+    period - 1 layers), or of the encoder-decoder's ``encoder`` and ``decoder``; () for
+    an unstacked leaf.  The port's name puts each axis's index after the path part that
+    stacks it."""
     if cfg.family == "encdec":
         return {"encoder": (cfg.encoder_layers,), "decoder": (cfg.num_layers,)}.get(path[0], ())
     if path[0] != "blocks":
@@ -170,6 +171,8 @@ def _stack_sizes(cfg: ModelConfig, path: tuple) -> tuple:
 
     if cfg.family == "vlm" and path[1] == "self":
         return (num_scan_steps(cfg), cfg.cross_attn_period - 1)
+    if cfg.family == "ssm" and path[1] == "mlstm":
+        return (num_scan_steps(cfg), cfg.ssm.slstm_every - 1)
     return (num_scan_steps(cfg),)
 
 
@@ -181,7 +184,8 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping,
     holds (numpy arrays or tensors; stacked leaves with the layers leading).
     Block ``i``'s leaf ``blocks/attn/wq`` becomes ``blocks.{i}.attn.wq``; a VLM's
     ``blocks/self/attn/wq`` (periods, period - 1, ...) becomes
-    ``blocks.{i}.self.{j}.attn.wq``; an encoder-decoder's ``encoder/attn/wq``
+    ``blocks.{i}.self.{j}.attn.wq``, an xLSTM's ``blocks/mlstm/wq`` likewise
+    ``blocks.{i}.mlstm.{j}.wq``; an encoder-decoder's ``encoder/attn/wq``
     becomes ``encoder.{i}.attn.wq``.  Names and shapes are checked against the
     port's model of ``cfg``; load the result with ``model.load_state_dict``.
     """

@@ -1,5 +1,5 @@
-"""Model zoo of the port (``repro.models``): the decoder-only LM (dense, MLA, MoE, VLM)
-and the encoder-decoder."""
+"""Model zoo of the port (``repro.models``): the decoder-only LM (dense, MLA, MoE, VLM,
+xLSTM) and the encoder-decoder."""
 from __future__ import annotations
 
 from typing import Union

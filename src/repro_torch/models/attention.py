@@ -111,7 +111,8 @@ def cache_len(cache: Dict, axes: Dict) -> Optional[int]:
     """The positions a block's cache holds (its ``max_len``): the size of the
     ``"kv_seq"`` axis of the first leaf that has one, found through the cache's logical
     axes, so for every family's layout (GQA's ``k``, MLA's ``latent``, a VLM period's
-    stacked ``self``, an encoder-decoder layer's ``self``)."""
+    stacked ``self``, an encoder-decoder layer's ``self``); None for a cache with no
+    cached positions (an xLSTM block's recurrent state), which takes no mask."""
     for name, ax in axes.items():
         if isinstance(ax, dict):
             n = cache_len(cache[name], ax)

@@ -1,28 +1,33 @@
-"""Decoder-only LM for the dense, MoE and VLM families (torch), as ``repro.models.lm``.
+"""Decoder-only LM for the dense, MoE, VLM and xLSTM families (torch), as ``repro.models.lm``.
 
 Ported: the ``dense`` family (``smollm-135m``, ``yi-6b``, ``yi-9b``, and
 with MLA ``minicpm3-4b``), the ``moe`` family (``qwen2-moe-a2.7b``,
-``phi3.5-moe-42b-a6.6b``; ``models/moe.py``) and the ``vlm`` family
-(``llama-3.2-vision-90b``): ``init`` (module construction), ``forward``,
+``phi3.5-moe-42b-a6.6b``; ``models/moe.py``), the ``vlm`` family
+(``llama-3.2-vision-90b``) and the ``ssm`` family (``xlstm-1.3b``;
+``models/ssm.py``): ``init`` (module construction), ``forward``,
 ``train_loss``, ``init_cache``, ``cache_logical_axes``, ``prefill`` and
 ``decode_step``.  The JAX ``lax.scan`` over the stacked ``blocks`` is a
 loop over an ``nn.ModuleList``; its ``remat`` (``jax.checkpoint`` of the
-scan body) is ``torch.utils.checkpoint`` per block.  The ``ssm`` and
-``hybrid`` families raise ``NotImplementedError`` naming their ROADMAP
-item; ``encdec`` is ``models/encdec.py``.
+scan body) is ``torch.utils.checkpoint`` per block.  The ``hybrid`` family
+raises ``NotImplementedError`` naming its ROADMAP item; ``encdec`` is
+``models/encdec.py``.
 
 Parameters keep the JAX leaves' names and shapes, one block per scan
 step: the JAX leaf ``blocks/attn/wq`` (layers, d, H, hd) is the port's
 ``blocks.{i}.attn.wq`` (d, H, hd); a VLM block is one period of
 ``cross_attn_period`` layers, its JAX ``blocks/self/...`` (periods,
-period - 1, ...) the port's ``blocks.{i}.self.{j}...``
-(``repro_torch.convert`` carries a parameter tree across both ways).  The
-cache is likewise a list with one cache per block (``convert.lm_cache_from_numpy``
-/ ``lm_cache_to_numpy`` carry the JAX stacked cache across): a dict of
-tensors (GQA's ``{k, v}``, MLA's ``{latent, k_rope}``), for a VLM block
-``{"self": {k, v} stacked over its period - 1 layers, "cross_kv": {k, v}}``.
-``prefill`` and ``decode_step`` write it in place and return it.  A VLM
-takes its image tokens as ``memory`` (B, num_image_tokens, d_model):
+period - 1, ...) the port's ``blocks.{i}.self.{j}...``; an xLSTM block one
+period of ``slstm_every`` layers, ``blocks.{i}.slstm...`` and
+``blocks.{i}.mlstm.{j}...`` (``repro_torch.convert`` carries a parameter
+tree across both ways).  The cache is likewise a list with one cache per
+block (``convert.lm_cache_from_numpy`` / ``lm_cache_to_numpy`` carry the
+JAX stacked cache across): a dict of tensors (GQA's ``{k, v}``, MLA's
+``{latent, k_rope}``), for a VLM block ``{"self": {k, v} stacked over its
+period - 1 layers, "cross_kv": {k, v}}``, for an xLSTM block the recurrent
+state ``{"slstm": {h, c, n, m}, "mlstm": {conv, C, n} stacked over its
+period - 1 layers}`` (no cached positions: ``index`` is ignored, as in
+JAX).  ``prefill`` and ``decode_step`` write it in place and return it.  A
+VLM takes its image tokens as ``memory`` (B, num_image_tokens, d_model):
 ``forward`` and ``train_loss`` (``batch["memory"]``) need it, ``prefill``
 projects it into each period's ``cross_kv`` and raises ``ValueError``
 without it, ``decode_step`` reads the cache.
@@ -39,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.attention import GQA, MLA, Cache, Cross, Index
 from repro_torch.models.common import (
     Norm,
@@ -56,7 +62,6 @@ AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_dropped_frac")
 #: ROADMAP items (queue A4) of the families the port does not have yet.
 NOT_PORTED = {
     "hybrid": "A4 (c), Mamba and the hybrid family",
-    "ssm": "A4 (c), xLSTM",
 }
 
 
@@ -65,14 +70,16 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet "
                                   f"(ROADMAP {NOT_PORTED[cfg.family]})")
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
         raise ValueError(f"family {cfg.family!r} is not a decoder-only LM's")
 
 
 def num_scan_steps(cfg: ModelConfig) -> int:
-    """Blocks of the model: its layers, or for a VLM its periods."""
+    """Blocks of the model: its layers, or for a VLM or xLSTM its periods."""
     if cfg.family == "vlm":
         return cfg.num_layers // cfg.cross_attn_period
+    if cfg.family == "ssm":
+        return cfg.num_layers // cfg.ssm.slstm_every
     return cfg.num_layers
 
 
@@ -133,8 +140,45 @@ class VLMBlock(nn.Module):
         return x + self.cross_mlp(self.norm_cross_ffn(x)), cache, None
 
 
+class XLSTMBlock(nn.Module):
+    """``_init_xlstm_block`` / ``_apply_xlstm_block``: one period of ``slstm_every``
+    layers, ``norm_s`` and the sLSTM, then ``norm_m_{j}`` and the j-th mLSTM for each of
+    the other ``slstm_every - 1``, each added to the residual (no separate FFN)."""
+
+    def __init__(self, mk: ParamInit, cfg: ModelConfig):
+        super().__init__()
+        n = cfg.ssm.slstm_every - 1
+        self.norm_s = Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps)
+        self.slstm = ssm.SLSTM(mk, cfg)
+        self.mlstm = nn.ModuleList(ssm.MLSTM(mk, cfg) for _ in range(n))
+        for j in range(n):
+            self.add_module(f"norm_m_{j}", Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps))
+
+    def forward(self, x, cos, sin, mask, cache: Optional[Dict] = None, index: Index = 0):
+        """-> (x, cache (its state written in place, or None), None: the JAX block's zero
+        aux).  The position arguments are not read."""
+        st = None if cache is None else cache["slstm"]
+        y, st = self.slstm(self.norm_s(x), st)
+        if cache is not None:
+            _write_state(cache["slstm"], st)
+        x = x + y
+        for j, mlstm in enumerate(self.mlstm):
+            st = None if cache is None else {k: t[j] for k, t in cache["mlstm"].items()}
+            y, new = mlstm(getattr(self, f"norm_m_{j}")(x), st)
+            if cache is not None:
+                _write_state(st, new)
+            x = x + y
+        return x, cache, None
+
+
+def _write_state(state: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -> None:
+    """A block's recurrent state (views into its cache) set to ``new`` in place."""
+    for k, t in new.items():
+        state[k].copy_(t)
+
+
 class LM(nn.Module):
-    """The decoder-only LM of the dense, MoE and VLM families.
+    """The decoder-only LM of the dense, MoE, VLM and xLSTM families.
 
     ``device`` holds the parameters (``meta``: shapes only, the JAX
     abstract init); ``generator``, on that device, draws their normal inits.
@@ -147,7 +191,7 @@ class LM(nn.Module):
         self.cfg = cfg
         mk = ParamInit(cfg.param_dtype, device, generator)
         self.embed = mk((cfg.vocab_size, cfg.d_model))
-        block = VLMBlock if cfg.family == "vlm" else DenseBlock
+        block = {"vlm": VLMBlock, "ssm": XLSTMBlock}.get(cfg.family, DenseBlock)
         self.blocks = nn.ModuleList(block(mk, cfg) for _ in range(num_scan_steps(cfg)))
         self.final_norm = Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps)
         if not cfg.tie_embeddings:
@@ -172,8 +216,11 @@ class LM(nn.Module):
                   memory: Optional[torch.Tensor] = None, remat: bool = False):
         """The blocks in order: (x, aux summed over the layers, caches)."""
         cfg = self.cfg
-        rot = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
-        cos, sin = rotary_cos_sin(pos, rot, cfg.rope_theta)
+        if cfg.family == "ssm":                 # no layer reads positions
+            cos = sin = None
+        else:
+            rot = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
+            cos, sin = rotary_cos_sin(pos, rot, cfg.rope_theta)
         kw = {"memory": memory} if cfg.family == "vlm" else {}
         aux = _zero_aux(x.device)
         for i, block in enumerate(self.blocks):
@@ -186,6 +233,12 @@ class LM(nn.Module):
             if a is not None:
                 aux = aux + a
         return x, aux, caches
+
+    def _cache_mask(self, caches: List[Dict], index: Index, S: int, dev):
+        """The causal mask of ``S`` queries from ``index`` over the cached positions, or
+        None for a recurrent state (no cached positions)."""
+        T = attn.cache_len(caches[0], self.cache_logical_axes()[0])
+        return None if T is None else attn.cache_mask(index, S, T, dev)
 
     def _memory(self, memory: Optional[torch.Tensor], what: str) -> None:
         if self.cfg.family == "vlm" and memory is None:
@@ -223,10 +276,17 @@ class LM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, abstract: bool = False) -> List[Dict]:
         """One zero cache per block, on the parameters' device (``abstract``: on
-        ``meta``), in the compute dtype (int8 and float32 scales with ``kv_quant``)."""
+        ``meta``), in the compute dtype (int8 and float32 scales with ``kv_quant``; an
+        xLSTM's recurrent memory float32, ``max_len`` not read)."""
         cfg = self.cfg
         dev = "meta" if abstract else self.embed.device
         dtype = torch_dtype(cfg.compute_dtype)
+        if cfg.family == "ssm":
+            n = cfg.ssm.slstm_every - 1
+            return [{"slstm": ssm.slstm_make_state(cfg, batch, dev, dtype),
+                     "mlstm": {k: torch.zeros((n,) + tuple(t.shape), dtype=t.dtype, device=dev)
+                               for k, t in ssm.mlstm_state_struct(cfg, batch, dtype).items()}}
+                    for _ in range(num_scan_steps(cfg))]
         if cfg.mla is not None:
             return [attn.mla_make_cache(cfg, batch, max_len, dtype, dev)
                     for _ in range(cfg.num_layers)]
@@ -247,6 +307,10 @@ class LM(nn.Module):
         elif cfg.family == "vlm":
             one = {"self": {k: (None,) + ax for k, ax in attn.cache_logical_axes(cfg).items()},
                    "cross_kv": attn.cross_cache_logical_axes("image")}
+        elif cfg.family == "ssm":
+            one = {"slstm": ssm.slstm_state_logical_axes(),
+                   "mlstm": {k: (None,) + ax
+                             for k, ax in ssm.mlstm_state_logical_axes().items()}}
         else:
             one = attn.cache_logical_axes(cfg)
         return [one for _ in range(num_scan_steps(cfg))]
@@ -260,8 +324,7 @@ class LM(nn.Module):
         B, S = tokens.shape
         dev = tokens.device
         pos = torch.arange(S, device=dev)[None, :].expand(B, S)
-        T = attn.cache_len(caches[0], self.cache_logical_axes()[0])
-        mask = attn.cache_mask(0, S, T, dev)
+        mask = self._cache_mask(caches, 0, S, dev)
         x, _, caches = self._backbone(self._embed(tokens), pos, mask, caches, 0, memory)
         return self._logits(x[:, -1:, :]), caches
 
@@ -280,8 +343,7 @@ class LM(nn.Module):
         else:
             index = int(index)
             pos = torch.full((B, 1), index, dtype=torch.int32, device=dev)
-        T = attn.cache_len(caches[0], self.cache_logical_axes()[0])
-        mask = attn.cache_mask(index, 1, T, dev)
+        mask = self._cache_mask(caches, index, 1, dev)
         x, _, caches = self._backbone(self._embed(token), pos, mask, caches, index, memory)
         return self._logits(x), caches
 

@@ -6,8 +6,9 @@ step (for an MoE model it decides the routing of the live slots):
     engine packs up to ``max_batch`` of them into fixed slots;
   * admission prefills the request at batch 1 into a fresh ``max_len``
     cache and splices it into the slot's row of the engine's caches (so
-    the row holds zeros past the prompt, whatever the slot held before),
-    and takes the prefill's greedy token as the first output;
+    the row holds zeros past the prompt, and a recurrent state is the
+    prompt's alone, whatever the slot held before), and takes the
+    prefill's greedy token as the first output;
   * every ``tick`` runs ONE decode step for ALL slots, each at its own
     position (a per-slot index vector): an inactive slot decodes at index
     0 with its last token, which is never reset when a request finishes
@@ -18,7 +19,8 @@ step (for an MoE model it decides the routing of the live slots):
 Greedy decoding takes the first index among equal logits, as
 ``jnp.argmax`` does.  The engine runs on ``device`` (``None`` is the card)
 and never falls back to the host.  It serves the decoder-only families
-with a self-attention cache (GQA's or MLA's); an encoder-decoder or a VLM
+with a self-attention cache (GQA's or MLA's) or a recurrent state
+(xLSTM's, whose decode ignores the index); an encoder-decoder or a VLM
 raises ``NotImplementedError``: a request carries no frames or image, so
 those are driven through ``launch.steps`` (``launch/serve.py``).
 """
@@ -46,6 +48,17 @@ class Request:
     max_new_tokens: int
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+
+
+def _splice(full: Mapping, one: Mapping, axes: Mapping, slot: int) -> None:
+    """Every leaf of a block's cache ``full`` gets ``one``'s batch-1 leaf as its row
+    ``slot``, in place: the batch axis found through the logical axes, the tree walked
+    as it nests (an xLSTM's stacked mLSTM state has its batch on axis 1)."""
+    for name, ax in axes.items():
+        if isinstance(ax, Mapping):
+            _splice(full[name], one[name], ax, slot)
+        else:
+            full[name].narrow(ax.index("batch"), slot, 1).copy_(one[name])
 
 
 class ServingEngine:
@@ -108,9 +121,7 @@ class ServingEngine:
         one_cache = self.model.init_cache(1, self.max_len)
         logits, one_cache = self.model.prefill(tokens, one_cache)
         for full, one, axes in zip(self.caches, one_cache, self.model.cache_logical_axes()):
-            for name, ax in axes.items():
-                b = ax.index("batch")
-                full[name].narrow(b, slot, 1).copy_(one[name])
+            _splice(full, one, axes, slot)
         nxt = int(torch.argmax(logits[0, -1]))
         req.out_tokens.append(nxt)
         self.slots[slot] = req

@@ -242,7 +242,8 @@ def test_import_hygiene():
         "             'repro_torch.core.cpu_baseline', 'repro_torch.serving.ot_engine',\n"
         "             'repro_torch.serving.traffic', 'repro_torch.serving.policy',\n"
         "             'repro_torch.utils.faults', 'repro_torch.utils.logging',\n"
-        "             'repro_torch.models.moe', 'repro_torch.training.ot_routing',\n"
+        "             'repro_torch.models.moe', 'repro_torch.models.ssm',\n"
+        "             'repro_torch.training.ot_routing',\n"
         "             'repro_torch.serving.engine', 'repro_torch.launch.steps',\n"
         "             'repro_torch.launch.serve'):\n"
         "    assert name in sys.modules, name\n"

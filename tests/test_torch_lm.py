@@ -36,9 +36,9 @@ from repro_torch.models.common import count_params
 SMALL = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=128)
 DENSE = ("smollm-135m", "yi-6b", "yi-9b")
 MOE = ("qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b")      # tests/test_torch_moe.py
-# tests/test_torch_mla.py, test_torch_encdec.py, test_torch_vlm.py
-FAMILIES = ("minicpm3-4b", "whisper-medium", "llama-3.2-vision-90b")
-NOT_PORTED = ("xlstm-1.3b", "jamba-1.5-large-398b")
+# tests/test_torch_mla.py, test_torch_encdec.py, test_torch_vlm.py, test_torch_xlstm.py
+FAMILIES = ("minicpm3-4b", "whisper-medium", "llama-3.2-vision-90b", "xlstm-1.3b")
+NOT_PORTED = ("jamba-1.5-large-398b",)
 
 
 @pytest.fixture(autouse=True, scope="module")
