@@ -13,6 +13,9 @@
                                # phase 15 alone (MLA, the encoder-decoder, the VLM)
     python3 chip_smoke.py --xlstm-only
                                # phase 16 alone (xlstm-1.3b served, float32, trained)
+    python3 chip_smoke.py --hybrid-only
+                               # phase 17 alone (jamba-1.5-large-398b on one period:
+                               # served, float32, forward and backward)
 
 The main path is the default plan at the paper's largest scale:
 ``repro_torch.ot.compile(Problem.from_samples(...), ExecutionPlan(grad_impl=
@@ -230,10 +233,36 @@ Phases:
      atol 2e-3 of ``LM.forward``, and a chunkwise prefill of 257 tokens (chunks of 128,
      128 and 1) against 257 decode steps from the zero state, its last logits and every
      state leaf within rtol / atol 2e-3; (c) trained with the OT alignment loss on phase
-     13's data for 4 steps, as 15 (b) (the depth ``train_depth`` confirms, losses, OT
-     distances and gradient norms finite, the step split, a profile of one step, the
-     fused OT term), K1, K4, K5, K6 and K8 at its step-0 OT operands (d = 2048: 64 chunks
-     of 32) held to their plain versions and timed.
+     13's data for 4 steps, as 15 (b), cut to 2 of its 6 periods (16 of 48 layers) for
+     the smoke's time (losses, OT distances and gradient norms finite, the step split, a
+     profile of one step, the fused OT term), K1, K4, K5, K6 and K8 at its step-0 OT
+     operands (d = 2048: 64 chunks of 32) held to their plain versions and timed.
+ 17. the hybrid family, ``jamba-1.5-large-398b`` at full width (d_model 8192, d_inner
+     16 384, d_state 16, dt_rank 512, 64 / 8 heads, d_ff 24 576, 16 experts top-2 of
+     width 24 576, vocab 65 536), random weights from seed 0, each sub-phase's model
+     freed and the peak reset before the next; the depth cut to one period (the repo's
+     ``reduced()`` layout: attention at the middle slot, MoE at the odd ones): (a) one
+     period of 4 layers (Mamba + MLP, Mamba + MoE, attention + MLP, Mamba + MoE;
+     23 021 379 584 parameters, bf16; a cache of 3 440 640 B a sequence and 4 096 B a
+     cached token) served through ``ServingEngine`` (four slots, eight requests with
+     prompts of 2, 37, 64, 64, 128, 129, 257 and 300 tokens, 32 new tokens each): each
+     back once, a second run the same tokens bit for bit, each request admitted into a
+     recycled slot with a fresh engine's first token and slot cache (KV rows, every Mamba
+     ``conv`` and ``ssm`` leaf) bit for bit (later ticks may drop other tokens at the MoE's
+     capacity, so they are not held), the dropped fraction printed; (b) float32 on one
+     period of 2 layers (Mamba + MLP, attention + MoE; 11 912 896 512 parameters), the
+     MoE's capacity factor raised to 4 as ``reduced()`` does (no token dropped): prefill
+     and 8 teacher-forced decode steps within rtol / atol 2e-3 of ``LM.forward``; one
+     Mamba layer's chunkwise prefill of 257 tokens (chunks of 128, 128 and 1) against 257
+     decode steps from the zero state, outputs and both state leaves within rtol / atol
+     2e-3; (c) bf16 on that period: ``train_loss`` forward and backward (remat per block,
+     no optimizer: AdamW's state does not fit at any cut that holds a MoE layer) on 8 x
+     128 tokens of phase 13's step-0 batch, the loss and gradient norm finite and
+     ``mamba.0.A_log``'s and ``attn.wq``'s gradients nonzero; the OT alignment term on the
+     whole batch (L_pad 8, g 4, n_pad 128, d 8192), as the trainer computes it from
+     ``embed``, and its backward, pallas (K1, K4, K5 or K6 launched) and fused (K8 or
+     K6); K1, K4, K5, K6 and K8 at its operands (256 chunks of 32) held to their plain
+     versions and timed.
 Phase 3 also runs K2-K8 at tile_n 4, 20, 40 and 128 on a narrow problem
 (K2, K3 and K7 in f32 and bf16; K2 and K7 on the staged loader at 128, 1024
 and 256, on the direct loads where a warp has lanes past the tile; K3 on the
@@ -244,8 +273,9 @@ The second-to-last line is the kernel table as JSON (K1-K8, B9-B14, and
 row_sum / row_dot, the solver's batch-invariant reductions, which stand in
 for XLA's reductions and have no TPU kernel; their ``launches_ot_router``
 are phase 14 (c)'s; K1, K4, K5, K6 and K8 once more at phase 13's trainer
-shapes, ``@lm_step``, d = 576, phase 15 (b)'s, ``@mla_step``, d = 2560, and phase 16
-(c)'s, ``@xlstm_step``, d = 2048), the last line
+shapes, ``@lm_step``, d = 576, phase 15 (b)'s, ``@mla_step``, d = 2560, phase 16
+(c)'s, ``@xlstm_step``, d = 2048, and phase 17 (c)'s, ``@hybrid_step``, d = 8192), the
+last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 from __future__ import annotations
@@ -4144,6 +4174,7 @@ XL_SERVE = dict(prompts=(2, 37, 64, 64, 128, 129, 257, 300), new=32, max_len=340
 XL_TF = dict(prompt=64, steps=8)     # (b): the teacher-forced check
 XL_CHUNKED = 257                     # (b): chunkwise prefill (128, 128, 1) vs decode steps
 XL_STEPS = 4                         # (c)'s trainer steps, then 2 split, 1 profiled
+XL_TRAIN_LAYERS = 16                 # (c)'s depth cut, 2 of 6 periods, for the smoke's time
 
 
 def phase_xlstm_serve(smi_line, device):
@@ -4240,8 +4271,9 @@ def phase_xlstm_f32(device):
 
 
 def phase_xlstm(smi_line, device):
-    """Phase 16 (see the module docstring): ``xlstm-1.3b`` served, checked in float32 and
-    trained at full width and depth.  Returns the kernel-table rows at (c)'s OT shapes."""
+    """Phase 16 (see the module docstring): ``xlstm-1.3b`` served and checked in float32 at
+    full width and depth, trained at full width on 2 of its 6 periods.  Returns the
+    kernel-table rows at (c)'s OT shapes."""
     t_phase = time.perf_counter()
     lap = lambda what: print(f"[phase 16 +{time.perf_counter() - t_phase:.1f} s] {what}",
                              flush=True)
@@ -4252,9 +4284,339 @@ def phase_xlstm(smi_line, device):
     phase_xlstm_f32(device)
     fresh_memory()
     lap("(b)")
-    rows = family_train(XL_ARCH, XL_STEPS, "phase 16 (c)", "@xlstm_step", smi_line, device)
+    rows = family_train(XL_ARCH, XL_STEPS, "phase 16 (c)", "@xlstm_step", smi_line, device,
+                        max_layers=XL_TRAIN_LAYERS)
     fresh_memory()
     print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+# -- phase 17: the hybrid family (Mamba, attention and MoE layers) ---------------------
+
+HY_ARCH = "jamba-1.5-large-398b"
+HY_SERVE_CUT = dict(num_layers=4, attn_period=4)   # (a): one period of 4 (PERF.md §4)
+HY_SERVE_PARAMS = 23_021_379_584     # the cut's parameter count (the JAX abstract init's)
+HY_STATE_B = 3_440_640               # its Mamba state a sequence: 3 x (conv bf16 + scan f32)
+HY_KV_TOKEN_B = 4_096                # its attention layer's keys and values a cached token
+HY_SERVE = dict(prompts=(2, 37, 64, 64, 128, 129, 257, 300), new=32, max_len=340)    # (a)
+HY_STEP_CUT = dict(num_layers=2, attn_period=2)    # (b), (c): one period of 2
+HY_STEP_PARAMS = 11_912_896_512
+HY_TF = dict(prompt=64, steps=8)     # (b): the teacher-forced check
+HY_TF_CAPACITY = 4.0                 # (b): the MoE capacity factor, as reduced(): no drops
+HY_CHUNKED = 257                     # (b): one Mamba layer's chunkwise prefill vs decode steps
+HY_LM_ROWS = 8                       # (c): the LM part on 8 x 128 of phase 13's step-0 batch
+HY_ROW = "@hybrid_step"
+
+
+def hybrid_cfg(cut, **over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(HY_ARCH), **cut, **over)
+
+
+def slot_rows(engine, slot):
+    """Each block's cache row of ``slot`` (cloned), the batch axis found through the
+    cache's logical axes."""
+    def take(cache, axes):
+        return {k: take(cache[k], ax) if isinstance(ax, dict)
+                else cache[k].narrow(ax.index("batch"), slot, 1).clone()
+                for k, ax in axes.items()}
+
+    return [take(c, ax) for c, ax in zip(engine.caches, engine.model.cache_logical_axes())]
+
+
+def same_tree(a, b) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def phase_hybrid_serve(smi_line, device):
+    """(a): one period of 4 layers of ``jamba-1.5-large-398b`` at full width, bf16, through
+    ``ServingEngine``: eight requests of 2-300 prompt tokens and 32 new ones through four
+    slots; each back once, a second run the same tokens, and each request admitted into a
+    recycled slot with a fresh engine's first token and slot cache, bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    label, spec = "phase 17 (a)", HY_SERVE
+    cfg = hybrid_cfg(HY_SERVE_CUT)
+    sync()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device, seed=0)
+    sync()
+    t_init = time.perf_counter() - t0
+    n = count_params(model)
+    check(n == HY_SERVE_PARAMS, f"{label}: {n} parameters, not {HY_SERVE_PARAMS}")
+    check(next(model.parameters()).dtype == torch.bfloat16, f"{label}: params not bf16")
+    sizes = [cache_bytes(model.init_cache(1, T, abstract=True)) for T in (1, 2)]
+    check(sizes == [HY_STATE_B + HY_KV_TOKEN_B, HY_STATE_B + 2 * HY_KV_TOKEN_B],
+          f"{label}: {sizes} cache B a sequence of 1 and 2 tokens")
+    print(f"{label} {HY_ARCH} cut to {cfg.num_layers} of 72 layers, one period (slots: Mamba "
+          f"+ MLP, Mamba + MoE, attention + MLP, Mamba + MoE; d_model {cfg.d_model}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, bf16): {n} parameters drawn "
+          f"on the card in {t_init:.2f} s, {torch.cuda.memory_allocated()} B allocated; cache "
+          f"{HY_STATE_B} B a sequence + {HY_KV_TOKEN_B} B a cached token", flush=True)
+    rng = np.random.default_rng(24)
+    pairs = [(i, rng.integers(0, cfg.vocab_size, p).astype(np.int32))
+             for i, p in enumerate(spec["prompts"])]
+    engine = lambda: ServingEngine(cfg, model, max_batch=SERVE_SLOTS, max_len=spec["max_len"],
+                                   device=device)
+    moes = [moe for block in model.blocks for moe in block.moe]
+    first = engine()
+    admitted = {}
+    prefill_slot = first._prefill_slot
+
+    def recording(slot, req):                 # the slot's cache right after admission
+        prefill_slot(slot, req)
+        admitted[req.rid] = (req.out_tokens[0], slot_rows(first, slot))
+
+    first._prefill_slot = recording
+    for moe in moes:
+        moe.routes = []
+    run = drive_engine(first, pairs, spec["new"])
+    routes = [r for moe in moes for r in moe.routes]
+    for moe in moes:
+        moe.routes = None
+    check_served("(a)", run["done"], len(pairs), spec["new"], phase="phase 17")
+    again = drive_engine(engine(), pairs, spec["new"])
+    check({r.rid: r.out_tokens for r in run["done"]}
+          == {r.rid: r.out_tokens for r in again["done"]},
+          f"{label}: a second run gave other tokens")
+    recycled = pairs[SERVE_SLOTS:]
+    for rid, prompt in recycled:
+        fresh = engine()
+        req = Request(rid=rid, prompt=prompt, max_new_tokens=spec["new"])
+        check(fresh.try_admit(req) and fresh.slots[0] is req, f"{label}: admission failed")
+        token, rows = admitted[rid]
+        check(req.out_tokens[0] == token,
+              f"{label}: request {rid}'s first token in a recycled slot differs from a fresh "
+              f"engine's")
+        check(same_tree(rows, slot_rows(fresh, 0)),
+              f"{label}: request {rid}'s slot cache after admission into a recycled slot "
+              f"differs from a fresh engine's")
+    prefill = [r for r in routes if r[0].shape[0] > SERVE_SLOTS]
+    print(f"{label}: a second run gives the same tokens bit for bit; requests "
+          f"{[r for r, _ in recycled]} (recycled slots, prompts {[len(p) for _, p in recycled]}) "
+          f"admitted with a fresh engine's first token and slot cache (KV rows, every Mamba "
+          f"conv and ssm leaf), bit for bit; dropped fraction "
+          f"{dropped_fraction(cfg, routes):.6f} over {len(routes)} routings "
+          f"({dropped_fraction(cfg, prefill):.6f} over the {len(prefill)} at prefill; capacity "
+          f"factor {cfg.moe.capacity_factor})", flush=True)
+    report_serve(f"(a) {HY_ARCH}, one period of 4 layers, bf16 ({n} params, cache "
+                 f"{HY_STATE_B} B a sequence + {HY_KV_TOKEN_B} B a token), {SERVE_SLOTS} "
+                 f"slots, {len(pairs)} requests of {list(spec['prompts'])} + {spec['new']}", run,
+                 profile_ticks(engine(), pairs, spec["new"], 8, "phase 17"), 8, smi_line,
+                 phase="phase 17")
+
+
+def phase_hybrid_f32(device):
+    """(b), float32 on one period of 2 layers: prefill and teacher-forced decode against
+    ``LM.forward`` (the MoE's capacity factor at 4: no token drops, so the two compare);
+    then one Mamba layer at the published widths, a chunkwise prefill of ``HY_CHUNKED``
+    tokens (chunks of 128, 128 and 1) against as many decode steps from the zero state:
+    outputs and both state leaves within rtol / atol 2e-3."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model, ssm
+    from repro_torch.models.common import ParamInit
+
+    label = "phase 17 (b)"
+    cfg = hybrid_cfg(HY_STEP_CUT, param_dtype="float32", compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           capacity_factor=HY_TF_CAPACITY))
+    m32 = build_model(cfg, device, seed=0)
+    P, steps = HY_TF["prompt"], HY_TF["steps"]
+    tf = torch.as_tensor(np.random.default_rng(25).integers(
+        0, cfg.vocab_size, (2, P + steps)), device=device)
+    with torch.no_grad():
+        full, aux = m32.forward(tf)
+    check(float(aux[2]) == 0.0, f"{label}: forward dropped {float(aux[2])} of its tokens")
+    caches = m32.init_cache(2, P + steps)
+    teacher_forced_check(
+        f"{label} one period of 2 layers (capacity factor {HY_TF_CAPACITY}: no token "
+        f"dropped), prefill / decode vs LM.forward of the whole sequence,", full,
+        lambda: m32.prefill(tf[:, :P], caches)[0],
+        lambda i: m32.decode_step(tf[:, i:i + 1], caches, torch.full((2,), i, device=device))[0],
+        P, steps)
+    del m32, caches, full
+    fresh_memory()
+
+    layer = ssm.Mamba(ParamInit("float32", device, torch.Generator(device=device).manual_seed(0)),
+                      cfg)
+    S = HY_CHUNKED
+    x = torch.as_tensor(np.random.default_rng(26).standard_normal((1, S, cfg.d_model),
+                                                                   dtype=np.float32),
+                        device=device)
+    chunks = [c for _, c in ssm.chunk_bounds(S, cfg.ssm.chunk)]
+    check(len(chunks) == 3 and chunks[-1] == 1, f"{label}: chunks {chunks}")
+    with torch.no_grad():
+        y, st = layer(x, ssm.mamba_make_state(cfg, 1, torch.float32, device))
+        step = ssm.mamba_make_state(cfg, 1, torch.float32, device)
+        ys = []
+        for i in range(S):
+            y_i, step = layer(x[:, i:i + 1], step)
+            ys.append(y_i)
+        y_s = torch.cat(ys, dim=1)
+    pairs = {"outputs": (y, y_s), "conv": (st["conv"], step["conv"]),
+             "ssm": (st["ssm"], step["ssm"])}
+    errs = {k: float((a - b).abs().max()) for k, (a, b) in pairs.items()}
+    check(all(torch.allclose(a, b, rtol=2e-3, atol=2e-3) for a, b in pairs.values()),
+          f"{label}: the chunkwise prefill of {S} off {S} decode steps: {errs}")
+    print(f"{label} float32, one Mamba layer at the published widths (d_inner "
+          f"{ssm.mamba_dims(cfg)[0]}, d_state {cfg.ssm.d_state}): chunkwise prefill of {S} "
+          f"tokens (chunks of {chunks}) vs {S} decode steps from the zero state, every "
+          f"output and both state leaves within rtol / atol 2e-3; max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+
+
+class OTTerm:
+    """The trainer's OT alignment term on a model without the trainer, whose AdamW state
+    would not fit: ``Trainer.ot_inputs`` and ``Trainer.ot_loss`` on phase 13's data."""
+
+    def __init__(self, model, grad_impl, device):
+        from repro_torch.configs.base import TrainConfig
+        from repro_torch.data.pipeline import SyntheticLM, SyntheticLMConfig
+        from repro_torch.training.trainer import Trainer
+
+        self.model, self.device, self.cfg = model, device, model.cfg
+        self.tcfg = TrainConfig(ot_align=True, ot_align_weight=0.05, ot_solver="lbfgs",
+                                ot_grad_impl=grad_impl, remat="block")
+        self.data = SyntheticLM(SyntheticLMConfig(vocab_size=model.cfg.vocab_size,
+                                                  seq_len=LM_SEQ, global_batch=LM_BATCH,
+                                                  num_classes=LM_CLASSES, seed=0))
+        self.ot_inputs = Trainer.ot_inputs.__get__(self)
+        self.ot_loss = Trainer.ot_loss.__get__(self)
+        self.batch = Trainer.batch.__get__(self)
+
+
+def phase_hybrid_step(smi_line, device):
+    """(c), bf16 on one period of 2 layers at full width: ``train_loss`` forward and
+    backward (remat per block; no optimizer: AdamW's state does not fit at any cut that
+    holds a MoE layer) on 8 x 128 tokens of phase 13's step-0 batch, then the OT alignment
+    term on the whole batch (d = 8192) and its backward into ``embed``, pallas and fused;
+    K1, K4, K5, K6 and K8 held at its operands and timed.  Returns the kernel rows."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import _build as kbuild
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    from repro_torch.ot import diff
+    from repro_torch.utils.tree import tree_global_norm
+
+    label = "phase 17 (c)"
+    cfg = hybrid_cfg(HY_STEP_CUT)
+    model = build_model(cfg, device, seed=0)
+    n = count_params(model)
+    check(n == HY_STEP_PARAMS, f"{label}: {n} parameters, not {HY_STEP_PARAMS}")
+    term = OTTerm(model, "pallas", device)
+    batch = term.batch(0)
+    lm_batch = {"tokens": batch["tokens"][:HY_LM_ROWS]}
+    names = [k for k, _ in model.named_parameters()]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _ = model.train_loss(lm_batch, z_loss=TrainConfig().z_loss, remat=True)
+    grads = dict(zip(names, torch.autograd.grad(loss, list(model.parameters()))))
+    loss, gnorm = float(loss.detach()), float(tree_global_norm(grads))
+    t_lm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    g_a = float(grads["blocks.0.mamba.0.A_log"].float().abs().max())
+    g_q = float(grads["blocks.0.attn.wq"].float().abs().max())
+    check(math.isfinite(loss) and math.isfinite(gnorm),
+          f"{label}: the loss {loss} or the gradient norm {gnorm} is not finite")
+    check(g_a > 0 and g_q > 0, f"{label}: |grad mamba.0.A_log| {g_a}, |grad attn.wq| {g_q}")
+    S = lm_batch["tokens"].shape[1] - 1
+    print(f"{label} {HY_ARCH} cut to {cfg.num_layers} of 72 layers, one period (Mamba + "
+          f"MLP, attention + MoE; {n} params, bf16; {smi_line}): train_loss forward + "
+          f"backward (no optimizer, remat per block, the scan's chunks recomputed) on "
+          f"{HY_LM_ROWS} x {S} tokens: loss {loss:.4f}, gradient norm {gnorm:.4f}, |grad "
+          f"mamba.0.A_log| max {g_a:.3e}, |grad attn.wq| max {g_q:.3e}; {t_lm:.4f} s (host "
+          f"clock, ending in a read), {HY_LM_ROWS * S / t_lm:.1f} tokens/s; peak device memory "
+          f"{peak} B", flush=True)
+    del grads
+    fresh_memory()
+
+    def ot_term(grad_impl):
+        term.tcfg = dataclasses.replace(term.tcfg, ot_grad_impl=grad_impl)
+        kbuild.reset_launch_counts()
+        diff.reset_solve_count()
+        sync()
+        t0 = time.perf_counter()
+        ot, metrics = term.ot_loss(batch)
+        dist = float(metrics["ot_distance"].detach())
+        t_fwd = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (g,) = torch.autograd.grad(term.tcfg.ot_align_weight * ot, [model.embed])
+        g_max = float(g.float().abs().max())
+        t_bwd = time.perf_counter() - t0
+        check(math.isfinite(dist) and dist > 0 and math.isfinite(g_max) and g_max > 0,
+              f"{label} ({grad_impl}): the OT distance {dist} or |grad embed| {g_max}")
+        check(diff.solve_count() == 1, f"{label}: {diff.solve_count()} OT solves")
+        return dist, t_fwd, t_bwd, g_max, kbuild.launch_counts()
+
+    ot_term("pallas")                                            # warm
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    dist, t_fwd, t_bwd, g_max, launches = ot_term("pallas")
+    peak = torch.cuda.max_memory_allocated()
+    check(launches.get(K1, 0) > 0 and launches.get(K4, 0) > 0
+          and launches.get(K5, 0) + launches.get(K6, 0) > 0,
+          f"{label}: the OT term did not launch K1, K4 and K5 or K6: {launches}")
+    fdist, _, _, _, fused = ot_term("fused")
+    check(fused.get(K8, 0) + fused.get(K6, 0) > 0,
+          f"{label}: the fused OT term launched no K8 or K6: {fused}")
+    print(f"{label} OT alignment term on phase 13's step-0 batch ({LM_BATCH} sequences: L = "
+          f"{LM_CLASSES}, g = {LM_BATCH // 2 // LM_CLASSES}, n = {LM_BATCH // 2}, d = "
+          f"{cfg.d_model}; {smi_line}): distance {dist:.6f} (fused {fdist:.6f}), solve "
+          f"{t_fwd:.4f} s, backward into embed {t_bwd:.4f} s (|grad| max {g_max:.3e}); peak "
+          f"device memory {peak} B; launches pallas {launches}, fused {fused}", flush=True)
+    path = f"{label} {HY_ARCH}, the OT term of step 0's batch, grad_impl 'pallas'"
+    counts = {k: (path, launches.get(k, 0)) for k in (K1, K4, K5, K6)}
+    counts[K8] = (f"{label} {HY_ARCH}, the OT term of step 0's batch, grad_impl 'fused'",
+                  fused.get(K8, 0))
+    term.tcfg = dataclasses.replace(term.tcfg, ot_grad_impl="pallas")
+    ops = lm_ot_operands(term, batch, device)
+    check(ops[0].d == cfg.d_model, f"{label}: OT at d = {ops[0].d}")
+    del model, term
+    fresh_memory()
+    return phase_lm_kernels(*ops[:5], counts, smi_line, device, phase=label, suffix=HY_ROW)
+
+
+def phase_hybrid(smi_line, device):
+    """Phase 17 (see the module docstring): ``jamba-1.5-large-398b`` at full width on one
+    period, served, checked in float32, forward and backward.  Returns the kernel-table
+    rows at (c)'s OT shapes."""
+    t_phase = time.perf_counter()
+    lap = lambda what: print(f"[phase 17 +{time.perf_counter() - t_phase:.1f} s] {what}",
+                             flush=True)
+    fresh_memory()
+    phase_hybrid_serve(smi_line, device)
+    fresh_memory()
+    lap("(a)")
+    phase_hybrid_f32(device)
+    fresh_memory()
+    lap("(b)")
+    rows = phase_hybrid_step(smi_line, device)
+    fresh_memory()
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
 
 
@@ -4626,6 +4988,10 @@ def main() -> None:
     ap.add_argument("--xlstm-only", action="store_true",
                     help="instead: build, then run phase 16 (xlstm-1.3b served, checked in "
                          "float32 and trained at full width and depth) alone")
+    ap.add_argument("--hybrid-only", action="store_true",
+                    help="instead: build, then run phase 17 (jamba-1.5-large-398b at full "
+                         "width: one period of 4 layers served, one of 2 checked in float32 "
+                         "and run forward and backward) alone")
     ap.add_argument("--serve-only", action="store_true",
                     help="instead: build, then run phase 14 (LM serving, the MoE family and "
                          "the OT router) alone")
@@ -4688,6 +5054,11 @@ def main() -> None:
     if args.xlstm_only:
         print(json.dumps({"kernels": phase_xlstm(smi_line, device)}), flush=True)
         print(f"{smi_line}; phase 16 alone took {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return
+    if args.hybrid_only:
+        print(json.dumps({"kernels": phase_hybrid(smi_line, device)}), flush=True)
+        print(f"{smi_line}; phase 17 alone took {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return
     if args.serve_only:
@@ -4773,11 +5144,14 @@ def main() -> None:
     # 16. the xLSTM family: recurrent-state serving, float32 checks, training
     lap("phase 16")
     xl_rows = phase_xlstm(smi_line, device)
+    # 17. the hybrid family: Mamba, attention and MoE layers, the mixed cache
+    lap("phase 17")
+    hy_rows = phase_hybrid(smi_line, device)
     for row in solo_rows:
         if row["name"] == B12:          # the layer's grad_refine path runs it
             row["launches"] = refine_launches[B12]
             row["launches_path"] = "layer from_samples, grad_refine=20"
-    rows += solo_rows + reduce_rows + lm_rows + fam_rows + xl_rows
+    rows += solo_rows + reduce_rows + lm_rows + fam_rows + xl_rows + hy_rows
 
     print(f"{smi_line}; smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

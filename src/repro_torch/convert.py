@@ -159,21 +159,27 @@ def _model(cfg: ModelConfig):
 
 def _stack_sizes(cfg: ModelConfig, path: tuple) -> tuple:
     """The stacked axes that lead a JAX parameter leaf at ``path``: the layers of
-    ``blocks`` (the VLM's or xLSTM's periods, and within them ``self``'s or ``mlstm``'s
-    period - 1 layers), or of the encoder-decoder's ``encoder`` and ``decoder``; () for
-    an unstacked leaf.  The port's name puts each axis's index after the path part that
+    ``blocks`` (the VLM's, xLSTM's or hybrid's periods, and within them ``self``'s or
+    ``mlstm``'s period - 1 layers, a hybrid period's ``mamba``, ``moe`` and ``mlp``
+    layers), or of the encoder-decoder's ``encoder`` and ``decoder``; () for an
+    unstacked leaf.  The port's name puts each axis's index after the path part that
     stacks it."""
     if cfg.family == "encdec":
         return {"encoder": (cfg.encoder_layers,), "decoder": (cfg.num_layers,)}.get(path[0], ())
     if path[0] != "blocks":
         return ()
-    from repro_torch.models.lm import num_scan_steps
+    from repro_torch.models.lm import hybrid_layout, num_scan_steps
 
+    steps = num_scan_steps(cfg)
     if cfg.family == "vlm" and path[1] == "self":
-        return (num_scan_steps(cfg), cfg.cross_attn_period - 1)
+        return (steps, cfg.cross_attn_period - 1)
     if cfg.family == "ssm" and path[1] == "mlstm":
-        return (num_scan_steps(cfg), cfg.ssm.slstm_every - 1)
-    return (num_scan_steps(cfg),)
+        return (steps, cfg.ssm.slstm_every - 1)
+    if cfg.family == "hybrid" and path[1] in ("mamba", "moe", "mlp"):
+        period, _, moe_slots, mlp_slots = hybrid_layout(cfg)
+        return (steps, {"mamba": period - 1, "moe": len(moe_slots),
+                        "mlp": len(mlp_slots)}[path[1]])
+    return (steps,)
 
 
 def lm_params_from_numpy(cfg: ModelConfig, params: Mapping,
@@ -185,7 +191,8 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping,
     Block ``i``'s leaf ``blocks/attn/wq`` becomes ``blocks.{i}.attn.wq``; a VLM's
     ``blocks/self/attn/wq`` (periods, period - 1, ...) becomes
     ``blocks.{i}.self.{j}.attn.wq``, an xLSTM's ``blocks/mlstm/wq`` likewise
-    ``blocks.{i}.mlstm.{j}.wq``; an encoder-decoder's ``encoder/attn/wq``
+    ``blocks.{i}.mlstm.{j}.wq``, a hybrid's ``blocks/mamba/A_log``
+    ``blocks.{i}.mamba.{j}.A_log``; an encoder-decoder's ``encoder/attn/wq``
     becomes ``encoder.{i}.attn.wq``.  Names and shapes are checked against the
     port's model of ``cfg``; load the result with ``model.load_state_dict``.
     """

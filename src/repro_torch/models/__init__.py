@@ -1,5 +1,5 @@
 """Model zoo of the port (``repro.models``): the decoder-only LM (dense, MLA, MoE, VLM,
-xLSTM) and the encoder-decoder."""
+xLSTM, the Mamba hybrid) and the encoder-decoder."""
 from __future__ import annotations
 
 from typing import Union
@@ -19,8 +19,7 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None, seed: int = 0) -> M
 
     Its normal inits come from a generator on the device seeded with
     ``seed``.  ``device='meta'`` builds every shape and allocates nothing
-    (the JAX package's abstract init).  Families not yet ported raise
-    ``NotImplementedError``.
+    (the JAX package's abstract init).
     """
     build = build_encdec if cfg.family == "encdec" else build_lm
     if torch.device(device if device is not None else "cuda").type == "meta":

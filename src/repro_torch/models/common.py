@@ -4,8 +4,10 @@ Counterpart of ``repro.models.common``.  Parameters are ``nn.Parameter``s
 of ``nn.Module``s, built by :class:`ParamInit` from a seeded
 ``torch.Generator`` as the JAX ``ParamMaker`` builds them ("normal": a
 float32 normal times ``scale``, then the parameter dtype; "ones";
-"zeros").  The JAX abstract mode is the ``meta`` device: a model built
-there allocates nothing and still has every shape.
+"zeros"; "slog", Mamba's ``A_log``: each row ``log(1..d_state)`` in
+float32 with the JAX package's bits, then the parameter dtype).  The JAX
+abstract mode is the ``meta`` device: a model built there allocates
+nothing and still has every shape.
 
 Each function casts where its JAX twin casts (``astype``): the norms,
 rotary and the softmax compute in float32 and return the input's dtype;
@@ -57,9 +59,43 @@ class ParamInit:
         elif init == "normal":
             value = (torch.randn(shape, generator=self.generator, dtype=torch.float32,
                                  device=self.device) * scale).to(self.dtype)
+        elif init == "slog":                # Mamba's A_log: each row log(1..d_state)
+            steps = torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=self.device)
+            value = xla_log_f32(steps).expand(shape).to(self.dtype).clone()
         else:
             raise ValueError(init)
         return nn.Parameter(value)
+
+
+# XLA:CPU's float32 log: the Cephes polynomial, in the order of its LLVM IR
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+          3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+
+
+def xla_log_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` of positive, finite, normal float32 ``x`` as the JAX package computes it
+    on the CPU, bit for bit: XLA's polynomial, not a correctly rounded log (``torch.log``
+    differs by one ulp at 7, 47, 49, ...).  Each multiply-add the backend fuses is one
+    float64 multiply-add rounded once to float32 (a float32 product is exact in float64)."""
+    def fma(a, b, c):
+        return (torch.as_tensor(a, dtype=torch.float32).double() * b.double()
+                + torch.as_tensor(c, dtype=torch.float32).double()).float()
+
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & -2139095041) | 1056964608).view(torch.float32)      # mantissa in [0.5, 1)
+    low = m < 0.707106781186547524
+    x = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    e = e - low.float()
+    z = x * x
+    x3 = z * x
+    p = _LOG_P
+    a, b, c = fma(p[0], x, p[1]), fma(p[3], x, p[4]), fma(p[6], x, p[7])
+    a, b, c = fma(a, x, p[2]), fma(b, x, p[5]), fma(c, x, p[8])
+    y = fma(fma(fma(a, x3, b), x3, c), x3, _LOG_Q1 * e)
+    return fma(_LOG_Q2, e, fma(-0.5, z, x) + y)
 
 
 # ---------------------------------------------------------------------------

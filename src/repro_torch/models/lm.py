@@ -1,16 +1,16 @@
-"""Decoder-only LM for the dense, MoE, VLM and xLSTM families (torch), as ``repro.models.lm``.
+"""Decoder-only LM for every decoder family (torch), as ``repro.models.lm``.
 
 Ported: the ``dense`` family (``smollm-135m``, ``yi-6b``, ``yi-9b``, and
 with MLA ``minicpm3-4b``), the ``moe`` family (``qwen2-moe-a2.7b``,
 ``phi3.5-moe-42b-a6.6b``; ``models/moe.py``), the ``vlm`` family
-(``llama-3.2-vision-90b``) and the ``ssm`` family (``xlstm-1.3b``;
-``models/ssm.py``): ``init`` (module construction), ``forward``,
-``train_loss``, ``init_cache``, ``cache_logical_axes``, ``prefill`` and
-``decode_step``.  The JAX ``lax.scan`` over the stacked ``blocks`` is a
-loop over an ``nn.ModuleList``; its ``remat`` (``jax.checkpoint`` of the
-scan body) is ``torch.utils.checkpoint`` per block.  The ``hybrid`` family
-raises ``NotImplementedError`` naming its ROADMAP item; ``encdec`` is
-``models/encdec.py``.
+(``llama-3.2-vision-90b``), the ``ssm`` family (``xlstm-1.3b``;
+``models/ssm.py``) and the ``hybrid`` family (``jamba-1.5-large-398b``:
+Mamba, attention and MoE layers; ``models/ssm.py``'s ``Mamba``): ``init``
+(module construction), ``forward``, ``train_loss``, ``init_cache``,
+``cache_logical_axes``, ``prefill`` and ``decode_step``.  The JAX
+``lax.scan`` over the stacked ``blocks`` is a loop over an
+``nn.ModuleList``; its ``remat`` (``jax.checkpoint`` of the scan body) is
+``torch.utils.checkpoint`` per block.  ``encdec`` is ``models/encdec.py``.
 
 Parameters keep the JAX leaves' names and shapes, one block per scan
 step: the JAX leaf ``blocks/attn/wq`` (layers, d, H, hd) is the port's
@@ -18,16 +18,20 @@ step: the JAX leaf ``blocks/attn/wq`` (layers, d, H, hd) is the port's
 ``cross_attn_period`` layers, its JAX ``blocks/self/...`` (periods,
 period - 1, ...) the port's ``blocks.{i}.self.{j}...``; an xLSTM block one
 period of ``slstm_every`` layers, ``blocks.{i}.slstm...`` and
-``blocks.{i}.mlstm.{j}...`` (``repro_torch.convert`` carries a parameter
-tree across both ways).  The cache is likewise a list with one cache per
-block (``convert.lm_cache_from_numpy`` / ``lm_cache_to_numpy`` carry the
-JAX stacked cache across): a dict of tensors (GQA's ``{k, v}``, MLA's
-``{latent, k_rope}``), for a VLM block ``{"self": {k, v} stacked over its
-period - 1 layers, "cross_kv": {k, v}}``, for an xLSTM block the recurrent
-state ``{"slstm": {h, c, n, m}, "mlstm": {conv, C, n} stacked over its
-period - 1 layers}`` (no cached positions: ``index`` is ignored, as in
-JAX).  ``prefill`` and ``decode_step`` write it in place and return it.  A
-VLM takes its image tokens as ``memory`` (B, num_image_tokens, d_model):
+``blocks.{i}.mlstm.{j}...``; a hybrid block one period of ``attn_period``
+layers, ``blocks.{i}.attn...``, ``blocks.{i}.mamba.{j}...``,
+``blocks.{i}.moe.{j}...`` and ``blocks.{i}.mlp.{j}...`` (``repro_torch.convert``
+carries a parameter tree across both ways).  The cache is likewise a
+list with one cache per block (``convert.lm_cache_from_numpy`` /
+``lm_cache_to_numpy`` carry the JAX stacked cache across): a dict of
+tensors (GQA's ``{k, v}``, MLA's ``{latent, k_rope}``), for a VLM block
+``{"self": {k, v} stacked over its period - 1 layers, "cross_kv": {k,
+v}}``, for an xLSTM block the recurrent state ``{"slstm": {h, c, n, m},
+"mlstm": {conv, C, n} stacked over its period - 1 layers}`` (no cached
+positions: ``index`` is ignored, as in JAX), for a hybrid block ``{"attn":
+{k, v}, "mamba": {conv, ssm} stacked over its period - 1 Mamba layers}``.
+``prefill`` and ``decode_step`` write it in place and return it.  A VLM
+takes its image tokens as ``memory`` (B, num_image_tokens, d_model):
 ``forward`` and ``train_loss`` (``batch["memory"]``) need it, ``prefill``
 projects it into each period's ``cross_kv`` and raises ``ValueError``
 without it, ``decode_step`` reads the cache.
@@ -59,28 +63,31 @@ from repro_torch.models.moe import MoE
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_dropped_frac")
 
-#: ROADMAP items (queue A4) of the families the port does not have yet.
-NOT_PORTED = {
-    "hybrid": "A4 (c), Mamba and the hybrid family",
-}
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not have yet."""
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet "
-                                  f"(ROADMAP {NOT_PORTED[cfg.family]})")
-    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
+def check_family(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a family that is not a decoder-only LM's."""
+    if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} is not a decoder-only LM's")
 
 
 def num_scan_steps(cfg: ModelConfig) -> int:
-    """Blocks of the model: its layers, or for a VLM or xLSTM its periods."""
+    """Blocks of the model: its layers, or for a VLM, xLSTM or hybrid its periods."""
     if cfg.family == "vlm":
         return cfg.num_layers // cfg.cross_attn_period
     if cfg.family == "ssm":
         return cfg.num_layers // cfg.ssm.slstm_every
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_period
     return cfg.num_layers
+
+
+def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int, Tuple[int, ...], Tuple[int, ...]]:
+    """``_hybrid_layout``: (period, the attention slot, the MoE slots, the MLP slots)."""
+    period = cfg.attn_period
+    return (period, period // 2, tuple(i for i in range(period) if i % 2 == 1),
+            tuple(i for i in range(period) if i % 2 == 0))
 
 
 def _zero_aux(device) -> torch.Tensor:
@@ -171,6 +178,52 @@ class XLSTMBlock(nn.Module):
         return x, cache, None
 
 
+class HybridBlock(nn.Module):
+    """``_init_hybrid_block`` / ``_apply_hybrid_block``: one period of ``attn_period``
+    layers.  Slot i mixes with GQA at the attention slot (``period // 2``) and with the
+    next Mamba layer elsewhere (``norm_mix_{i}`` before), then its FFN: MoE at odd slots,
+    the MLP at even ones (``norm_ffn_{i}`` before); each added to the residual."""
+
+    def __init__(self, mk: ParamInit, cfg: ModelConfig):
+        super().__init__()
+        period, _, moe_slots, mlp_slots = hybrid_layout(cfg)
+        self.cfg = cfg
+        self.attn = GQA(mk, cfg)
+        self.mamba = nn.ModuleList(ssm.Mamba(mk, cfg) for _ in range(period - 1))
+        self.moe = nn.ModuleList(MoE(mk, cfg) for _ in moe_slots)
+        self.mlp = nn.ModuleList(MLP(mk, cfg.d_model, cfg.d_ff, cfg.act) for _ in mlp_slots)
+        for i in range(period):
+            self.add_module(f"norm_mix_{i}", Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps))
+            self.add_module(f"norm_ffn_{i}", Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps))
+
+    def forward(self, x, cos, sin, mask, cache: Optional[Dict] = None, index: Index = 0):
+        """-> (x, cache (written in place, or None), aux (3,) float32 summed over the MoE
+        slots)."""
+        period, attn_slot, moe_slots, mlp_slots = hybrid_layout(self.cfg)
+        aux = None
+        for i in range(period):
+            h = getattr(self, f"norm_mix_{i}")(x)
+            if i == attn_slot:
+                y, _ = self.attn(h, cos, sin, mask, None if cache is None else cache["attn"],
+                                 index)
+            else:
+                j = i - (i > attn_slot)                 # the Mamba layers fill the other slots
+                st = None if cache is None else {k: t[j] for k, t in cache["mamba"].items()}
+                y, new = self.mamba[j](h, st)
+                if cache is not None:
+                    _write_state(st, new)
+            x = x + y
+            h = getattr(self, f"norm_ffn_{i}")(x)
+            if i in moe_slots:
+                y, a = self.moe[moe_slots.index(i)](h)
+                a = torch.stack([a[k].float() for k in AUX_KEYS])
+                aux = a if aux is None else aux + a
+            else:
+                y = self.mlp[mlp_slots.index(i)](h)
+            x = x + y
+        return x, cache, aux
+
+
 def _write_state(state: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -> None:
     """A block's recurrent state (views into its cache) set to ``new`` in place."""
     for k, t in new.items():
@@ -178,7 +231,7 @@ def _write_state(state: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -
 
 
 class LM(nn.Module):
-    """The decoder-only LM of the dense, MoE, VLM and xLSTM families.
+    """The decoder-only LM of the dense, MoE, VLM, xLSTM and hybrid families.
 
     ``device`` holds the parameters (``meta``: shapes only, the JAX
     abstract init); ``generator``, on that device, draws their normal inits.
@@ -187,11 +240,12 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_ported(cfg)
+        check_family(cfg)
         self.cfg = cfg
         mk = ParamInit(cfg.param_dtype, device, generator)
         self.embed = mk((cfg.vocab_size, cfg.d_model))
-        block = {"vlm": VLMBlock, "ssm": XLSTMBlock}.get(cfg.family, DenseBlock)
+        block = {"vlm": VLMBlock, "ssm": XLSTMBlock, "hybrid": HybridBlock}.get(cfg.family,
+                                                                                 DenseBlock)
         self.blocks = nn.ModuleList(block(mk, cfg) for _ in range(num_scan_steps(cfg)))
         self.final_norm = Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps)
         if not cfg.tie_embeddings:
@@ -216,8 +270,8 @@ class LM(nn.Module):
                   memory: Optional[torch.Tensor] = None, remat: bool = False):
         """The blocks in order: (x, aux summed over the layers, caches)."""
         cfg = self.cfg
-        if cfg.family == "ssm":                 # no layer reads positions
-            cos = sin = None
+        if cfg.family == "ssm" or (not cfg.use_rope and cfg.mla is None):
+            cos = sin = None                    # no layer reads the rotary tables
         else:
             rot = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
             cos, sin = rotary_cos_sin(pos, rot, cfg.rope_theta)
@@ -277,15 +331,22 @@ class LM(nn.Module):
     def init_cache(self, batch: int, max_len: int, abstract: bool = False) -> List[Dict]:
         """One zero cache per block, on the parameters' device (``abstract``: on
         ``meta``), in the compute dtype (int8 and float32 scales with ``kv_quant``; an
-        xLSTM's recurrent memory float32, ``max_len`` not read)."""
+        xLSTM's recurrent memory float32, ``max_len`` not read; a hybrid's Mamba
+        states' scan float32)."""
         cfg = self.cfg
         dev = "meta" if abstract else self.embed.device
         dtype = torch_dtype(cfg.compute_dtype)
+        stacked = lambda n, state: {k: torch.zeros((n,) + tuple(t.shape), dtype=t.dtype,
+                                                   device=dev) for k, t in state.items()}
+        if cfg.family == "hybrid":
+            return [{"attn": attn.make_cache(cfg, batch, max_len, dtype, dev),
+                     "mamba": stacked(cfg.attn_period - 1,
+                                      ssm.mamba_state_struct(cfg, batch, dtype))}
+                    for _ in range(num_scan_steps(cfg))]
         if cfg.family == "ssm":
             n = cfg.ssm.slstm_every - 1
             return [{"slstm": ssm.slstm_make_state(cfg, batch, dev, dtype),
-                     "mlstm": {k: torch.zeros((n,) + tuple(t.shape), dtype=t.dtype, device=dev)
-                               for k, t in ssm.mlstm_state_struct(cfg, batch, dtype).items()}}
+                     "mlstm": stacked(n, ssm.mlstm_state_struct(cfg, batch, dtype))}
                     for _ in range(num_scan_steps(cfg))]
         if cfg.mla is not None:
             return [attn.mla_make_cache(cfg, batch, max_len, dtype, dev)
@@ -294,8 +355,7 @@ class LM(nn.Module):
             return [attn.make_cache(cfg, batch, max_len, dtype, dev)
                     for _ in range(cfg.num_layers)]
         n = cfg.cross_attn_period - 1
-        return [{"self": {k: torch.zeros((n,) + tuple(t.shape), dtype=t.dtype, device=dev)
-                          for k, t in attn.cache_struct(cfg, batch, max_len, dtype).items()},
+        return [{"self": stacked(n, attn.cache_struct(cfg, batch, max_len, dtype)),
                  "cross_kv": attn.cross_cache(cfg, batch, cfg.num_image_tokens, dtype, dev)}
                 for _ in range(num_scan_steps(cfg))]
 
@@ -311,6 +371,10 @@ class LM(nn.Module):
             one = {"slstm": ssm.slstm_state_logical_axes(),
                    "mlstm": {k: (None,) + ax
                              for k, ax in ssm.mlstm_state_logical_axes().items()}}
+        elif cfg.family == "hybrid":
+            one = {"attn": attn.cache_logical_axes(cfg),
+                   "mamba": {k: (None,) + ax
+                             for k, ax in ssm.mamba_state_logical_axes().items()}}
         else:
             one = attn.cache_logical_axes(cfg)
         return [one for _ in range(num_scan_steps(cfg))]

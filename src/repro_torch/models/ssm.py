@@ -1,29 +1,36 @@
-"""Recurrent blocks (torch): xLSTM's mLSTM and sLSTM, as ``repro.models.ssm``.
+"""Recurrent blocks (torch): Mamba (jamba's SSM layer) and xLSTM's mLSTM and sLSTM, as
+``repro.models.ssm``.
 
-The conv helpers (``_causal_conv``, ``_conv_step``) are the ones Mamba will
-share.  mLSTM is chunkwise gated linear attention with a matrix memory and
-the q.n normalizer; sLSTM an exp-gated scalar-memory recurrence with
-per-head recurrent weights and the m-stabilizer.  Both are plain PyTorch:
-the JAX ``lax.scan`` over chunks (mLSTM) and over positions (sLSTM) is a
-Python loop.
+Mamba is the Mamba-1 selective scan, ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t``
+and ``y_t = C_t . h_t`` with a decay per (channel, state), between an
+input projection with a causal depthwise conv and a gated output
+projection.  mLSTM is chunkwise gated linear attention with a matrix
+memory and the q.n normalizer; sLSTM an exp-gated scalar-memory
+recurrence with per-head recurrent weights and the m-stabilizer.  All
+three are plain PyTorch: the JAX ``lax.scan`` over positions (the
+selective scan, sLSTM) and over chunks (mLSTM) is a Python loop.  The
+conv helpers (``_causal_conv``, ``_conv_step``) serve Mamba and mLSTM.
 
 Each module keeps its JAX leaves' names and shapes and runs the JAX
 function's three paths: training (no state), prefill (S > 1 from a state,
 the state out) and decode (S == 1 with a state).  The recurrent state
 computes in float32 (float64 for a float64 model); its dicts are
-``{"conv", "C", "n"}`` (mLSTM) and ``{"h", "c", "n", "m"}`` (sLSTM).
+``{"conv", "ssm"}`` (Mamba), ``{"conv", "C", "n"}`` (mLSTM) and ``{"h",
+"c", "n", "m"}`` (sLSTM).
 
-Three departures from the reference (ROADMAP queue C), each where the
-reference raises or gives NaN; wherever it runs, the results are its own:
+Departures from the reference (ROADMAP queue C), each where the reference
+raises or gives NaN; wherever it runs, the results are its own:
   * the intra-chunk gate is ``exp(where(mask, decay, -inf))``, the same
     values as JAX's ``where(mask, exp(decay), 0)``, whose masked exponent
     overflows once a chunk's summed log-forget passes about 88 and turns
     the backward into 0 * inf = NaN;
   * S is cut into JAX's chunks, ``c = S // max(S // chunk, 1)`` each, plus
-    one short last chunk with the remainder, where JAX's reshape raises;
-  * prefill's conv state is the last three rows of the input left-padded
-    with zeros (the conv's own zero history), so a prompt of 2 tokens
-    leaves a state that decode can read.
+    one short last chunk with the remainder, where JAX's reshape raises
+    (mLSTM) or its assertion fails (Mamba's scan, whose values do not
+    depend on the chunks: they only set where training recomputes);
+  * prefill's conv state is the last ``K - 1`` rows of the input
+    left-padded with zeros (the conv's own zero history), so a prompt of
+    1 or 2 tokens leaves a state that decode can read (mLSTM and Mamba).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ParamInit, rmsnorm
@@ -67,17 +75,6 @@ def _conv_step(x_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
     return y, window[:, 1:, :]
 
 
-# ---------------------------------------------------------------------------
-# mLSTM (matrix memory, chunkwise)
-
-
-def mlstm_dims(cfg: ModelConfig) -> Tuple[int, int]:
-    """(inner width rounded up to the heads, head width)."""
-    di = int(cfg.ssm.proj_factor * cfg.d_model)
-    di = -(-di // cfg.num_heads) * cfg.num_heads
-    return di, di // cfg.num_heads
-
-
 def chunk_bounds(S: int, chunk: int) -> List[Tuple[int, int]]:
     """(start, length) of each chunk: JAX's ``max(S // chunk, 1)`` chunks of
     ``S // max(S // chunk, 1)`` positions, then the remainder (a departure: JAX raises)."""
@@ -87,6 +84,132 @@ def chunk_bounds(S: int, chunk: int) -> List[Tuple[int, int]]:
     if n * c < S:
         bounds.append((n * c, S - n * c))
     return bounds
+
+
+# ---------------------------------------------------------------------------
+# Mamba (jamba's SSM layer)
+
+
+def mamba_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(inner width, dt rank, state size)."""
+    s = cfg.ssm
+    return s.expand * cfg.d_model, s.dt_rank or math.ceil(cfg.d_model / 16), s.d_state
+
+
+def _scan_chunk(h, u, dt, A, Bm, Cm):
+    """The recurrence over one chunk from ``h`` (B, di, st): (ys (B, c, di), h).  Each step
+    as JAX's: ``dA = exp(dt A)``, ``h = dA * h + dBu``, ``y = einsum(h, C)``; ``dA`` and
+    ``dBu`` are elementwise, so they are taken for the whole chunk at once."""
+    dA = torch.exp(dt[..., None] * A)                                  # (B, c, di, st)
+    dBu = (dt * u)[..., None] * Bm[:, :, None, :]
+    ys = []
+    for t in range(u.shape[1]):
+        h = dA[:, t] * h + dBu[:, t]
+        ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def _selective_scan(u, dt, A, Bm, Cm, chunk: int, h0: Optional[torch.Tensor] = None):
+    """Mamba-1 recurrence ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t``, ``y_t = C_t . h_t``:
+    u, dt (B, S, di); A (di, st); Bm, Cm (B, S, st).  Returns (ys (B, S, di), h_final
+    (B, di, st)), from ``h0`` or zeros.
+
+    The chunks (``chunk_bounds``) only set where a backward pass recomputes: with
+    gradients on, each chunk runs under ``torch.utils.checkpoint``, as JAX's
+    ``jax.checkpoint(chunk_fn)``, so the backward keeps one state a chunk."""
+    B, S, di = u.shape
+    h = h0 if h0 is not None else torch.zeros((B, di, A.shape[1]), dtype=u.dtype,
+                                               device=u.device)
+    remat = torch.is_grad_enabled()
+    ys = []
+    for s0, c in chunk_bounds(S, chunk):
+        args = (h, u[:, s0:s0 + c], dt[:, s0:s0 + c], A, Bm[:, s0:s0 + c], Cm[:, s0:s0 + c])
+        y, h = checkpoint(_scan_chunk, *args, use_reentrant=False) if remat else \
+            _scan_chunk(*args)
+        ys.append(y)
+    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), h
+
+
+class Mamba(nn.Module):
+    """``init_mamba`` / ``apply_mamba``: in-projection to ``xin`` and the gate ``z``, the
+    causal conv and silu, ``x_proj`` to dt (through ``dt_w``, ``dt_b``, softplus), B and
+    C, the selective scan with ``A = -exp(A_log)`` plus ``D`` times the conv output, then
+    times ``silu(z)`` and the out-projection.
+
+    Decode (one token with a state) steps the conv from the state's ``conv`` and the
+    scan from its ``ssm``, the same step as the scan's.  Prefill (S > 1 with a state)
+    runs the conv from the zero history, as JAX's does, but starts the scan from the
+    state's ``ssm``: every caller prefills from a zero state, where the two agree."""
+
+    def __init__(self, mk: ParamInit, cfg: ModelConfig):
+        super().__init__()
+        d = cfg.d_model
+        di, dtr, st = mamba_dims(cfg)
+        self.cfg = cfg
+        self.in_proj = mk((d, 2 * di))
+        self.conv_w = mk((di, cfg.ssm.d_conv))
+        self.conv_b = mk((di,), init="zeros")
+        self.x_proj = mk((di, dtr + 2 * st))
+        self.dt_w = mk((dtr, di))
+        self.dt_b = mk((di,), init="zeros")
+        self.A_log = mk((di, st), init="slog")
+        self.D = mk((di,), init="ones")
+        self.out_proj = mk((di, d))
+
+    def forward(self, x: torch.Tensor, state: Optional[State] = None
+                ) -> Tuple[torch.Tensor, Optional[State]]:
+        """x (B, S, d_model) -> (y, new state: None without ``state``)."""
+        cfg = self.cfg
+        dt_, wide = x.dtype, _wide(x.dtype)
+        di, dtr, st = mamba_dims(cfg)
+        S = x.shape[1]
+        xin, z = torch.split(x @ self.in_proj.to(dt_), di, dim=-1)
+        A = -torch.exp(self.A_log.to(wide))
+        K = cfg.ssm.d_conv
+        if state is None or S > 1:
+            xc = F.silu(_causal_conv(xin, self.conv_w, self.conv_b))
+            conv = F.pad(xin, (0, 0, K - 1, 0))[:, -(K - 1):, :]
+        else:
+            xc, conv = _conv_step(xin[:, 0, :], state["conv"], self.conv_w, self.conv_b)
+            xc = F.silu(xc)[:, None, :]
+        proj = xc @ self.x_proj.to(dt_)
+        delta = F.softplus((proj[..., :dtr] @ self.dt_w.to(dt_)).to(wide) + self.dt_b.to(wide))
+        Bm, Cm = proj[..., dtr:dtr + st].to(wide), proj[..., dtr + st:].to(wide)
+        y, h = _selective_scan(xc.to(wide), delta, A, Bm, Cm, cfg.ssm.chunk,
+                               None if state is None else state["ssm"])
+        y = (y + self.D.to(wide) * xc.to(wide)).to(dt_) * F.silu(z)
+        new_state = None if state is None else {"conv": conv, "ssm": h}
+        return y @ self.out_proj.to(dt_), new_state
+
+
+def mamba_make_state(cfg: ModelConfig, batch: int, dtype: torch.dtype, device=None) -> State:
+    """A zero Mamba state: the conv tail (B, d_conv - 1, di) in ``dtype``, the scan's
+    state (B, di, d_state) float32 (float64 for a float64 model)."""
+    di, _, st = mamba_dims(cfg)
+    return {
+        "conv": torch.zeros((batch, cfg.ssm.d_conv - 1, di), dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, di, st), dtype=_wide(dtype), device=device),
+    }
+
+
+def mamba_state_struct(cfg: ModelConfig, batch: int, dtype: torch.dtype) -> State:
+    """The state's shapes and dtypes on the ``meta`` device."""
+    return mamba_make_state(cfg, batch, dtype, device="meta")
+
+
+def mamba_state_logical_axes() -> Dict[str, Tuple]:
+    return {"conv": ("batch", None, "mlp"), "ssm": ("batch", "mlp", "state")}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (matrix memory, chunkwise)
+
+
+def mlstm_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    """(inner width rounded up to the heads, head width)."""
+    di = int(cfg.ssm.proj_factor * cfg.d_model)
+    di = -(-di // cfg.num_heads) * cfg.num_heads
+    return di, di // cfg.num_heads
 
 
 def _mlstm_chunkwise(q, k, v, log_f, i_gate, chunk: int,

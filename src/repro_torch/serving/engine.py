@@ -19,8 +19,9 @@ step (for an MoE model it decides the routing of the live slots):
 Greedy decoding takes the first index among equal logits, as
 ``jnp.argmax`` does.  The engine runs on ``device`` (``None`` is the card)
 and never falls back to the host.  It serves the decoder-only families
-with a self-attention cache (GQA's or MLA's) or a recurrent state
-(xLSTM's, whose decode ignores the index); an encoder-decoder or a VLM
+with a self-attention cache (GQA's or MLA's), a recurrent state
+(xLSTM's, whose decode ignores the index) or both (the Mamba hybrid's KV
+rows beside its Mamba layers' states); an encoder-decoder or a VLM
 raises ``NotImplementedError``: a request carries no frames or image, so
 those are driven through ``launch.steps`` (``launch/serve.py``).
 """
@@ -53,7 +54,8 @@ class Request:
 def _splice(full: Mapping, one: Mapping, axes: Mapping, slot: int) -> None:
     """Every leaf of a block's cache ``full`` gets ``one``'s batch-1 leaf as its row
     ``slot``, in place: the batch axis found through the logical axes, the tree walked
-    as it nests (an xLSTM's stacked mLSTM state has its batch on axis 1)."""
+    as it nests (an xLSTM's stacked mLSTM state, a hybrid's stacked Mamba states have
+    their batch on axis 1)."""
     for name, ax in axes.items():
         if isinstance(ax, Mapping):
             _splice(full[name], one[name], ax, slot)

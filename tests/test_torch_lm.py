@@ -37,8 +37,8 @@ SMALL = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=128)
 DENSE = ("smollm-135m", "yi-6b", "yi-9b")
 MOE = ("qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b")      # tests/test_torch_moe.py
 # tests/test_torch_mla.py, test_torch_encdec.py, test_torch_vlm.py, test_torch_xlstm.py
-FAMILIES = ("minicpm3-4b", "whisper-medium", "llama-3.2-vision-90b", "xlstm-1.3b")
-NOT_PORTED = ("jamba-1.5-large-398b",)
+FAMILIES = ("minicpm3-4b", "whisper-medium", "llama-3.2-vision-90b", "xlstm-1.3b",
+            "jamba-1.5-large-398b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -69,7 +69,7 @@ def test_arch_ids_match():
     assert list_archs() == jlist_archs()
 
 
-@pytest.mark.parametrize("arch", sorted(DENSE + MOE + FAMILIES + NOT_PORTED))
+@pytest.mark.parametrize("arch", sorted(DENSE + MOE + FAMILIES))
 def test_config_fields_match(arch):
     j, p = jget_config(arch), get_config(arch)
     assert dataclasses.asdict(p) == dataclasses.asdict(j)
@@ -84,7 +84,7 @@ def test_shape_and_train_configs_match():
     assert dataclasses.asdict(base.TrainConfig()) == dataclasses.asdict(jbase.TrainConfig())
     assert dataclasses.asdict(base.OptimizerConfig()) == dataclasses.asdict(
         jbase.OptimizerConfig())
-    for arch in DENSE + MOE + FAMILIES + NOT_PORTED:
+    for arch in DENSE + MOE + FAMILIES:
         for s, js in zip(base.SHAPES, jbase.SHAPES):
             assert base.shape_applicable(get_config(arch), s) == jbase.shape_applicable(
                 jget_config(arch), js)
@@ -96,12 +96,6 @@ def test_meta_param_count_matches_jax_abstract_init(arch):
     assert all(p.device.type == "meta" for p in m.parameters())
     jparams, _ = jbuild_model(jget_config(arch)).init(jax.random.PRNGKey(0), abstract=True)
     assert count_params(m) == jcommon.count_params(jparams)
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_other_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        build_model(get_config(arch), device="meta")
 
 
 @pytest.mark.parametrize("arch", ("smollm-135m", "yi-6b"))
