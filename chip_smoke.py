@@ -16,6 +16,10 @@
     python3 chip_smoke.py --hybrid-only
                                # phase 17 alone (jamba-1.5-large-398b on one period:
                                # served, float32, forward and backward)
+    python3 chip_smoke.py --lm-mesh-only [--lm-mesh-part a]
+                               # phase 18 (b) alone, on four cards: the LM mesh
+                               # (yi-9b at full width and depth on (2, 2), NCCL);
+                               # part a (the full run's, one card) alone
 
 The main path is the default plan at the paper's largest scale:
 ``repro_torch.ot.compile(Problem.from_samples(...), ExecutionPlan(grad_impl=
@@ -164,7 +168,7 @@ Phases:
      0, the last loss below the first, K1, K4 and K5 or K6 launched (the
      counters); the step's wall time split into the LM forward + backward,
      the OT solve, its backward and the optimizer, tokens per second, peak
-     memory, a profile of 2 steps (idle share, launches per step) and each OT
+     memory, a profile of 1 step (idle share, launches per step) and each OT
      kernel's launches per step; K1, K4, K5, K6 and K8 at the step-0 OT
      operands (L_pad 8, g 4, n_pad 128, d 576: the chunked loader, 18 chunks
      of 32, the tile one block, shared by K4-K8) held to their plain versions
@@ -185,7 +189,7 @@ Phases:
      layers, 60 experts top-4, 4 shared, bf16, 14 315 636 736 parameters drawn
      on the card), six requests of 32 + 16: every request served, a second run
      the same tokens bit for bit, the dropped fraction printed.  (c) the same
-     at full width cut to 2 layers with ``ot_balance``: one OT solve
+     at full width cut to 1 layer with ``ot_balance``: one OT solve
      (``grad_impl='screened'``: ``row_dot`` / ``row_sum``, no other port
      kernel) per MoE layer and forward pass, every routing weight finite and
      summing to 1 within 1e-4, the router's seconds a solve and launches; the
@@ -199,13 +203,14 @@ Phases:
      tick).
  15. the attention families at full width, random bf16 weights from seed 0, each
      sub-phase's model freed and the peak reset before the next: (a) ``minicpm3-4b``
-     (MLA; 62 layers, 4 261 902 848 parameters) served through ``ServingEngine`` as
-     14 (a) (eight requests of 64 + 32, four slots): each back once, those in
-     recycled slots bit for bit each alone in a fresh engine, the cache 35 712 B a
-     token, and in float32 the absorbed path (prefill, teacher-forced decode)
-     within rtol / atol 2e-3 of the expanded one (``forward``); (b) the same trained
-     with the OT alignment loss on phase 13's data for 4 steps, cut to 16 of its 62
-     layers for the smoke's time (full depth fits: an AdamW step of 16 B a
+     (MLA; 62 layers, 4 261 902 848 parameters, the cache 35 712 B a token, both
+     checked on ``meta``) cut to 31 layers for the smoke's time, served through
+     ``ServingEngine`` as 14 (a) (eight requests of 64 + 32, four slots): each back
+     once, those in recycled slots bit for bit each alone in a fresh engine, and in
+     float32 the absorbed path (prefill, teacher-forced decode) within rtol / atol
+     2e-3 of the expanded one (``forward``); (b) the same trained with the OT
+     alignment loss on phase 13's data for 4 steps, cut to 8 of its 62 layers for
+     the smoke's time (full depth fits: an AdamW step of 16 B a
      parameter plus 12 GiB; a deeper cut where it would not), said so: losses
      finite, the OT term present, K1, K4 and K5 or K6 launched; the step split, a
      profile of one step, the fused OT term of one step (K8 or K6); K1, K4, K5, K6
@@ -223,17 +228,18 @@ Phases:
      image tokens (no optimizer: its state does not fit), the loss and gradient
      norm finite and ``cross.wq``'s gradient nonzero, then (c)'s serving and checks
      with the image tokens.
- 16. the xLSTM family at full width and depth, ``xlstm-1.3b`` (48 layers in 6 periods of
-     an sLSTM and 7 mLSTMs, d_model 2048, 4 heads, 2 020 751 696 parameters, a recurrent
-     state of 706 560 000 B a sequence), random bf16 weights from seed 0: (a) served
-     through ``ServingEngine`` (four slots, eight requests with prompts of 2, 37, 64, 64,
+ 16. the xLSTM family at full width, ``xlstm-1.3b`` (48 layers in 6 periods of an sLSTM
+     and 7 mLSTMs, d_model 2048, 4 heads, 2 020 751 696 parameters, a recurrent state of
+     706 560 000 B a sequence, both checked on ``meta``), random bf16 weights from seed 0:
+     (a) cut to 3 of its 6 periods (24 layers) for the smoke's time, served through
+     ``ServingEngine`` (four slots, eight requests with prompts of 2, 37, 64, 64,
      128, 129, 257 and 300 tokens, 32 new tokens each): each back once, those in recycled
      slots bit for bit each alone in a fresh engine (a slot's whole state replaced at
      admission); (b) in float32, prefill and 8 teacher-forced decode steps within rtol /
      atol 2e-3 of ``LM.forward``, and a chunkwise prefill of 257 tokens (chunks of 128,
      128 and 1) against 257 decode steps from the zero state, its last logits and every
      state leaf within rtol / atol 2e-3; (c) trained with the OT alignment loss on phase
-     13's data for 4 steps, as 15 (b), cut to 2 of its 6 periods (16 of 48 layers) for
+     13's data for 4 steps, as 15 (b), cut to 1 of its 6 periods (8 of 48 layers) for
      the smoke's time (losses, OT distances and gradient norms finite, the step split, a
      profile of one step, the fused OT term), K1, K4, K5, K6 and K8 at its step-0 OT
      operands (d = 2048: 64 chunks of 32) held to their plain versions and timed.
@@ -263,6 +269,25 @@ Phases:
      ``embed``, and its backward, pallas (K1, K4, K5 or K6 launched) and fused (K8 or
      K6); K1, K4, K5, K6 and K8 at its operands (256 chunks of 32) held to their plain
      versions and timed.
+ 18. the LM mesh (``sharding/partition.py``: FSDP over the data axes x tensor / expert
+     parallelism over ``model``, one rank a process over ``torch.distributed``):
+     (a) ``yi-9b`` cut to 2 of its 48 layers at full width (d 4096, 32 / 4 heads, ff
+     11 008, vocab 64 000; bf16, AdamW with float32 master weights, the OT term on
+     'pallas', 64 x 32 tokens): one step on one card here, then two gloo ranks on
+     this card run it on a (data=1, model=2) and a (2, 1) mesh, each rank holding its
+     rules blocks: the loss within rtol 1e-3 of the card's, the grad_norm within rtol
+     1e-3, every parameter within 5e-3, each leaf's AdamW m within 5 % of its norm
+     (the gradient, which the parameters after one step cannot show), the ranks'
+     losses and OT distances bit for bit, K1, K4 and K5 or K6
+     launched on every rank; K1, K4, K5, K6 and K8 at the card's step-0 OT operands
+     (d = 4096: 128 chunks of 32) held to their plain versions and timed;
+     (b) ``--lm-mesh-only``, four cards, NCCL, (2, 2): ``yi-9b`` at full width and
+     depth, 3 steps of 8 x 512 tokens (finite, step 0 within 2 of ln 64 000, each
+     card's peak under 80 GB), the 2-layer cut and ``qwen2-moe-a2.7b`` cut to 4 layers
+     (float32 compute; ``local_dispatch`` off and on, the dropped fraction one card's
+     within 4 routed entries a layer, with it on one card's under the rules of two data
+     shards, JAX's per-shard rule) against one card, step times and a profile of the
+     last step (the collectives' device time) per rank.
 Phase 3 also runs K2-K8 at tile_n 4, 20, 40 and 128 on a narrow problem
 (K2, K3 and K7 in f32 and bf16; K2 and K7 on the staged loader at 128, 1024
 and 256, on the direct loads where a warp has lanes past the tile; K3 on the
@@ -274,8 +299,8 @@ row_sum / row_dot, the solver's batch-invariant reductions, which stand in
 for XLA's reductions and have no TPU kernel; their ``launches_ot_router``
 are phase 14 (c)'s; K1, K4, K5, K6 and K8 once more at phase 13's trainer
 shapes, ``@lm_step``, d = 576, phase 15 (b)'s, ``@mla_step``, d = 2560, phase 16
-(c)'s, ``@xlstm_step``, d = 2048, and phase 17 (c)'s, ``@hybrid_step``, d = 8192), the
-last line
+(c)'s, ``@xlstm_step``, d = 2048, phase 17 (c)'s, ``@hybrid_step``, d = 8192, and
+phase 18 (a)'s, ``@lm_mesh_step``, d = 4096), the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 from __future__ import annotations
@@ -3032,13 +3057,13 @@ def lm_ot_operands(tr, batch, device):
 
 
 def phase_lm_kernels(fp, a, b, mask, reg, counts, smi_line, device, phase="phase 13",
-                     suffix=LM_ROW):
+                     suffix=LM_ROW, plain_runs=10):
     """K1, K4, K5, K6 and K8 at a trainer's step-0 OT operands (phase 13: L_pad 8, g 4,
     n_pad 128, d 576; phase 15: d 2560; the chunked loader and K4's FactCost body), on the
     solve's duals, each held to its plain version as ``phase_kernels_wide_d`` holds them at
     d = 64, then timed (CUDA events; device us from the profiler's records) beside its
-    bound and its plain version.  ``counts`` is {kernel: (the path, its launches there)}.
-    Returns the kernel-table rows."""
+    bound and its plain version (the median of ``plain_runs``).  ``counts`` is {kernel:
+    (the path, its launches there)}.  Returns the kernel-table rows."""
     import numpy as np
     import torch
 
@@ -3123,7 +3148,7 @@ def phase_lm_kernels(fp, a, b, mask, reg, counts, smi_line, device, phase="phase
             got, want = (got[1].float(),), (want[1].float(),)
         err, rel = max_errs(got[:3], want[:3])
         ms = median_ms(fn, 50)
-        plain_ms = median_ms(plain, 10, warmup=1)
+        plain_ms = median_ms(plain, plain_runs, warmup=1)
         split = device_split(fn)
         # None where the profiler kept no record of the kernel in the session
         dev_us = sum(split.values()) if any(v > 0 for v in split.values()) else None
@@ -3236,12 +3261,11 @@ def phase_lm(smi_line, device):
         lap13("split steps")
 
         s0 = LM_STEPS + LM_SPLIT_STEPS
-        _, pwall, busy, n_dev, krows = profile_device(
-            lambda: [tr.step_fn(tr.batch(s0 + i)) for i in range(2)])
+        _, pwall, busy, n_dev, krows = profile_device(lambda: tr.step_fn(tr.batch(s0)))
         check(busy > 0, "phase 13: the profiler recorded no device time")
-        print(f"phase 13 profile (2 steps, torch.profiler, the device's own records, "
+        print(f"phase 13 profile (1 step, torch.profiler, the device's own records, "
               f"{smi_line}): wall {pwall:.4f} s, device busy {busy:.4f} s, idle share "
-              f"{1 - busy / pwall:.4f}, {n_dev / 2:.1f} device launches per step; largest: "
+              f"{1 - busy / pwall:.4f}, {n_dev} device launches per step; largest: "
               + ", ".join(f"{k[:48]} {us / 1e3:.2f} ms x{c}" for k, us, c in krows[:8]),
               flush=True)
         lap13("profile")
@@ -3313,7 +3337,7 @@ SERVE_DENSE = dict(requests=8, prompt=64, new=32, max_len=104)     # (a) smollm-
 SERVE_MOE_ARCH = "qwen2-moe-a2.7b"
 SERVE_MOE_PARAMS = 14_315_636_736    # its parameter count (the JAX abstract init's)
 SERVE_MOE = dict(requests=6, prompt=32, new=16, max_len=56)        # (b) and (c)
-SERVE_OT_LAYERS = 2                  # (c)'s depth cut (PERF.md §4)
+SERVE_OT_LAYERS = 1                  # (c)'s depth cut, for the smoke's time (PERF.md §4)
 SERVE_TF_STEPS = 8                   # teacher-forced decode steps of the float32 check
 SERVE_DIR = os.path.join(HERE, "_archive", "phase14")  # git-ignored: (c)'s router logits
 SERVE_OT_CONVERGED_ITERS = 400       # where the router's solve converges (ROADMAP §C)
@@ -3723,7 +3747,8 @@ FAM_MLA_ARCH = "minicpm3-4b"
 FAM_MLA_PARAMS = 4_261_902_848       # its parameter count (the JAX abstract init's)
 FAM_MLA_CACHE_B = 35_712             # its cache a token: 62 layers x (256 + 32) x 2 B
 FAM_MLA_STEPS = 4                    # (b)'s trainer steps, then 2 split, 1 profiled
-FAM_MLA_TRAIN_LAYERS = 16            # (b)'s depth cut, for the smoke's time (PERF.md §4)
+FAM_MLA_TRAIN_LAYERS = 8             # (b)'s depth cut, for the smoke's time (PERF.md §4)
+FAM_MLA_SERVE_LAYERS = 31            # (a)'s depth cut, half of 62, for the smoke's time
 FAM_STEP_HEADROOM = 12 * 2**30       # (b): a step's activations and temporaries
 FAM_ED_ARCH = "whisper-medium"
 FAM_ED_PARAMS = 791_827_456
@@ -3757,7 +3782,9 @@ def cache_bytes(caches) -> int:
 
 
 def phase_fam_mla_serve(smi_line, device):
-    """(a): ``minicpm3-4b`` at full width and depth, bf16, through ``ServingEngine``."""
+    """(a): ``minicpm3-4b`` at full width, bf16, cut to ``FAM_MLA_SERVE_LAYERS`` of its 62
+    layers (the whole config's parameter count and cache a token checked on ``meta``),
+    through ``ServingEngine``."""
     import dataclasses
 
     import numpy as np
@@ -3769,19 +3796,22 @@ def phase_fam_mla_serve(smi_line, device):
     from repro_torch.serving.engine import ServingEngine
 
     spec = SERVE_DENSE
-    cfg = get_config(FAM_MLA_ARCH)
-    model = build_model(cfg, device, seed=0)
-    n = count_params(model)
+    whole = build_model(get_config(FAM_MLA_ARCH), device="meta")
+    n = count_params(whole)
     check(n == FAM_MLA_PARAMS, f"phase 15 (a): {n} parameters, not {FAM_MLA_PARAMS}")
-    check(next(model.parameters()).dtype == torch.bfloat16, "phase 15 (a): params not bf16")
-    per_token = cache_bytes(model.init_cache(1, 1, abstract=True))
+    per_token = cache_bytes(whole.init_cache(1, 1, abstract=True))
     check(per_token == FAM_MLA_CACHE_B, f"phase 15 (a): {per_token} cache B a token")
+    cfg = dataclasses.replace(get_config(FAM_MLA_ARCH), num_layers=FAM_MLA_SERVE_LAYERS)
+    model = build_model(cfg, device, seed=0)
+    n, per_token = count_params(model), cache_bytes(model.init_cache(1, 1, abstract=True))
+    check(next(model.parameters()).dtype == torch.bfloat16, "phase 15 (a): params not bf16")
     pairs = serve_requests(cfg.vocab_size, spec, 17)
     engine = lambda: ServingEngine(cfg, model, max_batch=SERVE_SLOTS, max_len=spec["max_len"],
                                    device=device)
     run = drive_engine(engine(), pairs, spec["new"])
     check_served("(a)", run["done"], spec["requests"], spec["new"], phase="phase 15")
-    report_serve(f"(a) {FAM_MLA_ARCH} bf16 ({n} params, MLA cache {per_token} B a token, "
+    report_serve(f"(a) {FAM_MLA_ARCH} bf16, {FAM_MLA_SERVE_LAYERS} of 62 layers ({n} params, "
+                 f"MLA cache {per_token} B a token, "
                  f"{per_token * SERVE_SLOTS * spec['max_len']} B for {SERVE_SLOTS} slots), "
                  f"{SERVE_SLOTS} slots, {spec['requests']} requests of {spec['prompt']} + "
                  f"{spec['new']}", run,
@@ -4174,13 +4204,18 @@ XL_SERVE = dict(prompts=(2, 37, 64, 64, 128, 129, 257, 300), new=32, max_len=340
 XL_TF = dict(prompt=64, steps=8)     # (b): the teacher-forced check
 XL_CHUNKED = 257                     # (b): chunkwise prefill (128, 128, 1) vs decode steps
 XL_STEPS = 4                         # (c)'s trainer steps, then 2 split, 1 profiled
-XL_TRAIN_LAYERS = 16                 # (c)'s depth cut, 2 of 6 periods, for the smoke's time
+XL_TRAIN_LAYERS = 8                  # (c)'s depth cut, 1 of 6 periods, for the smoke's time
+XL_SERVE_LAYERS = 24                 # (a)'s depth cut, 3 of 6 periods, for the smoke's time
 
 
 def phase_xlstm_serve(smi_line, device):
-    """(a): ``xlstm-1.3b`` at full width and depth, bf16, through ``ServingEngine``: eight
-    requests of 2-300 prompt tokens and 32 new ones through four slots; each back once, and
-    those in recycled slots bit for bit each alone in a fresh engine."""
+    """(a): ``xlstm-1.3b`` at full width, bf16, cut to ``XL_SERVE_LAYERS`` of its 48 layers
+    (the whole config's parameter count and state checked on ``meta``), through
+    ``ServingEngine``: eight requests of 2-300 prompt tokens and 32 new ones through four
+    slots; each back once, and those in recycled slots bit for bit each alone in a fresh
+    engine."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -4190,13 +4225,15 @@ def phase_xlstm_serve(smi_line, device):
     from repro_torch.serving.engine import ServingEngine
 
     spec = XL_SERVE
-    cfg = get_config(XL_ARCH)
-    model = build_model(cfg, device, seed=0)
-    n = count_params(model)
+    whole = build_model(get_config(XL_ARCH), device="meta")
+    n = count_params(whole)
     check(n == XL_PARAMS, f"phase 16 (a): {n} parameters, not {XL_PARAMS}")
-    check(next(model.parameters()).dtype == torch.bfloat16, "phase 16 (a): params not bf16")
-    per_seq = cache_bytes(model.init_cache(1, 1, abstract=True))
+    per_seq = cache_bytes(whole.init_cache(1, 1, abstract=True))
     check(per_seq == XL_STATE_B, f"phase 16 (a): {per_seq} state B a sequence")
+    cfg = dataclasses.replace(get_config(XL_ARCH), num_layers=XL_SERVE_LAYERS)
+    model = build_model(cfg, device, seed=0)
+    n, per_seq = count_params(model), cache_bytes(model.init_cache(1, 1, abstract=True))
+    check(next(model.parameters()).dtype == torch.bfloat16, "phase 16 (a): params not bf16")
     rng = np.random.default_rng(21)
     pairs = [(i, rng.integers(0, cfg.vocab_size, p).astype(np.int32))
              for i, p in enumerate(spec["prompts"])]
@@ -4204,7 +4241,8 @@ def phase_xlstm_serve(smi_line, device):
                                    device=device)
     run = drive_engine(engine(), pairs, spec["new"])
     check_served("(a)", run["done"], len(pairs), spec["new"], phase="phase 16")
-    report_serve(f"(a) {XL_ARCH} bf16 ({n} params, recurrent state {per_seq} B a sequence, "
+    report_serve(f"(a) {XL_ARCH} bf16, {XL_SERVE_LAYERS} of 48 layers ({n} params, "
+                 f"recurrent state {per_seq} B a sequence, "
                  f"{per_seq * SERVE_SLOTS} B for {SERVE_SLOTS} slots), {SERVE_SLOTS} slots, "
                  f"{len(pairs)} requests of {list(spec['prompts'])} + {spec['new']}", run,
                  profile_ticks(engine(), pairs, spec["new"], 8, "phase 16"), 8, smi_line,
@@ -4271,8 +4309,8 @@ def phase_xlstm_f32(device):
 
 
 def phase_xlstm(smi_line, device):
-    """Phase 16 (see the module docstring): ``xlstm-1.3b`` served and checked in float32 at
-    full width and depth, trained at full width on 2 of its 6 periods.  Returns the
+    """Phase 16 (see the module docstring): ``xlstm-1.3b`` served on 3 of its 6 periods,
+    checked in float32 at full width and depth, trained at full width on 1 period.  Returns the
     kernel-table rows at (c)'s OT shapes."""
     t_phase = time.perf_counter()
     lap = lambda what: print(f"[phase 16 +{time.perf_counter() - t_phase:.1f} s] {what}",
@@ -4288,6 +4326,449 @@ def phase_xlstm(smi_line, device):
                         max_layers=XL_TRAIN_LAYERS)
     fresh_memory()
     print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+
+# -- phase 18: the LM mesh (FSDP x TP / EP over torch.distributed) ---------------------
+
+LMM_ARCH, LMM_MOE_ARCH = "yi-9b", "qwen2-moe-a2.7b"
+LMM_PARAMS = 8_829_407_232           # yi-9b's parameter count (the JAX abstract init's)
+LMM_CUT = 2                          # (a) and (b)'s one-card check: 2 of its 48 layers
+LMM_MOE_CUT = 4                      # (b)'s MoE check: 4 of qwen2-moe-a2.7b's 24 layers
+LMM_A = dict(batch=64, seq=32, classes=8)           # (a): a step of 64 x 32 tokens (the
+                                                    # OT problem of phase 13: L 8, g 4)
+LMM_B = dict(batch=8, seq=512, classes=4, steps=3)  # (b): 3 steps of 8 x 512 tokens
+LMM_STATE_B = 16                     # an AdamW step's bytes a parameter: bf16 params and
+                                     # gradients, float32 m, v and master weights
+LMM_LOSS_RTOL, LMM_PARAM_ATOL = 1e-3, 5e-3          # against one card
+# The bf16 parameters after AdamW's first step (lr 3e-4, each entry moved by about lr x
+# g / |g|) cannot see a wrong gradient: the step's grad_norm (before the clip) is held
+# within LMM_GNORM_RTOL of one card's, and AdamW's m (0.1 x the clipped gradient) leaf by
+# leaf within LMM_M_RTOL of one card's in norm: a gradient lost, flipped or summed over
+# the wrong ranks moves its leaf's m by 0.5-2 of its norm, a scaled one the grad_norm.
+LMM_GNORM_RTOL, LMM_M_RTOL = 1e-3, 0.05
+LMM_DROP_ENTRIES = 4                 # routed entries a MoE layer's drops may differ by
+LMM_DIR = os.path.join(HERE, "_archive", "phase18")   # git-ignored: rank logs and results
+LMM_TIMEOUT_S = {"a": 240, "b": 900}
+LMM_ROW = "@lm_mesh_step"            # suffix of the kernel rows at (a)'s trainer shapes
+
+
+def lmm_trainer(cfg, shape: dict, device, mesh=None, steps=1, grad_impl="pallas",
+                local_dispatch=None):
+    """A trainer of phase 18: ``SyntheticLM(vocab, seq, batch, classes, seed 0)``, AdamW at
+    lr 6e-4 (warmup 2) with float32 master weights, remat per block, the OT alignment
+    loss (weight 0.05, L-BFGS) on ``grad_impl``; on ``mesh`` where given."""
+    import dataclasses
+
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM, SyntheticLMConfig
+    from repro_torch.training.trainer import Trainer
+
+    if local_dispatch is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               local_dispatch=local_dispatch))
+    tcfg = TrainConfig(optimizer=OptimizerConfig(lr=6e-4, warmup_steps=2, decay_steps=12),
+                       steps=steps, log_every=1, ot_align=True, ot_align_weight=0.05,
+                       ot_solver="lbfgs", ot_grad_impl=grad_impl, remat="block")
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=shape["seq"],
+                                         global_batch=shape["batch"],
+                                         num_classes=shape["classes"], seed=0))
+    return Trainer(cfg, tcfg, data, device=device, mesh=mesh)
+
+
+def lmm_cut(arch, layers):
+    """``arch`` cut to ``layers``; the MoE cut computes in float32 (bf16 parameters), so
+    that near-ties of its router, which the mesh's other summation order can flip in
+    bf16, are too rare to move the dropped fraction past LMM_DROP_ENTRIES."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    return cfg
+
+
+def lmm_compare(label, ref, got):
+    """One card's run ``ref`` against a mesh run ``got`` (dicts from ``lmm_run``): the loss
+    within rtol LMM_LOSS_RTOL, the grad_norm within rtol LMM_GNORM_RTOL, every parameter
+    within LMM_PARAM_ATOL, each leaf's AdamW m within LMM_M_RTOL of its norm; returns
+    (the max abs parameter difference, the largest relative m difference and its leaf)."""
+    import math
+
+    import torch
+
+    rl, gl = ref["loss"][0], got["loss"][0]
+    check(math.isfinite(gl) and abs(gl - rl) <= LMM_LOSS_RTOL * abs(rl),
+          f"phase 18 {label}: loss {gl!r} on the mesh, {rl!r} on one card")
+    rg, gg = ref["gnorm"][0], got["gnorm"][0]
+    check(math.isfinite(gg) and abs(gg - rg) <= LMM_GNORM_RTOL * abs(rg),
+          f"phase 18 {label}: grad_norm {gg!r} on the mesh, {rg!r} on one card")
+    worst = 0.0
+    for k, t in ref["params"].items():
+        worst = max(worst, float(torch.max(torch.abs(got["params"][k].float() - t.float()))))
+    check(worst <= LMM_PARAM_ATOL, f"phase 18 {label}: parameters {worst:.3e} off one card's "
+                                   f"(limit {LMM_PARAM_ATOL})")
+    m_rel, m_leaf = 0.0, None
+    for k, t in ref["m"].items():
+        a = t.float()
+        diff = float(torch.linalg.vector_norm(got["m"][k].float() - a))
+        norm = float(torch.linalg.vector_norm(a))
+        rel = diff / norm if norm > 0 else (0.0 if diff == 0 else math.inf)
+        if rel >= m_rel:
+            m_rel, m_leaf = rel, k
+    check(m_rel <= LMM_M_RTOL, f"phase 18 {label}: AdamW's m of {m_leaf} is {m_rel:.3e} of "
+                               f"its norm off one card's (limit {LMM_M_RTOL})")
+    return worst, m_rel, m_leaf
+
+
+def lmm_run(tr, steps, device, profile_step=False, gather=True):
+    """Run ``tr`` for ``steps``, each step split into its pieces (the batch, the LM
+    forward + backward, the OT solve, its backward, the optimizer; each ending in a
+    synchronize); returns its losses, OT distances, MoE drop fractions, step walls and
+    splits, launches, peak and state bytes, and (every rank gathering) its whole
+    parameters on the host (``gather``).  ``profile_step``: the last step under
+    torch.profiler, its collectives' device time apart."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.kernels import _build as kbuild
+    from repro_torch.sharding import partition as P
+    from repro_torch.utils.tree import tree_bytes
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kbuild.reset_launch_counts()
+    state_b = tree_bytes(tr.state)
+    hist, splits = [], []
+
+    def mark(marks, piece):
+        torch.cuda.synchronize(device)
+        marks.append((piece, time.perf_counter()))
+
+    def one_step(step):
+        marks = [("start", time.perf_counter())]
+        rules = P.use_rules(tr.rules, tr.mesh) if tr.rules is not None else \
+            contextlib.nullcontext()
+        with rules:
+            batch = tr.batch(step)
+            mark(marks, "batch")
+            m = tr.step_fn(batch, mark=lambda piece: mark(marks, piece))
+        hist.append({k: float(v) for k, v in m.items()})
+        splits.append({p: t - marks[i][1] for i, (p, t) in enumerate(marks[1:])})
+
+    prof = None
+    for step in range(steps - 1 if profile_step else steps):
+        one_step(step)
+    if profile_step:
+        _, wall, busy, n_dev, krows = profile_device(lambda: one_step(steps - 1))
+        comm = sum(us for k, us, _ in krows if "nccl" in k.lower()) / 1e6
+        prof = dict(wall_s=wall, busy_s=busy, launches=n_dev, collective_s=comm,
+                    top=[(k[:60], us / 1e3, c) for k, us, c in krows[:6]])
+    whole = lambda d: {k: (t if not P.on_mesh(tr.mesh) else tr.placements[k].gather(t))
+                       .detach().to(torch.bfloat16).cpu() for k, t in d.items()}
+    return dict(loss=[m["loss"] for m in hist], ot=[m["ot_distance"] for m in hist],
+                gnorm=[m["grad_norm"] for m in hist], dropped=[m["moe_dropped"] for m in hist],
+                walls=[sum(sp.values()) for sp in splits], splits=splits,
+                launches=kbuild.launch_counts(), peak=torch.cuda.max_memory_allocated(device),
+                state_b=state_b, params=whole(tr.state["params"]) if gather else None,
+                m=whole(tr.state["opt"]["m"]) if gather else None, profile=prof)
+
+
+def lmm_barrier(device):
+    import torch
+    import torch.distributed as dist
+
+    t = torch.zeros(1, device=device if dist.get_backend() == "nccl" else "cpu")
+    dist.all_reduce(t)
+
+
+def lmm_check_blocks(tr, label):
+    """Every parameter of a mesh trainer is its rules block: the shape of a freshly
+    computed placement of the whole leaf under the same rules."""
+    from repro_torch.models import build_model
+    from repro_torch.sharding import partition as P
+
+    meta = dict(build_model(tr.cfg, device="meta").named_parameters())
+    for k, t in tr.state["params"].items():
+        want = P.placement(meta[k].shape, meta[k].logical_axes, tr.rules, tr.mesh)
+        check(tuple(t.shape) == want.local_shape and tr.placements[k].index == want.index,
+              f"phase 18 {label}: {k} holds {tuple(t.shape)}, not its block {want.local_shape}")
+        for kind in ("m", "v", "master"):
+            check(tuple(tr.state["opt"][kind][k].shape) == want.local_shape,
+                  f"phase 18 {label}: opt {kind} of {k} is not its block")
+
+
+def lm_mesh_rank(rank: int, init: str, part: str) -> None:
+    """One rank of phase 18 (see ``phase_lm_mesh``); exits non-zero on any failed check.
+    Its results go to ``LMM_DIR/rank{rank}.json`` (and mesh rank 0's gathered
+    parameters to ``LMM_DIR/{case}.pt`` in (a))."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.models import build_model
+    from repro_torch.sharding import partition as P
+    from repro_torch.utils.tree import tree_bytes
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = 2 if part == "a" else 4
+    backend, device = D.init_process_group(world, rank, init, timeout_s=900)
+    say = lambda msg: print(f"[{time.perf_counter() - t_start:.1f} s] {msg}", flush=True)
+    say(f"phase 18 ({part}): backend {backend}, world size {world}, rank {rank} on {device} "
+        f"({torch.cuda.get_device_name(device)})")
+    names = ("data", "model")
+    out = {"backend": backend, "runs": {}}
+
+    def keep(label, run):
+        out["runs"][label] = {k: v for k, v in run.items() if k not in ("params", "m")}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if part == "a":
+        cfg = lmm_cut(LMM_ARCH, LMM_CUT)
+        for shape in ((1, 2), (2, 1)):
+            mesh = D.make_mesh(shape, names)
+            label = f"{LMM_ARCH} {LMM_CUT} layers on {shape}"
+            tr = lmm_trainer(cfg, LMM_A, device, mesh)
+            lmm_check_blocks(tr, label)
+            run = lmm_run(tr, 1, device)
+            keep(label, run)
+            if rank == 0:
+                torch.save({"params": run["params"], "m": run["m"]},
+                           os.path.join(LMM_DIR, f"a_{shape[0]}x{shape[1]}.pt"))
+            say(f"{label}: loss {run['loss']}, ot {run['ot']}, state {run['state_b']} B, "
+                f"peak {run['peak']} B, launches {run['launches']}")
+            del tr, run
+            free()
+    else:
+        mesh = D.make_mesh((2, 2), names)
+        # yi-9b at full width and depth: 3 steps of 8 x 512 tokens
+        cfg = lmm_cut(LMM_ARCH, 48)
+        label = f"{LMM_ARCH} 48 layers on (2, 2)"
+        torch.cuda.reset_peak_memory_stats(device)
+        tr = lmm_trainer(cfg, LMM_B, device, mesh, steps=LMM_B["steps"])
+        # the trainer draws leaf by leaf and cuts as it goes: its init holds its state and
+        # at most one whole leaf's draw (float32, then the parameter dtype), not the model
+        init_peak = torch.cuda.max_memory_allocated(device)
+        leaf_b = 6 * max(p.numel() for p in build_model(cfg, device="meta").parameters())
+        check(init_peak <= tree_bytes(tr.state) + leaf_b,
+              f"phase 18 {label}: the trainer's init peaked at {init_peak} B, over its state "
+              f"{tree_bytes(tr.state)} B and one leaf's draw {leaf_b} B")
+        lmm_check_blocks(tr, label)
+        run = lmm_run(tr, LMM_B["steps"], device, profile_step=True, gather=False)
+        run["init_peak"] = init_peak
+        keep(label, run)
+        check(all(math.isfinite(v) for v in run["loss"] + run["ot"]),
+              f"phase 18 {label}: a loss or OT distance is not finite: {run}")
+        check(abs(run["loss"][0] - math.log(cfg.vocab_size)) <= 2.0,
+              f"phase 18 {label}: step-0 loss {run['loss'][0]} is not within 2 of "
+              f"ln {cfg.vocab_size} = {math.log(cfg.vocab_size):.3f}")
+        check(run["peak"] < 80e9, f"phase 18 {label}: peak {run['peak']} B")
+        say(f"{label}: loss {run['loss']}, ot {run['ot']}, walls {run['walls']}, state "
+            f"{run['state_b']} B, init peak {init_peak} B, peak {run['peak']} B, launches "
+            f"{run['launches']}, "
+            f"profile {run['profile']}")
+        del tr, run
+        free()
+        # the cuts held against one card (mesh rank 0 runs the card's step after)
+        runs = {}
+        for arch, layers, local in ((LMM_ARCH, LMM_CUT, None), (LMM_MOE_ARCH, LMM_MOE_CUT,
+                                                                False),
+                                    (LMM_MOE_ARCH, LMM_MOE_CUT, True)):
+            label = f"{arch} {layers} layers on (2, 2)" + \
+                ("" if local is None else f", local_dispatch {local}")
+            tr = lmm_trainer(lmm_cut(arch, layers), LMM_B, device, mesh, local_dispatch=local)
+            lmm_check_blocks(tr, label)
+            run = lmm_run(tr, 1, device)
+            keep(label, run)
+            runs[(arch, local)] = run if rank == 0 else None
+            say(f"{label}: loss {run['loss']}, ot {run['ot']}, dropped {run['dropped']}, "
+                f"state {run['state_b']} B, peak {run['peak']} B, launches {run['launches']}")
+            del tr
+            free()
+        if rank == 0:
+            # one card at each cut; with local_dispatch, under rules of two data shards (a
+            # mesh of sizes only): the MoE then packs each half of the batch apart, as
+            # JAX's _dispatch_local on the whole batch
+            two_shards = D.sizes_mesh((2, 2), names)
+            for (arch, local), got in runs.items():
+                layers = LMM_CUT if arch == LMM_ARCH else LMM_MOE_CUT
+                cfg = lmm_cut(arch, layers)
+                one = lmm_trainer(cfg, LMM_B, device, local_dispatch=local)
+                with P.use_rules(P.default_rules(names) if local else None, two_shards):
+                    ref = lmm_run(one, 1, device)
+                label = f"{arch} {layers} layers (2, 2)" + \
+                    ("" if local is None else f" local_dispatch {local}")
+                worst, m_rel, m_leaf = lmm_compare(label, ref, got)
+                out["runs"][label + " vs one card"] = dict(
+                    loss=(got["loss"][0], ref["loss"][0]), param_max_abs=worst,
+                    grad_norm=(got["gnorm"][0], ref["gnorm"][0]), m_rel=(m_rel, m_leaf),
+                    one_card_step_s=ref["walls"], one_card_split=ref["splits"],
+                    one_card_peak=ref["peak"])
+                if cfg.moe is not None:
+                    out["runs"][label + " vs one card"]["dropped"] = (got["dropped"][0],
+                                                                      ref["dropped"][0])
+                    bound = LMM_DROP_ENTRIES * layers / (LMM_B["batch"] * LMM_B["seq"] *
+                                                         cfg.moe.top_k)
+                    check(abs(got["dropped"][0] - ref["dropped"][0]) <= bound,
+                          f"phase 18 {label}: dropped {got['dropped'][0]!r} on the mesh, "
+                          f"{ref['dropped'][0]!r} on one card")
+                say(f"{label} vs one card: loss {got['loss'][0]!r} / {ref['loss'][0]!r}, "
+                    f"grad_norm {got['gnorm'][0]!r} / {ref['gnorm'][0]!r}, max abs param "
+                    f"diff {worst:.3e}, AdamW m {m_rel:.3e} of its norm off ({m_leaf})")
+                del one, ref
+                free()
+        lmm_barrier(device)
+    with open(os.path.join(LMM_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    lmm_barrier(device)
+
+
+def phase_lm_mesh(smi_line: str, part: str):
+    """Phase 18, the LM mesh (see the module docstring).  (a), in the full run: 2 gloo
+    ranks on card 0, ``yi-9b`` cut to 2 layers at full width (bf16, AdamW with master
+    weights, the OT term on 'pallas'), one step on a (data=1, model=2) and a (2, 1)
+    mesh, each against one card's ``Trainer`` step of the same cut (here, before the
+    ranks start): loss and grad_norm within rtol 1e-3, parameters within 5e-3, AdamW's m
+    within 5 % of each leaf's norm, the ranks' loss and OT
+    distance bit for bit; K1, K4 and K5 launched on every rank.  Returns the kernel
+    rows at the trainer's OT shapes (d = 4096).  (b), ``--lm-mesh-only`` on four
+    cards (NCCL, a card a rank, (2, 2)): ``yi-9b`` at full width and depth, 3 steps of
+    8 x 512 tokens; the 2-layer cut and ``qwen2-moe-a2.7b`` cut to 4 layers (with
+    ``local_dispatch`` off and on) against one card."""
+    import dataclasses
+    import socket
+
+    import torch
+
+    from repro_torch.kernels import _build as kbuild
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+
+    t_phase = time.perf_counter()
+    world = 2 if part == "a" else 4
+    os.makedirs(LMM_DIR, exist_ok=True)
+    for name in os.listdir(LMM_DIR):
+        os.remove(os.path.join(LMM_DIR, name))
+    rows, ref = [], None
+    if part == "a":
+        check(torch.cuda.device_count() >= 1, "phase 18 (a) needs a card")
+        cfg = lmm_cut(LMM_ARCH, LMM_CUT)
+        n_params = count_params(build_model(lmm_cut(LMM_ARCH, 48), device="meta"))
+        check(n_params == LMM_PARAMS, f"{LMM_ARCH} has {n_params} parameters, not {LMM_PARAMS}")
+        one = lmm_trainer(cfg, LMM_A, torch.device("cuda"))
+        batch = one.batch(0)
+        ops = lm_ot_operands(one, batch, torch.device("cuda"))
+        ref = lmm_run(one, 1, torch.device("cuda"))
+        # the OT term of the step-0 batch once more, fused (K8), for the kernel rows
+        kbuild.reset_launch_counts()
+        with torch.no_grad():
+            one.tcfg = dataclasses.replace(one.tcfg, ot_grad_impl="fused")
+            one.ot_loss(batch)
+        fused_launches = kbuild.launch_counts()
+        del one, batch
+        fresh_memory()
+        print(f"phase 18 (a) one card ({smi_line}): {LMM_ARCH} {LMM_CUT} layers, loss "
+              f"{ref['loss']}, ot {ref['ot']}, state {ref['state_b']} B, peak {ref['peak']} B, "
+              f"step {ref['walls']} s (split {ref['splits']}); launches {ref['launches']}; "
+              f"the fused OT term {fused_launches}", flush=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            log = open(os.path.join(LMM_DIR, f"rank{r}.log"), "w")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--lm-mesh-rank", str(r),
+                 "--lm-mesh-part", part, "--mesh-init", f"tcp://127.0.0.1:{port}"],
+                stdout=log, stderr=subprocess.STDOUT))
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break                          # one rank failed: stop the others
+            if time.perf_counter() - t0 > LMM_TIMEOUT_S[part]:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r in range(len(procs)):
+        with open(os.path.join(LMM_DIR, f"rank{r}.log")) as f:
+            for line in f.read().splitlines()[-60:]:
+                print(f"  [rank {r}] {line}", flush=True)
+    rcs = [p.returncode for p in procs]
+    check(all(rc == 0 for rc in rcs), f"phase 18 ({part}): the ranks exited {rcs} after "
+                                      f"{wall:.1f} s (limit {LMM_TIMEOUT_S[part]} s)")
+    res = []
+    for r in range(world):
+        with open(os.path.join(LMM_DIR, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    for label, run in res[0]["runs"].items():
+        if "loss" not in run or "vs one card" in label or "one card" in label:
+            continue
+        for x in res[1:]:
+            other = x["runs"][label]
+            check(other["loss"] == run["loss"] and other["ot"] == run["ot"],
+                  f"phase 18 {label}: the ranks' losses or OT distances differ: "
+                  f"{run['loss']} {run['ot']} / {other['loss']} {other['ot']}")
+        for r, x in enumerate(res):
+            ln = x["runs"][label]["launches"]
+            check(ln.get(K1, 0) > 0 and ln.get(K4, 0) > 0 and ln.get(K5, 0) + ln.get(K6, 0) > 0,
+                  f"phase 18 {label}: rank {r} did not launch K1, K4 and K5/K6: {ln}")
+        for r, x in enumerate(res):
+            rr = x["runs"][label]
+            med = sorted(rr["walls"])[len(rr["walls"]) // 2]
+            tokens = (LMM_A if part == "a" else LMM_B)["batch"] * \
+                (LMM_A if part == "a" else LMM_B)["seq"]
+            print(f"phase 18 ({res[0]['backend']}, {smi_line}) {label} rank {r}: loss "
+                  f"{rr['loss']}, ot {rr['ot']}, step walls {rr['walls']} s ({tokens / med:.1f} "
+                  f"tokens/s at the median), state {rr['state_b']} B, peak {rr['peak']} B, "
+                  f"launches {rr['launches']}; split " +
+                  "; ".join(", ".join(f"{p} {t:.4f}" for p, t in sp.items())
+                            for sp in rr["splits"]) +
+                  ("" if not rr.get("profile") else f"; profile {rr['profile']}"), flush=True)
+    if part == "a":
+        for shape in ((1, 2), (2, 1)):
+            got = dict(res[0]["runs"][f"{LMM_ARCH} {LMM_CUT} layers on {shape}"])
+            got.update(torch.load(os.path.join(LMM_DIR, f"a_{shape[0]}x{shape[1]}.pt")))
+            worst, m_rel, m_leaf = lmm_compare(f"(a) {shape}", ref, got)
+            print(f"phase 18 (a) {shape} vs one card: loss {got['loss'][0]!r} / "
+                  f"{ref['loss'][0]!r}, grad_norm {got['gnorm'][0]!r} / {ref['gnorm'][0]!r}, "
+                  f"max abs parameter difference {worst:.3e}, AdamW m {m_rel:.3e} of its "
+                  f"norm off ({m_leaf})", flush=True)
+        counts = {k: (f"phase 18 (a) {LMM_ARCH} {LMM_CUT} layers, one step on one card, "
+                      "grad_impl 'pallas'", ref["launches"].get(k, 0)) for k in (K1, K4, K5, K6)}
+        counts[K8] = (f"phase 18 (a) {LMM_ARCH} {LMM_CUT} layers, the step-0 OT term on one "
+                      "card, grad_impl 'fused'", fused_launches.get(K8, 0))
+        rows = phase_lm_kernels(*ops[:5], counts, smi_line, torch.device("cuda"),
+                                phase="phase 18 (a)", suffix=LMM_ROW, plain_runs=3)
+        del ops
+        for name in os.listdir(LMM_DIR):
+            if name.endswith(".pt"):
+                os.remove(os.path.join(LMM_DIR, name))
+    else:
+        need = LMM_STATE_B * LMM_PARAMS
+        peaks = [x["runs"][f"{LMM_ARCH} 48 layers on (2, 2)"]["peak"] for x in res]
+        print(f"phase 18 (b) ({smi_line}): {LMM_ARCH} at 48 layers on (2, 2): each card's "
+              f"peak {peaks} B, against {need} B ({need / 1e9:.1f} GB) one card would need "
+              f"for the AdamW step's state alone", flush=True)
+        for label, run in res[0]["runs"].items():
+            if "vs one card" in label:
+                print(f"phase 18 (b) {label}: {run}", flush=True)
+    print(f"phase 18 ({part}) took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
 
 
@@ -4493,6 +4974,7 @@ class OTTerm:
         from repro_torch.training.trainer import Trainer
 
         self.model, self.device, self.cfg = model, device, model.cfg
+        self.mesh = self.rules = None           # one card
         self.tcfg = TrainConfig(ot_align=True, ot_align_weight=0.05, ot_solver="lbfgs",
                                 ot_grad_impl=grad_impl, remat="block")
         self.data = SyntheticLM(SyntheticLMConfig(vocab_size=model.cfg.vocab_size,
@@ -4986,12 +5468,19 @@ def main() -> None:
                     help="instead: build, then run phase 15 (MLA, the encoder-decoder and "
                          "the VLM at full width) alone")
     ap.add_argument("--xlstm-only", action="store_true",
-                    help="instead: build, then run phase 16 (xlstm-1.3b served, checked in "
-                         "float32 and trained at full width and depth) alone")
+                    help="instead: build, then run phase 16 (xlstm-1.3b at full width: "
+                         "served, checked in float32 and trained) alone")
     ap.add_argument("--hybrid-only", action="store_true",
                     help="instead: build, then run phase 17 (jamba-1.5-large-398b at full "
                          "width: one period of 4 layers served, one of 2 checked in float32 "
                          "and run forward and backward) alone")
+    ap.add_argument("--lm-mesh-only", action="store_true",
+                    help="instead: build, then run phase 18 (b) alone: the LM mesh on four "
+                         "cards (NCCL, (2, 2)), yi-9b at full width and depth")
+    ap.add_argument("--lm-mesh-part", choices=("a", "b"),
+                    help="with --lm-mesh-only: the part of phase 18 (default b; a: two "
+                         "gloo ranks on one card, as the full run)")
+    ap.add_argument("--lm-mesh-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--serve-only", action="store_true",
                     help="instead: build, then run phase 14 (LM serving, the MoE family and "
                          "the OT router) alone")
@@ -5004,6 +5493,9 @@ def main() -> None:
     sys.path.insert(0, src)
     if args.mesh_rank is not None:
         mesh_rank(args.mesh_rank, args.mesh_init)
+        return
+    if args.lm_mesh_rank is not None:
+        lm_mesh_rank(args.lm_mesh_rank, args.mesh_init, args.lm_mesh_part)
         return
     if args.compare_run:
         compare_run(args.out, args.bits)
@@ -5059,6 +5551,15 @@ def main() -> None:
     if args.hybrid_only:
         print(json.dumps({"kernels": phase_hybrid(smi_line, device)}), flush=True)
         print(f"{smi_line}; phase 17 alone took {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return
+    if args.lm_mesh_only:
+        part = args.lm_mesh_part or "b"
+        check(part == "a" or torch.cuda.device_count() >= 4,
+              f"--lm-mesh-only needs four cards, found {torch.cuda.device_count()}")
+        rows = phase_lm_mesh(smi_line, part)
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(f"{smi_line}; phase 18 ({part}) alone took {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return
     if args.serve_only:
@@ -5147,11 +5648,14 @@ def main() -> None:
     # 17. the hybrid family: Mamba, attention and MoE layers, the mixed cache
     lap("phase 17")
     hy_rows = phase_hybrid(smi_line, device)
+    # 18. the LM mesh: two gloo ranks on this card, FSDP x TP against one card
+    lap("phase 18")
+    lmm_rows = phase_lm_mesh(smi_line, "a")
     for row in solo_rows:
         if row["name"] == B12:          # the layer's grad_refine path runs it
             row["launches"] = refine_launches[B12]
             row["launches_path"] = "layer from_samples, grad_refine=20"
-    rows += solo_rows + reduce_rows + lm_rows + fam_rows + xl_rows + hy_rows
+    rows += solo_rows + reduce_rows + lm_rows + fam_rows + xl_rows + hy_rows + lmm_rows
 
     print(f"{smi_line}; smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

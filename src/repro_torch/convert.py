@@ -23,7 +23,7 @@ only dicts and numpy arrays (it imports nothing of ``repro``):
     ``decoder``) into the port's state dict, bit for bit;
     :func:`lm_params_to_tree` and :func:`lm_params_to_numpy` go back (the
     trainer's checkpoint uses the tree, so a checkpoint of either package
-    restores in the other);
+    restores in the other), :func:`lm_axes_to_tree` the logical axes;
   * :func:`lm_cache_from_numpy` and :func:`lm_cache_to_numpy` do the same
     for the model's cache: the JAX tree of leaves stacked over the blocks
     against the port's list of one cache tree per block, bit for bit.
@@ -249,6 +249,20 @@ def lm_params_to_tree(cfg: ModelConfig, state: Mapping[str, torch.Tensor]) -> Di
         for part in path[:-1]:
             node = node.setdefault(part, {})
         node[path[-1]] = stack(())
+    return tree
+
+
+def lm_axes_to_tree(cfg: ModelConfig, axes: Mapping[str, tuple]) -> Dict:
+    """The JAX model's logical-axes tree (nested dict; a stacked leaf's axes led by one
+    ``"layers"`` per stacked axis) of the port's name -> axes dict
+    (``LM.param_logical_axes``)."""
+    tree: Dict = {}
+    for name, ax in axes.items():
+        path = tuple(p for p in name.split(".") if not p.isdigit())
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = ("layers",) * len(_stack_sizes(cfg, path)) + tuple(ax)
     return tree
 
 

@@ -2,11 +2,11 @@
 
 Counterpart of ``repro.core.distributed``.  The JAX package drives every
 device from one controller; the port runs one process per GPU (the rank),
-and every rank calls the same entry points with the same inputs (SPMD).  A
-``torch.distributed.device_mesh.DeviceMesh`` stands for the JAX mesh, with
-the same axis names: :data:`BATCH_AXIS` for the problem axis of the
-sharded batch (``core.sharded``), ``("data", "model")`` for one problem
-split by columns and by whole groups of rows (:func:`solve_dual_distributed`).
+and every rank calls the same entry points with the same inputs (SPMD).  An
+:class:`AxisMesh` stands for the JAX mesh, with the same axis names:
+:data:`BATCH_AXIS` for the problem axis of the sharded batch
+(``core.sharded``), ``("data", "model")`` for one problem split by columns
+and by whole groups of rows (:func:`solve_dual_distributed`).
 
 Rank r runs on ``cuda:(local_rank % device_count)`` unless the caller asks
 for ``device='cpu'``.  :func:`init_process_group` takes NCCL where every
@@ -32,15 +32,27 @@ for the result.  :func:`collective_counts` records the bytes passed to
 collectives.  The all-reduce orders the sums differently from a solve on
 one device, so the result is held within rtol 2e-5, not bitwise; every
 rank's duals are bitwise equal, and reruns repeat the bits.
-``lower_dual_step`` (a JAX lowering for the TPU dry run) waits for the
-model stack (ROADMAP A4).
+
+The LM mesh (``sharding/partition.py``, the model stack) runs on an
+:class:`AxisMesh`: named axes over every rank, rank-major, with a process
+group for each set of axes, so a collective can span ``("pod", "data")``
+or ``"model"`` alone.  Its collectives (:func:`all_gather_axes`,
+:func:`reduce_scatter_axes`, :func:`all_reduce_axes`, :func:`ring_shift`)
+take part in autograd: an all-gather's backward is a reduce-scatter, an
+all-reduce's an all-reduce, a ring shift's the shift the other way.
+:func:`lower_dual_step` stands for the JAX package's lowering of one
+sharded gradient step: it runs one screened evaluation of the distributed
+solve's oracle on inputs of the problem's shapes and returns the
+collectives it made (on a mesh of sizes only, the ones it would make).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import itertools
 import os
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -125,7 +137,7 @@ def init_process_group(world_size: int, rank: int, init_method: str,
 class LocalMesh:
     """A mesh of one rank, for a process without a process group.
 
-    Quacks like the parts of ``DeviceMesh`` the port reads; its collectives
+    Quacks like the parts of :class:`AxisMesh` the port reads; its collectives
     are identities, so a solve on it is the single-device path.
     """
 
@@ -144,22 +156,6 @@ class LocalMesh:
 
     def get_coordinate(self):
         return [0] * self.ndim
-
-
-def _mesh_device_type() -> str:
-    return "cuda" if _dist().get_backend() == "nccl" else "cpu"
-
-
-def _world_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
-    """A DeviceMesh of ``shape`` over every rank of the process group, rank-major."""
-    from torch.distributed.device_mesh import DeviceMesh
-
-    world = _dist().get_world_size()
-    if int(np.prod(shape)) != world:
-        raise ValueError(f"a {dict(zip(names, shape))} mesh needs {int(np.prod(shape))} ranks; "
-                         f"the process group has {world}")
-    ranks = torch.arange(world).reshape(shape)
-    return DeviceMesh(_mesh_device_type(), ranks, mesh_dim_names=names)
 
 
 def make_batch_mesh(num_devices: Optional[int] = None):
@@ -191,7 +187,7 @@ def make_batch_mesh(num_devices: Optional[int] = None):
         raise ValueError(f"devices={k} would leave ranks of the {world}-rank group out of "
                          f"the mesh; every rank calls the same entry points, so pass "
                          f"devices='all' or start {k} ranks")
-    return _world_mesh((world,), (BATCH_AXIS,))
+    return make_mesh((world,), (BATCH_AXIS,))
 
 
 def mesh_size(mesh) -> int:
@@ -257,9 +253,27 @@ def _comm_device(group) -> torch.device:
     return torch.device("cpu")
 
 
-def _count(t: torch.Tensor) -> None:
+_RECORDS: List[List[dict]] = []
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Within the block, every counted collective is also appended to the yielded list as
+    ``{"op", "shape", "elements", "bytes"}``."""
+    rec: List[dict] = []
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
+
+
+def _count(t: torch.Tensor, op: str = "all_reduce") -> None:
     _COUNTS["collectives"] += 1
     _COUNTS["bytes"] += t.numel() * t.element_size()
+    for rec in _RECORDS:
+        rec.append({"op": op, "shape": tuple(t.shape), "elements": int(t.numel()),
+                    "bytes": int(t.numel() * t.element_size())})
 
 
 def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -278,7 +292,7 @@ def all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
     group = _group(mesh)
     if group is None:
         return t
-    _count(t)
+    _count(t, "all_gather")
     dev = _comm_device(group)
     is_bool = t.dtype == torch.bool
     src = (t.to(torch.uint8) if is_bool else t).to(dev).contiguous()
@@ -554,3 +568,339 @@ def solve_dual_distributed(C, a, b, spec: GroupSpec, reg: Regularizer, mesh, opt
                        int(rounds[0]), {"zero": zero, "check": check, "active": act})
     res.comm = dict(comm, bytes_per_evaluation=comm["bytes"] / max(comm["evaluations"], 1))
     return res
+
+
+# -- named-axis meshes and their collectives (the LM mesh) ---------------------------
+
+class AxisMesh:
+    """A mesh of named axes over the ranks of the process group, rank-major.
+
+    Rank ``r`` sits at ``np.unravel_index(r, shape)``.  Each set of axes has
+    a process group per cell (the ranks that differ only along those
+    axes, in the order the axes name them, major to minor), made when the
+    mesh is; a set whose size is 1 has none, and its collectives are
+    identities.  Without a process group the mesh has sizes only
+    (``coordinate`` None): placements and specs can be computed on it, and a
+    collective raises.  The distributed solve and the sharded batch run on
+    it too (``mesh_dim_names``, ``size``, ``get_coordinate``, ``get_group``).
+    """
+
+    def __init__(self, shape: Sequence[int], names: Sequence[str],
+                 coordinate: Optional[Sequence[int]] = None):
+        self.shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(names)
+        if len(self.shape) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.shape} and axis names {self.axis_names} differ "
+                             "in length")
+        self.coordinate = None if coordinate is None else tuple(int(c) for c in coordinate)
+        self._groups: Dict[Tuple[str, ...], object] = {}
+
+    def __repr__(self) -> str:
+        return f"AxisMesh({dict(zip(self.axis_names, self.shape))}, at {self.coordinate})"
+
+    @property
+    def mesh_dim_names(self) -> Tuple[str, ...]:
+        return self.axis_names
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.shape))
+
+    def size(self, mesh_dim: Optional[int] = None) -> int:
+        return int(np.prod(self.shape)) if mesh_dim is None else self.shape[mesh_dim]
+
+    def get_coordinate(self):
+        return None if self.coordinate is None else list(self.coordinate)
+
+    def index(self, name: str) -> int:
+        """This rank's index along axis ``name`` (0 where the mesh has no such axis)."""
+        if name not in self.axis_names:
+            return 0
+        if self.coordinate is None:
+            raise RuntimeError(f"{self!r} has sizes only: no rank sits on it")
+        return self.coordinate[self.axis_names.index(name)]
+
+    def group_size(self, axes: Sequence[str]) -> int:
+        return int(np.prod([self.sizes.get(a, 1) for a in axes]))
+
+    def position(self, axes: Sequence[str]) -> int:
+        """This rank's position among the ranks of its cell over ``axes``, major to minor
+        (its block index along a dimension those axes split)."""
+        pos = 0
+        for a in axes:
+            pos = pos * self.sizes.get(a, 1) + self.index(a)
+        return pos
+
+    def global_rank(self, coordinate: Sequence[int]) -> int:
+        return int(np.ravel_multi_index(tuple(coordinate), self.shape))
+
+    def group(self, axes: Sequence[str]):
+        """The process group of this rank's cell over ``axes`` (None: a cell of 1 rank)."""
+        axes = tuple(a for a in self.axis_names if a in tuple(axes))
+        if self.group_size(axes) == 1:
+            return None
+        if self.coordinate is None:
+            raise RuntimeError(f"{self!r} has sizes only: it has no collectives")
+        return self._groups[axes]
+
+    def get_group(self, mesh_dim: int = 0):
+        return self.group((self.axis_names[mesh_dim],))
+
+    def _make_groups(self) -> None:
+        """One process group per cell of every set of axes of size > 1; every rank makes
+        every group, in one order (``new_group`` is collective)."""
+        dist = _dist()
+        dims = range(self.ndim)
+        for k in range(1, self.ndim + 1):
+            for sub in itertools.combinations(dims, k):
+                axes = tuple(self.axis_names[i] for i in sub)
+                if self.group_size(axes) == 1:
+                    continue
+                if k == self.ndim:
+                    self._groups[axes] = dist.group.WORLD
+                    continue
+                rest = [i for i in dims if i not in sub]
+                for fixed in itertools.product(*(range(self.shape[i]) for i in rest)):
+                    ranks = []
+                    for moving in itertools.product(*(range(self.shape[i]) for i in sub)):
+                        coord = [0] * self.ndim
+                        for i, c in zip(rest, fixed):
+                            coord[i] = c
+                        for i, c in zip(sub, moving):
+                            coord[i] = c
+                        ranks.append(self.global_rank(coord))
+                    g = dist.new_group(ranks)
+                    if all(self.coordinate[i] == c for i, c in zip(rest, fixed)):
+                        self._groups[axes] = g
+
+
+def make_mesh(shape: Sequence[int], names: Sequence[str]) -> AxisMesh:
+    """An :class:`AxisMesh` of ``shape`` over every rank of the process group.
+
+    Every rank calls it (it makes the process groups).  The mesh must span
+    the whole group: a world of another size raises.  Without a process
+    group a mesh of one rank is the single-device mesh (every collective an
+    identity); a larger one raises, naming ``torchrun``.
+    """
+    shape = tuple(int(s) for s in shape)
+    n = int(np.prod(shape))
+    if not group_initialized():
+        if n == 1:
+            return AxisMesh(shape, names, (0,) * len(shape))
+        raise RuntimeError(f"a {dict(zip(names, shape))} mesh needs a process group of {n} "
+                           f"ranks: start the program with `torchrun --nproc-per-node {n}` and "
+                           "call repro_torch.core.distributed.init_process_group first")
+    world = _dist().get_world_size()
+    if n != world:
+        raise ValueError(f"a {dict(zip(names, shape))} mesh needs {n} ranks; the process "
+                         f"group has {world}")
+    mesh = AxisMesh(shape, names, np.unravel_index(_dist().get_rank(), shape))
+    mesh._make_groups()
+    return mesh
+
+
+def sizes_mesh(shape: Sequence[int], names: Sequence[str]) -> AxisMesh:
+    """A mesh of sizes only: no rank, no collectives (specs and placements, the dry run)."""
+    return AxisMesh(shape, names)
+
+
+def _on_comm(t: torch.Tensor, group) -> torch.Tensor:
+    """A copy of ``t`` on the collective's device (never ``t`` itself: autograd may hand one
+    gradient tensor to several branches, and the collectives write in place)."""
+    dev = _comm_device(group)
+    return t.to(dev, copy=True, memory_format=torch.contiguous_format)
+
+
+def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    _count(x, "all_gather")
+    src = _on_comm(x, group)
+    parts = [torch.empty_like(src) for _ in range(n)]
+    _dist().all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)
+
+
+def _reduce_scatter(g: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """This rank's block of ``g`` along ``dim`` summed over the group (a reduce-scatter)."""
+    k = g.shape[dim] // n
+    _count(g, "reduce_scatter")
+    src = _on_comm(g.movedim(dim, 0), group)
+    out = torch.empty((k,) + tuple(src.shape[1:]), dtype=src.dtype, device=src.device)
+    _dist().reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous().to(g.device)
+
+
+def _all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    _count(t, "all_reduce")
+    buf = _on_comm(t, group)
+    dist = _dist()
+    _dist().all_reduce(buf, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                       group=group)
+    return buf.to(t.device)
+
+
+class _AllGatherAxes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather(x, mesh.group(axes), mesh.group_size(axes), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        m, axes = ctx.mesh, ctx.axes
+        return _reduce_scatter(g, m.group(axes), m.group_size(axes), ctx.dim), None, None, None
+
+
+class _ReduceScatterAxes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _reduce_scatter(x, mesh.group(axes), mesh.group_size(axes), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.mesh
+        return _gather(g, m.group(ctx.axes), m.group_size(ctx.axes), ctx.dim), None, None, None
+
+
+class _AllReduceAxes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _all_reduce(x, mesh.group(axes))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh.group(ctx.axes)), None, None
+
+
+def _axes(mesh, axes) -> Tuple[str, ...]:
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    return tuple(a for a in mesh.axis_names if a in axes)
+
+
+def all_gather_axes(x: torch.Tensor, mesh: AxisMesh, axes, dim: int = 0) -> torch.Tensor:
+    """Concatenate along ``dim`` the blocks the ranks of this rank's cell over ``axes``
+    hold, in their order major to minor.  Backward: the gradient's block of this rank
+    summed over the cell (a reduce-scatter)."""
+    axes = _axes(mesh, axes)
+    if mesh.group_size(axes) == 1:
+        return x
+    return _AllGatherAxes.apply(x, mesh, axes, dim)
+
+
+def reduce_scatter_axes(x: torch.Tensor, mesh: AxisMesh, axes, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x`` summed over its cell over ``axes``."""
+    axes = _axes(mesh, axes)
+    if mesh.group_size(axes) == 1:
+        return x
+    return _ReduceScatterAxes.apply(x, mesh, axes, dim)
+
+
+def all_reduce_axes(x: torch.Tensor, mesh: AxisMesh, axes) -> torch.Tensor:
+    """``x`` summed over this rank's cell over ``axes``; every rank of the cell gets the
+    same bits.  Backward: the gradient summed the same way."""
+    axes = _axes(mesh, axes)
+    if mesh.group_size(axes) == 1:
+        return x
+    return _AllReduceAxes.apply(x, mesh, axes)
+
+
+def all_reduce_max_axes(x: torch.Tensor, mesh: AxisMesh, axes) -> torch.Tensor:
+    """The elementwise max over this rank's cell over ``axes`` (no gradient)."""
+    axes = _axes(mesh, axes)
+    if mesh.group_size(axes) == 1:
+        return x.detach()
+    return _all_reduce(x.detach(), mesh.group(axes), "max")
+
+
+def _shift(x: torch.Tensor, mesh: AxisMesh, axis: str, step: int) -> torch.Tensor:
+    n = mesh.sizes[axis]
+    i = mesh.axis_names.index(axis)
+    coord = list(mesh.coordinate)
+    to, frm = list(coord), list(coord)
+    to[i], frm[i] = (coord[i] + step) % n, (coord[i] - step) % n
+    dist = _dist()
+    _count(x, "send_recv")
+    src = _on_comm(x, dist.group.WORLD)
+    out = torch.empty_like(src)
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, src, mesh.global_rank(to)),
+                                   dist.P2POp(dist.irecv, out, mesh.global_rank(frm))])
+    for r in reqs:
+        r.wait()
+    return out.to(x.device)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, step):
+        ctx.mesh, ctx.axis, ctx.step = mesh, axis, step
+        return _shift(x, mesh, axis, step)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.mesh, ctx.axis, -ctx.step), None, None, None
+
+
+def ring_shift(x: torch.Tensor, mesh: AxisMesh, axis: str, step: int = 1) -> torch.Tensor:
+    """Send ``x`` to the rank ``step`` further along ``axis`` (a ring) and return what the
+    rank ``step`` before sent (same shape and dtype on every rank)."""
+    if mesh.sizes.get(axis, 1) == 1:
+        return x
+    return _RingShift.apply(x, mesh, axis, step)
+
+
+# -- the dry run's view of one sharded gradient step ---------------------------------
+
+def lower_dual_step(mesh, prob: DualProblem, opts=None, device: DeviceLike = None) -> dict:
+    """One screened evaluation of :func:`solve_dual_distributed`'s oracle on inputs of
+    ``prob``'s shapes; returns the collectives it made.
+
+    The JAX function lowers (does not run) the sharded step for the dry run;
+    PyTorch has no lowering, so this runs this rank's block of the
+    evaluation (rows ``[l0 g, l1 g)`` over ``model``, columns over ``data``,
+    on a constant cost and zero duals) and records each collective as
+    ``{"op", "shape", "elements", "bytes"}``.  Every rank of a mesh with a
+    process group calls it; on a mesh of sizes only (:func:`sizes_mesh`) it
+    runs the block of coordinate 0 and records the collectives the step
+    would make.  Returns ``{"collectives": [...], "largest_elements": int}``.
+    """
+    from repro_torch.core import solver as slv
+
+    opts = opts if opts is not None else slv.SolveOptions(grad_impl="screened")
+    live = getattr(mesh, "coordinate", 0) is not None and not isinstance(mesh, LocalMesh)
+    dev = resolve_device(device)
+    L, g, n = prob.num_groups, prob.group_size, prob.n
+    m_pad = L * g
+    D, M = axis_size(mesh, "data"), axis_size(mesh, "model")
+    if L % M or n % D:
+        raise ValueError(f"L = {L} and n = {n} must divide over model = {M} and data = {D}")
+    di = axis_index(mesh, "data") if live else 0
+    mi = axis_index(mesh, "model") if live else 0
+    Lb = L // M
+    l0, l1, c0, c1 = mi * Lb, (mi + 1) * Lb, di * n // D, (di + 1) * n // D
+    prob_b = DualProblem(Lb, g, c1 - c0, _block_reg(prob.reg, L, l0, l1))
+    f32 = torch.float32
+    blk = _Block(l0 * g, l1 * g, c0, c1,
+                 C=torch.ones((1, Lb * g, c1 - c0), dtype=f32, device=dev),
+                 row_mask=torch.ones((Lb * g,), dtype=torch.bool, device=dev),
+                 sqrt_g=torch.full((Lb,), float(np.sqrt(g)), dtype=f32, device=dev),
+                 prob=prob_b, tau=prob_b.tau_vec(dev))
+    x = torch.zeros((1, m_pad + n), dtype=f32, device=dev)
+    scr = screening.init_state(Lb * g, c1 - c0, Lb, f32, batch_shape=(1,), device=dev)
+    sums = _block_sums_fn(blk, scr, "screened", opts.pallas_impl)
+    with record_collectives() as rec:
+        rs, cs, psi = sums(*blk.duals(x, m_pad))
+        buf = torch.zeros((1, m_pad + n + 2), dtype=f32, device=dev)
+        buf[:, blk.r0:blk.r1] = rs
+        buf[:, m_pad + c0:m_pad + c1] = cs
+        buf[:, -2] = psi
+        if live:
+            all_reduce_sum(buf, mesh)
+        else:
+            _count(buf, "all_reduce")
+    return {"collectives": list(rec),
+            "largest_elements": max((r["elements"] for r in rec), default=0)}

@@ -1,13 +1,24 @@
-"""Mesh construction: the ``("data", "model")`` mesh of the distributed solve.
+"""Mesh construction, as ``repro.launch.mesh``.
 
-Counterpart of ``repro.launch.mesh``.  A FUNCTION, not a module-level
-constant: importing this module touches no process group.  The 256-chip
-TPU pod mesh (``make_production_mesh``) serves the model stack's dry run
-and waits for it (ROADMAP A4).
+``make_production_mesh``: the TPU pod meshes' shapes and names, (16, 16)
+``("data", "model")`` = 256 chips, or multi-pod (2, 16, 16) ``("pod",
+"data", "model")`` = 512.  Over a process group of that size it is a
+real mesh (one rank per GPU); without one it is a mesh of sizes only, for
+specs and placements (``launch/specs.py``).  ``make_host_mesh``: the
+``("data", "model")`` mesh of the distributed solve.  FUNCTIONS, not
+module-level constants: importing this module touches no process group.
 """
 from __future__ import annotations
 
 from repro_torch.core import distributed
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if distributed.group_initialized():
+        return distributed.make_mesh(shape, axes)
+    return distributed.sizes_mesh(shape, axes)
 
 
 def make_host_mesh(data: int = 2, model: int = 2):
@@ -25,4 +36,4 @@ def make_host_mesh(data: int = 2, model: int = 2):
                            f"ranks: start the program with `torchrun --nproc-per-node "
                            f"{data * model}` and call "
                            "repro_torch.core.distributed.init_process_group first")
-    return distributed._world_mesh((data, model), names)
+    return distributed.make_mesh((data, model), names)

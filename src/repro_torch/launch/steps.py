@@ -16,19 +16,28 @@ image tokens, whose keys and values the prefill writes into the cache;
 ``make_serve_step`` takes none: decode reads them from the cache, so the
 encoder never runs during decode.
 
-Not ported yet: ``constrain_grads`` (it pins gradients to the parameter
-shardings of the LM mesh, ROADMAP A4 (d)).
+On the LM mesh (called inside ``sharding.partition.use_rules(rules,
+mesh)`` on every rank, dense and MoE families): ``state`` holds this
+rank's blocks (``partition.sharding_tree`` / ``cut``), ``batch`` is the
+whole batch, of which the step takes this rank's data shard, and the
+metrics are the whole batch's.  The gradient of a weight gathered over the
+data axes always comes back to its block by a reduce-scatter;
+``constrain_grads`` checks that each gradient has its parameter's block
+shape (JAX's hint to pin it there); outside ``use_rules`` it changes
+nothing.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, OptimizerConfig, TrainConfig
 from repro_torch.models import Model, build_model
-from repro_torch.training.optim import adamw_update, init_opt_state
+from repro_torch.models.common import logical_axes
+from repro_torch.sharding import partition as P
+from repro_torch.training.optim import adamw_update, init_opt_state, opt_state_logical_axes
 
 Params = Mapping[str, torch.Tensor]
 
@@ -45,10 +54,10 @@ class _Bound(nn.Module):
         return fn(self.lm, *args)
 
 
-def _binder(cfg: ModelConfig) -> Callable:
+def _binder(cfg: ModelConfig, model: Optional[Model] = None) -> Callable:
     """``bind(params, fn, *args)``: ``fn(model, *args)`` with ``model`` the model of ``cfg``
-    holding ``params``."""
-    bound = _Bound(build_model(cfg, device="meta"))
+    (a ``meta`` one by default) holding ``params``."""
+    bound = _Bound(model if model is not None else build_model(cfg, device="meta"))
 
     def bind(params: Params, fn: Callable, *args):
         return torch.func.functional_call(bound, {f"lm.{k}": v for k, v in params.items()},
@@ -60,14 +69,27 @@ def _binder(cfg: ModelConfig) -> Callable:
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     """(state, batch) -> (state, metrics); state = {"params", "opt"}, both updated in
     place."""
-    if tcfg.constrain_grads:
-        raise NotImplementedError("constrain_grads pins gradients to the LM mesh's "
-                                  "shardings (ROADMAP A4 (d))")
-    bind = _binder(cfg)
     decay = build_model(cfg, device="meta").decay_mask()
     remat = tcfg.remat != "none"
+    placed: Dict = {}
+
+    def binding():
+        """(bind, placements, rules, mesh) for the rules and mesh in force."""
+        rules, mesh = P.current_rules(), P.current_mesh()
+        if rules is None or not P.on_mesh(mesh):
+            rules = mesh = None
+        key = (id(rules), id(mesh))
+        if key not in placed:
+            model = build_model(cfg, device="meta")
+            if mesh is not None:
+                P.place_module(model, rules, mesh, cut_params=False)
+            placed[key] = (_binder(cfg, model), P.placements(model), rules, mesh)
+        return placed[key]
 
     def train_step(state: Dict, batch: Dict[str, torch.Tensor]):
+        bind, pls, rules, mesh = binding()
+        if mesh is not None:
+            batch = P.shard_batch(batch, rules, mesh)
         params = state["params"]
         live = {k: p.detach().requires_grad_(True) for k, p in params.items()}
 
@@ -75,12 +97,22 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             # the backward runs while the parameters are bound: remat recomputes
             # the blocks' forward in it
             loss, metrics = lm.train_loss(batch, z_loss=tcfg.z_loss, remat=remat)
+            if mesh is not None:         # every rank holds the whole batch's loss
+                loss = loss / mesh.size()
             return metrics, torch.autograd.grad(loss, list(live.values()))
 
         metrics, grads = bind(live, loss_and_grads)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        _, _, om = adamw_update(params, dict(zip(live, grads)), state["opt"], tcfg.optimizer,
-                                decay)
+        grads = dict(zip(live, grads))
+        if mesh is not None:
+            P.reduce_grads(grads, pls)
+            if tcfg.constrain_grads:
+                for k, g in grads.items():
+                    if tuple(g.shape) != pls[k].local_shape:
+                        raise RuntimeError(f"the gradient of {k} has shape {tuple(g.shape)}, "
+                                           f"not its block's {pls[k].local_shape}")
+        _, _, om = adamw_update(params, grads, state["opt"], tcfg.optimizer, decay,
+                                placements=pls or None)
         return state, dict(metrics, **om)
 
     return train_step
@@ -117,9 +149,13 @@ def make_serve_step(cfg: ModelConfig):
     return serve_step
 
 
-def abstract_train_state(cfg: ModelConfig, ocfg: OptimizerConfig) -> Dict:
-    """The train state's shapes and dtypes on the ``meta`` device, allocating nothing.
-    (The JAX function also returns the state's logical axes, which wait for the LM
-    mesh's rules, ROADMAP A4 (d).)"""
-    params = dict(build_model(cfg, device="meta").named_parameters())
-    return {"params": params, "opt": init_opt_state(params, ocfg)}
+def abstract_train_state(cfg: ModelConfig, ocfg: OptimizerConfig) -> Tuple[Dict, Dict]:
+    """The train state's shapes and dtypes on the ``meta`` device, allocating nothing, and
+    its logical axes: ``(state, axes)``, as the JAX function (``axes["params"]`` name ->
+    axes, ``axes["opt"]`` the moments' and master copies' likewise, ``"step"`` ())."""
+    model = build_model(cfg, device="meta")
+    params = dict(model.named_parameters())
+    opt = init_opt_state(params, ocfg)
+    axes = logical_axes(model)
+    return ({"params": params, "opt": opt},
+            {"params": axes, "opt": opt_state_logical_axes(axes, ocfg, "master" in opt)})

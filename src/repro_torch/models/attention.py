@@ -42,6 +42,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ParamInit, apply_rotary, rmsnorm, softmax_fp32
+from repro_torch.sharding import partition as P
 
 Cache = Dict[str, torch.Tensor]
 Index = Union[int, torch.Tensor]
@@ -158,21 +159,29 @@ class GQA(nn.Module):
         super().__init__()
         d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         self.use_rope = cfg.use_rope
-        self.wq = mk((d, H, hd))
-        self.wk = mk((d, K, hd))
-        self.wv = mk((d, K, hd))
-        self.wo = mk((H, hd, d))
+        self.num_heads, self.num_kv_heads = H, K
+        self.wq = mk((d, H, hd), ("embed", "heads", "head_dim"))
+        self.wk = mk((d, K, hd), ("embed", "kv_heads", "head_dim"))
+        self.wv = mk((d, K, hd), ("embed", "kv_heads", "head_dim"))
+        self.wo = mk((H, hd, d), ("heads", "head_dim", "embed"))
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                 mask: torch.Tensor, cache: Optional[Cache] = None,
                 cache_index: Index = 0) -> Tuple[torch.Tensor, Optional[Cache]]:
         """x (B, S, D); ``cos`` / ``sin`` from ``rotary_cos_sin`` of the positions;
         ``mask`` the additive mask: (S, S) without a cache, ``cache_mask(cache_index, S,
-        max_len)`` with one.  Returns ``(out, cache)``; the cache is written in place."""
+        max_len)`` with one.  Returns ``(out, cache)``; the cache is written in place.
+
+        On a mesh (``sharding.partition.place_module``) the rank takes its block of
+        query heads (``wq`` / ``wo`` split over ``heads``), computes every KV head
+        (``kv_heads`` stays replicated) and keeps the groups its heads read; the
+        output, a sum over its heads, is all-reduced over the axes that split them."""
         dt = x.dtype
-        q = torch.einsum("bsd,dhk->bshk", x, self.wq.to(dt))
-        k = torch.einsum("bsd,dhk->bshk", x, self.wk.to(dt))
-        v = torch.einsum("bsd,dhk->bshk", x, self.wv.to(dt))
+        wq, wk, wv, wo = (P.weight(self, n).to(dt) for n in ("wq", "wk", "wv", "wo"))
+        q = torch.einsum("bsd,dhk->bshk", x, wq)
+        k = torch.einsum("bsd,dhk->bshk", x, wk)
+        v = torch.einsum("bsd,dhk->bshk", x, wv)
+        q = P.constrain(q, "batch", "seq", "heads", None)
         if self.use_rope:
             q = apply_rotary(q, cos, sin)
             k = apply_rotary(k, cos, sin)
@@ -190,8 +199,22 @@ class GQA(nn.Module):
                 v = _dq8(cache["v"], cache["v_scale"], dt)
             else:
                 k, v = cache["k"].to(dt), cache["v"].to(dt)
-        ctx = _gqa_scores_ctx(q, k, v, mask)
-        return torch.einsum("bshk,hkd->bsd", ctx, self.wo.to(dt)), cache
+        ctx = _gqa_scores_ctx(q, *self._local_kv(k, v), mask)
+        out = P.reduce_split(self, "wo", 0, torch.einsum("bshk,hkd->bsd", ctx, wo))
+        return P.constrain(out, "batch", "seq", "embed_act"), cache
+
+    def _local_kv(self, k: torch.Tensor, v: torch.Tensor):
+        """The KV heads this rank's query heads read: all of them off a mesh; on one, the
+        groups of its block of heads, or (a block that splits a group) one KV head per
+        query head."""
+        _, h0, hl = P.split(self, "wq", 1)
+        if hl == self.num_heads:
+            return k, v
+        G = self.num_heads // self.num_kv_heads
+        if hl % G == 0 and h0 % G == 0:
+            return k[:, :, h0 // G:(h0 + hl) // G], v[:, :, h0 // G:(h0 + hl) // G]
+        idx = torch.div(torch.arange(h0, h0 + hl, device=k.device), G, rounding_mode="floor")
+        return k[:, :, idx], v[:, :, idx]
 
 
 # ---------------------------------------------------------------------------
@@ -207,11 +230,11 @@ class Cross(nn.Module):
         d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         kv_dim = kv_dim or d
         self.eps = cfg.rms_eps
-        self.wq = mk((d, H, hd))
-        self.wk = mk((kv_dim, K, hd))
-        self.wv = mk((kv_dim, K, hd))
-        self.wo = mk((H, hd, d))
-        self.q_norm = mk((d,), init="ones")
+        self.wq = mk((d, H, hd), ("embed", "heads", "head_dim"))
+        self.wk = mk((kv_dim, K, hd), ("embed", "kv_heads", "head_dim"))
+        self.wv = mk((kv_dim, K, hd), ("embed", "kv_heads", "head_dim"))
+        self.wo = mk((H, hd, d), ("heads", "head_dim", "embed"))
+        self.q_norm = mk((d,), ("embed_act",), init="ones")
 
     def forward(self, x: torch.Tensor, memory: Optional[torch.Tensor] = None,
                 cache: Optional[Cache] = None) -> Tuple[torch.Tensor, Optional[Cache]]:
@@ -236,6 +259,7 @@ class Cross(nn.Module):
         mask = torch.zeros((x.shape[1], k.shape[1]), dtype=torch.float32, device=x.device)
         ctx = _gqa_scores_ctx(q, k, v, mask)
         return torch.einsum("bshk,hkd->bsd", ctx, self.wo.to(dt)), cache
+
 
 
 def cross_cache(cfg: ModelConfig, batch: int, mem_len: int, dtype: torch.dtype,
@@ -285,13 +309,15 @@ class MLA(nn.Module):
         super().__init__()
         d, H, m = cfg.d_model, cfg.num_heads, cfg.mla
         self.m, self.eps = m, cfg.rms_eps
-        self.q_down = mk((d, m.q_lora_rank))
-        self.q_norm = mk((m.q_lora_rank,), init="ones")
-        self.q_up = mk((m.q_lora_rank, H, m.qk_nope_head_dim + m.qk_rope_head_dim))
-        self.kv_down = mk((d, m.kv_lora_rank + m.qk_rope_head_dim))
-        self.kv_norm = mk((m.kv_lora_rank,), init="ones")
-        self.kv_up = mk((m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim))
-        self.wo = mk((H, m.v_head_dim, d))
+        self.q_down = mk((d, m.q_lora_rank), ("embed", "q_lora"))
+        self.q_norm = mk((m.q_lora_rank,), ("q_lora",), init="ones")
+        self.q_up = mk((m.q_lora_rank, H, m.qk_nope_head_dim + m.qk_rope_head_dim),
+                       ("q_lora", "heads", "head_dim"))
+        self.kv_down = mk((d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", "kv_lora"))
+        self.kv_norm = mk((m.kv_lora_rank,), ("kv_lora",), init="ones")
+        self.kv_up = mk((m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim),
+                        ("kv_lora", "heads", "head_dim"))
+        self.wo = mk((H, m.v_head_dim, d), ("heads", "head_dim", "embed"))
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                 mask: torch.Tensor, cache: Optional[Cache] = None,

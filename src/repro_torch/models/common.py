@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.models.common``.  Parameters are ``nn.Parameter``s
 of ``nn.Module``s, built by :class:`ParamInit` from a seeded
-``torch.Generator`` as the JAX ``ParamMaker`` builds them ("normal": a
+``torch.Generator`` as the JAX ``ParamMaker`` builds them, each carrying
+its leaf's logical axes (``logical_axes``) ("normal": a
 float32 normal times ``scale``, then the parameter dtype; "ones";
 "zeros"; "slog", Mamba's ``A_log``: each row ``log(1..d_state)`` in
 float32 with the JAX package's bits, then the parameter dtype).  The JAX
@@ -15,11 +16,13 @@ rotary and the softmax compute in float32 and return the input's dtype;
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.sharding.partition import weight
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,
            "float64": torch.float64}
@@ -36,20 +39,31 @@ class ParamInit:
     """Makes the parameters of a model, as the JAX ``ParamMaker`` does.
 
     ``generator`` draws the normal inits; it must live on ``device`` (a
-    ``meta`` device needs none and allocates nothing).
+    ``meta`` device needs none and allocates nothing).  ``place(value, axes)``,
+    where given, takes each leaf as it is drawn and returns the block to keep
+    (a rank's block on a mesh), so that no more than one whole leaf is ever
+    held; the parameter then records the leaf's ``full_shape``.
     """
 
     def __init__(self, dtype: str, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 place: Optional[Callable[[torch.Tensor, Tuple], torch.Tensor]] = None):
         self.dtype = torch_dtype(dtype)
         self.device = torch.device(device)
         self.generator = generator
+        self.place = place
         if self.device.type != "meta" and generator is None:
             raise ValueError("a generator is needed to initialize parameters off the meta device")
 
-    def __call__(self, shape: Sequence[int], init: str = "normal",
-                 scale: float = 0.02) -> nn.Parameter:
+    def __call__(self, shape: Sequence[int], axes: Optional[Sequence[Optional[str]]] = None,
+                 init: str = "normal", scale: float = 0.02) -> nn.Parameter:
+        """A parameter of ``shape`` whose dimensions carry the logical ``axes`` (the JAX
+        leaf's, read by ``logical_axes``; a block's leaves have no leading ``layers``;
+        None: every dimension replicated)."""
         shape = tuple(int(s) for s in shape)
+        axes = (None,) * len(shape) if axes is None else tuple(axes)
+        if len(axes) != len(shape):
+            raise ValueError(f"{len(axes)} logical axes {tuple(axes)} for shape {shape}")
         if self.device.type == "meta":
             value = torch.empty(shape, dtype=self.dtype, device=self.device)
         elif init == "zeros":
@@ -57,14 +71,25 @@ class ParamInit:
         elif init == "ones":
             value = torch.ones(shape, dtype=self.dtype, device=self.device)
         elif init == "normal":
-            value = (torch.randn(shape, generator=self.generator, dtype=torch.float32,
-                                 device=self.device) * scale).to(self.dtype)
+            value = torch.randn(shape, generator=self.generator, dtype=torch.float32,
+                                device=self.device).mul_(scale).to(self.dtype)
         elif init == "slog":                # Mamba's A_log: each row log(1..d_state)
             steps = torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=self.device)
             value = xla_log_f32(steps).expand(shape).to(self.dtype).clone()
         else:
             raise ValueError(init)
-        return nn.Parameter(value)
+        if self.place is not None and self.device.type != "meta":
+            value = self.place(value, axes)
+        param = nn.Parameter(value)
+        param.logical_axes = tuple(axes)
+        if tuple(value.shape) != shape:
+            param.full_shape = shape
+        return param
+
+
+def logical_axes(module: nn.Module) -> Dict[str, Tuple[Optional[str], ...]]:
+    """name -> logical axes of each parameter of ``module`` (as ``ParamInit`` made it)."""
+    return {name: p.logical_axes for name, p in module.named_parameters()}
 
 
 # XLA:CPU's float32 log: the Cephes polynomial, in the order of its LLVM IR
@@ -108,14 +133,14 @@ class Norm(nn.Module):
     def __init__(self, mk: ParamInit, d: int, kind: str = "rmsnorm", eps: float = 1e-5):
         super().__init__()
         self.kind, self.eps = kind, eps
-        self.scale = mk((d,), init="ones")
+        self.scale = mk((d,), ("embed_act",), init="ones")
         if kind == "layernorm":
-            self.bias = mk((d,), init="zeros")
+            self.bias = mk((d,), ("embed_act",), init="zeros")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "layernorm":
-            return layernorm(x, self.scale, self.bias, self.eps)
-        return rmsnorm(x, self.scale, self.eps)
+            return layernorm(x, weight(self, "scale"), weight(self, "bias"), self.eps)
+        return rmsnorm(x, weight(self, "scale"), self.eps)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

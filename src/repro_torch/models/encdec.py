@@ -103,8 +103,8 @@ class EncDec(nn.Module):
             raise ValueError(f"family {cfg.family!r} is not an encoder-decoder's")
         self.cfg = cfg
         mk = ParamInit(cfg.param_dtype, device, generator)
-        self.embed = mk((cfg.vocab_size, cfg.d_model))
-        self.dec_pos = mk((cfg.max_decode_len, cfg.d_model))
+        self.embed = mk((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))
+        self.dec_pos = mk((cfg.max_decode_len, cfg.d_model), ("seq", "embed"))
         self.encoder = nn.ModuleList(EncoderBlock(mk, cfg) for _ in range(cfg.encoder_layers))
         self.enc_norm = Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps)
         self.decoder = nn.ModuleList(DecoderBlock(mk, cfg) for _ in range(cfg.num_layers))

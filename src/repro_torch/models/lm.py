@@ -30,7 +30,13 @@ v}}``, for an xLSTM block the recurrent state ``{"slstm": {h, c, n, m},
 "mlstm": {conv, C, n} stacked over its period - 1 layers}`` (no cached
 positions: ``index`` is ignored, as in JAX), for a hybrid block ``{"attn":
 {k, v}, "mamba": {conv, ssm} stacked over its period - 1 Mamba layers}``.
-``prefill`` and ``decode_step`` write it in place and return it.  A VLM
+``prefill`` and ``decode_step`` write it in place and return it.
+``param_logical_axes`` gives each parameter's logical axes.  On a mesh
+(``sharding.partition.place_module``; dense and MoE families) each rank
+holds its blocks of the parameters, runs its data shard of the batch and
+its blocks of heads, ``mlp``, experts and the vocabulary (vocab-parallel
+embedding, logits and cross-entropy), and gathers each weight over the
+data axes just before use (``partition.weight``).  A VLM
 takes its image tokens as ``memory`` (B, num_image_tokens, d_model):
 ``forward`` and ``train_loss`` (``batch["memory"]``) need it, ``prefill``
 projects it into each period's ``cross_kv`` and raises ``ValueError``
@@ -39,7 +45,7 @@ without it, ``decode_step`` reads the cache.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +53,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import distributed as D
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.attention import GQA, MLA, Cache, Cross, Index
@@ -55,11 +62,13 @@ from repro_torch.models.common import (
     ParamInit,
     causal_mask,
     cross_entropy,
+    logical_axes,
     rotary_cos_sin,
     torch_dtype,
 )
 from repro_torch.models.mlp import MLP
 from repro_torch.models.moe import MoE
+from repro_torch.sharding import partition as P
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_dropped_frac")
 
@@ -133,7 +142,7 @@ class VLMBlock(nn.Module):
         self.cross = Cross(mk, cfg)
         self.norm_cross_ffn = Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps)
         self.cross_mlp = MLP(mk, cfg.d_model, cfg.d_ff, cfg.act)
-        self.cross_gate = mk((1,), init="zeros")
+        self.cross_gate = mk((1,), (None,), init="zeros")
 
     def forward(self, x, cos, sin, mask, cache: Optional[Dict] = None, index: Index = 0,
                 memory: Optional[torch.Tensor] = None):
@@ -234,22 +243,24 @@ class LM(nn.Module):
     """The decoder-only LM of the dense, MoE, VLM, xLSTM and hybrid families.
 
     ``device`` holds the parameters (``meta``: shapes only, the JAX
-    abstract init); ``generator``, on that device, draws their normal inits.
+    abstract init); ``generator``, on that device, draws their normal inits;
+    ``place``, where given, cuts each leaf as it is drawn (``ParamInit``).
     """
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 place: Optional[Callable] = None):
         super().__init__()
         check_family(cfg)
         self.cfg = cfg
-        mk = ParamInit(cfg.param_dtype, device, generator)
-        self.embed = mk((cfg.vocab_size, cfg.d_model))
+        mk = ParamInit(cfg.param_dtype, device, generator, place)
+        self.embed = mk((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))
         block = {"vlm": VLMBlock, "ssm": XLSTMBlock, "hybrid": HybridBlock}.get(cfg.family,
                                                                                  DenseBlock)
         self.blocks = nn.ModuleList(block(mk, cfg) for _ in range(num_scan_steps(cfg)))
         self.final_norm = Norm(mk, cfg.d_model, cfg.norm, cfg.rms_eps)
         if not cfg.tie_embeddings:
-            self.head = mk((cfg.d_model, cfg.vocab_size))
+            self.head = mk((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
 
     def decay_mask(self) -> Dict[str, bool]:
         """Which parameters AdamW decays: the JAX rule, a leaf of 2 or more dimensions,
@@ -258,13 +269,66 @@ class LM(nn.Module):
         return {name: p.ndim + name.startswith("blocks.") >= 2
                 for name, p in self.named_parameters()}
 
+    def param_logical_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """name -> logical axes of each parameter (the JAX leaf's, without ``layers``)."""
+        return logical_axes(self)
+
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embed.to(torch_dtype(self.cfg.compute_dtype)))
+        x = self.lookup(tokens, torch_dtype(self.cfg.compute_dtype))
+        return P.constrain(x, "batch", "seq", "embed_act")
+
+    def lookup(self, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Rows ``tokens`` of ``embed`` in ``dtype``.  On a mesh the table is
+        vocab-parallel: each rank looks up the tokens of its block of the vocabulary (its
+        block gathered over the data axes), zeros elsewhere, all-reduced over the axes
+        that split the vocabulary."""
+        w = P.weight(self, "embed").to(dtype)
+        axes, v0, vl = P.split(self, "embed", 0)
+        if not axes:
+            return F.embedding(tokens, w)
+        ids = tokens - v0
+        mine = (ids >= 0) & (ids < vl)
+        rows = F.embedding(torch.where(mine, ids, 0), w)
+        rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=dtype,
+                                                              device=rows.device))
+        return D.all_reduce_axes(rows, self._mesh[1], axes)
+
+    def _vocab_block(self) -> Tuple[Tuple[str, ...], int, int]:
+        """(mesh axes, start, size) of this rank's block of the vocabulary in the logits."""
+        if self.cfg.tie_embeddings:
+            return P.split(self, "embed", 0)
+        return P.split(self, "head", 1)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The logits (B, S, V); on a mesh this rank's block of the vocabulary."""
         x = self.final_norm(x)
-        w = (self.embed.T if self.cfg.tie_embeddings else self.head).to(x.dtype)
-        return x @ w
+        w = (P.weight(self, "embed").T if self.cfg.tie_embeddings
+             else P.weight(self, "head")).to(x.dtype)
+        return P.constrain(x @ w, "batch", "seq", "vocab")
+
+    def _cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
+        """``cross_entropy`` of the whole batch.  On a mesh the logits are this rank's
+        block of the vocabulary and ``labels`` its data shard: the log-sum-exp takes its
+        max and sum over the vocabulary's axes, and the mean runs over every data shard
+        (all-reduces with their backward); every rank gets the same bits."""
+        if P.module_mesh(self) is None:
+            return cross_entropy(logits, labels, z_loss)
+        rules, mesh = self._mesh
+        axes, v0, vl = self._vocab_block()
+        lg = logits.float()
+        mx = D.all_reduce_max_axes(torch.amax(lg, dim=-1), mesh, axes)
+        lse = torch.log(D.all_reduce_axes(torch.sum(torch.exp(lg - mx[..., None]), dim=-1),
+                                          mesh, axes)) + mx
+        ids = labels.long() - v0
+        mine = (ids >= 0) & (ids < vl)
+        ll = torch.take_along_dim(lg, torch.where(mine, ids, 0)[..., None], dim=-1)[..., 0]
+        ll = D.all_reduce_axes(torch.where(mine, ll, torch.zeros_like(ll)), mesh, axes)
+        data = P.batch_axes(rules, mesh)
+        n = labels.numel() * mesh.group_size(data)
+        ce = D.all_reduce_axes(torch.sum(lse - ll), mesh, data) / n
+        zl = (z_loss * D.all_reduce_axes(torch.sum(torch.square(lse)), mesh, data) / n
+              if z_loss else 0.0)
+        return ce + zl, ce
 
     def _backbone(self, x, pos, mask, caches: Optional[List[Cache]], index: Index,
                   memory: Optional[torch.Tensor] = None, remat: bool = False):
@@ -281,7 +345,7 @@ class LM(nn.Module):
             c = None if caches is None else caches[i]
             if remat:
                 x, c, a = checkpoint(block, x, cos, sin, mask, c, index, use_reentrant=False,
-                                     **kw)
+                                     context_fn=P.checkpoint_contexts, **kw)
             else:
                 x, c, a = block(x, cos, sin, mask, c, index, **kw)
             if a is not None:
@@ -315,14 +379,16 @@ class LM(nn.Module):
                    remat: bool = True, aux_weights: Tuple[float, float] = (0.01, 1e-3)):
         """Next-token loss of ``batch['tokens']`` (B, S + 1), or of ``tokens`` against
         ``labels`` (a VLM's image tokens in ``batch['memory']``); returns ``(total,
-        metrics)`` as the JAX ``train_loss``."""
+        metrics)`` as the JAX ``train_loss``.  On a mesh ``batch`` is this rank's data
+        shard and the loss and metrics are the whole batch's, the same bits on every
+        rank (a gradient step backpropagates ``total / mesh.size()`` on each)."""
         tokens = batch["tokens"]
         if "labels" in batch:
             inputs, labels = tokens, batch["labels"]
         else:
             inputs, labels = tokens[:, :-1], tokens[:, 1:]
         logits, aux = self.forward(inputs, batch.get("memory"), remat)
-        loss, ce = cross_entropy(logits, labels, z_loss)
+        loss, ce = self._cross_entropy(logits, labels, z_loss)
         lb, zr, dropped = aux[0], aux[1], aux[2]
         total = loss + aux_weights[0] * lb + aux_weights[1] * zr
         metrics = {"ce": ce, "loss": total, "moe_lb": lb, "moe_dropped": dropped}
@@ -413,5 +479,6 @@ class LM(nn.Module):
 
 
 def build_lm(cfg: ModelConfig, device: torch.device,
-             generator: Optional[torch.Generator] = None) -> LM:
-    return LM(cfg, device, generator)
+             generator: Optional[torch.Generator] = None,
+             place: Optional[Callable] = None) -> LM:
+    return LM(cfg, device, generator, place)

@@ -146,15 +146,15 @@ class Mamba(nn.Module):
         d = cfg.d_model
         di, dtr, st = mamba_dims(cfg)
         self.cfg = cfg
-        self.in_proj = mk((d, 2 * di))
-        self.conv_w = mk((di, cfg.ssm.d_conv))
-        self.conv_b = mk((di,), init="zeros")
-        self.x_proj = mk((di, dtr + 2 * st))
-        self.dt_w = mk((dtr, di))
-        self.dt_b = mk((di,), init="zeros")
-        self.A_log = mk((di, st), init="slog")
-        self.D = mk((di,), init="ones")
-        self.out_proj = mk((di, d))
+        self.in_proj = mk((d, 2 * di), ("embed", "mlp"))
+        self.conv_w = mk((di, cfg.ssm.d_conv), ("mlp", "conv"))
+        self.conv_b = mk((di,), ("mlp",), init="zeros")
+        self.x_proj = mk((di, dtr + 2 * st), ("mlp", None))
+        self.dt_w = mk((dtr, di), (None, "mlp"))
+        self.dt_b = mk((di,), ("mlp",), init="zeros")
+        self.A_log = mk((di, st), ("mlp", "state"), init="slog")
+        self.D = mk((di,), ("mlp",), init="ones")
+        self.out_proj = mk((di, d), ("mlp", "embed"))
 
     def forward(self, x: torch.Tensor, state: Optional[State] = None
                 ) -> Tuple[torch.Tensor, Optional[State]]:
@@ -273,18 +273,18 @@ class MLSTM(nn.Module):
         d, H = cfg.d_model, cfg.num_heads
         di, dh = mlstm_dims(cfg)
         self.cfg = cfg
-        self.up_proj = mk((d, 2 * di))
-        self.conv_w = mk((di, CONV_K))
-        self.conv_b = mk((di,), init="zeros")
-        self.wq = mk((H, dh, dh))
-        self.wk = mk((H, dh, dh))
-        self.wv = mk((H, dh, dh))
-        self.w_i = mk((di, H))
-        self.b_i = mk((H,), init="zeros")
-        self.w_f = mk((di, H))
-        self.b_f = mk((H,), init="ones")
-        self.out_norm = mk((di,), init="ones")
-        self.down_proj = mk((di, d))
+        self.up_proj = mk((d, 2 * di), ("embed", "mlp"))
+        self.conv_w = mk((di, CONV_K), ("mlp", "conv"))
+        self.conv_b = mk((di,), ("mlp",), init="zeros")
+        self.wq = mk((H, dh, dh), ("heads", None, None))
+        self.wk = mk((H, dh, dh), ("heads", None, None))
+        self.wv = mk((H, dh, dh), ("heads", None, None))
+        self.w_i = mk((di, H), ("mlp", "heads"))
+        self.b_i = mk((H,), ("heads",), init="zeros")
+        self.w_f = mk((di, H), ("mlp", "heads"))
+        self.b_f = mk((H,), ("heads",), init="ones")
+        self.out_norm = mk((di,), ("mlp",), init="ones")
+        self.down_proj = mk((di, d), ("mlp", "embed"))
 
     def forward(self, x: torch.Tensor, state: Optional[State] = None
                 ) -> Tuple[torch.Tensor, Optional[State]]:
@@ -375,14 +375,14 @@ class SLSTM(nn.Module):
         dh = d // H
         self.cfg = cfg
         for g in SLSTM_GATES:
-            setattr(self, f"w_{g}", mk((d, d)))
-            setattr(self, f"r_{g}", mk((H, dh, dh), scale=0.01))
-            setattr(self, f"b_{g}", mk((d,), init="ones" if g == "f" else "zeros"))
-        self.out_norm = mk((d,), init="ones")
+            setattr(self, f"w_{g}", mk((d, d), ("embed", "mlp")))
+            setattr(self, f"r_{g}", mk((H, dh, dh), ("heads", None, None), scale=0.01))
+            setattr(self, f"b_{g}", mk((d,), ("mlp",), init="ones" if g == "f" else "zeros"))
+        self.out_norm = mk((d,), ("embed_act",), init="ones")
         f = -(-4 * d // 3 // 8) * 8
-        self.ffn_gate = mk((d, f))
-        self.ffn_up = mk((d, f))
-        self.ffn_down = mk((f, d))
+        self.ffn_gate = mk((d, f), ("embed", "mlp"))
+        self.ffn_up = mk((d, f), ("embed", "mlp"))
+        self.ffn_down = mk((f, d), ("mlp", "embed"))
 
     def forward(self, x: torch.Tensor, state: Optional[State] = None
                 ) -> Tuple[torch.Tensor, Optional[State]]:

@@ -514,7 +514,7 @@ class OTServingEngine:
         Group-size padding granularity (rows per group rounded up).
     dtype : numpy dtype, optional
         Storage dtype of the slot arrays (float32 everywhere in practice).
-    mesh : DeviceMesh, optional
+    mesh : AxisMesh, optional
         A 1-D batch mesh (:func:`repro_torch.core.distributed.make_batch_mesh`):
         every bucket packs ``mesh.size * max_batch`` slots over the ranks,
         each of which runs this engine on the same requests (module

@@ -1,4 +1,20 @@
-"""Logical-axis sharding rules of the port (the solver's problem axis)."""
-from repro_torch.sharding.partition import Rules, batch_solve_rules, fit_spec
+"""Logical-axis sharding rules of the port: the solver's problem axis and the LM mesh."""
+from repro_torch.sharding.partition import (
+    Placement,
+    Rules,
+    batch_solve_rules,
+    constrain,
+    current_rules,
+    cut,
+    data_shard_count,
+    default_rules,
+    fit_spec,
+    replicated_rules,
+    sharding_tree,
+    spec_tree,
+    use_rules,
+)
 
-__all__ = ["Rules", "batch_solve_rules", "fit_spec"]
+__all__ = ["Placement", "Rules", "batch_solve_rules", "constrain", "current_rules", "cut",
+           "data_shard_count", "default_rules", "fit_spec", "replicated_rules",
+           "sharding_tree", "spec_tree", "use_rules"]

@@ -1,17 +1,33 @@
-"""Logical-axis names -> mesh axes, for the solver's problem axis.
+"""Logical-axis sharding: names -> mesh axes (MaxText-style rules), as
+``repro.sharding.partition``.
 
-Counterpart of the solver half of ``repro.sharding.partition``: a
-:class:`Rules` table maps a logical axis name to the mesh axes it spreads
-over.  A spec is a plain tuple standing for ``jax.sharding.PartitionSpec``:
-one entry per array dimension, ``None`` (replicated), one mesh axis name, or
-a tuple of names.  The LM rules of the JAX module (``default_rules``,
-``use_rules``, ``constrain``, ``sharding_tree``) serve the model stack,
-which is not ported yet (ROADMAP A4).
+Parameters and activations carry LOGICAL axis names (``ParamInit``
+records each parameter's); a :class:`Rules` table maps them to mesh axes.
+:func:`default_rules` is FSDP over the data axes x tensor parallelism over
+``model`` x expert parallelism over ``model``.  A spec is a plain tuple
+standing for ``jax.sharding.PartitionSpec``: one entry per array
+dimension, ``None`` (replicated), one mesh axis name, or a tuple of names.
+
+The mesh is :class:`repro_torch.core.distributed.AxisMesh`: one rank per
+GPU, every rank running the same program.  A tensor "at rest" on a mesh
+is stored on each rank as exactly the block that JAX's
+``NamedSharding(mesh, fit_spec(shape, rules.spec(axes), sizes))`` puts on
+the device at the same mesh coordinate: mesh axes that share a dimension
+split it major to minor (:class:`Placement`, :func:`sharding_tree`,
+:func:`cut`).  :func:`use_rules` installs rules and a mesh for the code
+inside it: :func:`data_shard_count` then counts the data shards, and
+:func:`constrain` names an activation's layout.  The model code runs per
+rank on its blocks (``models/``); :func:`place_module` puts a model's
+parameters at rest on a mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+import threading
+from typing import Dict, Iterator, Optional, Sequence, Tuple
+
+import torch
 
 Spec = Tuple[object, ...]
 
@@ -90,3 +106,380 @@ def fit_spec(shape, spec: Spec, mesh_sizes: Dict[str, int]) -> Spec:
         else:
             out.append(axes)
     return tuple(out)
+
+
+def default_rules(mesh_axis_names: Sequence[str]) -> Rules:
+    """FSDP (the data axes) x TP (``model``) x EP (``model``): the JAX table."""
+    fsdp = tuple(a for a in ("pod", "data") if a in mesh_axis_names)
+    model = ("model",) if "model" in mesh_axis_names else ()
+    table = (
+        ("batch", fsdp),
+        ("vocab", model),
+        ("embed", fsdp),           # ZeRO-3 style parameter sharding
+        ("embed_act", ()),         # activation d_model stays unsharded
+        ("mlp", model),
+        ("heads", model),
+        ("kv_heads", ()),
+        ("head_dim", ()),
+        ("expert", model),
+        ("expert_cap", fsdp),      # capacity dim shards over data axes (EP)
+        ("expert_mlp", ()),
+        ("layers", ()),
+        ("seq", ()),
+        ("kv_seq", ()),
+        ("frames", ()),
+        ("image", ()),
+        ("q_lora", ()),
+        ("kv_lora", ()),
+        ("state", ()),
+        ("conv", ()),
+    )
+    return Rules(table=table)
+
+
+def replicated_rules(mesh_axis_names: Sequence[str]) -> Rules:
+    """Everything replicated: single-host smoke tests."""
+    return Rules(table=(("batch", ()),))
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (None, a name, or a tuple of names)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+# -- placements -------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a tensor of ``shape`` lies on ``mesh``: its fitted ``spec``, and on a mesh
+    with ranks this rank's block (``index``, one slice per dimension) and
+    ``local_shape``."""
+
+    spec: Spec
+    mesh: object
+    shape: Tuple[int, ...]
+    index: Optional[Tuple[slice, ...]]
+    axes: Tuple[Optional[str], ...] = ()
+
+    @property
+    def local_shape(self) -> Optional[Tuple[int, ...]]:
+        if self.index is None:
+            return None
+        return tuple(s.stop - s.start for s in self.index)
+
+    @property
+    def used_axes(self) -> Tuple[str, ...]:
+        """The mesh axes that split the tensor."""
+        return tuple(a for e in self.spec for a in spec_axes(e))
+
+    @property
+    def replicated_axes(self) -> Tuple[str, ...]:
+        """The mesh axes of size > 1 over which the tensor is replicated."""
+        used = self.used_axes
+        return tuple(a for a, n in self.mesh.sizes.items() if a not in used and n > 1)
+
+    def cut(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the full tensor (a copy, carrying this placement as its
+        ``placement``)."""
+        if tuple(full.shape) != self.shape:
+            raise ValueError(f"a tensor of shape {tuple(full.shape)} for a placement of "
+                             f"{self.shape}")
+        out = full[self.index].clone()
+        out.placement = self
+        return out
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The full tensor from every rank's block (no gradient): each split dimension
+        all-gathered over its axes."""
+        from repro_torch.core import distributed as D
+
+        out = local.detach()
+        for dim, entry in enumerate(self.spec):
+            out = D.all_gather_axes(out, self.mesh, spec_axes(entry), dim)
+        return out
+
+
+def placement(shape, axes: Sequence[Optional[str]], rules: Rules, mesh) -> Placement:
+    """The placement of a tensor of ``shape`` with logical ``axes`` under ``rules`` (on a
+    mesh of sizes only: no block)."""
+    shape = tuple(int(s) for s in shape)
+    spec = fit_spec(shape, rules.spec(axes), mesh.sizes)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    index = None
+    if mesh.coordinate is not None:
+        index = []
+        for dim, entry in zip(shape, spec):
+            ax = spec_axes(entry)
+            n = mesh.group_size(ax)
+            k = dim // n
+            pos = mesh.position(ax)
+            index.append(slice(pos * k, (pos + 1) * k))
+        index = tuple(index)
+    return Placement(spec, mesh, shape, index, tuple(axes))
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(a, str) or a is None for a in x)
+
+
+def _tree_map(fn, tree, *rest):
+    if _is_axes(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    raise TypeError(f"not a tree of logical axes: {tree!r}")
+
+
+def spec_tree(logical_tree, rules: Rules):
+    """A tree of logical-axes tuples mapped to specs."""
+    return _tree_map(rules.spec, logical_tree)
+
+
+def sharding_tree(logical_tree, rules: Rules, mesh, shapes=None):
+    """Logical axes -> :class:`Placement`s, fitted to ``shapes`` (a like tree of tensors
+    or shapes) where given; without shapes, each placement has the unfitted spec and no
+    block."""
+    if shapes is None:
+        return _tree_map(lambda ax: Placement(rules.spec(ax), mesh, (), None), logical_tree)
+    shape_of = lambda t: tuple(t.shape) if hasattr(t, "shape") else tuple(t)
+    return _tree_map(lambda ax, t: placement(shape_of(t), ax, rules, mesh), logical_tree,
+                     shapes)
+
+
+def cut(full: torch.Tensor, axes: Sequence[Optional[str]], rules: Rules, mesh) -> torch.Tensor:
+    """This rank's block of ``full`` under ``rules`` on ``mesh``."""
+    return placement(full.shape, axes, rules, mesh).cut(full)
+
+
+# -- the rules in force -----------------------------------------------------------------
+
+_ctx = threading.local()
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[Rules], mesh=None) -> Iterator[None]:
+    """Install ``rules`` (and ``mesh``) for the code inside: :func:`constrain` and
+    :func:`data_shard_count` read them."""
+    prev = getattr(_ctx, "state", None)
+    _ctx.state = (rules, mesh)
+    try:
+        yield
+    finally:
+        _ctx.state = prev
+
+
+def checkpoint_contexts():
+    """``context_fn`` for ``torch.utils.checkpoint``: (forward, recompute) context managers
+    under which the recompute, which autograd may run on another thread (a CUDA device's),
+    sees the rules and mesh in force at the forward."""
+    state = getattr(_ctx, "state", None)
+
+    @contextlib.contextmanager
+    def again():
+        prev = getattr(_ctx, "state", None)
+        _ctx.state = state
+        try:
+            yield
+        finally:
+            _ctx.state = prev
+
+    return contextlib.nullcontext(), again()
+
+
+def current_rules() -> Optional[Rules]:
+    st = getattr(_ctx, "state", None)
+    return st[0] if st else None
+
+
+def current_mesh():
+    st = getattr(_ctx, "state", None)
+    return st[1] if st else None
+
+
+def data_shard_count() -> int:
+    """Product of the sizes of the mesh axes the ``batch`` logical axis maps to (1 with
+    no rules or no mesh installed): the shard-local MoE dispatch's shard count."""
+    st = getattr(_ctx, "state", None)
+    if not st or st[0] is None or st[1] is None:
+        return 1
+    rules, mesh = st
+    return mesh.group_size(rules.lookup("batch"))
+
+
+def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """Name the layout of activation ``x`` by its logical ``axes``; a no-op outside
+    :func:`use_rules`.
+
+    The port's model code runs per rank and makes each activation in the
+    layout its axes name (its data shard of the batch, its block of heads);
+    inside :func:`use_rules` this checks that ``x`` has one logical axis per
+    dimension and returns it.
+    """
+    if current_rules() is not None and len(axes) != x.ndim:
+        raise ValueError(f"{len(axes)} logical axes {axes} for a tensor of shape "
+                         f"{tuple(x.shape)}")
+    return x
+
+
+# -- a model's parameters at rest on a mesh ---------------------------------------------
+
+#: Logical axes whose blocks a rank computes on (tensor and expert parallelism): a
+#: parameter's other split dimensions are gathered just before use.
+TP_AXES = ("heads", "mlp", "vocab", "expert")
+
+#: The model families the LM mesh runs (ROADMAP A4 (e) has the others).
+MESH_FAMILIES = ("dense", "moe")
+
+
+def on_mesh(mesh) -> bool:
+    """True for a mesh of more than one rank that this process is a rank of (not a mesh of
+    sizes only)."""
+    return mesh is not None and mesh.size() > 1 and getattr(mesh, "coordinate", 0) is not None
+
+
+def check_mesh_family(cfg, mesh) -> None:
+    """Raise ``NotImplementedError`` for a family the LM mesh does not run (other than
+    dense and MoE, MLA included, or the OT router) on a mesh of several ranks."""
+    if on_mesh(mesh) and (cfg.family not in MESH_FAMILIES or cfg.mla is not None
+                          or (cfg.moe is not None and cfg.moe.ot_balance)):
+        raise NotImplementedError(f"{cfg.arch_id} ({cfg.family}"
+                                  f"{', MLA' if cfg.mla is not None else ''}) on a mesh of "
+                                  f"{mesh.size()} ranks: the LM mesh runs the dense and MoE "
+                                  "families without the OT router (ROADMAP A4 (e))")
+
+
+def place_module(module: torch.nn.Module, rules: Rules, mesh, cut_params: bool = True):
+    """Put ``module``'s parameters at rest on ``mesh``: each submodule records its
+    parameters' placements, and (``cut_params``, off the ``meta`` device) each parameter
+    not yet at its block's shape is replaced by this rank's block of it (a parameter that
+    ``ParamInit`` cut as it drew it carries its whole leaf's ``full_shape``).  A mesh of
+    one rank changes nothing: the model stays on the single-device path, bit for bit.
+    Families other than dense and MoE raise as :func:`check_mesh_family` says."""
+    if not on_mesh(mesh):
+        return module
+    cfg = getattr(module, "cfg", None)
+    if cfg is not None:
+        check_mesh_family(cfg, mesh)
+    for sub in module.modules():
+        pls = {}
+        for name, p in list(sub._parameters.items()):
+            if p is None:
+                continue
+            pl = placement(getattr(p, "full_shape", p.shape), p.logical_axes, rules, mesh)
+            pls[name] = pl
+            if cut_params and p.device.type != "meta" and tuple(p.shape) != pl.local_shape:
+                q = torch.nn.Parameter(pl.cut(p.detach()), requires_grad=p.requires_grad)
+                q.logical_axes = p.logical_axes
+                sub._parameters[name] = q
+        sub._placements = pls
+        sub._mesh = (rules, mesh)
+    return module
+
+
+def module_mesh(module: torch.nn.Module):
+    """``(rules, mesh)`` of a module placed on a mesh of several ranks, else None."""
+    return getattr(module, "_mesh", None)
+
+
+def placements(module: torch.nn.Module) -> Dict[str, Placement]:
+    """name -> placement of every parameter of a placed module (empty off a mesh)."""
+    out = {}
+    for prefix, sub in module.named_modules():
+        for name, pl in getattr(sub, "_placements", {}).items():
+            out[f"{prefix}.{name}" if prefix else name] = pl
+    return out
+
+
+def weight(module: torch.nn.Module, name: str, keep: Sequence[str] = TP_AXES) -> torch.Tensor:
+    """Parameter ``name`` of ``module`` as this rank computes with it: off a mesh the
+    parameter itself; on one, its block gathered (autograd: the gradient comes back
+    reduce-scattered) over every split dimension whose logical axis is not in ``keep``."""
+    p = getattr(module, name)
+    pl = getattr(module, "_placements", {}).get(name)
+    if pl is None:
+        return p
+    from repro_torch.core import distributed as D
+
+    for dim, (ax, entry) in enumerate(zip(pl.axes, pl.spec)):
+        if entry is not None and ax not in keep:
+            p = D.all_gather_axes(p, pl.mesh, spec_axes(entry), dim)
+    return p
+
+
+def split(module: torch.nn.Module, name: str, dim: int) -> Tuple[Tuple[str, ...], int, int]:
+    """``(mesh axes, start, size)`` of this rank's block of dimension ``dim`` of parameter
+    ``name`` (off a mesh: ``((), 0, the full size)``)."""
+    pl = getattr(module, "_placements", {}).get(name)
+    if pl is None:
+        return (), 0, int(getattr(module, name).shape[dim])
+    sl = pl.index[dim]
+    return spec_axes(pl.spec[dim]), sl.start, sl.stop - sl.start
+
+
+def reduce_split(module: torch.nn.Module, name: str, dim: int, x: torch.Tensor) -> torch.Tensor:
+    """``x``, a sum over this rank's block of dimension ``dim`` of parameter ``name``,
+    summed over the ranks that hold the other blocks (autograd all-reduce)."""
+    axes = split(module, name, dim)[0]
+    if not axes:
+        return x
+    from repro_torch.core import distributed as D
+
+    return D.all_reduce_axes(x, module._mesh[1], axes)
+
+
+def batch_axes(rules: Rules, mesh) -> Tuple[str, ...]:
+    """The mesh axes of size > 1 a batch splits over (its data shards)."""
+    return tuple(a for a in rules.lookup("batch") if mesh.sizes.get(a, 1) > 1)
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], rules: Rules, mesh) -> Dict[str, torch.Tensor]:
+    """This rank's data shard of every tensor of a global batch (rows over the batch
+    axes); the batch must split evenly."""
+    axes = batch_axes(rules, mesh)
+    n = mesh.group_size(axes)
+    pos = mesh.position(axes)
+    out = {}
+    for k, t in batch.items():
+        if t.shape[0] % n:
+            raise ValueError(f"batch[{k!r}] has {t.shape[0]} rows for {n} data shards")
+        b = t.shape[0] // n
+        out[k] = t[pos * b:(pos + 1) * b]
+    return out
+
+
+def reduce_grads(grads: Dict[str, torch.Tensor],
+                 pls: Dict[str, Placement]) -> Dict[str, torch.Tensor]:
+    """Each gradient block summed over the mesh axes its parameter is replicated over (one
+    all-reduce per set of axes and dtype, the leaves in name order), in place."""
+    from repro_torch.core import distributed as D
+
+    groups: Dict[tuple, list] = {}
+    for name in sorted(grads):
+        pl = pls.get(name)
+        if pl is not None and pl.replicated_axes:
+            groups.setdefault((pl.replicated_axes, grads[name].dtype), []).append(name)
+    for (axes, _), names in groups.items():
+        flat = torch.cat([grads[n].reshape(-1) for n in names])
+        flat = D.all_reduce_axes(flat, pls[names[0]].mesh, axes)
+        for n, part in zip(names, torch.split(flat, [grads[n].numel() for n in names])):
+            grads[n] = part.view_as(grads[n])
+    return grads
+
+
+def global_norm(tree: Dict[str, torch.Tensor], pls: Dict[str, Placement]) -> torch.Tensor:
+    """The L2 norm (float32) of a tree of parameter blocks over the whole mesh: each
+    distinct block counted once (a block replicated over some axes counts on the rank at
+    index 0 along them), summed over every rank."""
+    from repro_torch.core import distributed as D
+
+    mesh = next(iter(pls.values())).mesh
+    sq = torch.zeros((), dtype=torch.float32, device=next(iter(tree.values())).device)
+    for name in sorted(tree):
+        pl = pls[name]
+        if all(mesh.index(a) == 0 for a in pl.replicated_axes):
+            sq = sq + torch.sum(torch.square(tree[name].float()))
+    return torch.sqrt(D.all_reduce_axes(sq, mesh, mesh.axis_names))

@@ -4,8 +4,9 @@ The watchdog tracks per-step wall times and flags a step beyond
 ``ratio_threshold`` x the rolling median; the detection is pure and
 tested with simulated clocks.  Crash and restart go through the
 checkpoint (``training/checkpoint.py``, crash-atomic) and the
-deterministic data pipeline.  ``remesh_state`` (re-sharding a state onto
-another mesh) waits for the LM mesh slice (ROADMAP A4 (d)).
+deterministic data pipeline.  ``remesh_state`` re-cuts a state for another
+mesh (elastic resize): each leaf gathered whole from its blocks, then cut
+to this rank's block on the new mesh.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import time
 from collections import deque
 from typing import Deque, List, Optional
 
+from repro_torch.sharding.partition import Rules, sharding_tree
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("elastic")
@@ -67,3 +69,39 @@ class StragglerWatchdog:
                 )
         self.window.append(duration)
         return event
+
+
+def remesh_state(state, new_mesh, rules: Rules, axes_tree):
+    """Re-cut a state tree for ``new_mesh`` (every rank calls it).
+
+    ``state`` is a tree (dicts / lists) of tensors: whole ones, or blocks on a
+    mesh, which carry their ``placement`` (as this function and
+    ``sharding.partition.Placement.cut`` tag them).  Each leaf is gathered
+    whole from its blocks, then cut for ``new_mesh`` under ``rules`` and the
+    logical axes of ``axes_tree`` (a like tree); the new blocks carry their
+    placements.  Every value is kept bit for bit.
+    """
+    def whole(t):
+        pl = getattr(t, "placement", None)
+        return t if pl is None else pl.gather(t)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
+        return whole(tree)
+
+    full = walk(state)
+    shardings = sharding_tree(axes_tree, rules, new_mesh, shapes=full)
+
+    def recut(tree, sh):
+        if isinstance(tree, dict):
+            return {k: recut(v, sh[k]) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(recut(v, sh[i]) for i, v in enumerate(tree))
+        out = sh.cut(tree)
+        out.placement = sh
+        return out
+
+    return recut(full, shardings)

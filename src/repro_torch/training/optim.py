@@ -57,19 +57,35 @@ def init_opt_state(params: Params, cfg: OptimizerConfig) -> Dict:
     return state
 
 
+def opt_state_logical_axes(param_axes: Dict, cfg: OptimizerConfig, has_master: bool) -> Dict:
+    """The optimizer state's logical axes: each moment (and master copy) its parameter's."""
+    state = {"m": dict(param_axes), "v": dict(param_axes), "step": ()}
+    if has_master:
+        state["master"] = dict(param_axes)
+    return state
+
+
 @torch.no_grad()
 def adamw_update(params: Params, grads: Params, state: Dict, cfg: OptimizerConfig,
-                 decay: Optional[Dict[str, bool]] = None) -> Tuple[Params, Dict, Dict]:
+                 decay: Optional[Dict[str, bool]] = None,
+                 placements: Optional[Dict] = None) -> Tuple[Params, Dict, Dict]:
     """One AdamW step, in place; returns ``(params, state, {"lr", "grad_norm"})``.
 
     ``decay`` marks the parameters weight decay applies to; by default those
     of 2 or more dimensions, the JAX rule on a tree whose leaves are these
-    tensors.
+    tensors.  ``placements`` (name -> ``sharding.partition.Placement``): the
+    parameters are blocks on a mesh, and the clip's global norm is the whole
+    model's (``partition.global_norm``: each distinct block counted once).
     """
     state["step"] += 1
     step = state["step"]
     lr = lr_schedule(cfg, step)
-    gnorm = tree_global_norm(grads)
+    if placements:
+        from repro_torch.sharding.partition import global_norm
+
+        gnorm = global_norm(grads, placements)
+    else:
+        gnorm = tree_global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
              if cfg.grad_clip > 0 else None)
 

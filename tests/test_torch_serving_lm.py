@@ -358,11 +358,16 @@ def test_abstract_train_state_on_meta():
     from repro_torch.launch import steps
 
     for arch in ("smollm-135m", "qwen2-moe-a2.7b"):
-        state = steps.abstract_train_state(get_config(arch), OptimizerConfig())
-        jstate, _ = jsteps.abstract_train_state(jget_config(arch), JOptimizerConfig())
+        state, axes = steps.abstract_train_state(get_config(arch), OptimizerConfig())
+        jstate, jaxes = jsteps.abstract_train_state(jget_config(arch), JOptimizerConfig())
         assert all(t.device.type == "meta" for d in (state["params"], state["opt"]["m"],
                                                      state["opt"]["master"])
                    for t in d.values())
+        for kind in ("params", "m", "v", "master"):
+            got = axes["params"] if kind == "params" else axes["opt"][kind]
+            want = jaxes["params"] if kind == "params" else jaxes["opt"][kind]
+            assert convert.lm_axes_to_tree(get_config(arch), got) == want, kind
+        assert axes["opt"]["step"] == jaxes["opt"]["step"] == ()
         for kind in ("m", "v", "master"):
             stacked = convert.lm_params_to_tree(get_config(arch), state["opt"][kind])
             want = jax.tree_util.tree_leaves(jstate["opt"][kind])
