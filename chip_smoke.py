@@ -20,6 +20,10 @@
                                # phase 18 (b) alone, on four cards: the LM mesh
                                # (yi-9b at full width and depth on (2, 2), NCCL);
                                # part a (the full run's, one card) alone
+    python3 chip_smoke.py --serve-mesh-only
+                               # phase 19 (b) alone, on four cards: serving on the
+                               # LM mesh (phi3.5-moe-42b-a6.6b at full width and
+                               # depth on (1, 4) and (2, 2), NCCL)
 
 The main path is the default plan at the paper's largest scale:
 ``repro_torch.ot.compile(Problem.from_samples(...), ExecutionPlan(grad_impl=
@@ -204,7 +208,7 @@ Phases:
  15. the attention families at full width, random bf16 weights from seed 0, each
      sub-phase's model freed and the peak reset before the next: (a) ``minicpm3-4b``
      (MLA; 62 layers, 4 261 902 848 parameters, the cache 35 712 B a token, both
-     checked on ``meta``) cut to 31 layers for the smoke's time, served through
+     checked on ``meta``) cut to 16 layers for the smoke's time, served through
      ``ServingEngine`` as 14 (a) (eight requests of 64 + 32, four slots): each back
      once, those in recycled slots bit for bit each alone in a fresh engine, and in
      float32 the absorbed path (prefill, teacher-forced decode) within rtol / atol
@@ -231,11 +235,12 @@ Phases:
  16. the xLSTM family at full width, ``xlstm-1.3b`` (48 layers in 6 periods of an sLSTM
      and 7 mLSTMs, d_model 2048, 4 heads, 2 020 751 696 parameters, a recurrent state of
      706 560 000 B a sequence, both checked on ``meta``), random bf16 weights from seed 0:
-     (a) cut to 3 of its 6 periods (24 layers) for the smoke's time, served through
+     (a) cut to 2 of its 6 periods (16 layers) for the smoke's time, served through
      ``ServingEngine`` (four slots, eight requests with prompts of 2, 37, 64, 64,
      128, 129, 257 and 300 tokens, 32 new tokens each): each back once, those in recycled
      slots bit for bit each alone in a fresh engine (a slot's whole state replaced at
-     admission); (b) in float32, prefill and 8 teacher-forced decode steps within rtol /
+     admission); (b) in float32 on 3 of its 6 periods, prefill and 8 teacher-forced
+     decode steps within rtol /
      atol 2e-3 of ``LM.forward``, and a chunkwise prefill of 257 tokens (chunks of 128,
      128 and 1) against 257 decode steps from the zero state, its last logits and every
      state leaf within rtol / atol 2e-3; (c) trained with the OT alignment loss on phase
@@ -288,6 +293,19 @@ Phases:
      within 4 routed entries a layer, with it on one card's under the rules of two data
      shards, JAX's per-shard rule) against one card, step times and a profile of the
      last step (the collectives' device time) per rank.
+ 19. serving on the LM mesh (sharded prefill and decode, ``ServingEngine(mesh=)``, the
+     OT router over the whole batch): (a), in phase 18 (a)'s two gloo ranks on this
+     card, ``phi3.5-moe-42b-a6.6b`` cut to 2 of its 32 layers at full width (bf16
+     parameters, float32 compute) served on (1, 2) and (2, 1) against the card's engine
+     (every request's tokens equal, every rank's the same, the prefill logits within
+     rtol / atol 1e-3), and ``qwen2-moe-a2.7b`` cut to 2 layers with the OT router on
+     (2, 1) (each routing the one-device solve of the whole batch's router logits bit
+     for bit, the tokens beside the card's, row_dot / row_sum launched); (b)
+     ``--serve-mesh-only``, four cards, NCCL: ``phi3.5-moe-42b-a6.6b`` at full width
+     and depth (83.7 GB in bf16) on (1, 4) and (2, 2), 16 requests of 64-512 prompt
+     tokens and 32 new ones, 16 slots of 1 024 positions (ms a tick, tokens/s,
+     admission s, peak and state bytes, launches a tick, NCCL's device time in
+     profiled ticks, per rank), and the 2-layer cut on both meshes against one card.
 Phase 3 also runs K2-K8 at tile_n 4, 20, 40 and 128 on a narrow problem
 (K2, K3 and K7 in f32 and bf16; K2 and K7 on the staged loader at 128, 1024
 and 256, on the direct loads where a warp has lanes past the tile; K3 on the
@@ -300,7 +318,8 @@ for XLA's reductions and have no TPU kernel; their ``launches_ot_router``
 are phase 14 (c)'s; K1, K4, K5, K6 and K8 once more at phase 13's trainer
 shapes, ``@lm_step``, d = 576, phase 15 (b)'s, ``@mla_step``, d = 2560, phase 16
 (c)'s, ``@xlstm_step``, d = 2048, phase 17 (c)'s, ``@hybrid_step``, d = 8192, and
-phase 18 (a)'s, ``@lm_mesh_step``, d = 4096), the last line
+phase 18 (a)'s, ``@lm_mesh_step``, d = 4096; row_sum / row_dot's
+``launches_serve_mesh`` are phase 19 (a)'s OT router on (2, 1)), the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 from __future__ import annotations
@@ -3057,7 +3076,7 @@ def lm_ot_operands(tr, batch, device):
 
 
 def phase_lm_kernels(fp, a, b, mask, reg, counts, smi_line, device, phase="phase 13",
-                     suffix=LM_ROW, plain_runs=10):
+                     suffix=LM_ROW, plain_runs=3):
     """K1, K4, K5, K6 and K8 at a trainer's step-0 OT operands (phase 13: L_pad 8, g 4,
     n_pad 128, d 576; phase 15: d 2560; the chunked loader and K4's FactCost body), on the
     solve's duals, each held to its plain version as ``phase_kernels_wide_d`` holds them at
@@ -3748,7 +3767,8 @@ FAM_MLA_PARAMS = 4_261_902_848       # its parameter count (the JAX abstract ini
 FAM_MLA_CACHE_B = 35_712             # its cache a token: 62 layers x (256 + 32) x 2 B
 FAM_MLA_STEPS = 4                    # (b)'s trainer steps, then 2 split, 1 profiled
 FAM_MLA_TRAIN_LAYERS = 8             # (b)'s depth cut, for the smoke's time (PERF.md §4)
-FAM_MLA_SERVE_LAYERS = 31            # (a)'s depth cut, half of 62, for the smoke's time
+FAM_MLA_SERVE_LAYERS = 16            # (a)'s depth cut, for the smoke's time (31 until
+                                     # PR 27, which made room for phase 19 (a))
 FAM_STEP_HEADROOM = 12 * 2**30       # (b): a step's activations and temporaries
 FAM_ED_ARCH = "whisper-medium"
 FAM_ED_PARAMS = 791_827_456
@@ -4205,7 +4225,10 @@ XL_TF = dict(prompt=64, steps=8)     # (b): the teacher-forced check
 XL_CHUNKED = 257                     # (b): chunkwise prefill (128, 128, 1) vs decode steps
 XL_STEPS = 4                         # (c)'s trainer steps, then 2 split, 1 profiled
 XL_TRAIN_LAYERS = 8                  # (c)'s depth cut, 1 of 6 periods, for the smoke's time
-XL_SERVE_LAYERS = 24                 # (a)'s depth cut, 3 of 6 periods, for the smoke's time
+XL_SERVE_LAYERS = 16                 # (a)'s depth cut, 2 of 6 periods, for the smoke's time
+                                     # (3 until PR 27)
+XL_F32_LAYERS = 24                   # (b)'s depth cut, 3 of 6 periods (full depth until
+                                     # PR 27, which made room for phase 19 (a))
 
 
 def phase_xlstm_serve(smi_line, device):
@@ -4259,7 +4282,8 @@ def phase_xlstm_serve(smi_line, device):
 
 
 def phase_xlstm_f32(device):
-    """(b), float32 at full width and depth: prefill and teacher-forced decode against
+    """(b), float32 at full width on ``XL_F32_LAYERS`` of its 48 layers: prefill and
+    teacher-forced decode against
     ``LM.forward``, and a chunkwise prefill of ``XL_CHUNKED`` tokens (chunks of 128, 128
     and 1) against as many decode steps from the zero state: logits and every state leaf
     within rtol / atol 2e-3."""
@@ -4272,8 +4296,8 @@ def phase_xlstm_f32(device):
     from repro_torch.models import build_model
 
     cfg = get_config(XL_ARCH)
-    m32 = build_model(dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32"),
-                      device, seed=0)
+    m32 = build_model(dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
+                                          num_layers=XL_F32_LAYERS), device, seed=0)
     P, steps = XL_TF["prompt"], XL_TF["steps"]
     tf = torch.as_tensor(np.random.default_rng(22).integers(
         0, cfg.vocab_size, (2, P + steps)), device=device)
@@ -4309,8 +4333,8 @@ def phase_xlstm_f32(device):
 
 
 def phase_xlstm(smi_line, device):
-    """Phase 16 (see the module docstring): ``xlstm-1.3b`` served on 3 of its 6 periods,
-    checked in float32 at full width and depth, trained at full width on 1 period.  Returns the
+    """Phase 16 (see the module docstring): ``xlstm-1.3b`` served on 2 of its 6 periods,
+    checked in float32 at full width on 3, trained at full width on 1 period.  Returns the
     kernel-table rows at (c)'s OT shapes."""
     t_phase = time.perf_counter()
     lap = lambda what: print(f"[phase 16 +{time.perf_counter() - t_phase:.1f} s] {what}",
@@ -4350,7 +4374,7 @@ LMM_LOSS_RTOL, LMM_PARAM_ATOL = 1e-3, 5e-3          # against one card
 LMM_GNORM_RTOL, LMM_M_RTOL = 1e-3, 0.05
 LMM_DROP_ENTRIES = 4                 # routed entries a MoE layer's drops may differ by
 LMM_DIR = os.path.join(HERE, "_archive", "phase18")   # git-ignored: rank logs and results
-LMM_TIMEOUT_S = {"a": 240, "b": 900}
+LMM_TIMEOUT_S = {"a": 420, "b": 900}          # (a) with phase 19 (a) in its ranks
 LMM_ROW = "@lm_mesh_step"            # suffix of the kernel rows at (a)'s trainer shapes
 
 
@@ -4524,7 +4548,7 @@ def lm_mesh_rank(rank: int, init: str, part: str) -> None:
     say(f"phase 18 ({part}): backend {backend}, world size {world}, rank {rank} on {device} "
         f"({torch.cuda.get_device_name(device)})")
     names = ("data", "model")
-    out = {"backend": backend, "runs": {}}
+    out = {"backend": backend, "runs": {}, "serve": {}}
 
     def keep(label, run):
         out["runs"][label] = {k: v for k, v in run.items() if k not in ("params", "m")}
@@ -4535,8 +4559,8 @@ def lm_mesh_rank(rank: int, init: str, part: str) -> None:
 
     if part == "a":
         cfg = lmm_cut(LMM_ARCH, LMM_CUT)
-        for shape in ((1, 2), (2, 1)):
-            mesh = D.make_mesh(shape, names)
+        meshes = {shape: D.make_mesh(shape, names) for shape in ((1, 2), (2, 1))}
+        for shape, mesh in meshes.items():
             label = f"{LMM_ARCH} {LMM_CUT} layers on {shape}"
             tr = lmm_trainer(cfg, LMM_A, device, mesh)
             lmm_check_blocks(tr, label)
@@ -4549,6 +4573,12 @@ def lm_mesh_rank(rank: int, init: str, part: str) -> None:
                 f"peak {run['peak']} B, launches {run['launches']}")
             del tr, run
             free()
+        # phase 19 (a): serving on the same ranks and meshes
+        save = lambda name, obj: torch.save(obj, os.path.join(LMM_DIR, name)) \
+            if rank == 0 else None
+        sm_rank_a(meshes, device, out, save)
+        say("phase 19 (a): " + "; ".join(f"{k}: tokens {v['tokens']}, wall {v['wall']:.1f} s"
+                                          for k, v in out["serve"].items()))
     else:
         mesh = D.make_mesh((2, 2), names)
         # yi-9b at full width and depth: 3 steps of 8 x 512 tokens
@@ -4634,7 +4664,8 @@ def lm_mesh_rank(rank: int, init: str, part: str) -> None:
 
 
 def phase_lm_mesh(smi_line: str, part: str):
-    """Phase 18, the LM mesh (see the module docstring).  (a), in the full run: 2 gloo
+    """Phase 18, the LM mesh (see the module docstring); (a) runs phase 19 (a) in its
+    ranks too, and returns (kernel rows, phase 19 (a)'s row_dot / row_sum launches).  (a), in the full run: 2 gloo
     ranks on card 0, ``yi-9b`` cut to 2 layers at full width (bf16, AdamW with master
     weights, the OT term on 'pallas'), one step on a (data=1, model=2) and a (2, 1)
     mesh, each against one card's ``Trainer`` step of the same cut (here, before the
@@ -4677,6 +4708,7 @@ def phase_lm_mesh(smi_line: str, part: str):
         fused_launches = kbuild.launch_counts()
         del one, batch
         fresh_memory()
+        sm_ref = sm_reference(torch.device("cuda"))
         print(f"phase 18 (a) one card ({smi_line}): {LMM_ARCH} {LMM_CUT} layers, loss "
               f"{ref['loss']}, ot {ref['ot']}, state {ref['state_b']} B, peak {ref['peak']} B, "
               f"step {ref['walls']} s (split {ref['splits']}); launches {ref['launches']}; "
@@ -4754,8 +4786,10 @@ def phase_lm_mesh(smi_line: str, part: str):
         counts[K8] = (f"phase 18 (a) {LMM_ARCH} {LMM_CUT} layers, the step-0 OT term on one "
                       "card, grad_impl 'fused'", fused_launches.get(K8, 0))
         rows = phase_lm_kernels(*ops[:5], counts, smi_line, torch.device("cuda"),
-                                phase="phase 18 (a)", suffix=LMM_ROW, plain_runs=3)
+                                phase="phase 18 (a)", suffix=LMM_ROW)
         del ops
+        sm_launches = sm_compare_a(sm_ref, res,
+                                   lambda name: torch.load(os.path.join(LMM_DIR, name)))
         for name in os.listdir(LMM_DIR):
             if name.endswith(".pt"):
                 os.remove(os.path.join(LMM_DIR, name))
@@ -4769,7 +4803,420 @@ def phase_lm_mesh(smi_line: str, part: str):
             if "vs one card" in label:
                 print(f"phase 18 (b) {label}: {run}", flush=True)
     print(f"phase 18 ({part}) took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return rows
+    return (rows, sm_launches) if part == "a" else rows
+
+
+# -- phase 19: serving on the LM mesh (sharded prefill and decode, the OT router) --------
+
+SM_ARCH, SM_OT_ARCH = "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b"
+SM_PARAMS = 41_872_527_360           # phi3.5-moe-42b-a6.6b's parameter count (JAX's)
+SM_CUT = 2                           # the checks' depth cut: 2 of its 32 layers (and of
+                                     # qwen2-moe-a2.7b's 24 with the OT router)
+# (a)'s requests: on (2, 1) two gloo ranks gather every weight through the host at each
+# forward (9.6 s a forward for the check cut, PERF.md PR 27), so 2 prefills and 1 tick
+SM_CHECK = dict(prompts=(48, 96), new=2, max_batch=2, max_len=128)
+SM_CHECK_B = dict(prompts=(48, 64, 96, 80), new=4, max_batch=4, max_len=128)   # (b)'s
+SM_OT = dict(prompts=(32, 48), new=2, max_batch=2, max_len=64)      # (a)'s OT cut, (2, 1)
+SM_FULL = dict(requests=16, prompt=(64, 512), new=32, max_batch=16, max_len=1024)   # (b)
+SM_LOGIT_TOL = 1e-3                  # prefill logits against one card, rtol and atol
+SM_DIR = os.path.join(HERE, "_archive", "phase19")    # git-ignored: (b)'s rank logs
+SM_PROFILED_TICKS = 2                # (b): ticks under torch.profiler, a rank
+SM_TIMEOUT_S = 780
+
+
+def sm_pairs(vocab, spec, seed):
+    """(rid, prompt) pairs: ``spec['prompts']``' lengths, or ``spec['requests']`` of
+    lengths drawn in ``spec['prompt']``'s range."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = spec.get("prompts") or [int(n) for n in rng.integers(*spec["prompt"],
+                                                                 spec["requests"])]
+    return [(i, rng.integers(0, vocab, n).astype(np.int32)) for i, n in enumerate(lens)]
+
+
+def sm_ot_cut():
+    """``qwen2-moe-a2.7b`` cut to SM_CUT layers, routed by the OT solver (float32 compute,
+    as every check cut)."""
+    import dataclasses
+
+    cfg = lmm_cut(SM_OT_ARCH, SM_CUT)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ot_balance=True))
+
+
+def sm_serve(cfg, model, spec, seed, device, mesh=None):
+    """Serve ``spec``'s requests through ``ServingEngine`` (on ``mesh`` where given), each
+    admission and tick timed (``drive_engine``); the prefills' last logits, whole (the
+    vocabulary's blocks gathered on a mesh), on the host.  Returns (run, logits)."""
+    import logging
+
+    from repro_torch.core import distributed as D
+    from repro_torch.serving.engine import ServingEngine
+
+    logging.getLogger("serving").setLevel(logging.WARNING)     # no line a request
+    engine = ServingEngine(cfg, model, max_batch=spec["max_batch"], max_len=spec["max_len"],
+                           device=device, mesh=mesh)
+    logits, prefill = [], engine.model.prefill
+    axes = () if mesh is None else engine.model._vocab_block()[0]
+
+    def recording(tokens, caches, memory=None):
+        lg, caches = prefill(tokens, caches, memory)
+        logits.append(D.all_gather_axes(lg[0, -1], mesh, axes, 0).float().cpu()
+                      if axes else lg[0, -1].float().cpu())
+        return lg, caches
+
+    engine.model.prefill = recording
+    run = drive_engine(engine, sm_pairs(cfg.vocab_size, spec, seed), spec["new"])
+    engine.model.prefill = prefill
+    run["tokens"] = {r.rid: r.out_tokens for r in run["done"]}
+    run["engine"] = engine
+    return run, logits
+
+
+def sm_ot_run(cfg, model, device, mesh=None):
+    """The OT-routed cut served on SM_OT's requests: its tokens, solves, launches and wall;
+    on a mesh also whether every routing (each MoE layer at every prefill and tick) is,
+    bit for bit, the one-device ``ot_route`` of the whole batch's router logits (the
+    solve's inputs gathered here from the layer's input and the router weight)."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import _build
+    from repro_torch.ot import diff
+    from repro_torch.sharding import partition as P
+    from repro_torch.training import ot_routing
+
+    moes = [b.moe for b in model.blocks]
+    inputs = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: inputs.append((mod, args[0])))
+             for m in moes]
+    for m in moes:
+        m.routes = []
+    diff.reset_solve_count()
+    _build.reset_launch_counts()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    run, _ = sm_serve(cfg, model, SM_OT, 19, device, mesh)
+    torch.cuda.synchronize(device)
+    out = dict(tokens=run["tokens"], solves=diff.solve_count(),
+               launches=_build.launch_counts(), wall=time.perf_counter() - t0)
+    for h in hooks:
+        h.remove()
+    if mesh is not None:
+        data = run["engine"]._data
+        seen, same = {id(m): 0 for m in moes}, True
+        for mod, x in inputs:
+            topi, topw = mod.routes[seen[id(mod)]]
+            seen[id(mod)] += 1
+            axes = () if x.shape[1] > 1 else data         # a prefill's one row is whole
+            gather = lambda t: D.all_gather_axes(t, mesh, axes, 0) if axes else t
+            with torch.no_grad():
+                logits = (x.reshape(-1, x.shape[-1])
+                          @ P.weight(mod, "router", keep=()).to(x.dtype)).float()
+                whole = gather(logits)
+                ti, tw = ot_routing.ot_route(whole, num_seqs=whole.shape[0] // x.shape[1],
+                                             seq_len=x.shape[1], top_k=cfg.moe.top_k,
+                                             gamma=cfg.moe.ot_gamma, rho=cfg.moe.ot_rho)
+            same &= torch.equal(gather(topi), ti) and torch.equal(gather(topw), tw.float())
+        out["same_problem"] = bool(same)
+        out["routings"] = len(inputs)
+    for m in moes:
+        m.routes = None
+    return out
+
+
+def sm_reference(device):
+    """Phase 19 (a)'s one-card side, in the main process before the ranks start: the
+    check cut and the OT cut served on the card.  Returns their tokens and logits."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+
+    n = count_params(build_model(lmm_cut(SM_ARCH, 32), device="meta"))
+    check(n == SM_PARAMS, f"{SM_ARCH} has {n} parameters, not {SM_PARAMS}")
+    cfg = lmm_cut(SM_ARCH, SM_CUT)
+    model = build_model(cfg, device, seed=0)
+    run, logits = sm_serve(cfg, model, SM_CHECK, 19, device)
+    check_served("(a) one card", run["done"], len(SM_CHECK["prompts"]), SM_CHECK["new"],
+                 phase="phase 19")
+    ref = {"tokens": run["tokens"], "logits": logits}
+    del model, run
+    fresh_memory()
+    ot_cfg = sm_ot_cut()
+    ref["ot"] = sm_ot_run(ot_cfg, build_model(ot_cfg, device, seed=0), device)
+    fresh_memory()
+    print(f"phase 19 (a) one card: {SM_ARCH} cut to {SM_CUT} layers (bf16 parameters, float32 "
+          f"compute), tokens {ref['tokens']}; the OT cut ({SM_OT_ARCH}, {SM_CUT} layers) "
+          f"tokens {ref['ot']['tokens']}, {ref['ot']['solves']} solves, launches "
+          f"{ref['ot']['launches']}", flush=True)
+    torch.cuda.synchronize()
+    return ref
+
+
+def sm_rank_a(meshes, device, out, save):
+    """Phase 19 (a) on a rank of phase 18 (a)'s two gloo ranks: the check cut on (1, 2)
+    and (2, 1), the OT cut on (2, 1); every rank's tokens, rank 0's prefill logits
+    (``save``)."""
+    import torch
+
+    from repro_torch.models import build_on_mesh
+    from repro_torch.sharding import partition as P
+
+    cfg = lmm_cut(SM_ARCH, SM_CUT)
+    for shape, mesh in meshes.items():
+        t0 = time.perf_counter()
+        model = build_on_mesh(cfg, device, P.default_rules(mesh.axis_names), mesh)
+        run, logits = sm_serve(cfg, model, SM_CHECK, 19, device, mesh)
+        label = f"{SM_ARCH} {SM_CUT} layers on {shape}"
+        out["serve"][label] = dict(tokens=run["tokens"], admit=run["admit"],
+                                   ticks=run["ticks"], wall=time.perf_counter() - t0,
+                                   peak=run["peak"])
+        save(f"sm_{shape[0]}x{shape[1]}.pt", logits)
+        del model, run
+        fresh_memory()
+    ot_cfg, mesh = sm_ot_cut(), meshes[(2, 1)]
+    model = build_on_mesh(ot_cfg, device, P.default_rules(mesh.axis_names), mesh)
+    ot = sm_ot_run(ot_cfg, model, device, mesh)
+    out["serve"][f"{SM_OT_ARCH} {SM_CUT} layers, OT router, on (2, 1)"] = ot
+    del model
+    fresh_memory()
+    torch.cuda.synchronize(device)
+
+
+def sm_compare_a(ref, res, load):
+    """Phase 19 (a)'s checks: each mesh's tokens the card's and every rank's the same, its
+    prefill logits within SM_LOGIT_TOL of the card's; the OT cut's tokens every rank's
+    the same, each routing the one-device solve of the whole batch's router logits, its
+    row_dot / row_sum launched, its tokens beside the card's (the 40-iteration solve
+    moves with the last bits of its logits, ROADMAP C: reported, not held).  Returns
+    {kernel: (path, launches)} of the OT run."""
+    import torch
+
+    for shape in ((1, 2), (2, 1)):
+        label = f"{SM_ARCH} {SM_CUT} layers on {shape}"
+        got = [x["serve"][label] for x in res]
+        toks = [{int(k): v for k, v in g["tokens"].items()} for g in got]
+        check(all(t == toks[0] for t in toks), f"phase 19 (a) {label}: the ranks' tokens differ")
+        check(toks[0] == ref["tokens"], f"phase 19 (a) {label}: tokens {toks[0]} on the mesh, "
+                                        f"{ref['tokens']} on one card")
+        logits = load(f"sm_{shape[0]}x{shape[1]}.pt")
+        errs = [float((a - b).abs().max()) for a, b in zip(logits, ref["logits"])]
+        check(len(logits) == len(ref["logits"]) and all(
+            torch.allclose(a, b, rtol=SM_LOGIT_TOL, atol=SM_LOGIT_TOL)
+            for a, b in zip(logits, ref["logits"])),
+            f"phase 19 (a) {label}: prefill logits off one card's by {errs}")
+        g = got[0]
+        ticks = [t for _, t in g["ticks"]]
+        print(f"phase 19 (a) {label} (two gloo ranks on one card): every request's tokens "
+              f"the card's, every rank's the same; prefill logits within {SM_LOGIT_TOL} "
+              f"(max abs err {max(errs):.3e}); admission {g['admit']:.3f} s, "
+              f"{len(ticks)} ticks, median {sorted(ticks)[len(ticks) // 2] * 1e3:.1f} ms a "
+              f"tick, peak {g['peak']} B, {g['wall']:.1f} s with the draw", flush=True)
+    label = f"{SM_OT_ARCH} {SM_CUT} layers, OT router, on (2, 1)"
+    ots = [x["serve"][label] for x in res]
+    toks = [{int(k): v for k, v in o["tokens"].items()} for o in ots]
+    check(all(t == toks[0] for t in toks), f"phase 19 (a) {label}: the ranks' tokens differ")
+    check(all(o["same_problem"] for o in ots),
+          f"phase 19 (a) {label}: a routing is not the one-device solve of the whole "
+          f"batch's router logits")
+    ln, solves = ots[0]["launches"], ots[0]["solves"]
+    check(ln.get(ROW_DOT, 0) > 0 and ln.get(ROW_SUM, 0) > 0,
+          f"phase 19 (a) {label}: the router launched no {ROW_DOT} or {ROW_SUM}: {ln}")
+    agree = toks[0] == ref["ot"]["tokens"]
+    print(f"phase 19 (a) {label}: {solves} solves on each rank, each of the "
+          f"{ots[0]['routings']} routings the one-device ot_route of the whole batch's router "
+          f"logits bit for bit (every rank the same problem); tokens "
+          f"{'the card' + chr(39) + 's' if agree else 'NOT the card' + chr(39) + 's'} "
+          f"({toks[0]} / {ref['ot']['tokens']}); {ROW_DOT} {ln.get(ROW_DOT, 0)} "
+          f"({ln.get(ROW_DOT, 0) / solves:.1f} a solve), {ROW_SUM} {ln.get(ROW_SUM, 0)} "
+          f"({ln.get(ROW_SUM, 0) / solves:.1f} a solve) on rank 0; one card "
+          f"{ref['ot']['launches']}; {ots[0]['wall']:.1f} s", flush=True)
+    path = f"phase 19 (a) {label}, {SM_OT['max_batch']} slots, rank 0"
+    return {k: (path, ln.get(k, 0)) for k in (ROW_DOT, ROW_SUM)}
+
+
+def serve_mesh_rank(rank: int, init: str) -> None:
+    """One rank of phase 19 (b) (see ``phase_serve_mesh``); exits non-zero on any failed
+    check.  Its results go to ``SM_DIR/rank{rank}.json``."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.models import build_model, build_on_mesh
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.sharding import partition as P
+    from repro_torch.utils.tree import tree_bytes
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend, device = D.init_process_group(4, rank, init, timeout_s=900)
+    say = lambda msg: print(f"[{time.perf_counter() - t_start:.1f} s] {msg}", flush=True)
+    say(f"phase 19 (b): backend {backend}, rank {rank} on {device} "
+        f"({torch.cuda.get_device_name(device)})")
+    out = {"backend": backend, "runs": {}}
+    meshes = {shape: D.make_mesh(shape, ("data", "model")) for shape in ((1, 4), (2, 2))}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+    cfg = get_config(SM_ARCH)
+    for shape, mesh in meshes.items():
+        rules = P.default_rules(mesh.axis_names)
+        free()
+        t0 = time.perf_counter()
+        model = build_on_mesh(cfg, device, rules, mesh)
+        torch.cuda.synchronize(device)
+        t_draw = time.perf_counter() - t0
+        label = f"{SM_ARCH} 32 layers on {shape}"
+        cold, _ = sm_serve(cfg, model, SM_FULL, 20, device, mesh)    # the first, cold run
+        check_served(f"(b) {label}", cold["done"], SM_FULL["requests"], SM_FULL["new"],
+                     phase="phase 19")
+        state_b = tree_bytes(dict(model.named_parameters())) + cache_bytes(cold["engine"].caches)
+        cold = dict(tokens=cold["tokens"], wall=cold["wall"], admit=cold["admit"])
+        free()
+        run, _ = sm_serve(cfg, model, SM_FULL, 20, device, mesh)     # the timed, warm run
+        del run["engine"]
+        free()
+        engine = ServingEngine(cfg, model, max_batch=SM_FULL["max_batch"],
+                               max_len=SM_FULL["max_len"], device=device, mesh=mesh)
+        prof = profile_ticks(engine, sm_pairs(cfg.vocab_size, SM_FULL, 20), SM_FULL["new"],
+                             SM_PROFILED_TICKS, "phase 19 (b)")
+        wall, busy, n_dev, krows = prof
+        nccl = sum(us for k, us, _ in krows if "nccl" in k.lower()) / 1e6
+        run.pop("done")
+        out["runs"][label] = dict(
+            tokens=run["tokens"], ticks=run["ticks"], admit=run["admit"], wall=run["wall"],
+            peak=run["peak"], state_b=state_b, draw_s=t_draw, cold=cold,
+            profile=dict(wall_s=wall, busy_s=busy, launches=n_dev, nccl_s=nccl,
+                         top=[(k[:60], us / 1e3, c) for k, us, c in krows[:6]]))
+        say(f"{label}: wall {run['wall']:.2f} s, admission {run['admit']:.2f} s, "
+            f"{len(run['ticks'])} ticks, peak {run['peak']} B, state {state_b} B")
+        check(run["peak"] < 80e9, f"phase 19 (b) {label}: peak {run['peak']} B")
+        check(cold["tokens"] == run["tokens"], f"phase 19 (b) {label}: a second run gave "
+                                               "other tokens")
+        del model, engine, run
+        free()
+        # the check cut against one card (card 0, after every rank has served)
+        cut = lmm_cut(SM_ARCH, SM_CUT)
+        model = build_on_mesh(cut, device, rules, mesh)
+        run, logits = sm_serve(cut, model, SM_CHECK_B, 19, device, mesh)
+        label = f"{SM_ARCH} {SM_CUT} layers on {shape}"
+        out["runs"][label] = dict(tokens=run["tokens"])
+        if rank == 0:
+            torch.save(logits, os.path.join(SM_DIR, f"b_{shape[0]}x{shape[1]}.pt"))
+        del model, run
+        free()
+    if rank == 0:
+        cut = lmm_cut(SM_ARCH, SM_CUT)
+        run, logits = sm_serve(cut, build_model(cut, device, seed=0), SM_CHECK_B, 19, device)
+        out["one card"] = dict(tokens=run["tokens"])
+        torch.save(logits, os.path.join(SM_DIR, "b_one.pt"))
+        del run
+        free()
+    lmm_barrier(device)
+    with open(os.path.join(SM_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    lmm_barrier(device)
+
+
+def phase_serve_mesh(smi_line: str):
+    """Phase 19 (b), ``--serve-mesh-only`` on four cards (NCCL, a card a rank):
+    ``phi3.5-moe-42b-a6.6b`` at full width and depth (bf16, 83.7 GB: no card holds it)
+    served on (1, 4) and (2, 2), SM_FULL's 16 requests of 64-512 prompt tokens and 32 new
+    ones through 16 slots of 1 024 positions; its 2-layer float32-compute cut on both
+    meshes against one card (tokens equal, prefill logits within SM_LOGIT_TOL); per rank
+    ms a tick, tokens/s, admission s, peak and state bytes, launches a tick and NCCL's
+    device time in profiled ticks."""
+    import socket
+    import statistics
+
+    import torch
+
+    t_phase = time.perf_counter()
+    os.makedirs(SM_DIR, exist_ok=True)
+    for name in os.listdir(SM_DIR):
+        os.remove(os.path.join(SM_DIR, name))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(4):
+            log = open(os.path.join(SM_DIR, f"rank{r}.log"), "w")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--serve-mesh-rank", str(r),
+                 "--mesh-init", f"tcp://127.0.0.1:{port}"],
+                stdout=log, stderr=subprocess.STDOUT))
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break                          # one rank failed: stop the others
+            if time.perf_counter() - t0 > SM_TIMEOUT_S:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r in range(len(procs)):
+        with open(os.path.join(SM_DIR, f"rank{r}.log")) as f:
+            for line in f.read().splitlines()[-40:]:
+                print(f"  [rank {r}] {line}", flush=True)
+    rcs = [p.returncode for p in procs]
+    check(all(rc == 0 for rc in rcs), f"phase 19 (b): the ranks exited {rcs} after "
+                                      f"{time.perf_counter() - t0:.1f} s")
+    res = []
+    for r in range(4):
+        with open(os.path.join(SM_DIR, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    one = res[0]["one card"]["tokens"]
+    ref = torch.load(os.path.join(SM_DIR, "b_one.pt"))
+    for shape in ((1, 4), (2, 2)):
+        label = f"{SM_ARCH} {SM_CUT} layers on {shape}"
+        toks = [x["runs"][label]["tokens"] for x in res]
+        check(all(t == one for t in toks), f"phase 19 (b) {label}: tokens {toks} on the "
+                                           f"ranks, {one} on one card")
+        logits = torch.load(os.path.join(SM_DIR, f"b_{shape[0]}x{shape[1]}.pt"))
+        errs = [float((a - b).abs().max()) for a, b in zip(logits, ref)]
+        check(all(torch.allclose(a, b, rtol=SM_LOGIT_TOL, atol=SM_LOGIT_TOL)
+                  for a, b in zip(logits, ref)),
+              f"phase 19 (b) {label}: prefill logits off one card's by {errs}")
+        print(f"phase 19 (b) {label}: every rank's tokens one card's, prefill logits within "
+              f"{SM_LOGIT_TOL} (max abs err {max(errs):.3e})", flush=True)
+        label = f"{SM_ARCH} 32 layers on {shape}"
+        toks = [x["runs"][label]["tokens"] for x in res]
+        check(all(t == toks[0] for t in toks), f"phase 19 (b) {label}: the ranks' tokens differ")
+        other = res[0]["runs"][f"{SM_ARCH} 32 layers on {(1, 4)}"]["tokens"]
+        same = sum(toks[0][k] == other[k] for k in other)
+        print(f"phase 19 (b) {label}: every rank's tokens the same, bit for bit, in both runs; "
+              f"{same} of {len(other)} requests' tokens those of (1, 4) (bf16: the meshes sum "
+              f"in other orders)", flush=True)
+        for r, x in enumerate(res):
+            g = x["runs"][label]
+            ticks = [t for _, t in g["ticks"]]
+            n_tok = sum(len(v) for v in g["tokens"].values())
+            pr = g["profile"]
+            print(f"phase 19 (b) ({res[0]['backend']}, {smi_line}) {label} rank {r}, warm run "
+                  f"(the cold one {g['cold']['wall']:.3f} s, admission "
+                  f"{g['cold']['admit']:.3f} s): "
+                  f"{len(g['tokens'])} requests, {n_tok} tokens in {g['wall']:.3f} s "
+                  f"({n_tok / g['wall']:.1f} tokens/s); {len(ticks)} ticks, median "
+                  f"{statistics.median(ticks) * 1e3:.3f} ms a tick (min {min(ticks) * 1e3:.3f}, "
+                  f"max {max(ticks) * 1e3:.3f}); admission {g['admit']:.3f} s for "
+                  f"{len(g['tokens'])} prefills; state {g['state_b']} B (its parameter blocks "
+                  f"and cache), peak {g['peak']} B; drawn in {g['draw_s']:.1f} s; profile of "
+                  f"{SM_PROFILED_TICKS} ticks with {SM_FULL['max_batch']} live slots: wall "
+                  f"{pr['wall_s']:.4f} s, device busy {pr['busy_s']:.4f} s, "
+                  f"{pr['launches'] / SM_PROFILED_TICKS:.1f} device launches a tick, NCCL's "
+                  f"kernels {pr['nccl_s']:.4f} s (waits for peers included); largest "
+                  f"{pr['top']}", flush=True)
+    print(f"phase 19 (b) took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 # -- phase 17: the hybrid family (Mamba, attention and MoE layers) ---------------------
@@ -5481,6 +5928,11 @@ def main() -> None:
                     help="with --lm-mesh-only: the part of phase 18 (default b; a: two "
                          "gloo ranks on one card, as the full run)")
     ap.add_argument("--lm-mesh-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--serve-mesh-only", action="store_true",
+                    help="instead: build, then run phase 19 (b) alone: serving on the LM "
+                         "mesh on four cards (NCCL, (1, 4) and (2, 2)), phi3.5-moe-42b-a6.6b "
+                         "at full width and depth")
+    ap.add_argument("--serve-mesh-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--serve-only", action="store_true",
                     help="instead: build, then run phase 14 (LM serving, the MoE family and "
                          "the OT router) alone")
@@ -5496,6 +5948,9 @@ def main() -> None:
         return
     if args.lm_mesh_rank is not None:
         lm_mesh_rank(args.lm_mesh_rank, args.mesh_init, args.lm_mesh_part)
+        return
+    if args.serve_mesh_rank is not None:
+        serve_mesh_rank(args.serve_mesh_rank, args.mesh_init)
         return
     if args.compare_run:
         compare_run(args.out, args.bits)
@@ -5516,6 +5971,14 @@ def main() -> None:
     print(smi_line, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    if args.serve_mesh_only:                # no kernel on its path: nothing to build
+        check(torch.cuda.device_count() >= 4,
+              f"--serve-mesh-only needs four cards, found {torch.cuda.device_count()}")
+        phase_serve_mesh(smi_line)
+        print(f"{smi_line}; phase 19 (b) alone took {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return
 
     # 2. build
     from repro_torch.kernels import _build
@@ -5558,7 +6021,7 @@ def main() -> None:
         check(part == "a" or torch.cuda.device_count() >= 4,
               f"--lm-mesh-only needs four cards, found {torch.cuda.device_count()}")
         rows = phase_lm_mesh(smi_line, part)
-        print(json.dumps({"kernels": rows}), flush=True)
+        print(json.dumps({"kernels": rows[0] if part == "a" else rows}), flush=True)
         print(f"{smi_line}; phase 18 ({part}) alone took {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return
@@ -5650,7 +6113,9 @@ def main() -> None:
     hy_rows = phase_hybrid(smi_line, device)
     # 18. the LM mesh: two gloo ranks on this card, FSDP x TP against one card
     lap("phase 18")
-    lmm_rows = phase_lm_mesh(smi_line, "a")
+    lmm_rows, sm_launches = phase_lm_mesh(smi_line, "a")
+    for row in reduce_rows:                 # phase 19 (a)'s OT router on (2, 1)
+        row["launches_serve_mesh_path"], row["launches_serve_mesh"] = sm_launches[row["name"]]
     for row in solo_rows:
         if row["name"] == B12:          # the layer's grad_refine path runs it
             row["launches"] = refine_launches[B12]

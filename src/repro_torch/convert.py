@@ -182,8 +182,8 @@ def _stack_sizes(cfg: ModelConfig, path: tuple) -> tuple:
     return (steps,)
 
 
-def lm_params_from_numpy(cfg: ModelConfig, params: Mapping,
-                         device: DeviceLike = "cpu") -> Dict[str, torch.Tensor]:
+def lm_params_from_numpy(cfg: ModelConfig, params: Mapping, device: DeviceLike = "cpu",
+                         mesh=None, rules=None) -> Dict[str, torch.Tensor]:
     """The port's model state dict from a JAX model's parameter tree, bit for bit.
 
     ``params`` is the nested dict ``repro.models.build_model(cfg).init(...)[0]``
@@ -194,10 +194,14 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping,
     ``blocks.{i}.mlstm.{j}.wq``, a hybrid's ``blocks/mamba/A_log``
     ``blocks.{i}.mamba.{j}.A_log``; an encoder-decoder's ``encoder/attn/wq``
     becomes ``encoder.{i}.attn.wq``.  Names and shapes are checked against the
-    port's model of ``cfg``; load the result with ``model.load_state_dict``.
+    port's model of ``cfg``; load the result with ``model.load_state_dict``.  With a
+    ``mesh`` of ranks (and ``rules``, by default ``default_rules``) each leaf is cut to
+    this rank's block as it is taken (carrying its ``placement``), for a model placed
+    there (``ServingEngine(mesh=)``, ``launch.steps`` under ``use_rules``).
     """
     dev = torch.device(device)
-    out = {}
+    out, got = {}, {}
+    cut = _cutter(cfg, mesh, rules)
 
     def walk(tree, path):
         for k, v in tree.items():
@@ -211,15 +215,30 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping,
                 parts = []
                 for j, part in enumerate(leaf):
                     parts += [part, str(idx[j])] if j < len(idx) else [part]
-                out[".".join(parts)] = t[idx].to(dev, copy=True)
+                name = ".".join(parts)
+                got[name] = tuple(t[idx].shape)
+                if name in want:
+                    out[name] = _to(cut(name, t[idx]), dev)
 
-    walk(params, ())
     want = {k: tuple(p.shape) for k, p in _model(cfg).named_parameters()}
-    got = {k: tuple(t.shape) for k, t in out.items()}
+    walk(params, ())
     if got != want:
         diff = sorted(set(got.items()) ^ set(want.items()))
         raise ValueError(f"the parameter tree does not fit {cfg.arch_id}: {diff[:6]}")
     return out
+
+
+def _cutter(cfg: ModelConfig, mesh, rules):
+    """``cut(name, whole)``: this rank's block of parameter ``name`` on a mesh of ranks
+    (the leaf itself off one)."""
+    from repro_torch.models.common import logical_axes
+    from repro_torch.sharding import partition as P
+
+    if not P.on_mesh(mesh):
+        return lambda name, t: t
+    rules = rules or P.default_rules(mesh.axis_names)
+    axes = logical_axes(_model(cfg))
+    return lambda name, t: P.cut(t, axes[name], rules, mesh)
 
 
 def lm_params_to_tree(cfg: ModelConfig, state: Mapping[str, torch.Tensor]) -> Dict:
@@ -304,8 +323,8 @@ def _cache_misfits(have, want, axes, path=()) -> List[str]:
     return bad
 
 
-def lm_cache_from_numpy(cfg: ModelConfig, cache: Mapping,
-                        device: DeviceLike = "cpu") -> List[Dict]:
+def lm_cache_from_numpy(cfg: ModelConfig, cache: Mapping, device: DeviceLike = "cpu",
+                        mesh=None, rules=None) -> List[Dict]:
     """The port's per-block caches from the JAX model's cache, bit for bit.
 
     ``cache`` is ``repro.models.build_model(cfg).init_cache(...)`` or a cache
@@ -313,18 +332,34 @@ def lm_cache_from_numpy(cfg: ModelConfig, cache: Mapping,
     each leaf stacked over the blocks: layers, a VLM's periods, an
     encoder-decoder's decoder layers); block ``i`` gets the same tree with
     ``leaf[i]``.  The leaves are checked against ``cfg``'s cache (names,
-    dtypes, every axis but the batch and the cached positions).
+    dtypes, every axis but the batch and the cached positions).  With a ``mesh`` of
+    ranks (and ``rules``) each leaf is this rank's block, placed by the cache's logical
+    axes (``LM.init_cache``'s blocks).
     """
+    from repro_torch.sharding import partition as P
+
     dev = torch.device(device)
     leaves = _tree_map(_as_tensor, cache)
     model = _model(cfg)
     want = model.init_cache(1, 1, abstract=True)
-    bad = _cache_misfits(leaves, want[0], model.cache_logical_axes()[0])
+    axes = model.cache_logical_axes()
+    bad = _cache_misfits(leaves, want[0], axes[0])
     if not bad and {t.shape[0] for t in _leaves(leaves)} != {len(want)}:
         bad = [f"the blocks (not {len(want)})"]
     if bad:
         raise ValueError(f"the cache does not fit {cfg.arch_id}: {sorted(bad)}")
-    return [_tree_map(lambda t: t[i].to(dev, copy=True), leaves) for i in range(len(want))]
+    out = [_tree_map(lambda t: t[i], leaves) for i in range(len(want))]
+    if P.on_mesh(mesh):
+        out = P.cut_tree(out, axes, rules or P.default_rules(mesh.axis_names), mesh)
+    return [_tree_map(lambda t: _to(t, dev), c) for c in out]
+
+
+def _to(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A copy of ``t`` on ``dev``, keeping its placement."""
+    out = t.to(dev, copy=True)
+    if hasattr(t, "placement"):
+        out.placement = t.placement
+    return out
 
 
 def _leaves(tree) -> list:
@@ -336,10 +371,15 @@ def _leaves(tree) -> list:
 def lm_cache_to_numpy(cfg: ModelConfig, caches: List[Mapping]) -> Dict:
     """The JAX model's cache layout (each leaf stacked over the blocks, numpy) of the
     port's per-block caches, the inverse of :func:`lm_cache_from_numpy`; bfloat16
-    leaves come out as float32 (exactly), int8 ones as int8."""
+    leaves come out as float32 (exactly), int8 ones as int8.  A leaf that is a rank's
+    block on a mesh (it carries its ``placement``) is gathered whole: every rank calls
+    it."""
+    from repro_torch.sharding import partition as P
+
     n = len(_model(cfg).cache_logical_axes())
     if len(caches) != n:
         raise ValueError(f"{len(caches)} caches for {n} blocks")
+    caches = P.gather_tree(list(caches))
 
     def stack(nodes):
         if isinstance(nodes[0], Mapping):

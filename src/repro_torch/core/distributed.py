@@ -40,10 +40,18 @@ or ``"model"`` alone.  Its collectives (:func:`all_gather_axes`,
 :func:`reduce_scatter_axes`, :func:`all_reduce_axes`, :func:`ring_shift`)
 take part in autograd: an all-gather's backward is a reduce-scatter, an
 all-reduce's an all-reduce, a ring shift's the shift the other way.
-:func:`lower_dual_step` stands for the JAX package's lowering of one
-sharded gradient step: it runs one screened evaluation of the distributed
-solve's oracle on inputs of the problem's shapes and returns the
-collectives it made (on a mesh of sizes only, the ones it would make).
+:func:`argmax_axes` is ``jnp.argmax`` over a dimension split over axes
+(the greedy token over the vocabulary's blocks): two all-reduces of one
+value a row, no gather of the blocks.  A mesh of sizes only runs rank 0's
+side of a step in dry mode (:meth:`AxisMesh.dry_run`): each collective
+records itself and returns a tensor of its output's shape without
+communicating, for the dry run (``launch/dryrun.py``), where a size read
+on the host from ``meta`` values takes its static bound instead
+(:func:`static_bound`).  :func:`lower_dual_step` stands for the JAX
+package's lowering of one sharded gradient step: it runs one screened
+evaluation of the distributed solve's oracle on inputs of the problem's
+shapes and returns the collectives it made (on a mesh of sizes only, in
+dry mode).
 """
 from __future__ import annotations
 
@@ -235,9 +243,12 @@ def reset_collective_counts() -> None:
 
 
 def _group(mesh):
-    """The process group spanning ``mesh`` (None: the mesh is one rank)."""
+    """The process group spanning ``mesh`` (None: the mesh is one rank; :data:`DRY` on a
+    mesh in dry mode)."""
     if isinstance(mesh, LocalMesh) or mesh.size() == 1:
         return None
+    if getattr(mesh, "dry", False):
+        return DRY
     dist = _dist()
     if mesh.size() == dist.get_world_size():
         return dist.group.WORLD
@@ -254,12 +265,14 @@ def _comm_device(group) -> torch.device:
 
 
 _RECORDS: List[List[dict]] = []
+_BOUNDS: List[List[str]] = []
 
 
 @contextlib.contextmanager
 def record_collectives():
     """Within the block, every counted collective is also appended to the yielded list as
-    ``{"op", "shape", "elements", "bytes"}``."""
+    ``{"op", "shape", "elements", "bytes", "ranks"}`` (``shape`` the input's on this rank,
+    ``ranks`` the ranks taking part)."""
     rec: List[dict] = []
     _RECORDS.append(rec)
     try:
@@ -268,12 +281,32 @@ def record_collectives():
         _RECORDS.remove(rec)
 
 
-def _count(t: torch.Tensor, op: str = "all_reduce") -> None:
+@contextlib.contextmanager
+def record_static_bounds():
+    """Within the block, :func:`static_bound` appends its note to the yielded list (once
+    per note)."""
+    rec: List[str] = []
+    _BOUNDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _BOUNDS.remove(rec)
+
+
+def static_bound(note: str) -> None:
+    """Record that a size read on the host from a tensor's values took its static bound
+    instead (the tensor was on ``meta``, in a dry run)."""
+    for rec in _BOUNDS:
+        if note not in rec:
+            rec.append(note)
+
+
+def _count(t: torch.Tensor, op: str = "all_reduce", ranks: int = 0) -> None:
     _COUNTS["collectives"] += 1
     _COUNTS["bytes"] += t.numel() * t.element_size()
     for rec in _RECORDS:
         rec.append({"op": op, "shape": tuple(t.shape), "elements": int(t.numel()),
-                    "bytes": int(t.numel() * t.element_size())})
+                    "bytes": int(t.numel() * t.element_size()), "ranks": int(ranks)})
 
 
 def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -281,7 +314,9 @@ def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     group = _group(mesh)
     if group is None:
         return t
-    _count(t)
+    _count(t, "all_reduce", mesh_size(mesh))
+    if group is DRY:
+        return t.clone()
     buf = t.to(_comm_device(group)).contiguous()
     _dist().all_reduce(buf, group=group)
     return buf.to(t.device)
@@ -292,7 +327,9 @@ def all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
     group = _group(mesh)
     if group is None:
         return t
-    _count(t, "all_gather")
+    _count(t, "all_gather", mesh_size(mesh))
+    if group is DRY:
+        return torch.cat([t] * mesh_size(mesh), dim=0)
     dev = _comm_device(group)
     is_bool = t.dtype == torch.bool
     src = (t.to(torch.uint8) if is_bool else t).to(dev).contiguous()
@@ -586,8 +623,9 @@ class AxisMesh:
     """
 
     def __init__(self, shape: Sequence[int], names: Sequence[str],
-                 coordinate: Optional[Sequence[int]] = None):
+                 coordinate: Optional[Sequence[int]] = None, dry: bool = False):
         self.shape = tuple(int(s) for s in shape)
+        self.dry = bool(dry)
         self.axis_names = tuple(names)
         if len(self.shape) != len(self.axis_names):
             raise ValueError(f"mesh shape {self.shape} and axis names {self.axis_names} differ "
@@ -596,7 +634,16 @@ class AxisMesh:
         self._groups: Dict[Tuple[str, ...], object] = {}
 
     def __repr__(self) -> str:
-        return f"AxisMesh({dict(zip(self.axis_names, self.shape))}, at {self.coordinate})"
+        return (f"AxisMesh({dict(zip(self.axis_names, self.shape))}, at {self.coordinate}"
+                f"{', dry' if self.dry else ''})")
+
+    def dry_run(self) -> "AxisMesh":
+        """This mesh's shape in dry mode, at the coordinate of rank 0: placements and
+        positions are rank 0's, and every collective records itself (as
+        :func:`record_collectives` lists it) and returns a tensor of its output's shape
+        on its input's device (``meta`` in a dry run) without communicating: rank 0's
+        block repeated for a gather, the input for a reduction."""
+        return AxisMesh(self.shape, self.axis_names, (0,) * self.ndim, dry=True)
 
     @property
     def mesh_dim_names(self) -> Tuple[str, ...]:
@@ -645,6 +692,8 @@ class AxisMesh:
             return None
         if self.coordinate is None:
             raise RuntimeError(f"{self!r} has sizes only: it has no collectives")
+        if self.dry:
+            return DRY
         return self._groups[axes]
 
     def get_group(self, mesh_dim: int = 0):
@@ -704,8 +753,13 @@ def make_mesh(shape: Sequence[int], names: Sequence[str]) -> AxisMesh:
 
 
 def sizes_mesh(shape: Sequence[int], names: Sequence[str]) -> AxisMesh:
-    """A mesh of sizes only: no rank, no collectives (specs and placements, the dry run)."""
+    """A mesh of sizes only: no rank, no collectives (specs and placements; its
+    :meth:`AxisMesh.dry_run` runs rank 0's side of a step)."""
     return AxisMesh(shape, names)
+
+
+#: The process group of a mesh in dry mode (:meth:`AxisMesh.dry_run`).
+DRY = object()
 
 
 def _on_comm(t: torch.Tensor, group) -> torch.Tensor:
@@ -716,7 +770,9 @@ def _on_comm(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
-    _count(x, "all_gather")
+    _count(x, "all_gather", n)
+    if group is DRY:
+        return torch.cat([x] * n, dim=dim)
     src = _on_comm(x, group)
     parts = [torch.empty_like(src) for _ in range(n)]
     _dist().all_gather(parts, src, group=group)
@@ -726,19 +782,23 @@ def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
 def _reduce_scatter(g: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
     """This rank's block of ``g`` along ``dim`` summed over the group (a reduce-scatter)."""
     k = g.shape[dim] // n
-    _count(g, "reduce_scatter")
+    _count(g, "reduce_scatter", n)
+    if group is DRY:
+        return g.narrow(dim, 0, k).clone()
     src = _on_comm(g.movedim(dim, 0), group)
     out = torch.empty((k,) + tuple(src.shape[1:]), dtype=src.dtype, device=src.device)
     _dist().reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous().to(g.device)
 
 
-def _all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    _count(t, "all_reduce")
+def _all_reduce(t: torch.Tensor, group, n: int, op: str = "sum") -> torch.Tensor:
+    _count(t, "all_reduce", n)
+    if group is DRY:
+        return t.clone()
     buf = _on_comm(t, group)
     dist = _dist()
-    _dist().all_reduce(buf, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
-                       group=group)
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+    dist.all_reduce(buf, op=ops[op], group=group)
     return buf.to(t.device)
 
 
@@ -770,11 +830,12 @@ class _AllReduceAxes(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
         ctx.mesh, ctx.axes = mesh, axes
-        return _all_reduce(x, mesh.group(axes))
+        return _all_reduce(x, mesh.group(axes), mesh.group_size(axes))
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.mesh.group(ctx.axes)), None, None
+        m = ctx.mesh
+        return _all_reduce(g, m.group(ctx.axes), m.group_size(ctx.axes)), None, None
 
 
 def _axes(mesh, axes) -> Tuple[str, ...]:
@@ -814,7 +875,26 @@ def all_reduce_max_axes(x: torch.Tensor, mesh: AxisMesh, axes) -> torch.Tensor:
     axes = _axes(mesh, axes)
     if mesh.group_size(axes) == 1:
         return x.detach()
-    return _all_reduce(x.detach(), mesh.group(axes), "max")
+    return _all_reduce(x.detach(), mesh.group(axes), mesh.group_size(axes), "max")
+
+
+def argmax_axes(x: torch.Tensor, mesh: AxisMesh, axes, offset: int) -> torch.Tensor:
+    """``jnp.argmax`` over the last dimension of a tensor split along it over ``axes``:
+    ``x`` is this rank's block, which starts at index ``offset``.  Returns the index
+    (int64) of the first maximum, the same bits on every rank of the cell: a max
+    all-reduce of the blocks' maxima, then a min all-reduce of the first index at which
+    each block reaches it (no block's values cross)."""
+    idx = torch.argmax(x, dim=-1) + offset
+    axes = _axes(mesh, axes)
+    n = mesh.group_size(axes)
+    if n == 1:
+        return idx
+    group = mesh.group(axes)
+    mx = torch.amax(x.detach(), dim=-1).float()
+    top = _all_reduce(mx, group, n, "max")
+    none = torch.iinfo(idx.dtype).max
+    return _all_reduce(torch.where(mx == top, idx, torch.full_like(idx, none)), group, n,
+                       "min")
 
 
 def _shift(x: torch.Tensor, mesh: AxisMesh, axis: str, step: int) -> torch.Tensor:
@@ -823,8 +903,10 @@ def _shift(x: torch.Tensor, mesh: AxisMesh, axis: str, step: int) -> torch.Tenso
     coord = list(mesh.coordinate)
     to, frm = list(coord), list(coord)
     to[i], frm[i] = (coord[i] + step) % n, (coord[i] - step) % n
+    _count(x, "send_recv", 2)
+    if mesh.dry:
+        return x.clone()
     dist = _dist()
-    _count(x, "send_recv")
     src = _on_comm(x, dist.group.WORLD)
     out = torch.empty_like(src)
     reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, src, mesh.global_rank(to)),
@@ -863,23 +945,23 @@ def lower_dual_step(mesh, prob: DualProblem, opts=None, device: DeviceLike = Non
     PyTorch has no lowering, so this runs this rank's block of the
     evaluation (rows ``[l0 g, l1 g)`` over ``model``, columns over ``data``,
     on a constant cost and zero duals) and records each collective as
-    ``{"op", "shape", "elements", "bytes"}``.  Every rank of a mesh with a
+    :func:`record_collectives` lists it.  Every rank of a mesh with a
     process group calls it; on a mesh of sizes only (:func:`sizes_mesh`) it
-    runs the block of coordinate 0 and records the collectives the step
-    would make.  Returns ``{"collectives": [...], "largest_elements": int}``.
+    runs rank 0's block in dry mode (:meth:`AxisMesh.dry_run`).  Returns
+    ``{"collectives": [...], "largest_elements": int}``.
     """
     from repro_torch.core import solver as slv
 
     opts = opts if opts is not None else slv.SolveOptions(grad_impl="screened")
-    live = getattr(mesh, "coordinate", 0) is not None and not isinstance(mesh, LocalMesh)
+    if isinstance(mesh, AxisMesh) and mesh.coordinate is None:
+        mesh = mesh.dry_run()
     dev = resolve_device(device)
     L, g, n = prob.num_groups, prob.group_size, prob.n
     m_pad = L * g
     D, M = axis_size(mesh, "data"), axis_size(mesh, "model")
     if L % M or n % D:
         raise ValueError(f"L = {L} and n = {n} must divide over model = {M} and data = {D}")
-    di = axis_index(mesh, "data") if live else 0
-    mi = axis_index(mesh, "model") if live else 0
+    di, mi = axis_index(mesh, "data"), axis_index(mesh, "model")
     Lb = L // M
     l0, l1, c0, c1 = mi * Lb, (mi + 1) * Lb, di * n // D, (di + 1) * n // D
     prob_b = DualProblem(Lb, g, c1 - c0, _block_reg(prob.reg, L, l0, l1))
@@ -898,9 +980,6 @@ def lower_dual_step(mesh, prob: DualProblem, opts=None, device: DeviceLike = Non
         buf[:, blk.r0:blk.r1] = rs
         buf[:, m_pad + c0:m_pad + c1] = cs
         buf[:, -2] = psi
-        if live:
-            all_reduce_sum(buf, mesh)
-        else:
-            _count(buf, "all_reduce")
+        all_reduce_sum(buf, mesh)
     return {"collectives": list(rec),
             "largest_elements": max((r["elements"] for r in rec), default=0)}

@@ -13,9 +13,15 @@ from __future__ import annotations
 from repro_torch.core import distributed
 
 
+def production_shape(multi_pod: bool = False):
+    """(shape, axis names) of the production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_shape(multi_pod)
     if distributed.group_initialized():
         return distributed.make_mesh(shape, axes)
     return distributed.sizes_mesh(shape, axes)

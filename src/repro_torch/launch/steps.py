@@ -17,10 +17,13 @@ image tokens, whose keys and values the prefill writes into the cache;
 encoder never runs during decode.
 
 On the LM mesh (called inside ``sharding.partition.use_rules(rules,
-mesh)`` on every rank, dense and MoE families): ``state`` holds this
-rank's blocks (``partition.sharding_tree`` / ``cut``), ``batch`` is the
-whole batch, of which the step takes this rank's data shard, and the
-metrics are the whole batch's.  The gradient of a weight gathered over the
+mesh)`` on every rank, dense and MoE families): ``state``, ``params`` and
+``caches`` hold this rank's blocks (``partition.sharding_tree`` / ``cut``,
+``LM.init_cache``), ``batch``, ``tokens``, ``token`` and a per-slot
+``index`` are the whole batch, of which a step takes this rank's rows
+(every row where the data axes do not divide the batch,
+``partition.batch_rows``), the metrics are the whole batch's, and the
+logits and next tokens this rank's block.  The gradient of a weight gathered over the
 data axes always comes back to its block by a reduce-scatter;
 ``constrain_grads`` checks that each gradient has its parameter's block
 shape (JAX's hint to pin it there); outside ``use_rules`` it changes
@@ -66,15 +69,13 @@ def _binder(cfg: ModelConfig, model: Optional[Model] = None) -> Callable:
     return bind
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
-    """(state, batch) -> (state, metrics); state = {"params", "opt"}, both updated in
-    place."""
-    decay = build_model(cfg, device="meta").decay_mask()
-    remat = tcfg.remat != "none"
+def _placed_binder(cfg: ModelConfig) -> Callable:
+    """``binding()`` -> (bind, placements, rules, mesh) for the rules and mesh in force
+    (``partition.use_rules``): off a mesh of ranks the ``meta`` model of ``cfg``, on one
+    the model placed there, made once for each."""
     placed: Dict = {}
 
     def binding():
-        """(bind, placements, rules, mesh) for the rules and mesh in force."""
         rules, mesh = P.current_rules(), P.current_mesh()
         if rules is None or not P.on_mesh(mesh):
             rules = mesh = None
@@ -85,6 +86,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                 P.place_module(model, rules, mesh, cut_params=False)
             placed[key] = (_binder(cfg, model), P.placements(model), rules, mesh)
         return placed[key]
+
+    return binding
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+    """(state, batch) -> (state, metrics); state = {"params", "opt"}, both updated in
+    place."""
+    decay = build_model(cfg, device="meta").decay_mask()
+    remat = tcfg.remat != "none"
+    binding = _placed_binder(cfg)
 
     def train_step(state: Dict, batch: Dict[str, torch.Tensor]):
         bind, pls, rules, mesh = binding()
@@ -124,27 +135,52 @@ def _prefill(model: Model, tokens, caches, memory):
     return model.prefill(tokens, caches, memory=memory)
 
 
+def _rows(rules, mesh, **inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the whole-batch ``inputs`` (a 0-d index as it is)."""
+    rows = {k: t for k, t in inputs.items() if isinstance(t, torch.Tensor) and t.ndim > 0}
+    return dict(inputs, **P.shard_batch(rows, rules, mesh))
+
+
 def make_prefill_step(cfg: ModelConfig):
     """(params, tokens, caches, memory=None) -> (last-token logits, caches); ``memory``
-    is an encoder-decoder's frames (encoded here) or a VLM's image tokens."""
-    bind = _binder(cfg)
+    is an encoder-decoder's frames (encoded here) or a VLM's image tokens.  On the mesh
+    ``tokens`` is the whole batch and the logits this rank's block (its rows, its block
+    of the vocabulary)."""
+    binding = _placed_binder(cfg)
 
     def prefill_step(params: Params, tokens: torch.Tensor, caches, memory=None):
+        bind, _, rules, mesh = binding()
         with torch.no_grad():
-            return bind(params, _prefill, tokens, caches, memory)
+            if mesh is None:
+                return bind(params, _prefill, tokens, caches, memory)
+            with P.batch_rows(tokens.shape[0]):
+                tokens = _rows(rules, mesh, tokens=tokens)["tokens"]
+                return bind(params, _prefill, tokens, caches, memory)
 
     return prefill_step
 
 
+def _decode_greedy(model: Model, token, caches, index):
+    logits, caches = model.decode_step(token, caches, index)
+    last = logits[:, -1, :]
+    nxt = torch.argmax(last, dim=-1) if P.module_mesh(model) is None else model.greedy(last)
+    return nxt.to(torch.int32)[:, None], caches
+
+
 def make_serve_step(cfg: ModelConfig):
     """One decode step: greedy next token (the first index among equal logits, as
-    ``jnp.argmax``) and the cache update."""
-    bind = _binder(cfg)
+    ``jnp.argmax``) and the cache update.  On the mesh ``token`` (and a per-slot
+    ``index``) is the whole batch, the next token this rank's rows, its argmax run over
+    the vocabulary's blocks (``LM.greedy``)."""
+    binding = _placed_binder(cfg)
 
     def serve_step(params: Params, token: torch.Tensor, caches, index):
-        logits, caches = bind(params, lambda m, *a: m.decode_step(*a), token, caches, index)
-        next_token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
-        return next_token, caches
+        bind, _, rules, mesh = binding()
+        if mesh is None:
+            return bind(params, _decode_greedy, token, caches, index)
+        with P.batch_rows(token.shape[0]):
+            ins = _rows(rules, mesh, token=token, index=index)
+            return bind(params, _decode_greedy, ins["token"], caches, ins["index"])
 
     return serve_step
 

@@ -34,3 +34,16 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None, seed: int = 0,
             raise NotImplementedError("place= for the encoder-decoder (ROADMAP A4 (e))")
         return build_encdec(cfg, dev, gen)
     return build_lm(cfg, dev, gen, place)
+
+
+def build_on_mesh(cfg: ModelConfig, device: DeviceLike, rules, mesh, seed: int = 0) -> Model:
+    """The model of ``cfg`` drawn from ``seed`` on this rank's ``device`` with its
+    parameters at rest on ``mesh`` under ``rules``: each leaf drawn whole and cut to its
+    block as it goes (the one-device model's draws), then placed
+    (``sharding.partition.place_module``)."""
+    from repro_torch.sharding import partition as P
+
+    P.check_mesh_family(cfg, mesh)
+    model = build_model(cfg, device, seed=seed,
+                        place=lambda value, axes: P.cut(value, axes, rules, mesh))
+    return P.place_module(model, rules, mesh)

@@ -175,7 +175,9 @@ class GQA(nn.Module):
         On a mesh (``sharding.partition.place_module``) the rank takes its block of
         query heads (``wq`` / ``wo`` split over ``heads``), computes every KV head
         (``kv_heads`` stays replicated) and keeps the groups its heads read; the
-        output, a sum over its heads, is all-reduced over the axes that split them."""
+        output, a sum over its heads, is all-reduced over the axes that split them.
+        Its cache is its block: its rows of the batch, every KV head (``kv_quant``'s
+        scales alike), written whole and read for its groups."""
         dt = x.dtype
         wq, wk, wv, wo = (P.weight(self, n).to(dt) for n in ("wq", "wk", "wv", "wo"))
         q = torch.einsum("bsd,dhk->bshk", x, wq)

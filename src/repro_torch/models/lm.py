@@ -36,7 +36,13 @@ positions: ``index`` is ignored, as in JAX), for a hybrid block ``{"attn":
 holds its blocks of the parameters, runs its data shard of the batch and
 its blocks of heads, ``mlp``, experts and the vocabulary (vocab-parallel
 embedding, logits and cross-entropy), and gathers each weight over the
-data axes just before use (``partition.weight``).  A VLM
+data axes just before use (``partition.weight``).  ``init_cache`` then
+gives this rank's blocks of the cache (its rows of the batch, every KV
+head), ``prefill`` and ``decode_step`` take this rank's rows of the
+tokens (and of a per-slot index) and return its block of the logits,
+and ``greedy`` is the argmax over the vocabulary's blocks; the rows are
+the data axes' split of the global batch that ``partition.batch_rows``
+names (every row where they do not divide it).  A VLM
 takes its image tokens as ``memory`` (B, num_image_tokens, d_model):
 ``forward`` and ``train_loss`` (``batch["memory"]``) need it, ``prefill``
 projects it into each period's ``cross_kv`` and raises ``ValueError``
@@ -398,9 +404,18 @@ class LM(nn.Module):
         """One zero cache per block, on the parameters' device (``abstract``: on
         ``meta``), in the compute dtype (int8 and float32 scales with ``kv_quant``; an
         xLSTM's recurrent memory float32, ``max_len`` not read; a hybrid's Mamba
-        states' scan float32)."""
-        cfg = self.cfg
+        states' scan float32).  On a mesh each leaf is this rank's block of the cache of
+        ``batch`` rows, placed by ``cache_logical_axes`` (the rows split over the data
+        axes where they divide them), carrying its ``placement``."""
+        placed = P.module_mesh(self)
         dev = "meta" if abstract else self.embed.device
+        if placed is None:
+            return self._zero_cache(batch, max_len, dev)
+        return P.zeros_tree(self._zero_cache(batch, max_len, "meta"), self.cache_logical_axes(),
+                            *placed, dev)
+
+    def _zero_cache(self, batch: int, max_len: int, dev) -> List[Dict]:
+        cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
         stacked = lambda n, state: {k: torch.zeros((n,) + tuple(t.shape), dtype=t.dtype,
                                                    device=dev) for k, t in state.items()}
@@ -467,6 +482,10 @@ class LM(nn.Module):
         them anew into it)."""
         B = token.shape[0]
         dev = token.device
+        if isinstance(index, torch.Tensor) and index.ndim == 0 and index.device.type == "meta":
+            D.static_bound("decode_step: a 0-d index on meta taken as a per-slot (B,) "
+                           "vector (its value cannot be read)")
+            index = index.expand(B)
         if isinstance(index, torch.Tensor) and index.ndim == 1:
             index = index.to(device=dev, dtype=torch.int32)
             pos = index[:, None]
@@ -476,6 +495,16 @@ class LM(nn.Module):
         mask = self._cache_mask(caches, index, 1, dev)
         x, _, caches = self._backbone(self._embed(token), pos, mask, caches, index, memory)
         return self._logits(x), caches
+
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy token of ``logits`` (..., V): ``jnp.argmax``'s first index among equal
+        logits (int64).  On a mesh ``logits`` are this rank's block of the vocabulary and
+        the argmax runs over the blocks (``distributed.argmax_axes``), the same on every
+        rank, without gathering the logits."""
+        if P.module_mesh(self) is None:
+            return torch.argmax(logits, dim=-1)
+        axes, v0, _ = self._vocab_block()
+        return D.argmax_axes(logits, self._mesh[1], axes, v0)
 
 
 def build_lm(cfg: ModelConfig, device: torch.device,

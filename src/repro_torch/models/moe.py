@@ -14,7 +14,9 @@ sorted position, as XLA's scatter-add on the host adds them; it uses no
 atomics, so a run on the card repeats its own bits.
 
 ``ot_balance`` routes through the screened group-sparse OT solver
-(``training/ot_routing.py``).
+(``training/ot_routing.py``), over the whole batch's tokens as JAX's
+router: on a mesh every rank solves the problem of the router logits
+all-gathered over the data axes and keeps its rows.
 
 On a mesh (``sharding.partition.place_module``) the experts split over
 the ``expert`` axes (EP over ``model``): each rank packs its data shard's
@@ -100,10 +102,7 @@ class MoE(nn.Module):
         logits = (xt @ P.weight(self, "router", keep=()).to(dt)).float()
         probs = torch.softmax(logits, dim=-1)
         if m.ot_balance:
-            from repro_torch.training import ot_routing
-
-            topi, topw = ot_routing.ot_route(logits, num_seqs=B, seq_len=S, top_k=k,
-                                             gamma=m.ot_gamma, rho=m.ot_rho)
+            topi, topw = self._ot_route(logits, B, S)
             topw = topw.float()
         else:
             topw, topi = top_k(probs, k)
@@ -136,6 +135,27 @@ class MoE(nn.Module):
         aux = {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss,
                "moe_dropped_frac": dropped.float()}
         return out.reshape(B, S, d), aux
+
+    def _ot_route(self, logits: torch.Tensor, B: int, S: int):
+        """``ot_route`` over the whole batch's tokens, as the JAX router solves: on a mesh
+        the router logits all-gathered over the data axes in batch order, the same problem
+        solved on every rank, and this rank's rows kept."""
+        from repro_torch.training import ot_routing
+
+        m = self.cfg.moe
+        placed = P.module_mesh(self)
+        data = () if placed is None else P.batch_axes(*placed)
+        n, pos = 1, 0
+        if data:
+            from repro_torch.core import distributed as D
+
+            mesh = placed[1]
+            n, pos = mesh.group_size(data), mesh.position(data)
+            logits = D.all_gather_axes(logits, mesh, data, 0)
+        topi, topw = ot_routing.ot_route(logits, num_seqs=B * n, seq_len=S, top_k=m.top_k,
+                                         gamma=m.ot_gamma, rho=m.ot_rho)
+        T = B * S
+        return topi[pos * T:(pos + 1) * T], topw[pos * T:(pos + 1) * T]
 
     def _shared(self, xt: torch.Tensor):
         """The shared experts: (their output, a sum over this rank's block of ``mlp`` on a
@@ -186,7 +206,12 @@ class MoE(nn.Module):
             cap = capacity(self.cfg, Tg)
             every = D.all_gather_axes(local[None], mesh, data, 0).reshape(nd, E)
             offset = torch.sum(every[:mesh.position(data)], dim=0, dtype=torch.int32)
-        buf, route = pack(xt, eid, wgt, cap, E, k, offset=offset, experts=(e0, el))
+        rows = None                 # on meta (a dry run) JAX's block of the capacity
+        if xt.device.type == "meta":
+            rows = P.placement((E, cap, xt.shape[1]), ("expert", "expert_cap", None), rules,
+                               mesh).local_shape[1]
+        buf, route = pack(xt, eid, wgt, cap, E, k, offset=offset, experts=(e0, el),
+                          meta_rows=rows)
         out = combine(self._expert_ffn(buf), route, T, k)
         if m.num_shared_experts:
             sy, gate = self._shared(xt)
@@ -224,8 +249,8 @@ class Route(NamedTuple):
 
 
 def pack(xt: torch.Tensor, eid: torch.Tensor, wgt: torch.Tensor, cap: int, E: int, k: int,
-         offset: Optional[torch.Tensor] = None,
-         experts: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, Route]:
+         offset: Optional[torch.Tensor] = None, experts: Optional[Tuple[int, int]] = None,
+         meta_rows: Optional[int] = None) -> Tuple[torch.Tensor, Route]:
     """Sort the ``T * k`` entries by expert (stable) and pack the tokens into capacity
     buffers (E_l, cap, d) of the experts ``[e0, e0 + E_l)`` (``experts``; default all);
     an entry is dropped at position ``cap``.
@@ -233,7 +258,8 @@ def pack(xt: torch.Tensor, eid: torch.Tensor, wgt: torch.Tensor, cap: int, E: in
     With ``offset`` (E,), the entries of each expert that the earlier data shards hold,
     an entry's global position counts those before it, and the buffer holds only the
     global slots this shard's kept entries fill, shifted to 0: (E_l, rows, d), ``rows``
-    the most entries any of the experts keeps (read on the host)."""
+    the most entries any of the experts keeps (read on the host; on ``meta``, where
+    nothing can be read, ``meta_rows``)."""
     dt, dev = xt.dtype, xt.device
     T, d = xt.shape
     n = T * k
@@ -252,7 +278,15 @@ def pack(xt: torch.Tensor, eid: torch.Tensor, wgt: torch.Tensor, cap: int, E: in
     else:
         keep = pos + offset[eid_s] < cap
         kept = torch.clamp(torch.minimum(counts, cap - offset), min=0)[e0:e0 + el]
-        rows = int(torch.max(kept)) if el else 0
+        if dev.type == "meta":           # no values to read: JAX's static block
+            from repro_torch.core import distributed as D
+
+            rows = cap if meta_rows is None else meta_rows
+            D.static_bound("MoE dispatch: a rank's buffer takes its block of the capacity "
+                           "(JAX's expert_cap placement), not the most entries a local "
+                           "expert keeps (read from the routes)")
+        else:
+            rows = int(torch.max(kept)) if el else 0
     mine = keep if experts is None else keep & (eid_s >= e0) & (eid_s < e0 + el)
     dest = torch.where(mine, (eid_s - e0) * rows + pos, torch.full_like(pos, el * rows))
     buf = torch.zeros((el * rows + 1, d), dtype=dt, device=dev)

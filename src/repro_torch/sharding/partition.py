@@ -18,7 +18,13 @@ split it major to minor (:class:`Placement`, :func:`sharding_tree`,
 inside it: :func:`data_shard_count` then counts the data shards, and
 :func:`constrain` names an activation's layout.  The model code runs per
 rank on its blocks (``models/``); :func:`place_module` puts a model's
-parameters at rest on a mesh.
+parameters at rest on a mesh.  A batch splits over the data axes as JAX's
+``fit_spec`` splits its ``batch`` dimension: :func:`batch_rows` names the
+global batch (a batch the data axes do not divide, such as the serving
+engine's batch-1 prefill, is then replicated), :func:`batch_axes` reads
+it.  A model's cache at rest is likewise a tree of blocks
+(:func:`zeros_tree`, :func:`cut_tree`, :func:`gather_tree`); :func:`splice`
+writes a row into the block of the rank that holds it.
 """
 from __future__ import annotations
 
@@ -255,9 +261,66 @@ def cut(full: torch.Tensor, axes: Sequence[Optional[str]], rules: Rules, mesh) -
     return placement(full.shape, axes, rules, mesh).cut(full)
 
 
+def cut_tree(tree, logical_tree, rules: Rules, mesh):
+    """Every leaf of ``tree`` (nested dicts and lists of tensors, such as a model's cache
+    list) cut to this rank's block by its logical axes in the like ``logical_tree``."""
+    return _tree_map(lambda ax, t: cut(t, ax, rules, mesh), logical_tree, tree)
+
+
+def zeros_tree(shapes, logical_tree, rules: Rules, mesh, device):
+    """This rank's zero blocks of a tree of tensors like ``shapes`` (their shapes and
+    dtypes; ``meta`` tensors allocate nothing), each carrying its placement."""
+    def zeros(ax, t):
+        pl = placement(t.shape, ax, rules, mesh)
+        out = torch.zeros(pl.local_shape, dtype=t.dtype, device=device)
+        out.placement = pl
+        return out
+
+    return _tree_map(zeros, logical_tree, shapes)
+
+
+def gather_tree(tree):
+    """Every leaf of ``tree`` whole: a leaf carrying a placement on a mesh of ranks
+    gathered from every rank's block (every rank takes part), any other as it is."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_tree(v) for v in tree)
+    pl = getattr(tree, "placement", None)
+    return pl.gather(tree) if pl is not None and on_mesh(pl.mesh) else tree
+
+
+def splice(block: torch.Tensor, one: torch.Tensor, dim: int, row: int) -> None:
+    """Row ``row`` (along ``dim``) of the whole tensor that ``block`` is this rank's block
+    of set to ``one``, in place, on the rank whose block holds that row (a no-op on the
+    others); a tensor without a placement is its own block.  ``one`` is the row as this
+    rank holds it (split like ``block`` along every other dimension)."""
+    pl = getattr(block, "placement", None)
+    start, stop = 0, block.shape[dim]
+    if pl is not None and pl.index is not None:
+        start, stop = pl.index[dim].start, pl.index[dim].stop
+    if start <= row < stop:
+        block.narrow(dim, row - start, 1).copy_(one)
+
+
 # -- the rules in force -----------------------------------------------------------------
 
 _ctx = threading.local()
+
+
+@contextlib.contextmanager
+def batch_rows(rows: int) -> Iterator[None]:
+    """Inside: the global batch the model runs on has ``rows`` rows, and
+    :func:`batch_axes` gives the axes that split a batch of that many
+    (:func:`batch_split`): none where the data axes do not divide it, whose rows every
+    data shard then holds whole, as JAX's ``fit_spec`` replicates such a batch.
+    Outside, the batch splits over every data axis (the trainer's)."""
+    prev = getattr(_ctx, "rows", None)
+    _ctx.rows = int(rows)
+    try:
+        yield
+    finally:
+        _ctx.rows = prev
 
 
 @contextlib.contextmanager
@@ -276,16 +339,16 @@ def checkpoint_contexts():
     """``context_fn`` for ``torch.utils.checkpoint``: (forward, recompute) context managers
     under which the recompute, which autograd may run on another thread (a CUDA device's),
     sees the rules and mesh in force at the forward."""
-    state = getattr(_ctx, "state", None)
+    state, rows = getattr(_ctx, "state", None), getattr(_ctx, "rows", None)
 
     @contextlib.contextmanager
     def again():
-        prev = getattr(_ctx, "state", None)
-        _ctx.state = state
+        prev = getattr(_ctx, "state", None), getattr(_ctx, "rows", None)
+        _ctx.state, _ctx.rows = state, rows
         try:
             yield
         finally:
-            _ctx.state = prev
+            _ctx.state, _ctx.rows = prev
 
     return contextlib.nullcontext(), again()
 
@@ -341,15 +404,28 @@ def on_mesh(mesh) -> bool:
     return mesh is not None and mesh.size() > 1 and getattr(mesh, "coordinate", 0) is not None
 
 
+#: Logical axes the model code runs whole on every rank: rules that split one of them
+#: (sequence or context parallelism, a split KV head) are not run on a mesh.
+WHOLE_AXES = ("seq", "kv_seq", "kv_heads", "head_dim", "embed_act", "expert_mlp")
+
+
 def check_mesh_family(cfg, mesh) -> None:
     """Raise ``NotImplementedError`` for a family the LM mesh does not run (other than
-    dense and MoE, MLA included, or the OT router) on a mesh of several ranks."""
-    if on_mesh(mesh) and (cfg.family not in MESH_FAMILIES or cfg.mla is not None
-                          or (cfg.moe is not None and cfg.moe.ot_balance)):
+    dense and MoE; MLA included) on a mesh of several ranks."""
+    if on_mesh(mesh) and (cfg.family not in MESH_FAMILIES or cfg.mla is not None):
         raise NotImplementedError(f"{cfg.arch_id} ({cfg.family}"
                                   f"{', MLA' if cfg.mla is not None else ''}) on a mesh of "
                                   f"{mesh.size()} ranks: the LM mesh runs the dense and MoE "
-                                  "families without the OT router (ROADMAP A4 (e))")
+                                  "families (ROADMAP A4 (e))")
+
+
+def check_mesh_rules(rules: Rules, mesh) -> None:
+    """Raise ``NotImplementedError`` for rules that split, on a mesh of several ranks, a
+    logical axis the model code keeps whole on every rank (:data:`WHOLE_AXES`)."""
+    split = [ax for ax in WHOLE_AXES if mesh.group_size(rules.lookup(ax)) > 1]
+    if on_mesh(mesh) and split:
+        raise NotImplementedError(f"rules that split {split} over the mesh: the LM mesh keeps "
+                                  "them whole on every rank (ROADMAP A4 (e))")
 
 
 def place_module(module: torch.nn.Module, rules: Rules, mesh, cut_params: bool = True):
@@ -364,6 +440,7 @@ def place_module(module: torch.nn.Module, rules: Rules, mesh, cut_params: bool =
     cfg = getattr(module, "cfg", None)
     if cfg is not None:
         check_mesh_family(cfg, mesh)
+    check_mesh_rules(rules, mesh)
     for sub in module.modules():
         pls = {}
         for name, p in list(sub._parameters.items()):
@@ -378,6 +455,34 @@ def place_module(module: torch.nn.Module, rules: Rules, mesh, cut_params: bool =
         sub._placements = pls
         sub._mesh = (rules, mesh)
     return module
+
+
+def load_blocks(module: torch.nn.Module, state: Dict[str, torch.Tensor], device) -> None:
+    """Set the parameters of ``module``, placed on a mesh by :func:`place_module` (on
+    ``meta``, ``cut_params=False``), to ``state``'s on ``device``: each entry this rank's
+    block, or the whole leaf, cut here.  Names and shapes are checked."""
+    names = set()
+    for prefix, sub in module.named_modules():
+        for name, pl in getattr(sub, "_placements", {}).items():
+            key = f"{prefix}.{name}" if prefix else name
+            names.add(key)
+            if key not in state:
+                raise KeyError(f"no {key!r} in the state dict")
+            t = state[key]
+            if tuple(t.shape) == pl.shape and pl.shape != pl.local_shape:
+                t = pl.cut(t)
+            if tuple(t.shape) != pl.local_shape:
+                raise ValueError(f"{key} has shape {tuple(t.shape)}: neither the leaf "
+                                 f"{pl.shape} nor this rank's block {pl.local_shape}")
+            old = sub._parameters[name]
+            p = torch.nn.Parameter(t.to(device), requires_grad=old.requires_grad)
+            p.logical_axes = old.logical_axes
+            if pl.shape != pl.local_shape:
+                p.full_shape = pl.shape
+            sub._parameters[name] = p
+    extra = sorted(set(state) - names)
+    if extra:
+        raise KeyError(f"the state dict has names the model does not: {extra[:6]}")
 
 
 def module_mesh(module: torch.nn.Module):
@@ -431,8 +536,20 @@ def reduce_split(module: torch.nn.Module, name: str, dim: int, x: torch.Tensor) 
     return D.all_reduce_axes(x, module._mesh[1], axes)
 
 
+def batch_split(rows: int, rules: Rules, mesh) -> Tuple[str, ...]:
+    """The mesh axes of size > 1 that a batch of ``rows`` rows splits over: the ``batch``
+    rule fitted to ``rows`` as :func:`fit_spec` fits it (the minor data axes dropped
+    until the rest divide it; none: the batch is replicated)."""
+    entry = fit_spec((int(rows),), rules.spec(("batch",)), mesh.sizes)[0]
+    return tuple(a for a in spec_axes(entry) if mesh.sizes.get(a, 1) > 1)
+
+
 def batch_axes(rules: Rules, mesh) -> Tuple[str, ...]:
-    """The mesh axes of size > 1 a batch splits over (its data shards)."""
+    """The mesh axes of size > 1 a batch splits over (its data shards): inside
+    :func:`batch_rows`, those of a batch of that many rows; else every data axis."""
+    rows = getattr(_ctx, "rows", None)
+    if rows is not None:
+        return batch_split(rows, rules, mesh)
     return tuple(a for a in rules.lookup("batch") if mesh.sizes.get(a, 1) > 1)
 
 

@@ -41,7 +41,7 @@ from repro_torch.core import distributed as D
 from repro_torch.convert import lm_params_from_numpy, lm_params_to_tree
 from repro_torch.data.pipeline import SyntheticLM, modality_stub
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import build_model
+from repro_torch.models import build_model, build_on_mesh
 from repro_torch.models.common import torch_dtype
 from repro_torch.sharding import partition as P
 from repro_torch.training.checkpoint import CheckpointManager
@@ -72,7 +72,6 @@ class Trainer:
                              f"{mesh.size()} ranks needs a process group of that size "
                              "(repro_torch.core.distributed.make_mesh)")
         self.mesh = mesh if P.on_mesh(mesh) else None
-        place = None
         if self.mesh is not None:
             P.check_mesh_family(cfg, self.mesh)
             self.rules = rules or P.default_rules(self.mesh.axis_names)
@@ -80,13 +79,11 @@ class Trainer:
             if tcfg.grad_compression != "none":
                 raise NotImplementedError("gradient compression on the LM mesh "
                                           "(ROADMAP A4 (e))")
-            place = lambda value, axes: P.cut(value, axes, self.rules, self.mesh)
+            self.model = build_on_mesh(cfg, self.device, self.rules, self.mesh, tcfg.seed)
         else:
             self.rules = rules
             self.device = resolve_device(device)
-        self.model = build_model(cfg, self.device, seed=tcfg.seed, place=place)
-        if self.mesh is not None:
-            P.place_module(self.model, self.rules, self.mesh)
+            self.model = build_model(cfg, self.device, seed=tcfg.seed)
         self.placements = P.placements(self.model)
         self.data = data
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
