@@ -24,6 +24,10 @@
                                # phase 19 (b) alone, on four cards: serving on the
                                # LM mesh (phi3.5-moe-42b-a6.6b at full width and
                                # depth on (1, 4) and (2, 2), NCCL)
+    python3 chip_smoke.py --attn-mesh-only
+                               # phase 20 (b) alone, on four cards: the attention
+                               # families on the LM mesh (llama-3.2-vision-90b at
+                               # full width and depth on (1, 4) and (2, 2), NCCL)
 
 The main path is the default plan at the paper's largest scale:
 ``repro_torch.ot.compile(Problem.from_samples(...), ExecutionPlan(grad_impl=
@@ -193,7 +197,7 @@ Phases:
      layers, 60 experts top-4, 4 shared, bf16, 14 315 636 736 parameters drawn
      on the card), six requests of 32 + 16: every request served, a second run
      the same tokens bit for bit, the dropped fraction printed.  (c) the same
-     at full width cut to 1 layer with ``ot_balance``: one OT solve
+     at full width cut to 1 layer with ``ot_balance``, six requests of 32 + 8: one OT solve
      (``grad_impl='screened'``: ``row_dot`` / ``row_sum``, no other port
      kernel) per MoE layer and forward pass, every routing weight finite and
      summing to 1 within 1e-4, the router's seconds a solve and launches; the
@@ -208,12 +212,12 @@ Phases:
  15. the attention families at full width, random bf16 weights from seed 0, each
      sub-phase's model freed and the peak reset before the next: (a) ``minicpm3-4b``
      (MLA; 62 layers, 4 261 902 848 parameters, the cache 35 712 B a token, both
-     checked on ``meta``) cut to 16 layers for the smoke's time, served through
+     checked on ``meta``) cut to 4 layers for the smoke's time, served through
      ``ServingEngine`` as 14 (a) (eight requests of 64 + 32, four slots): each back
      once, those in recycled slots bit for bit each alone in a fresh engine, and in
      float32 the absorbed path (prefill, teacher-forced decode) within rtol / atol
      2e-3 of the expanded one (``forward``); (b) the same trained with the OT
-     alignment loss on phase 13's data for 4 steps, cut to 8 of its 62 layers for
+     alignment loss on phase 13's data for 3 steps, cut to 4 of its 62 layers for
      the smoke's time (full depth fits: an AdamW step of 16 B a
      parameter plus 12 GiB; a deeper cut where it would not), said so: losses
      finite, the OT term present, K1, K4 and K5 or K6 launched; the step split, a
@@ -235,16 +239,16 @@ Phases:
  16. the xLSTM family at full width, ``xlstm-1.3b`` (48 layers in 6 periods of an sLSTM
      and 7 mLSTMs, d_model 2048, 4 heads, 2 020 751 696 parameters, a recurrent state of
      706 560 000 B a sequence, both checked on ``meta``), random bf16 weights from seed 0:
-     (a) cut to 2 of its 6 periods (16 layers) for the smoke's time, served through
+     (a) cut to 1 of its 6 periods (8 layers) for the smoke's time, served through
      ``ServingEngine`` (four slots, eight requests with prompts of 2, 37, 64, 64,
      128, 129, 257 and 300 tokens, 32 new tokens each): each back once, those in recycled
      slots bit for bit each alone in a fresh engine (a slot's whole state replaced at
-     admission); (b) in float32 on 3 of its 6 periods, prefill and 8 teacher-forced
+     admission); (b) in float32 on 2 of its 6 periods, prefill and 8 teacher-forced
      decode steps within rtol /
      atol 2e-3 of ``LM.forward``, and a chunkwise prefill of 257 tokens (chunks of 128,
      128 and 1) against 257 decode steps from the zero state, its last logits and every
      state leaf within rtol / atol 2e-3; (c) trained with the OT alignment loss on phase
-     13's data for 4 steps, as 15 (b), cut to 1 of its 6 periods (8 of 48 layers) for
+     13's data for 3 steps, as 15 (b), cut to 1 of its 6 periods (8 of 48 layers) for
      the smoke's time (losses, OT distances and gradient norms finite, the step split, a
      profile of one step, the fused OT term), K1, K4, K5, K6 and K8 at its step-0 OT
      operands (d = 2048: 64 chunks of 32) held to their plain versions and timed.
@@ -306,6 +310,29 @@ Phases:
      tokens and 32 new ones, 16 slots of 1 024 positions (ms a tick, tokens/s,
      admission s, peak and state bytes, launches a tick, NCCL's device time in
      profiled ticks, per rank), and the 2-layer cut on both meshes against one card.
+ 20. the attention families on the LM mesh (MLA, the encoder-decoder, the VLM; query
+     heads split over ``model``, KV heads whole, a modality memory's rows with the
+     tokens'): (a), in phase 18 (a)'s two gloo ranks on this card, at full width (bf16
+     parameters), ``minicpm3-4b`` cut to 2 layers and ``whisper-medium`` to 2 + 2 on
+     (1, 2) and (2, 1), ``llama-3.2-vision-90b`` cut to one period (5 layers,
+     ``cross_gate`` 0.5) on (1, 2) alone (its 12.8 GB would cross the host at every
+     forward on (2, 1)): one trainer step with the OT term (the VLM period's loss and
+     gradients without the optimizer, whose state does not fit), against the card's
+     (loss, grad norm, parameters and AdamW m as phase 18 (a); the VLM's loss and
+     gradient norm), every rank's bits the same, K1, K4 and K5 or K6 launched on every
+     rank; the float32-compute twin prefilled (2 x 16 tokens, the stub frames or image
+     tokens) and decoded 3 steps through the steps, MLA's also through
+     ``ServingEngine(mesh=)``: the tokens the card's, the prefill logits within rtol /
+     atol 1e-3; K1, K4, K5, K6 and K8 at the card's whisper step-0 OT operands (d =
+     1024) held to their plain versions and timed.  (b) ``--attn-mesh-only``, four
+     cards, NCCL: ``llama-3.2-vision-90b`` at full width and depth (100 layers, bf16,
+     175.3 GB) prefilled (8 x 512 tokens, 1 601 image tokens each) and decoded 32
+     steps through the steps on (1, 4) and (2, 2); one VLM period trained with AdamW on
+     (2, 2); ``minicpm3-4b`` (62 layers) and ``whisper-medium`` (24 + 24) trained on
+     (2, 2) with the OT term, 3 steps of 8 x 512 tokens; MLA served through the engine
+     and whisper through the steps on (1, 4) at full depth; each cut against card 0
+     (per rank: ms a decode step or tick, prefill s, tokens/s, state and peak bytes,
+     launches and NCCL's device time in profiled steps, step walls).
 Phase 3 also runs K2-K8 at tile_n 4, 20, 40 and 128 on a narrow problem
 (K2, K3 and K7 in f32 and bf16; K2 and K7 on the staged loader at 128, 1024
 and 256, on the direct loads where a warp has lanes past the tile; K3 on the
@@ -318,7 +345,8 @@ for XLA's reductions and have no TPU kernel; their ``launches_ot_router``
 are phase 14 (c)'s; K1, K4, K5, K6 and K8 once more at phase 13's trainer
 shapes, ``@lm_step``, d = 576, phase 15 (b)'s, ``@mla_step``, d = 2560, phase 16
 (c)'s, ``@xlstm_step``, d = 2048, phase 17 (c)'s, ``@hybrid_step``, d = 8192, and
-phase 18 (a)'s, ``@lm_mesh_step``, d = 4096; row_sum / row_dot's
+phase 18 (a)'s, ``@lm_mesh_step``, d = 4096, and phase 20 (a)'s whisper step,
+``@attn_mesh_step``, d = 1024; row_sum / row_dot's
 ``launches_serve_mesh`` are phase 19 (a)'s OT router on (2, 1)), the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
@@ -3355,8 +3383,10 @@ SERVE_SLOTS = 4
 SERVE_DENSE = dict(requests=8, prompt=64, new=32, max_len=104)     # (a) smollm-135m
 SERVE_MOE_ARCH = "qwen2-moe-a2.7b"
 SERVE_MOE_PARAMS = 14_315_636_736    # its parameter count (the JAX abstract init's)
-SERVE_MOE = dict(requests=6, prompt=32, new=16, max_len=56)        # (b) and (c)
+SERVE_MOE = dict(requests=6, prompt=32, new=16, max_len=56)        # (b); (c) with 8 new
 SERVE_OT_LAYERS = 1                  # (c)'s depth cut, for the smoke's time (PERF.md §4)
+SERVE_OT = dict(SERVE_MOE, new=8)    # (c)'s requests: 8 new tokens each, for the smoke's
+                                     # time (PERF.md §4)
 SERVE_TF_STEPS = 8                   # teacher-forced decode steps of the float32 check
 SERVE_DIR = os.path.join(HERE, "_archive", "phase14")  # git-ignored: (c)'s router logits
 SERVE_OT_CONVERGED_ITERS = 400       # where the router's solve converges (ROADMAP §C)
@@ -3649,7 +3679,7 @@ def phase_serve_ot(cfg, smi_line, device):
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.training import ot_routing
 
-    spec = SERVE_MOE
+    spec = SERVE_OT
     cfg_c = dataclasses.replace(cfg, num_layers=SERVE_OT_LAYERS,
                                 moe=dataclasses.replace(cfg.moe, ot_balance=True))
     model = build_model(cfg_c, device, seed=0)
@@ -3765,10 +3795,11 @@ def phase_serve(smi_line, device):
 FAM_MLA_ARCH = "minicpm3-4b"
 FAM_MLA_PARAMS = 4_261_902_848       # its parameter count (the JAX abstract init's)
 FAM_MLA_CACHE_B = 35_712             # its cache a token: 62 layers x (256 + 32) x 2 B
-FAM_MLA_STEPS = 4                    # (b)'s trainer steps, then 2 split, 1 profiled
-FAM_MLA_TRAIN_LAYERS = 8             # (b)'s depth cut, for the smoke's time (PERF.md §4)
-FAM_MLA_SERVE_LAYERS = 16            # (a)'s depth cut, for the smoke's time (31 until
-                                     # PR 27, which made room for phase 19 (a))
+FAM_MLA_STEPS = 3                    # (b)'s trainer steps, then 2 split, 1 profiled
+FAM_MLA_TRAIN_LAYERS = 4             # (b)'s depth cut, for the smoke's time (PERF.md §4;
+                                     # phase 20 (b) trains all 62 on four cards)
+FAM_MLA_SERVE_LAYERS = 4             # (a)'s depth cut, for the smoke's time (PERF.md §4;
+                                     # phase 20 (b) serves all 62 on four cards)
 FAM_STEP_HEADROOM = 12 * 2**30       # (b): a step's activations and temporaries
 FAM_ED_ARCH = "whisper-medium"
 FAM_ED_PARAMS = 791_827_456
@@ -4223,12 +4254,10 @@ XL_STATE_B = 706_560_000             # its recurrent state a sequence (the JAX a
 XL_SERVE = dict(prompts=(2, 37, 64, 64, 128, 129, 257, 300), new=32, max_len=340)    # (a)
 XL_TF = dict(prompt=64, steps=8)     # (b): the teacher-forced check
 XL_CHUNKED = 257                     # (b): chunkwise prefill (128, 128, 1) vs decode steps
-XL_STEPS = 4                         # (c)'s trainer steps, then 2 split, 1 profiled
+XL_STEPS = 3                         # (c)'s trainer steps, then 2 split, 1 profiled
 XL_TRAIN_LAYERS = 8                  # (c)'s depth cut, 1 of 6 periods, for the smoke's time
-XL_SERVE_LAYERS = 16                 # (a)'s depth cut, 2 of 6 periods, for the smoke's time
-                                     # (3 until PR 27)
-XL_F32_LAYERS = 24                   # (b)'s depth cut, 3 of 6 periods (full depth until
-                                     # PR 27, which made room for phase 19 (a))
+XL_SERVE_LAYERS = 8                  # (a)'s depth cut, 1 of 6 periods, for the smoke's time
+XL_F32_LAYERS = 16                   # (b)'s depth cut, 2 of 6 periods, for the smoke's time
 
 
 def phase_xlstm_serve(smi_line, device):
@@ -4374,31 +4403,37 @@ LMM_LOSS_RTOL, LMM_PARAM_ATOL = 1e-3, 5e-3          # against one card
 LMM_GNORM_RTOL, LMM_M_RTOL = 1e-3, 0.05
 LMM_DROP_ENTRIES = 4                 # routed entries a MoE layer's drops may differ by
 LMM_DIR = os.path.join(HERE, "_archive", "phase18")   # git-ignored: rank logs and results
-LMM_TIMEOUT_S = {"a": 420, "b": 900}          # (a) with phase 19 (a) in its ranks
+LMM_TIMEOUT_S = {"a": 600, "b": 900}          # (a) with phases 19 (a) and 20 (a) in its ranks
 LMM_ROW = "@lm_mesh_step"            # suffix of the kernel rows at (a)'s trainer shapes
 
 
-def lmm_trainer(cfg, shape: dict, device, mesh=None, steps=1, grad_impl="pallas",
-                local_dispatch=None):
-    """A trainer of phase 18: ``SyntheticLM(vocab, seq, batch, classes, seed 0)``, AdamW at
-    lr 6e-4 (warmup 2) with float32 master weights, remat per block, the OT alignment
-    loss (weight 0.05, L-BFGS) on ``grad_impl``; on ``mesh`` where given."""
-    import dataclasses
-
+def lmm_setup(cfg, shape: dict, steps=1, grad_impl="pallas"):
+    """(train config, data) of a phase 18 trainer: ``SyntheticLM(vocab, seq, batch,
+    classes, seed 0)``, AdamW at lr 6e-4 (warmup 2) with float32 master weights, remat
+    per block, the OT alignment loss (weight 0.05, L-BFGS) on ``grad_impl``."""
     from repro_torch.configs.base import OptimizerConfig, TrainConfig
     from repro_torch.data.pipeline import SyntheticLM, SyntheticLMConfig
-    from repro_torch.training.trainer import Trainer
 
-    if local_dispatch is not None:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
-                                                               local_dispatch=local_dispatch))
     tcfg = TrainConfig(optimizer=OptimizerConfig(lr=6e-4, warmup_steps=2, decay_steps=12),
                        steps=steps, log_every=1, ot_align=True, ot_align_weight=0.05,
                        ot_solver="lbfgs", ot_grad_impl=grad_impl, remat="block")
     data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=shape["seq"],
                                          global_batch=shape["batch"],
                                          num_classes=shape["classes"], seed=0))
-    return Trainer(cfg, tcfg, data, device=device, mesh=mesh)
+    return tcfg, data
+
+
+def lmm_trainer(cfg, shape: dict, device, mesh=None, steps=1, grad_impl="pallas",
+                local_dispatch=None):
+    """A trainer of phase 18 (``lmm_setup``) on ``mesh`` where given."""
+    import dataclasses
+
+    from repro_torch.training.trainer import Trainer
+
+    if local_dispatch is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               local_dispatch=local_dispatch))
+    return Trainer(cfg, *lmm_setup(cfg, shape, steps, grad_impl), device=device, mesh=mesh)
 
 
 def lmm_cut(arch, layers):
@@ -4415,7 +4450,7 @@ def lmm_cut(arch, layers):
     return cfg
 
 
-def lmm_compare(label, ref, got):
+def lmm_compare(label, ref, got, phase="phase 18"):
     """One card's run ``ref`` against a mesh run ``got`` (dicts from ``lmm_run``): the loss
     within rtol LMM_LOSS_RTOL, the grad_norm within rtol LMM_GNORM_RTOL, every parameter
     within LMM_PARAM_ATOL, each leaf's AdamW m within LMM_M_RTOL of its norm; returns
@@ -4426,14 +4461,14 @@ def lmm_compare(label, ref, got):
 
     rl, gl = ref["loss"][0], got["loss"][0]
     check(math.isfinite(gl) and abs(gl - rl) <= LMM_LOSS_RTOL * abs(rl),
-          f"phase 18 {label}: loss {gl!r} on the mesh, {rl!r} on one card")
+          f"{phase} {label}: loss {gl!r} on the mesh, {rl!r} on one card")
     rg, gg = ref["gnorm"][0], got["gnorm"][0]
     check(math.isfinite(gg) and abs(gg - rg) <= LMM_GNORM_RTOL * abs(rg),
-          f"phase 18 {label}: grad_norm {gg!r} on the mesh, {rg!r} on one card")
+          f"{phase} {label}: grad_norm {gg!r} on the mesh, {rg!r} on one card")
     worst = 0.0
     for k, t in ref["params"].items():
         worst = max(worst, float(torch.max(torch.abs(got["params"][k].float() - t.float()))))
-    check(worst <= LMM_PARAM_ATOL, f"phase 18 {label}: parameters {worst:.3e} off one card's "
+    check(worst <= LMM_PARAM_ATOL, f"{phase} {label}: parameters {worst:.3e} off one card's "
                                    f"(limit {LMM_PARAM_ATOL})")
     m_rel, m_leaf = 0.0, None
     for k, t in ref["m"].items():
@@ -4443,7 +4478,7 @@ def lmm_compare(label, ref, got):
         rel = diff / norm if norm > 0 else (0.0 if diff == 0 else math.inf)
         if rel >= m_rel:
             m_rel, m_leaf = rel, k
-    check(m_rel <= LMM_M_RTOL, f"phase 18 {label}: AdamW's m of {m_leaf} is {m_rel:.3e} of "
+    check(m_rel <= LMM_M_RTOL, f"{phase} {label}: AdamW's m of {m_leaf} is {m_rel:.3e} of "
                                f"its norm off one card's (limit {LMM_M_RTOL})")
     return worst, m_rel, m_leaf
 
@@ -4510,7 +4545,7 @@ def lmm_barrier(device):
     dist.all_reduce(t)
 
 
-def lmm_check_blocks(tr, label):
+def lmm_check_blocks(tr, label, phase="phase 18"):
     """Every parameter of a mesh trainer is its rules block: the shape of a freshly
     computed placement of the whole leaf under the same rules."""
     from repro_torch.models import build_model
@@ -4520,10 +4555,10 @@ def lmm_check_blocks(tr, label):
     for k, t in tr.state["params"].items():
         want = P.placement(meta[k].shape, meta[k].logical_axes, tr.rules, tr.mesh)
         check(tuple(t.shape) == want.local_shape and tr.placements[k].index == want.index,
-              f"phase 18 {label}: {k} holds {tuple(t.shape)}, not its block {want.local_shape}")
+              f"{phase} {label}: {k} holds {tuple(t.shape)}, not its block {want.local_shape}")
         for kind in ("m", "v", "master"):
             check(tuple(tr.state["opt"][kind][k].shape) == want.local_shape,
-                  f"phase 18 {label}: opt {kind} of {k} is not its block")
+                  f"{phase} {label}: opt {kind} of {k} is not its block")
 
 
 def lm_mesh_rank(rank: int, init: str, part: str) -> None:
@@ -4548,7 +4583,7 @@ def lm_mesh_rank(rank: int, init: str, part: str) -> None:
     say(f"phase 18 ({part}): backend {backend}, world size {world}, rank {rank} on {device} "
         f"({torch.cuda.get_device_name(device)})")
     names = ("data", "model")
-    out = {"backend": backend, "runs": {}, "serve": {}}
+    out = {"backend": backend, "runs": {}, "serve": {}, "attn": {}}
 
     def keep(label, run):
         out["runs"][label] = {k: v for k, v in run.items() if k not in ("params", "m")}
@@ -4579,6 +4614,11 @@ def lm_mesh_rank(rank: int, init: str, part: str) -> None:
         sm_rank_a(meshes, device, out, save)
         say("phase 19 (a): " + "; ".join(f"{k}: tokens {v['tokens']}, wall {v['wall']:.1f} s"
                                           for k, v in out["serve"].items()))
+        # phase 20 (a): the attention families on the same ranks and meshes
+        am_rank_a(meshes, device, out, save)
+        say("phase 20 (a): " + "; ".join(f"{k}: loss {v['loss']}, tokens "
+                                          f"{v['steps']['tokens']}, {v['wall_all']:.1f} s"
+                                          for k, v in out["attn"].items()))
     else:
         mesh = D.make_mesh((2, 2), names)
         # yi-9b at full width and depth: 3 steps of 8 x 512 tokens
@@ -4664,15 +4704,17 @@ def lm_mesh_rank(rank: int, init: str, part: str) -> None:
 
 
 def phase_lm_mesh(smi_line: str, part: str):
-    """Phase 18, the LM mesh (see the module docstring); (a) runs phase 19 (a) in its
-    ranks too, and returns (kernel rows, phase 19 (a)'s row_dot / row_sum launches).  (a), in the full run: 2 gloo
+    """Phase 18, the LM mesh (see the module docstring); (a) runs phases 19 (a) and 20 (a)
+    in its ranks too, and returns (kernel rows, phase 19 (a)'s row_dot / row_sum
+    launches).  (a), in the full run: 2 gloo
     ranks on card 0, ``yi-9b`` cut to 2 layers at full width (bf16, AdamW with master
     weights, the OT term on 'pallas'), one step on a (data=1, model=2) and a (2, 1)
     mesh, each against one card's ``Trainer`` step of the same cut (here, before the
     ranks start): loss and grad_norm within rtol 1e-3, parameters within 5e-3, AdamW's m
     within 5 % of each leaf's norm, the ranks' loss and OT
     distance bit for bit; K1, K4 and K5 launched on every rank.  Returns the kernel
-    rows at the trainer's OT shapes (d = 4096).  (b), ``--lm-mesh-only`` on four
+    rows at the trainers' OT shapes (d = 4096; phase 20 (a)'s whisper, d = 1024).  (b),
+    ``--lm-mesh-only`` on four
     cards (NCCL, a card a rank, (2, 2)): ``yi-9b`` at full width and depth, 3 steps of
     8 x 512 tokens; the 2-layer cut and ``qwen2-moe-a2.7b`` cut to 4 layers (with
     ``local_dispatch`` off and on) against one card."""
@@ -4693,10 +4735,18 @@ def phase_lm_mesh(smi_line: str, part: str):
     rows, ref = [], None
     if part == "a":
         check(torch.cuda.device_count() >= 1, "phase 18 (a) needs a card")
-        cfg = lmm_cut(LMM_ARCH, LMM_CUT)
         n_params = count_params(build_model(lmm_cut(LMM_ARCH, 48), device="meta"))
         check(n_params == LMM_PARAMS, f"{LMM_ARCH} has {n_params} parameters, not {LMM_PARAMS}")
-        one = lmm_trainer(cfg, LMM_A, torch.device("cuda"))
+
+    def one_card():
+        """(a)'s one-card side (phases 18, 19 and 20), run here while the ranks start and
+        train: the ranks spend most of their time in cold starts and on the host's gloo
+        copies, and the card's memory holds both (the VLM period's check first, while
+        the ranks hold the least)."""
+        am = am_reference(torch.device("cuda"))
+        fresh_memory()
+        sm = sm_reference(torch.device("cuda"))
+        one = lmm_trainer(lmm_cut(LMM_ARCH, LMM_CUT), LMM_A, torch.device("cuda"))
         batch = one.batch(0)
         ops = lm_ot_operands(one, batch, torch.device("cuda"))
         ref = lmm_run(one, 1, torch.device("cuda"))
@@ -4708,11 +4758,12 @@ def phase_lm_mesh(smi_line: str, part: str):
         fused_launches = kbuild.launch_counts()
         del one, batch
         fresh_memory()
-        sm_ref = sm_reference(torch.device("cuda"))
-        print(f"phase 18 (a) one card ({smi_line}): {LMM_ARCH} {LMM_CUT} layers, loss "
-              f"{ref['loss']}, ot {ref['ot']}, state {ref['state_b']} B, peak {ref['peak']} B, "
-              f"step {ref['walls']} s (split {ref['splits']}); launches {ref['launches']}; "
-              f"the fused OT term {fused_launches}", flush=True)
+        print(f"phase 18 (a) one card ({smi_line}; concurrent with the ranks): {LMM_ARCH} "
+              f"{LMM_CUT} layers, loss {ref['loss']}, ot {ref['ot']}, state {ref['state_b']} B, "
+              f"peak {ref['peak']} B, step {ref['walls']} s (split {ref['splits']}); launches "
+              f"{ref['launches']}; the fused OT term {fused_launches}", flush=True)
+        return ref, ops, fused_launches, sm, am
+
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -4725,6 +4776,8 @@ def phase_lm_mesh(smi_line: str, part: str):
                 [sys.executable, os.path.abspath(__file__), "--lm-mesh-rank", str(r),
                  "--lm-mesh-part", part, "--mesh-init", f"tcp://127.0.0.1:{port}"],
                 stdout=log, stderr=subprocess.STDOUT))
+        if part == "a":
+            ref, ops, fused_launches, sm_ref, (am_ref, am_ops, am_fused) = one_card()
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs):
                 break                          # one rank failed: stop the others
@@ -4790,6 +4843,12 @@ def phase_lm_mesh(smi_line: str, part: str):
         del ops
         sm_launches = sm_compare_a(sm_ref, res,
                                    lambda name: torch.load(os.path.join(LMM_DIR, name)))
+        counts = am_compare_a(am_ref, res, lambda name: torch.load(os.path.join(LMM_DIR, name)))
+        counts[K8] = ("phase 20 (a) one card: whisper-medium 2 + 2 layers, the step-0 OT term, "
+                      "grad_impl 'fused'", am_fused.get(K8, 0))
+        rows += phase_lm_kernels(*am_ops[:5], counts, smi_line, torch.device("cuda"),
+                                 phase="phase 20 (a)", suffix=AM_ROW)
+        del am_ops
         for name in os.listdir(LMM_DIR):
             if name.endswith(".pt"):
                 os.remove(os.path.join(LMM_DIR, name))
@@ -5217,6 +5276,683 @@ def phase_serve_mesh(smi_line: str):
                   f"kernels {pr['nccl_s']:.4f} s (waits for peers included); largest "
                   f"{pr['top']}", flush=True)
     print(f"phase 19 (b) took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# -- phase 20: the attention families on the LM mesh (MLA, the encoder-decoder, the VLM) ---
+
+AM_ARCHS = (FAM_MLA_ARCH, FAM_ED_ARCH, FAM_VLM_ARCH)
+AM_VLM_PARAMS = 87_666_958_356       # llama-3.2-vision-90b's parameter count (the port's
+                                     # build_model on meta): 175.3 GB in bf16
+AM_CUTS = {FAM_MLA_ARCH: dict(num_layers=2),                 # the checks' depth cuts
+           FAM_ED_ARCH: dict(num_layers=2, encoder_layers=2),
+           FAM_VLM_ARCH: dict(num_layers=5)}                  # one period, 5 of 100 layers
+# (a)'s meshes: the VLM period's 12.8 GB would cross the host at every forward on (2, 1)
+AM_MESHES_A = {FAM_MLA_ARCH: ((1, 2), (2, 1)), FAM_ED_ARCH: ((1, 2), (2, 1)),
+               FAM_VLM_ARCH: ((1, 2),)}
+# (a)'s steps: whisper's OT problem L 8, g 2 (the kernel rows' tile of 8 groups; its
+# encoder's scores are 16 heads x 1500^2 a row), the VLM's L 4, g 2
+AM_TRAIN_A = {FAM_MLA_ARCH: LMM_A, FAM_ED_ARCH: dict(batch=32, seq=32, classes=8),
+              FAM_VLM_ARCH: dict(batch=16, seq=32, classes=4)}
+AM_STEPS_A = dict(batch=2, prompt=16, new=2)       # (a): prefill, then decode steps
+AM_ENGINE_A = dict(prompts=(16, 24), new=2, max_batch=2, max_len=64)   # (a): MLA's engine,
+                                     # on (1, 2) (on (2, 1) every forward gathers the
+                                     # weights through the host, about 2 s on an H100)
+AM_TRAIN_B = dict(batch=8, seq=512, classes=4, steps=3)           # (b)'s trainers
+AM_STEPS_B = dict(batch=8, prompt=512, new=32)     # (b): the VLM at full depth
+AM_CHECK_B = dict(batch=4, prompt=64, new=4)       # (b): the cuts' steps against one card
+AM_ENGINE_B = dict(requests=8, prompt=(64, 512), new=32, max_batch=8, max_len=576)
+AM_ENGINE_CHECK_B = dict(prompts=(48, 64, 96, 80), new=4, max_batch=4, max_len=128)
+AM_PROFILED = 2                      # (b): decode steps or ticks under torch.profiler
+AM_DIR = os.path.join(HERE, "_archive", "phase20")    # git-ignored: (b)'s rank logs
+AM_TIMEOUT_S = 1000
+AM_ROW = "@attn_mesh_step"           # suffix of the kernel rows at whisper's OT shape
+
+
+def am_cut(arch, compute=None, full=False):
+    """``arch`` at full width, cut to its check depth (``full``: at its whole depth), the
+    compute dtype ``compute`` where given (bf16 parameters either way)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if not full:
+        cfg = dataclasses.replace(cfg, **AM_CUTS[arch])
+    if compute is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute)
+    return cfg
+
+
+def am_step_cut(arch):
+    """(b)'s one-step check against card 0: the MLA cut, bf16; ``whisper-medium`` at full
+    depth in float32 compute (in bf16 its 48 layers' roundings moved the gradient norm
+    1.3e-3 off one card's on four H100s, over LMM_GNORM_RTOL)."""
+    if arch == FAM_ED_ARCH:
+        return am_cut(arch, "float32", full=True), "full depth, float32 compute"
+    return am_cut(arch), "cut"
+
+
+def am_gates(model):
+    """A VLM's ``cross_gate`` set to FAM_VLM_GATE in every period (its init, 0, hides the
+    cross path); nothing for the other families."""
+    import torch
+
+    if model.cfg.family == "vlm":
+        with torch.no_grad():
+            for block in model.blocks:
+                block.cross_gate.fill_(FAM_VLM_GATE)
+
+
+def am_grads(cfg, shape, device, mesh=None):
+    """Step 0 of a phase 18 trainer (``lmm_setup``) without its optimizer, whose state a
+    VLM period leaves no room for on one card: the trainer's ``loss_and_grads`` (the OT
+    term's gradient included) on a ``Trainer`` whose state is its parameters alone.
+    Returns its loss, the gradients' global norm (each distinct block once on a mesh),
+    OT distance, launches, wall s and peak B."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import _build as kbuild
+    from repro_torch.models import build_model, build_on_mesh
+    from repro_torch.sharding import partition as P
+    from repro_torch.training.trainer import Trainer
+    from repro_torch.utils.tree import tree_global_norm
+
+    class GradTrainer(Trainer):
+        def __init__(self):                 # Trainer.__init__ without the optimizer state
+            self.cfg = cfg
+            self.tcfg, self.data = lmm_setup(cfg, shape)
+            self.mesh = mesh if P.on_mesh(mesh) else None
+            if self.mesh is not None:
+                self.rules = P.default_rules(mesh.axis_names)
+                self.device = D.rank_device(device)
+                self.model = build_on_mesh(cfg, self.device, self.rules, self.mesh,
+                                           self.tcfg.seed)
+            else:
+                self.rules, self.device = None, device
+                self.model = build_model(cfg, device, seed=self.tcfg.seed)
+            self.placements = P.placements(self.model)
+            self.state = {"params": dict(self.model.named_parameters())}
+
+    tr = GradTrainer()
+    am_gates(tr.model)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kbuild.reset_launch_counts()
+    t0 = time.perf_counter()
+    with P.use_rules(tr.rules, tr.mesh) if tr.mesh is not None else contextlib.nullcontext():
+        metrics, grads = tr.loss_and_grads(tr.batch(0))
+        gnorm = (P.global_norm(grads, tr.placements) if tr.mesh is not None
+                 else tree_global_norm(grads))
+        out = dict(loss=float(metrics["loss"]), gnorm=float(gnorm),
+                   ot=float(metrics["ot_distance"]))
+    torch.cuda.synchronize(device)
+    out.update(launches=kbuild.launch_counts(), wall=time.perf_counter() - t0,
+               peak=torch.cuda.max_memory_allocated(device))
+    return out
+
+
+def am_steps(cfg, model, spec, seed, device, profiled=0):
+    """Prefill (``make_prefill_step``) of ``spec['batch']`` prompts of ``spec['prompt']``
+    tokens (numpy seed ``seed``) with the stub frontend's frames or image tokens, then
+    ``spec['new']`` greedy decode steps (``make_serve_step``); on a mesh (the model placed
+    there) under its rules, each step given the whole batch, its next tokens gathered over
+    the data axes.  Returns the tokens (B, 1 + new), the prefill's last logits whole (the
+    vocabulary's blocks and the rows gathered; float32, host), prefill s, each decode
+    step's s (host clock, each ending in a synchronize), peak B, state B (parameter
+    blocks and cache), and with ``profiled`` that many more decode steps under
+    torch.profiler (wall, busy, device launches, NCCL's kernels' device s)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.data.pipeline import modality_stub
+    from repro_torch.launch import steps
+    from repro_torch.models.common import torch_dtype
+    from repro_torch.sharding import partition as P
+    from repro_torch.utils.tree import tree_bytes
+
+    B, S, new = spec["batch"], spec["prompt"], spec["new"]
+    rules, mesh = P.module_mesh(model) or (None, None)
+    gather = lambda t, dim, axes: D.all_gather_axes(t, mesh, axes, dim) if axes else t
+    rows = () if mesh is None else P.batch_split(B, rules, mesh)
+    vocab = () if mesh is None else model._vocab_block()[0]
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    prompts = torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)),
+                              dtype=torch.int32, device=device)
+    mem = modality_stub(cfg, B, seed)
+    mem = (torch.as_tensor(next(iter(mem.values())), device=device)
+           .to(torch_dtype(cfg.compute_dtype)) if mem else None)
+    prefill, serve = steps.make_prefill_step(cfg), steps.make_serve_step(cfg)
+    with P.use_rules(rules, mesh):
+        caches = model.init_cache(B, S + new + profiled + 8)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, prompts, caches, mem)
+        token = gather(model.greedy(logits[:, -1, :]).to(torch.int32)[:, None], 0, rows)
+        torch.cuda.synchronize(device)
+        t_prefill = time.perf_counter() - t0
+        last = gather(gather(logits[:, -1, :], 1, vocab), 0, rows).float().cpu()
+        out, walls = [token], []
+        for i in range(new):
+            t0 = time.perf_counter()
+            token, caches = serve(params, token, caches, S + i)
+            token = gather(token, 0, rows)
+            torch.cuda.synchronize(device)
+            walls.append(time.perf_counter() - t0)
+            out.append(token)
+        res = dict(tokens=torch.cat(out, dim=1).cpu().tolist(), logits=last,
+                   prefill_s=t_prefill, step_s=walls,
+                   peak=torch.cuda.max_memory_allocated(device),
+                   state_b=tree_bytes(params) + cache_bytes(caches))
+        if profiled:
+            def more():
+                tok, c = token, caches
+                for i in range(new, new + profiled):
+                    tok, c = serve(params, tok, c, S + i)
+                    tok = gather(tok, 0, rows)
+
+            _, wall, busy, n_dev, krows = profile_device(more)
+            res["profile"] = dict(
+                wall_s=wall, busy_s=busy, launches=n_dev,
+                nccl_s=sum(us for k, us, _ in krows if "nccl" in k.lower()) / 1e6,
+                top=[(k[:60], us / 1e3, c) for k, us, c in krows[:6]])
+    return res
+
+
+def am_reference(device):
+    """Phase 20 (a)'s one-card side, in the main process before the ranks start: each
+    family's cut trained one step (the VLM period's loss and gradients alone), its
+    float32-compute twin prefilled and decoded through the steps, MLA's also through
+    the engine; whisper's step-0 OT operands (d = 1024) and its fused OT term's
+    launches for the kernel rows.  Returns (the runs by arch, the operands, those
+    launches)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import _build as kbuild
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+
+    n = count_params(build_model(am_cut(FAM_VLM_ARCH, full=True), device="meta"))
+    check(n == AM_VLM_PARAMS, f"{FAM_VLM_ARCH} has {n} parameters, not {AM_VLM_PARAMS}")
+    ref, ops, fused = {}, None, None
+    for arch in AM_ARCHS:
+        cfg = am_cut(arch)
+        if arch == FAM_VLM_ARCH:
+            r = am_grads(cfg, AM_TRAIN_A[arch], device)
+        else:
+            one = lmm_trainer(cfg, AM_TRAIN_A[arch], device)
+            if arch == FAM_ED_ARCH:
+                batch = one.batch(0)
+                ops = lm_ot_operands(one, batch, device)
+            r = lmm_run(one, 1, device)
+            if arch == FAM_ED_ARCH:          # the OT term of step 0 once more, fused (K8)
+                kbuild.reset_launch_counts()
+                with torch.no_grad():
+                    one.tcfg = dataclasses.replace(one.tcfg, ot_grad_impl="fused")
+                    one.ot_loss(batch)
+                fused = kbuild.launch_counts()
+                del batch
+            del one
+        fresh_memory()
+        cfg32 = am_cut(arch, "float32")
+        model = build_model(cfg32, device, seed=0)
+        am_gates(model)
+        r["steps"] = am_steps(cfg32, model, AM_STEPS_A, 20, device)
+        if arch == FAM_MLA_ARCH:
+            eng, logits = sm_serve(cfg32, model, AM_ENGINE_A, 21, device)
+            r["engine"], r["engine_logits"] = eng["tokens"], logits
+            del eng
+        del model
+        fresh_memory()
+        ref[arch] = r
+        print(f"phase 20 (a) one card: {arch} {AM_CUTS[arch]}: loss {r['loss']}, grad norm "
+              f"{r['gnorm']}, ot {r['ot']}; steps' tokens {r['steps']['tokens']}"
+              + (f"; engine tokens {r['engine']}" if "engine" in r else ""), flush=True)
+    return ref, ops, fused
+
+
+def am_rank_a(meshes, device, out, save):
+    """Phase 20 (a) on a rank of phase 18 (a)'s two gloo ranks: each family's cut on its
+    meshes (AM_MESHES_A): one train step (the VLM's loss and gradients), the float32
+    twin through the steps, MLA's through the engine; rank 0's gathered parameters,
+    AdamW m and logits (``save``)."""
+    import torch
+
+    from repro_torch.models import build_on_mesh
+    from repro_torch.sharding import partition as P
+
+    for arch in AM_ARCHS:
+        for shape in AM_MESHES_A[arch]:
+            mesh, tag = meshes[shape], f"{arch}_{shape[0]}x{shape[1]}"
+            t0 = time.perf_counter()
+            cfg = am_cut(arch)
+            if arch == FAM_VLM_ARCH:
+                run = am_grads(cfg, AM_TRAIN_A[arch], device, mesh)
+            else:
+                tr = lmm_trainer(cfg, AM_TRAIN_A[arch], device, mesh)
+                lmm_check_blocks(tr, f"(a) {tag}", "phase 20")
+                full = lmm_run(tr, 1, device)
+                save(f"am_{tag}.pt", {"params": full["params"], "m": full["m"]})
+                run = dict(loss=full["loss"][0], gnorm=full["gnorm"][0], ot=full["ot"][0],
+                           launches=full["launches"], wall=full["walls"][0],
+                           peak=full["peak"], state_b=full["state_b"])
+                del tr, full
+            fresh_memory()
+            cfg32 = am_cut(arch, "float32")
+            model = build_on_mesh(cfg32, device, P.default_rules(mesh.axis_names), mesh)
+            am_gates(model)
+            st = am_steps(cfg32, model, AM_STEPS_A, 20, device)
+            save(f"am_{tag}_logits.pt", st.pop("logits"))
+            run["steps"] = st
+            if arch == FAM_MLA_ARCH and shape == (1, 2):
+                eng, logits = sm_serve(cfg32, model, AM_ENGINE_A, 21, device, mesh)
+                run["engine"] = eng["tokens"]
+                save(f"am_{tag}_engine.pt", logits)
+                del eng
+            run["wall_all"] = time.perf_counter() - t0
+            out["attn"][f"{arch} on {shape}"] = run
+            del model
+            fresh_memory()
+    torch.cuda.synchronize(device)
+
+
+def am_compare(label, ref, got, vlm):
+    """A mesh train run ``got`` against one card's ``ref``: the VLM's loss and gradient
+    norm (no optimizer step) within LMM_LOSS_RTOL / LMM_GNORM_RTOL, the others through
+    ``lmm_compare`` (parameters, AdamW m).  Returns the summary's words."""
+    import math
+
+    if not vlm:
+        worst, m_rel, m_leaf = lmm_compare(label, ref, got, "phase 20")
+        return (f"max abs parameter difference {worst:.3e}, AdamW m {m_rel:.3e} of its norm "
+                f"off ({m_leaf})")
+    for k, tol in (("loss", LMM_LOSS_RTOL), ("gnorm", LMM_GNORM_RTOL)):
+        check(math.isfinite(got[k]) and abs(got[k] - ref[k]) <= tol * abs(ref[k]),
+              f"phase 20 {label}: {k} {got[k]!r} on the mesh, {ref[k]!r} on one card")
+    return "no optimizer step (the period's AdamW state does not fit one card)"
+
+
+def am_check_steps(label, ref, got, logits, ref_logits):
+    """The steps' tokens one card's; the prefill logits within SM_LOGIT_TOL."""
+    import torch
+
+    check(got["tokens"] == ref["tokens"], f"phase 20 {label}: tokens {got['tokens']} on the "
+                                          f"mesh, {ref['tokens']} on one card")
+    err = float((logits - ref_logits).abs().max())
+    check(torch.allclose(logits, ref_logits, rtol=SM_LOGIT_TOL, atol=SM_LOGIT_TOL),
+          f"phase 20 {label}: prefill logits off one card's by {err:.3e}")
+    return err
+
+
+def am_compare_a(ref, res, load):
+    """Phase 20 (a)'s checks, after the ranks: every rank's losses, OT distances, gradient
+    norms and tokens the same; K1, K4 and K5 or K6 launched on every rank; each run
+    against the card's (``am_compare``; the steps' tokens and logits, MLA's engine's)."""
+    import math
+
+    for arch in AM_ARCHS:
+        for shape in AM_MESHES_A[arch]:
+            label, tag = f"(a) {arch} on {shape}", f"{arch}_{shape[0]}x{shape[1]}"
+            got = [x["attn"][f"{arch} on {shape}"] for x in res]
+            for k in ("loss", "ot", "gnorm"):
+                check(all(g[k] == got[0][k] for g in got) and math.isfinite(got[0][k]),
+                      f"phase 20 {label}: the ranks' {k} differ or are not finite: "
+                      f"{[g[k] for g in got]}")
+            check(all(g["steps"]["tokens"] == got[0]["steps"]["tokens"] for g in got),
+                  f"phase 20 {label}: the ranks' tokens differ")
+            for r, g in enumerate(got):
+                ln = g["launches"]
+                check(ln.get(K1, 0) > 0 and ln.get(K4, 0) > 0
+                      and ln.get(K5, 0) + ln.get(K6, 0) > 0,
+                      f"phase 20 {label}: rank {r} did not launch K1, K4 and K5/K6: {ln}")
+            vlm = arch == FAM_VLM_ARCH
+            g = dict(got[0])
+            if not vlm:
+                g = dict(loss=[g["loss"]], gnorm=[g["gnorm"]], **load(f"am_{tag}.pt"))
+            words = am_compare(label, ref[arch], g, vlm)
+            err = am_check_steps(label, ref[arch]["steps"], got[0]["steps"],
+                                 load(f"am_{tag}_logits.pt"), ref[arch]["steps"]["logits"])
+            eng = ""
+            if "engine" in got[0]:
+                toks = [{int(k): v for k, v in x["engine"].items()} for x in got]
+                check(all(t == ref[arch]["engine"] for t in toks),
+                      f"phase 20 {label}: engine tokens {toks} on the ranks, "
+                      f"{ref[arch]['engine']} on one card")
+                errs = [float((a - b).abs().max()) for a, b in
+                        zip(load(f"am_{tag}_engine.pt"), ref[arch]["engine_logits"])]
+                check(all(e <= SM_LOGIT_TOL for e in errs),
+                      f"phase 20 {label}: the engine's prefill logits off one card's by {errs}")
+                eng = (f"; through ServingEngine(mesh=) every request's tokens the card's, "
+                       f"prefill logits {max(errs):.3e} off")
+            st = got[0]["steps"]
+            print(f"phase 20 {label} (two gloo ranks on one card): loss {got[0]['loss']!r} / "
+                  f"{ref[arch]['loss']!r} one card's, grad norm {got[0]['gnorm']!r} / "
+                  f"{ref[arch]['gnorm']!r}, ot {got[0]['ot']!r}, every rank's the same; "
+                  f"{words}; the float32 steps' tokens the card's, prefill logits "
+                  f"{err:.3e} off; step {got[0]['wall']:.2f} s, prefill "
+                  f"{st['prefill_s']:.3f} s, decode {sorted(st['step_s'])[len(st['step_s']) // 2]:.3f} "
+                  f"s a step, peak {got[0]['peak']} B, launches {got[0]['launches']}{eng}; "
+                  f"{got[0]['wall_all']:.1f} s with the draws", flush=True)
+    counts = {k: ("phase 20 (a) one card: whisper-medium 2 + 2 layers, one step, "
+                  "grad_impl 'pallas'", ref[FAM_ED_ARCH]["launches"].get(k, 0))
+              for k in (K1, K4, K5, K6)}
+    return counts
+
+
+def attn_mesh_rank(rank: int, init: str) -> None:
+    """One rank of phase 20 (b) (see ``phase_attn_mesh``); exits non-zero on any failed
+    check.  Its results go to ``AM_DIR/rank{rank}.json``, mesh rank 0's logits and
+    gathered parameters to ``AM_DIR/*.pt``."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.models import build_model, build_on_mesh
+    from repro_torch.models.common import count_params
+    from repro_torch.sharding import partition as P
+    from repro_torch.utils.tree import tree_bytes
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend, device = D.init_process_group(4, rank, init, timeout_s=900)
+    say = lambda msg: print(f"[{time.perf_counter() - t_start:.1f} s] {msg}", flush=True)
+    say(f"phase 20 (b): backend {backend}, rank {rank} on {device} "
+        f"({torch.cuda.get_device_name(device)})")
+    out = {"backend": backend, "runs": {}}
+    meshes = {shape: D.make_mesh(shape, ("data", "model")) for shape in ((1, 4), (2, 2))}
+    save = lambda name, obj: torch.save(obj, os.path.join(AM_DIR, name)) if rank == 0 else None
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+    def keep(label, run):
+        out["runs"][label] = run
+        check(run["peak"] < 80e9, f"phase 20 (b) {label}: peak {run['peak']} B")
+        say(f"{label}: " + ", ".join(f"{k} {v}" for k, v in run.items()
+                                     if k not in ("params", "m", "logits")))
+
+    # llama-3.2-vision-90b at full width and depth, served through the steps
+    cfg = am_cut(FAM_VLM_ARCH, full=True)
+    for shape, mesh in meshes.items():
+        rules = P.default_rules(mesh.axis_names)
+        free()
+        t0 = time.perf_counter()
+        model = build_on_mesh(cfg, device, rules, mesh)
+        am_gates(model)
+        torch.cuda.synchronize(device)
+        t_draw = time.perf_counter() - t0
+        run = am_steps(cfg, model, AM_STEPS_B, 22, device, profiled=AM_PROFILED)
+        run.pop("logits")
+        run["draw_s"] = t_draw
+        keep(f"{FAM_VLM_ARCH} 100 layers on {shape}", run)
+        del model
+        free()
+        cut = am_cut(FAM_VLM_ARCH, "float32")
+        model = build_on_mesh(cut, device, rules, mesh)
+        am_gates(model)
+        run = am_steps(cut, model, AM_CHECK_B, 23, device)
+        save(f"vlm_{shape[0]}x{shape[1]}.pt", run.pop("logits"))
+        keep(f"{FAM_VLM_ARCH} 5 layers on {shape}", run)
+        del model
+        free()
+    mesh22, mesh14 = meshes[(2, 2)], meshes[(1, 4)]
+    # one VLM period trained with AdamW on (2, 2)
+    tr = lmm_trainer(am_cut(FAM_VLM_ARCH), AM_TRAIN_B, device, mesh22, steps=2)
+    am_gates(tr.model)
+    lmm_check_blocks(tr, "(b) VLM period", "phase 20")
+    run = lmm_run(tr, 2, device, profile_step=True, gather=False)
+    keep(f"{FAM_VLM_ARCH} 5 layers trained on (2, 2)", run)
+    del tr, run
+    free()
+    # minicpm3-4b at full depth trained on (2, 2), 3 steps; its cut against one card
+    cfg = am_cut(FAM_MLA_ARCH, full=True)
+    tr = lmm_trainer(cfg, AM_TRAIN_B, device, mesh22, steps=AM_TRAIN_B["steps"])
+    run = lmm_run(tr, AM_TRAIN_B["steps"], device, profile_step=True, gather=False)
+    check(all(math.isfinite(v) for v in run["loss"] + run["ot"]),
+          f"phase 20 (b) {FAM_MLA_ARCH}: a loss or OT distance is not finite: {run['loss']}")
+    keep(f"{FAM_MLA_ARCH} 62 layers trained on (2, 2)", run)
+    del tr, run
+    free()
+    for arch in (FAM_MLA_ARCH, FAM_ED_ARCH):      # the MLA cut, whisper at full depth
+        cfg, how = am_step_cut(arch)
+        tr = lmm_trainer(cfg, AM_TRAIN_B, device, mesh22)
+        run = lmm_run(tr, 1, device)
+        save(f"train_{arch}.pt", {"params": run.pop("params"), "m": run.pop("m")})
+        keep(f"{arch} {how} trained on (2, 2), one step", run)
+        del tr, run
+        free()
+    # whisper-medium at full depth trained on (2, 2), 3 steps
+    tr = lmm_trainer(am_cut(FAM_ED_ARCH, full=True), AM_TRAIN_B, device, mesh22,
+                     steps=AM_TRAIN_B["steps"])
+    run = lmm_run(tr, AM_TRAIN_B["steps"], device, profile_step=True, gather=False)
+    keep(f"{FAM_ED_ARCH} 24 + 24 layers trained on (2, 2)", run)
+    del tr, run
+    free()
+    # served on (1, 4): minicpm3-4b through the engine, whisper-medium through the steps,
+    # each at full depth, then the float32 twins against one card
+    rules14 = P.default_rules(mesh14.axis_names)
+    model = build_on_mesh(am_cut(FAM_MLA_ARCH, full=True), device, rules14, mesh14)
+    eng, _ = sm_serve(model.cfg, model, AM_ENGINE_B, 24, device, mesh14)
+    engine = eng.pop("engine")
+    prof = profile_ticks(engine, sm_pairs(model.cfg.vocab_size, AM_ENGINE_B, 24),
+                         AM_ENGINE_B["new"], AM_PROFILED, "phase 20 (b)")
+    wall, busy, n_dev, krows = prof
+    check_served(f"(b) {FAM_MLA_ARCH}", eng.pop("done"), AM_ENGINE_B["requests"],
+                 AM_ENGINE_B["new"], phase="phase 20")
+    eng["state_b"] = tree_bytes(dict(model.named_parameters())) + cache_bytes(engine.caches)
+    eng["profile"] = dict(wall_s=wall, busy_s=busy, launches=n_dev,
+                          nccl_s=sum(us for k, us, _ in krows if "nccl" in k.lower()) / 1e6,
+                          top=[(k[:60], us / 1e3, c) for k, us, c in krows[:6]])
+    keep(f"{FAM_MLA_ARCH} 62 layers served on (1, 4)", eng)
+    del model, engine, eng
+    free()
+    cfg = am_cut(FAM_ED_ARCH, full=True)
+    model = build_on_mesh(cfg, device, rules14, mesh14)
+    run = am_steps(cfg, model, AM_STEPS_B, 25, device, profiled=AM_PROFILED)
+    run.pop("logits")
+    keep(f"{FAM_ED_ARCH} 24 + 24 layers served on (1, 4)", run)
+    del model
+    free()
+    cut = am_cut(FAM_MLA_ARCH, "float32")
+    model = build_on_mesh(cut, device, rules14, mesh14)
+    eng, logits = sm_serve(cut, model, AM_ENGINE_CHECK_B, 26, device, mesh14)
+    save("mla_engine.pt", logits)
+    out["runs"][f"{FAM_MLA_ARCH} cut served on (1, 4)"] = dict(tokens=eng["tokens"])
+    del model, eng
+    free()
+    cfg32 = am_cut(FAM_ED_ARCH, "float32", full=True)
+    model = build_on_mesh(cfg32, device, rules14, mesh14)
+    run = am_steps(cfg32, model, AM_CHECK_B, 27, device)
+    save("whisper_steps.pt", run.pop("logits"))
+    out["runs"][f"{FAM_ED_ARCH} float32 served on (1, 4)"] = dict(tokens=run["tokens"])
+    del model
+    free()
+    if rank == 0:                     # one card: each check against its mesh twin
+        one = {}
+        cut = am_cut(FAM_VLM_ARCH, "float32")
+        model = build_model(cut, device, seed=0)
+        am_gates(model)
+        run = am_steps(cut, model, AM_CHECK_B, 23, device)
+        save("vlm_one.pt", run.pop("logits"))
+        one["vlm steps"] = dict(tokens=run["tokens"])
+        del model
+        free()
+        one["vlm grads"] = am_grads(am_cut(FAM_VLM_ARCH), AM_TRAIN_B, device)
+        free()
+        for arch in (FAM_MLA_ARCH, FAM_ED_ARCH):
+            tr = lmm_trainer(am_step_cut(arch)[0], AM_TRAIN_B, device)
+            run = lmm_run(tr, 1, device)
+            save(f"train_{arch}_one.pt", {"params": run.pop("params"), "m": run.pop("m")})
+            one[f"train {arch}"] = run
+            del tr
+            free()
+        model = build_model(am_cut(FAM_MLA_ARCH, "float32"), device, seed=0)
+        eng, logits = sm_serve(model.cfg, model, AM_ENGINE_CHECK_B, 26, device)
+        save("mla_engine_one.pt", logits)
+        one["mla engine"] = dict(tokens=eng["tokens"])
+        del model, eng
+        free()
+        model = build_model(cfg32, device, seed=0)
+        run = am_steps(cfg32, model, AM_CHECK_B, 27, device)
+        save("whisper_steps_one.pt", run.pop("logits"))
+        one["whisper steps"] = dict(tokens=run["tokens"])
+        del model
+        free()
+        out["one card"] = one
+        n = count_params(build_model(am_cut(FAM_VLM_ARCH, full=True), device="meta"))
+        check(n == AM_VLM_PARAMS, f"{FAM_VLM_ARCH} has {n} parameters, not {AM_VLM_PARAMS}")
+    lmm_barrier(device)
+    with open(os.path.join(AM_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    lmm_barrier(device)
+
+
+def phase_attn_mesh(smi_line: str):
+    """Phase 20 (b), ``--attn-mesh-only`` on four cards (NCCL, a card a rank):
+    ``llama-3.2-vision-90b`` at full width and depth (bf16, 175.3 GB: no card holds it)
+    prefilled (8 x 512 tokens, 1 601 image tokens each) and decoded 32 steps through the
+    steps on (1, 4) and (2, 2); one VLM period trained with AdamW on (2, 2);
+    ``minicpm3-4b`` (62 layers) and ``whisper-medium`` (24 + 24) trained on (2, 2) with
+    the OT term (3 steps of 8 x 512 tokens), MLA served through the engine and whisper
+    through the steps on (1, 4); each cut against one card (card 0): the VLM period's
+    float32 steps (tokens, prefill logits within SM_LOGIT_TOL) and its loss and gradient
+    norm, the MLA cut's and whisper's one step (``lmm_compare``), the MLA cut's engine
+    and whisper's float32 steps (tokens, logits).  Per rank: ms a decode step or tick,
+    prefill s, tokens/s, state and peak B, launches and NCCL's device time in profiled
+    steps, step walls."""
+    import socket
+    import statistics
+
+    import torch
+
+    t_phase = time.perf_counter()
+    os.makedirs(AM_DIR, exist_ok=True)
+    for name in os.listdir(AM_DIR):
+        os.remove(os.path.join(AM_DIR, name))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(4):
+            log = open(os.path.join(AM_DIR, f"rank{r}.log"), "w")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--attn-mesh-rank", str(r),
+                 "--mesh-init", f"tcp://127.0.0.1:{port}"],
+                stdout=log, stderr=subprocess.STDOUT))
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break                          # one rank failed: stop the others
+            if time.perf_counter() - t0 > AM_TIMEOUT_S:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r in range(len(procs)):
+        with open(os.path.join(AM_DIR, f"rank{r}.log")) as f:
+            for line in f.read().splitlines()[-40:]:
+                print(f"  [rank {r}] {line[:1500]}", flush=True)
+    rcs = [p.returncode for p in procs]
+    check(all(rc == 0 for rc in rcs), f"phase 20 (b): the ranks exited {rcs} after "
+                                      f"{time.perf_counter() - t0:.1f} s")
+    res = []
+    for r in range(4):
+        with open(os.path.join(AM_DIR, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    load = lambda name: torch.load(os.path.join(AM_DIR, name))
+    one = res[0]["one card"]
+    runs = lambda label: [x["runs"][label] for x in res]
+    for label, r in res[0]["runs"].items():         # every rank the same bits
+        for k in ("loss", "ot", "tokens"):
+            if k in r:
+                check(all(x[k] == r[k] for x in runs(label)),
+                      f"phase 20 (b) {label}: the ranks' {k} differ")
+    for shape in ((1, 4), (2, 2)):
+        label = f"{FAM_VLM_ARCH} 5 layers on {shape}"
+        err = am_check_steps(f"(b) {label}", one["vlm steps"], res[0]["runs"][label],
+                             load(f"vlm_{shape[0]}x{shape[1]}.pt"), load("vlm_one.pt"))
+        print(f"phase 20 (b) {label} (float32 compute): every rank's tokens one card's, "
+              f"prefill logits {err:.3e} off", flush=True)
+    label = f"{FAM_VLM_ARCH} 5 layers trained on (2, 2)"
+    got = res[0]["runs"][label]
+    am_compare(f"(b) {label}", one["vlm grads"],
+               dict(loss=got["loss"][0], gnorm=got["gnorm"][0]), vlm=True)
+    print(f"phase 20 (b) {label}: step-0 loss {got['loss'][0]!r} / {one['vlm grads']['loss']!r} "
+          f"one card's, grad norm {got['gnorm'][0]!r} / {one['vlm grads']['gnorm']!r}",
+          flush=True)
+    for arch in (FAM_MLA_ARCH, FAM_ED_ARCH):
+        label = f"{arch} {am_step_cut(arch)[1]} trained on (2, 2), one step"
+        got = dict(res[0]["runs"][label], **load(f"train_{arch}.pt"))
+        ref = dict(one[f"train {arch}"], **load(f"train_{arch}_one.pt"))
+        words = am_compare(f"(b) {label}", ref, got, vlm=False)
+        print(f"phase 20 (b) {label}: loss {got['loss'][0]!r} / {ref['loss'][0]!r} one card's, "
+              f"grad norm {got['gnorm'][0]!r} / {ref['gnorm'][0]!r}; {words}; one card's "
+              f"step {ref['walls'][0]:.3f} s, peak {ref['peak']} B", flush=True)
+    got = res[0]["runs"][f"{FAM_MLA_ARCH} cut served on (1, 4)"]["tokens"]
+    check(got == one["mla engine"]["tokens"], f"phase 20 (b) {FAM_MLA_ARCH} cut: engine "
+                                              f"tokens {got}, one card {one['mla engine']}")
+    errs = [float((a - b).abs().max()) for a, b in zip(load("mla_engine.pt"),
+                                                       load("mla_engine_one.pt"))]
+    check(all(e <= SM_LOGIT_TOL for e in errs),
+          f"phase 20 (b) {FAM_MLA_ARCH} cut: engine prefill logits off one card's by {errs}")
+    label = f"{FAM_ED_ARCH} float32 served on (1, 4)"
+    err = am_check_steps(f"(b) {label}", one["whisper steps"], res[0]["runs"][label],
+                         load("whisper_steps.pt"), load("whisper_steps_one.pt"))
+    print(f"phase 20 (b) {FAM_MLA_ARCH} cut through the engine on (1, 4) and {label}: every "
+          f"request's tokens one card's, prefill logits {max(errs):.3e} / {err:.3e} off",
+          flush=True)
+    for r, x in enumerate(res):
+        for label, g in x["runs"].items():
+            if "step_s" in g:              # the steps
+                tok = len(g["tokens"]) * len(g["tokens"][0])
+                pr = g.get("profile") or {}
+                print(f"phase 20 (b) ({res[0]['backend']}, {smi_line}) {label} rank {r}: "
+                      f"prefill {g['prefill_s']:.3f} s, decode median "
+                      f"{statistics.median(g['step_s']) * 1e3:.2f} ms a step (min "
+                      f"{min(g['step_s']) * 1e3:.2f}, max {max(g['step_s']) * 1e3:.2f}), "
+                      f"{tok / (g['prefill_s'] + sum(g['step_s'])):.1f} tokens/s, state "
+                      f"{g['state_b']} B, peak {g['peak']} B"
+                      + (f", drawn in {g['draw_s']:.1f} s" if "draw_s" in g else "")
+                      + (f"; profile of {AM_PROFILED} decode steps: wall {pr['wall_s']:.4f} s, "
+                         f"busy {pr['busy_s']:.4f} s, {pr['launches'] / AM_PROFILED:.1f} "
+                         f"launches a step, NCCL {pr['nccl_s']:.4f} s; largest {pr['top']}"
+                         if pr else ""), flush=True)
+            elif "walls" in g:             # the trainers
+                print(f"phase 20 (b) ({res[0]['backend']}, {smi_line}) {label} rank {r}: loss "
+                      f"{g['loss']}, ot {g['ot']}, grad norm {g['gnorm']}, step walls "
+                      f"{g['walls']} s, state {g['state_b']} B, peak {g['peak']} B, launches "
+                      f"{g['launches']}; split "
+                      + "; ".join(", ".join(f"{p} {t:.4f}" for p, t in sp.items())
+                                  for sp in g["splits"])
+                      + ("" if not g.get("profile") else f"; profile {g['profile']}"),
+                      flush=True)
+            elif "ticks" in g:             # the engine
+                ticks = [t for _, t in g["ticks"]]
+                n_tok = sum(len(v) for v in g["tokens"].values())
+                pr = g["profile"]
+                print(f"phase 20 (b) ({res[0]['backend']}, {smi_line}) {label} rank {r}: "
+                      f"{len(g['tokens'])} requests, {n_tok} tokens in {g['wall']:.3f} s "
+                      f"({n_tok / g['wall']:.1f} tokens/s); {len(ticks)} ticks, median "
+                      f"{statistics.median(ticks) * 1e3:.2f} ms a tick; admission "
+                      f"{g['admit']:.3f} s; state {g['state_b']} B, peak {g['peak']} B; "
+                      f"profile of {AM_PROFILED} ticks: wall {pr['wall_s']:.4f} s, busy "
+                      f"{pr['busy_s']:.4f} s, {pr['launches'] / AM_PROFILED:.1f} launches a "
+                      f"tick, NCCL {pr['nccl_s']:.4f} s; largest {pr['top']}", flush=True)
+    print(f"phase 20 (b) took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 # -- phase 17: the hybrid family (Mamba, attention and MoE layers) ---------------------
@@ -5933,6 +6669,11 @@ def main() -> None:
                          "mesh on four cards (NCCL, (1, 4) and (2, 2)), phi3.5-moe-42b-a6.6b "
                          "at full width and depth")
     ap.add_argument("--serve-mesh-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--attn-mesh-only", action="store_true",
+                    help="instead: build, then run phase 20 (b) alone: the attention families "
+                         "on the LM mesh on four cards (NCCL, (1, 4) and (2, 2)), "
+                         "llama-3.2-vision-90b served at full width and depth")
+    ap.add_argument("--attn-mesh-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--serve-only", action="store_true",
                     help="instead: build, then run phase 14 (LM serving, the MoE family and "
                          "the OT router) alone")
@@ -5951,6 +6692,9 @@ def main() -> None:
         return
     if args.serve_mesh_rank is not None:
         serve_mesh_rank(args.serve_mesh_rank, args.mesh_init)
+        return
+    if args.attn_mesh_rank is not None:
+        attn_mesh_rank(args.attn_mesh_rank, args.mesh_init)
         return
     if args.compare_run:
         compare_run(args.out, args.bits)
@@ -6023,6 +6767,13 @@ def main() -> None:
         rows = phase_lm_mesh(smi_line, part)
         print(json.dumps({"kernels": rows[0] if part == "a" else rows}), flush=True)
         print(f"{smi_line}; phase 18 ({part}) alone took {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return
+    if args.attn_mesh_only:
+        check(torch.cuda.device_count() >= 4,
+              f"--attn-mesh-only needs four cards, found {torch.cuda.device_count()}")
+        phase_attn_mesh(smi_line)
+        print(f"{smi_line}; phase 20 (b) alone took {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return
     if args.serve_only:

@@ -24,9 +24,10 @@ post-SPMD HLO; PyTorch has neither.  So the record has no
 (``parse_collectives``, kept for the JAX records, reads HLO text), and a
 size the step reads on the host from a tensor's values takes its static
 bound on ``meta`` (``static_bounds`` lists each: the MoE dispatch's
-capacity block).  A family the mesh does not run yet records ``status:
-"error"`` with the ``NotImplementedError`` (ROADMAP A4 (e)), as JAX's
-``run_cell`` records a failing cell.
+capacity block, a decode index on ``meta``).  A family the mesh does not
+run yet (xLSTM, the Mamba hybrid) records ``status: "error"`` with the
+``NotImplementedError`` (ROADMAP A4 (e)), as JAX's ``run_cell`` records a
+failing cell.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k [--multi-pod]
@@ -213,8 +214,12 @@ def step_args(cfg, shape, mesh, rules, tcfg: TrainConfig):
     caches = _blocks(ins["caches"])
     if shape.kind == "prefill":
         tokens = ins["tokens"]
+        args = (params, _whole(tokens), caches)
         arg_bytes = tree_bytes((params, caches)) + tree_bytes(_blocks(tokens))
-        return make_prefill_step(cfg), (params, _whole(tokens), caches), arg_bytes
+        if "memory" in ins:            # an encoder-decoder's frames, a VLM's image tokens
+            args += (_whole(ins["memory"]),)
+            arg_bytes += tree_bytes(_blocks(ins["memory"]))
+        return make_prefill_step(cfg), args, arg_bytes
     token, index = ins["token"], ins["index"]
     arg_bytes = tree_bytes((params, caches)) + tree_bytes(_blocks((token, index)))
     return make_serve_step(cfg), (params, _whole(token), caches, _whole(index)), arg_bytes

@@ -14,7 +14,9 @@ Every rank serves the same requests and prints the same tokens.  An encoder-deco
 ``launch.steps`` instead of the engine, whose requests carry no frames or
 image: the requests in one batch, the stub frontend's frames or image
 tokens drawn from ``--seed``, one prefill (the encoder runs there) and one
-decode step a token.
+decode step a token; on a mesh too:
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-90b --reduced --mesh 1,2 --device cpu
 """
 from __future__ import annotations
 
@@ -108,20 +110,28 @@ def _mesh(spec: str, device):
 
 def serve_with_memory(cfg, model, reqs, max_len: int, seed: int):
     """Greedy decoding of ``reqs`` (prompts of one length) in one batch through the step
-    functions, with the stub frontend's memory drawn from ``seed``."""
+    functions, with the stub frontend's memory drawn from ``seed``.  On a mesh (a model
+    placed there, ``build_on_mesh``) every rank runs the steps on the whole batch under
+    the model's rules: each step takes the rank's rows, and its next tokens, each the
+    argmax over the vocabulary's blocks, are gathered over the data axes."""
     dev = model.embed.device
+    rules, mesh = P.module_mesh(model) or (None, None)
+    rows = () if mesh is None else P.batch_split(len(reqs), rules, mesh)
+    whole = lambda t: D.all_gather_axes(t, mesh, rows, 0) if rows else t
     params = {k: p.detach() for k, p in model.named_parameters()}
     prompts = torch.as_tensor(np.stack([r.prompt for r in reqs]), device=dev)
     (memory,) = modality_stub(cfg, len(reqs), seed).values()
     memory = torch.as_tensor(memory, device=dev).to(torch_dtype(cfg.compute_dtype))
-    caches = model.init_cache(len(reqs), max_len)
-    logits, caches = steps.make_prefill_step(cfg)(params, prompts, caches, memory)
-    token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
-    out = [token]
-    serve_step = steps.make_serve_step(cfg)
-    for i in range(max(r.max_new_tokens for r in reqs) - 1):
-        token, caches = serve_step(params, token, caches, prompts.shape[1] + i)
-        out.append(token)
+    with P.use_rules(rules, mesh):
+        caches = model.init_cache(len(reqs), max_len)
+        logits, caches = steps.make_prefill_step(cfg)(params, prompts, caches, memory)
+        token = whole(model.greedy(logits[:, -1, :]).to(torch.int32)[:, None])
+        out = [token]
+        serve_step = steps.make_serve_step(cfg)
+        for i in range(max(r.max_new_tokens for r in reqs) - 1):
+            token, caches = serve_step(params, token, caches, prompts.shape[1] + i)
+            token = whole(token)
+            out.append(token)
     out = torch.cat(out, dim=1).cpu().numpy()
     for r, row in zip(reqs, out):
         r.out_tokens = [int(t) for t in row[:r.max_new_tokens]]

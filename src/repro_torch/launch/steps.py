@@ -17,10 +17,11 @@ image tokens, whose keys and values the prefill writes into the cache;
 encoder never runs during decode.
 
 On the LM mesh (called inside ``sharding.partition.use_rules(rules,
-mesh)`` on every rank, dense and MoE families): ``state``, ``params`` and
-``caches`` hold this rank's blocks (``partition.sharding_tree`` / ``cut``,
-``LM.init_cache``), ``batch``, ``tokens``, ``token`` and a per-slot
-``index`` are the whole batch, of which a step takes this rank's rows
+mesh)`` on every rank; every family but the recurrent ones): ``state``,
+``params`` and ``caches`` hold this rank's blocks
+(``partition.sharding_tree`` / ``cut``, ``init_cache``), ``batch``,
+``tokens``, ``memory``, ``token`` and a per-slot ``index`` are the whole
+batch, of which a step takes this rank's rows
 (every row where the data axes do not divide the batch,
 ``partition.batch_rows``), the metrics are the whole batch's, and the
 logits and next tokens this rank's block.  The gradient of a weight gathered over the
@@ -144,8 +145,8 @@ def _rows(rules, mesh, **inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
 def make_prefill_step(cfg: ModelConfig):
     """(params, tokens, caches, memory=None) -> (last-token logits, caches); ``memory``
     is an encoder-decoder's frames (encoded here) or a VLM's image tokens.  On the mesh
-    ``tokens`` is the whole batch and the logits this rank's block (its rows, its block
-    of the vocabulary)."""
+    ``tokens`` and ``memory`` are the whole batch, of which the step takes this rank's
+    rows, and the logits this rank's block (its rows, its block of the vocabulary)."""
     binding = _placed_binder(cfg)
 
     def prefill_step(params: Params, tokens: torch.Tensor, caches, memory=None):
@@ -154,8 +155,8 @@ def make_prefill_step(cfg: ModelConfig):
             if mesh is None:
                 return bind(params, _prefill, tokens, caches, memory)
             with P.batch_rows(tokens.shape[0]):
-                tokens = _rows(rules, mesh, tokens=tokens)["tokens"]
-                return bind(params, _prefill, tokens, caches, memory)
+                ins = _rows(rules, mesh, tokens=tokens, memory=memory)
+                return bind(params, _prefill, ins["tokens"], caches, ins["memory"])
 
     return prefill_step
 

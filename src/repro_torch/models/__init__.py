@@ -20,20 +20,15 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None, seed: int = 0,
 
     Its normal inits come from a generator on the device seeded with
     ``seed``.  ``device='meta'`` builds every shape and allocates nothing
-    (the JAX package's abstract init).  ``place(value, axes)`` (the LM
-    families) cuts each leaf as it is drawn: a rank's blocks on a mesh,
-    the same draws as the whole model's.
+    (the JAX package's abstract init).  ``place(value, axes)`` cuts each
+    leaf as it is drawn: a rank's blocks on a mesh, the same draws as the
+    whole model's.
     """
+    build = build_encdec if cfg.family == "encdec" else build_lm
     if torch.device(device if device is not None else "cuda").type == "meta":
-        build = build_encdec if cfg.family == "encdec" else build_lm
         return build(cfg, torch.device("meta"))
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    if cfg.family == "encdec":
-        if place is not None:
-            raise NotImplementedError("place= for the encoder-decoder (ROADMAP A4 (e))")
-        return build_encdec(cfg, dev, gen)
-    return build_lm(cfg, dev, gen, place)
+    return build(cfg, dev, torch.Generator(device=dev).manual_seed(seed), place)
 
 
 def build_on_mesh(cfg: ModelConfig, device: DeviceLike, rules, mesh, seed: int = 0) -> Model:

@@ -152,6 +152,20 @@ def _gqa_scores_ctx(q, k, v, mask):
     return ctx.reshape(B, S, H, hd)
 
 
+def _local_kv(mod: nn.Module, k: torch.Tensor, v: torch.Tensor):
+    """The KV heads the query heads of ``mod`` (GQA or cross-attention) on this rank read:
+    all of them off a mesh; on one, the groups of its block of heads (``wq``'s), or (a
+    block that splits a group) one KV head per query head."""
+    _, h0, hl = P.split(mod, "wq", 1)
+    if hl == mod.num_heads:
+        return k, v
+    G = mod.num_heads // mod.num_kv_heads
+    if hl % G == 0 and h0 % G == 0:
+        return k[:, :, h0 // G:(h0 + hl) // G], v[:, :, h0 // G:(h0 + hl) // G]
+    idx = torch.div(torch.arange(h0, h0 + hl, device=k.device), G, rounding_mode="floor")
+    return k[:, :, idx], v[:, :, idx]
+
+
 class GQA(nn.Module):
     """``init_gqa`` / ``apply_gqa``: wq (d, H, hd), wk / wv (d, K, hd), wo (H, hd, d)."""
 
@@ -201,22 +215,9 @@ class GQA(nn.Module):
                 v = _dq8(cache["v"], cache["v_scale"], dt)
             else:
                 k, v = cache["k"].to(dt), cache["v"].to(dt)
-        ctx = _gqa_scores_ctx(q, *self._local_kv(k, v), mask)
+        ctx = _gqa_scores_ctx(q, *_local_kv(self, k, v), mask)
         out = P.reduce_split(self, "wo", 0, torch.einsum("bshk,hkd->bsd", ctx, wo))
         return P.constrain(out, "batch", "seq", "embed_act"), cache
-
-    def _local_kv(self, k: torch.Tensor, v: torch.Tensor):
-        """The KV heads this rank's query heads read: all of them off a mesh; on one, the
-        groups of its block of heads, or (a block that splits a group) one KV head per
-        query head."""
-        _, h0, hl = P.split(self, "wq", 1)
-        if hl == self.num_heads:
-            return k, v
-        G = self.num_heads // self.num_kv_heads
-        if hl % G == 0 and h0 % G == 0:
-            return k[:, :, h0 // G:(h0 + hl) // G], v[:, :, h0 // G:(h0 + hl) // G]
-        idx = torch.div(torch.arange(h0, h0 + hl, device=k.device), G, rounding_mode="floor")
-        return k[:, :, idx], v[:, :, idx]
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +233,7 @@ class Cross(nn.Module):
         d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         kv_dim = kv_dim or d
         self.eps = cfg.rms_eps
+        self.num_heads, self.num_kv_heads = H, K
         self.wq = mk((d, H, hd), ("embed", "heads", "head_dim"))
         self.wk = mk((kv_dim, K, hd), ("embed", "kv_heads", "head_dim"))
         self.wv = mk((kv_dim, K, hd), ("embed", "kv_heads", "head_dim"))
@@ -243,13 +245,18 @@ class Cross(nn.Module):
         """x (B, S, D) queries; ``memory`` (B, M, Dm), cast to x's dtype, projected into
         keys and values (and written into ``cache`` in place where one is given), or,
         with ``memory=None``, the keys and values ``cache`` holds.  Returns ``(out,
-        cache)``."""
+        cache)``.
+
+        On a mesh, as ``GQA``: the rank's block of query heads, every KV head projected
+        from its rows of the memory (its cache holds them all) and the groups its heads
+        read kept; the output all-reduced over the axes that split the heads."""
         dt = x.dtype
-        q = torch.einsum("bsd,dhk->bshk", rmsnorm(x, self.q_norm, self.eps), self.wq.to(dt))
+        wq, wk, wv, wo = (P.weight(self, n).to(dt) for n in ("wq", "wk", "wv", "wo"))
+        q = torch.einsum("bsd,dhk->bshk", rmsnorm(x, P.weight(self, "q_norm"), self.eps), wq)
         if memory is not None:
             memory = memory.to(dt)
-            k = torch.einsum("bmd,dhk->bmhk", memory, self.wk.to(dt))
-            v = torch.einsum("bmd,dhk->bmhk", memory, self.wv.to(dt))
+            k = torch.einsum("bmd,dhk->bmhk", memory, wk)
+            v = torch.einsum("bmd,dhk->bmhk", memory, wv)
             if cache is not None:
                 cache["k"].copy_(k)
                 cache["v"].copy_(v)
@@ -259,9 +266,9 @@ class Cross(nn.Module):
         else:
             k, v = cache["k"].to(dt), cache["v"].to(dt)
         mask = torch.zeros((x.shape[1], k.shape[1]), dtype=torch.float32, device=x.device)
-        ctx = _gqa_scores_ctx(q, k, v, mask)
-        return torch.einsum("bshk,hkd->bsd", ctx, self.wo.to(dt)), cache
-
+        ctx = _gqa_scores_ctx(q, *_local_kv(self, k, v), mask)
+        out = P.reduce_split(self, "wo", 0, torch.einsum("bshk,hkd->bsd", ctx, wo))
+        return P.constrain(out, "batch", "seq", "embed_act"), cache
 
 
 def cross_cache(cfg: ModelConfig, batch: int, mem_len: int, dtype: torch.dtype,
@@ -326,14 +333,21 @@ class MLA(nn.Module):
                 cache_index: Index = 0) -> Tuple[torch.Tensor, Optional[Cache]]:
         """As ``GQA.forward``; ``cos`` / ``sin`` are over ``qk_rope_head_dim``.  ``mask``
         is (S, S) without a cache, else ``cache_mask(cache_index, S, max_len)`` (its
-        per-slot form's (B, 1, 1, S, T) is taken as the (B, 1, S, T) of these scores)."""
+        per-slot form's (B, 1, 1, S, T) is taken as the (B, 1, S, T) of these scores).
+
+        On a mesh the rank gathers ``q_down`` / ``kv_down`` over the data axes, keeps its
+        block of heads of ``q_up``, ``kv_up`` and ``wo`` (``q_norm`` / ``kv_norm`` are
+        whole on every rank), runs either path on its heads (the absorbed one's
+        ``q_lat`` is per head) and all-reduces the output over the axes that split
+        them.  Its cache is its rows of the batch, the latent whole."""
         dt, m = x.dtype, self.m
         nope = m.qk_nope_head_dim
-        ql = rmsnorm(x @ self.q_down.to(dt), self.q_norm, self.eps)
-        q = torch.einsum("bsr,rhk->bshk", ql, self.q_up.to(dt))
+        param = lambda name: P.weight(self, name).to(dt)
+        ql = rmsnorm(x @ param("q_down"), P.weight(self, "q_norm"), self.eps)
+        q = torch.einsum("bsr,rhk->bshk", ql, param("q_up"))
         q_nope, q_rope = q[..., :nope], q[..., nope:]
-        kv = x @ self.kv_down.to(dt)
-        latent = rmsnorm(kv[..., :m.kv_lora_rank], self.kv_norm, self.eps)
+        kv = x @ param("kv_down")
+        latent = rmsnorm(kv[..., :m.kv_lora_rank], P.weight(self, "kv_norm"), self.eps)
         q_rope = apply_rotary(q_rope, cos, sin)
         k_rope = apply_rotary(kv[..., m.kv_lora_rank:][:, :, None, :], cos, sin)[:, :, 0, :]
         scale = 1.0 / math.sqrt(nope + m.qk_rope_head_dim)
@@ -345,7 +359,7 @@ class MLA(nn.Module):
             if mask.ndim == 5:
                 mask = mask[:, 0]
             # absorbed: scores over the latent through kv_up's key half
-            kv_up = self.kv_up.to(dt)
+            kv_up = param("kv_up")
             q_lat = torch.einsum("bshk,rhk->bshr", q_nope, kv_up[..., :nope])
             scores = (torch.einsum("bshr,btr->bhst", q_lat, latent_all)
                       + torch.einsum("bshk,btk->bhst", q_rope, k_rope_all)).float()
@@ -354,7 +368,7 @@ class MLA(nn.Module):
             ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, kv_up[..., nope:])
         else:
             B, S, _ = x.shape
-            kvu = torch.einsum("bsr,rhk->bshk", latent, self.kv_up.to(dt))
+            kvu = torch.einsum("bsr,rhk->bshk", latent, param("kv_up"))
             H = kvu.shape[2]
             k = torch.cat([kvu[..., :nope],
                            k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)], dim=-1)
@@ -362,4 +376,5 @@ class MLA(nn.Module):
             scores = torch.einsum("bshk,bthk->bhst", qf, k).float() * scale
             w = softmax_fp32(scores + mask).to(dt)
             ctx = torch.einsum("bhst,bthv->bshv", w, kvu[..., nope:])
-        return torch.einsum("bshv,hvd->bsd", ctx, self.wo.to(dt)), cache
+        out = P.reduce_split(self, "wo", 0, torch.einsum("bshv,hvd->bsd", ctx, param("wo")))
+        return P.constrain(out, "batch", "seq", "embed_act"), cache

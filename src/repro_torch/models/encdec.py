@@ -18,29 +18,41 @@ writes its keys and values into each layer's ``cross_kv`` and raises
 the encoder never runs during decode.  (The JAX package's cached path
 attends over ``cross_kv``'s zeros instead: ROADMAP queue C.)  The decode
 index is a scalar, as in JAX.
+
+On the LM mesh (``sharding.partition.place_module``; ``build_on_mesh``) it
+runs as the decoder-only LM does: each rank holds its blocks of the
+parameters, gathers each weight over the data axes just before use
+(``dec_pos`` too), splits the heads and ``mlp`` over ``model``, and runs its
+rows of the batch: ``encode`` its rows of the frames, the decoder its rows
+of the tokens against its rows of the memory.  Lookup, logits,
+cross-entropy and ``greedy`` are vocab-parallel (``models/vocab.py``); the
+published vocabulary, 51 865, is odd, so ``model`` does not divide it and
+the tied table stays whole on every rank.  ``init_cache`` gives this rank's
+blocks of the cache (its rows, every KV head).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import distributed as D
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import GQA, Cross, Index
 from repro_torch.models.common import (
     Norm,
     ParamInit,
     causal_mask,
-    cross_entropy,
     rotary_cos_sin,
     torch_dtype,
 )
 from repro_torch.models.mlp import MLP
+from repro_torch.models.vocab import VocabParallel
+from repro_torch.sharding import partition as P
 
 
 def _sinusoid(length: int, channels: int) -> np.ndarray:
@@ -92,17 +104,19 @@ class DecoderBlock(nn.Module):
         return x + self.mlp(self.norm_ffn(x))
 
 
-class EncDec(nn.Module):
+class EncDec(VocabParallel, nn.Module):
     """The encoder-decoder.  ``device`` holds the parameters (``meta``: shapes only);
-    ``generator``, on that device, draws their normal inits."""
+    ``generator``, on that device, draws their normal inits; ``place``, where given,
+    cuts each leaf as it is drawn (``ParamInit``)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 place: Optional[Callable] = None):
         super().__init__()
         if cfg.family != "encdec":
             raise ValueError(f"family {cfg.family!r} is not an encoder-decoder's")
         self.cfg = cfg
-        mk = ParamInit(cfg.param_dtype, device, generator)
+        mk = ParamInit(cfg.param_dtype, device, generator, place)
         self.embed = mk((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))
         self.dec_pos = mk((cfg.max_decode_len, cfg.d_model), ("seq", "embed"))
         self.encoder = nn.ModuleList(EncoderBlock(mk, cfg) for _ in range(cfg.encoder_layers))
@@ -129,7 +143,8 @@ class EncDec(nn.Module):
         mask = torch.zeros((F_, F_), dtype=torch.float32, device=frames.device)
         for block in self.encoder:
             if remat:
-                x = checkpoint(block, x, cos, sin, mask, use_reentrant=False)
+                x = checkpoint(block, x, cos, sin, mask, use_reentrant=False,
+                               context_fn=P.checkpoint_contexts)
             else:
                 x = block(x, cos, sin, mask)
         return self.enc_norm(x)
@@ -140,7 +155,8 @@ class EncDec(nn.Module):
         for i, block in enumerate(self.decoder):
             c = None if caches is None else caches[i]
             if remat:
-                x = checkpoint(block, x, cos, sin, mask, memory, c, index, use_reentrant=False)
+                x = checkpoint(block, x, cos, sin, mask, memory, c, index, use_reentrant=False,
+                               context_fn=P.checkpoint_contexts)
             else:
                 x = block(x, cos, sin, mask, memory, c, index)
         return x
@@ -151,11 +167,8 @@ class EncDec(nn.Module):
         dt = torch_dtype(self.cfg.compute_dtype)
         S = tokens.shape[1]
         start = min(max(int(start), 0), self.cfg.max_decode_len - S)
-        x = F.embedding(tokens, self.embed.to(dt))
-        return x + self.dec_pos[start:start + S].to(dt)[None]
-
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return self.final_norm(x) @ self.embed.to(x.dtype).T
+        x = self.lookup(tokens, dt) + P.weight(self, "dec_pos")[start:start + S].to(dt)[None]
+        return P.constrain(x, "batch", "seq", "embed_act")
 
     # -- entry points -----------------------------------------------------------
     def forward(self, tokens: torch.Tensor, memory: torch.Tensor, remat: bool = False):
@@ -179,14 +192,22 @@ class EncDec(nn.Module):
         else:
             inputs, labels = tokens[:, :-1], tokens[:, 1:]
         logits, zero = self.forward(inputs, memory, remat)
-        loss, ce = cross_entropy(logits, labels, z_loss)
+        loss, ce = self._cross_entropy(logits, labels, z_loss)
         return loss, {"ce": ce, "loss": loss, "moe_lb": zero[0], "moe_dropped": zero[0]}
 
     def init_cache(self, batch: int, max_len: int, abstract: bool = False) -> List[Dict]:
         """One zero ``{"self", "cross_kv"}`` per decoder layer, on the parameters' device
-        (``abstract``: on ``meta``), in the compute dtype."""
-        cfg = self.cfg
+        (``abstract``: on ``meta``), in the compute dtype; on a mesh this rank's blocks of
+        the cache of ``batch`` rows, each carrying its ``placement`` (``LM.init_cache``)."""
+        placed = P.module_mesh(self)
         dev = "meta" if abstract else self.embed.device
+        if placed is None:
+            return self._zero_cache(batch, max_len, dev)
+        return P.zeros_tree(self._zero_cache(batch, max_len, "meta"), self.cache_logical_axes(),
+                            *placed, dev)
+
+    def _zero_cache(self, batch: int, max_len: int, dev) -> List[Dict]:
+        cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
         return [{"self": attn.make_cache(cfg, batch, max_len, dtype, dev),
                  "cross_kv": attn.cross_cache(cfg, batch, cfg.num_audio_frames, dtype, dev)}
@@ -222,6 +243,10 @@ class EncDec(nn.Module):
         (logits (B, 1, V), caches)."""
         if isinstance(index, torch.Tensor) and index.ndim > 0:
             raise ValueError("the encoder-decoder decodes at a scalar index, as the JAX one")
+        if isinstance(index, torch.Tensor) and index.device.type == "meta":
+            D.static_bound("decode_step: a 0-d index on meta taken as 0 (its value cannot be "
+                           "read; no shape depends on it)")
+            index = 0
         index = int(index)
         B = token.shape[0]
         dev = token.device
@@ -234,5 +259,6 @@ class EncDec(nn.Module):
 
 
 def build_encdec(cfg: ModelConfig, device: torch.device,
-                 generator: Optional[torch.Generator] = None) -> EncDec:
-    return EncDec(cfg, device, generator)
+                 generator: Optional[torch.Generator] = None,
+                 place: Optional[Callable] = None) -> EncDec:
+    return EncDec(cfg, device, generator, place)

@@ -32,14 +32,16 @@ positions: ``index`` is ignored, as in JAX), for a hybrid block ``{"attn":
 {k, v}, "mamba": {conv, ssm} stacked over its period - 1 Mamba layers}``.
 ``prefill`` and ``decode_step`` write it in place and return it.
 ``param_logical_axes`` gives each parameter's logical axes.  On a mesh
-(``sharding.partition.place_module``; dense and MoE families) each rank
-holds its blocks of the parameters, runs its data shard of the batch and
-its blocks of heads, ``mlp``, experts and the vocabulary (vocab-parallel
-embedding, logits and cross-entropy), and gathers each weight over the
-data axes just before use (``partition.weight``).  ``init_cache`` then
-gives this rank's blocks of the cache (its rows of the batch, every KV
-head), ``prefill`` and ``decode_step`` take this rank's rows of the
-tokens (and of a per-slot index) and return its block of the logits,
+(``sharding.partition.place_module``; the dense (MLA included), MoE and VLM
+families) each rank holds its blocks of the parameters, runs its data
+shard of the batch and its blocks of heads, ``mlp``, experts and the
+vocabulary (vocab-parallel embedding, logits and cross-entropy,
+``models/vocab.py``), and gathers each weight over the data axes just
+before use (``partition.weight``).  ``init_cache`` then gives this rank's
+blocks of the cache (its rows of the batch, every KV head, MLA's latent
+whole, a VLM's ``cross_kv`` its rows of every image token), ``prefill``
+and ``decode_step`` take this rank's rows of the tokens (of a per-slot
+index, and of a VLM's image tokens) and return its block of the logits,
 and ``greedy`` is the argmax over the vocabulary's blocks; the rows are
 the data axes' split of the global batch that ``partition.batch_rows``
 names (every row where they do not divide it).  A VLM
@@ -54,7 +56,6 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -67,13 +68,13 @@ from repro_torch.models.common import (
     Norm,
     ParamInit,
     causal_mask,
-    cross_entropy,
     logical_axes,
     rotary_cos_sin,
     torch_dtype,
 )
 from repro_torch.models.mlp import MLP
 from repro_torch.models.moe import MoE
+from repro_torch.models.vocab import VocabParallel
 from repro_torch.sharding import partition as P
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_dropped_frac")
@@ -245,7 +246,7 @@ def _write_state(state: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -
         state[k].copy_(t)
 
 
-class LM(nn.Module):
+class LM(VocabParallel, nn.Module):
     """The decoder-only LM of the dense, MoE, VLM, xLSTM and hybrid families.
 
     ``device`` holds the parameters (``meta``: shapes only, the JAX
@@ -282,59 +283,6 @@ class LM(nn.Module):
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.lookup(tokens, torch_dtype(self.cfg.compute_dtype))
         return P.constrain(x, "batch", "seq", "embed_act")
-
-    def lookup(self, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """Rows ``tokens`` of ``embed`` in ``dtype``.  On a mesh the table is
-        vocab-parallel: each rank looks up the tokens of its block of the vocabulary (its
-        block gathered over the data axes), zeros elsewhere, all-reduced over the axes
-        that split the vocabulary."""
-        w = P.weight(self, "embed").to(dtype)
-        axes, v0, vl = P.split(self, "embed", 0)
-        if not axes:
-            return F.embedding(tokens, w)
-        ids = tokens - v0
-        mine = (ids >= 0) & (ids < vl)
-        rows = F.embedding(torch.where(mine, ids, 0), w)
-        rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=dtype,
-                                                              device=rows.device))
-        return D.all_reduce_axes(rows, self._mesh[1], axes)
-
-    def _vocab_block(self) -> Tuple[Tuple[str, ...], int, int]:
-        """(mesh axes, start, size) of this rank's block of the vocabulary in the logits."""
-        if self.cfg.tie_embeddings:
-            return P.split(self, "embed", 0)
-        return P.split(self, "head", 1)
-
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """The logits (B, S, V); on a mesh this rank's block of the vocabulary."""
-        x = self.final_norm(x)
-        w = (P.weight(self, "embed").T if self.cfg.tie_embeddings
-             else P.weight(self, "head")).to(x.dtype)
-        return P.constrain(x @ w, "batch", "seq", "vocab")
-
-    def _cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
-        """``cross_entropy`` of the whole batch.  On a mesh the logits are this rank's
-        block of the vocabulary and ``labels`` its data shard: the log-sum-exp takes its
-        max and sum over the vocabulary's axes, and the mean runs over every data shard
-        (all-reduces with their backward); every rank gets the same bits."""
-        if P.module_mesh(self) is None:
-            return cross_entropy(logits, labels, z_loss)
-        rules, mesh = self._mesh
-        axes, v0, vl = self._vocab_block()
-        lg = logits.float()
-        mx = D.all_reduce_max_axes(torch.amax(lg, dim=-1), mesh, axes)
-        lse = torch.log(D.all_reduce_axes(torch.sum(torch.exp(lg - mx[..., None]), dim=-1),
-                                          mesh, axes)) + mx
-        ids = labels.long() - v0
-        mine = (ids >= 0) & (ids < vl)
-        ll = torch.take_along_dim(lg, torch.where(mine, ids, 0)[..., None], dim=-1)[..., 0]
-        ll = D.all_reduce_axes(torch.where(mine, ll, torch.zeros_like(ll)), mesh, axes)
-        data = P.batch_axes(rules, mesh)
-        n = labels.numel() * mesh.group_size(data)
-        ce = D.all_reduce_axes(torch.sum(lse - ll), mesh, data) / n
-        zl = (z_loss * D.all_reduce_axes(torch.sum(torch.square(lse)), mesh, data) / n
-              if z_loss else 0.0)
-        return ce + zl, ce
 
     def _backbone(self, x, pos, mask, caches: Optional[List[Cache]], index: Index,
                   memory: Optional[torch.Tensor] = None, remat: bool = False):
@@ -495,16 +443,6 @@ class LM(nn.Module):
         mask = self._cache_mask(caches, index, 1, dev)
         x, _, caches = self._backbone(self._embed(token), pos, mask, caches, index, memory)
         return self._logits(x), caches
-
-    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
-        """The greedy token of ``logits`` (..., V): ``jnp.argmax``'s first index among equal
-        logits (int64).  On a mesh ``logits`` are this rank's block of the vocabulary and
-        the argmax runs over the blocks (``distributed.argmax_axes``), the same on every
-        rank, without gathering the logits."""
-        if P.module_mesh(self) is None:
-            return torch.argmax(logits, dim=-1)
-        axes, v0, _ = self._vocab_block()
-        return D.argmax_axes(logits, self._mesh[1], axes, v0)
 
 
 def build_lm(cfg: ModelConfig, device: torch.device,

@@ -25,8 +25,9 @@ rows beside its Mamba layers' states); an encoder-decoder or a VLM
 raises ``NotImplementedError``: a request carries no frames or image, so
 those are driven through ``launch.steps`` (``launch/serve.py``).
 
-On a mesh (``mesh=``, an ``AxisMesh`` of several ranks; dense and MoE
-families, the OT router included; every rank runs the same engine on the
+On a mesh (``mesh=``, an ``AxisMesh`` of several ranks; the dense family,
+MLA's ``{latent, k_rope}`` cache included, and MoE, the OT router included;
+every rank runs the same engine on the
 same requests, so every rank takes the same admission decisions): the
 model holds this rank's blocks (``partition.place_module``), the cache
 this rank's slots, contiguous blocks of them over the data axes (all of

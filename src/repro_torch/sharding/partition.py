@@ -22,7 +22,9 @@ parameters at rest on a mesh.  A batch splits over the data axes as JAX's
 ``fit_spec`` splits its ``batch`` dimension: :func:`batch_rows` names the
 global batch (a batch the data axes do not divide, such as the serving
 engine's batch-1 prefill, is then replicated), :func:`batch_axes` reads
-it.  A model's cache at rest is likewise a tree of blocks
+it; a modality memory (an encoder-decoder's frames, a VLM's image tokens,
+``("batch", "frames" | "image", "embed_act")``) takes its rows as the
+tokens do (:func:`shard_batch`).  A model's cache at rest is likewise a tree of blocks
 (:func:`zeros_tree`, :func:`cut_tree`, :func:`gather_tree`); :func:`splice`
 writes a row into the block of the rank that holds it.
 """
@@ -394,8 +396,8 @@ def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
 #: parameter's other split dimensions are gathered just before use.
 TP_AXES = ("heads", "mlp", "vocab", "expert")
 
-#: The model families the LM mesh runs (ROADMAP A4 (e) has the others).
-MESH_FAMILIES = ("dense", "moe")
+#: The model families the LM mesh runs (MLA included; ROADMAP A4 (e) has the others).
+MESH_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
 def on_mesh(mesh) -> bool:
@@ -405,17 +407,18 @@ def on_mesh(mesh) -> bool:
 
 
 #: Logical axes the model code runs whole on every rank: rules that split one of them
-#: (sequence or context parallelism, a split KV head) are not run on a mesh.
-WHOLE_AXES = ("seq", "kv_seq", "kv_heads", "head_dim", "embed_act", "expert_mlp")
+#: (sequence or context parallelism, a split KV head, a split modality memory) are not
+#: run on a mesh.
+WHOLE_AXES = ("seq", "kv_seq", "kv_heads", "head_dim", "embed_act", "expert_mlp", "q_lora",
+              "kv_lora", "frames", "image")
 
 
 def check_mesh_family(cfg, mesh) -> None:
-    """Raise ``NotImplementedError`` for a family the LM mesh does not run (other than
-    dense and MoE; MLA included) on a mesh of several ranks."""
-    if on_mesh(mesh) and (cfg.family not in MESH_FAMILIES or cfg.mla is not None):
-        raise NotImplementedError(f"{cfg.arch_id} ({cfg.family}"
-                                  f"{', MLA' if cfg.mla is not None else ''}) on a mesh of "
-                                  f"{mesh.size()} ranks: the LM mesh runs the dense and MoE "
+    """Raise ``NotImplementedError`` for a family the LM mesh does not run (the recurrent
+    ones: xLSTM, the Mamba hybrid) on a mesh of several ranks."""
+    if on_mesh(mesh) and cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(f"{cfg.arch_id} ({cfg.family}) on a mesh of {mesh.size()} "
+                                  f"ranks: the LM mesh runs the {', '.join(MESH_FAMILIES)} "
                                   "families (ROADMAP A4 (e))")
 
 
@@ -434,7 +437,7 @@ def place_module(module: torch.nn.Module, rules: Rules, mesh, cut_params: bool =
     not yet at its block's shape is replaced by this rank's block of it (a parameter that
     ``ParamInit`` cut as it drew it carries its whole leaf's ``full_shape``).  A mesh of
     one rank changes nothing: the model stays on the single-device path, bit for bit.
-    Families other than dense and MoE raise as :func:`check_mesh_family` says."""
+    The recurrent families raise as :func:`check_mesh_family` says."""
     if not on_mesh(mesh):
         return module
     cfg = getattr(module, "cfg", None)

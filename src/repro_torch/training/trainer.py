@@ -10,12 +10,14 @@ of the batch's first half transported onto the second half's, solved by
 K1, K4 and K5/K6 or K8 on the card).
 
 On a mesh (``Trainer(..., mesh=, rules=)``, an ``AxisMesh`` of several
-ranks; dense and MoE families; every rank runs the same loop): the model
+ranks; the dense (MLA included), MoE, VLM and encoder-decoder families;
+every rank runs the same loop): the model
 is drawn from the seed leaf by leaf, each leaf cut to this rank's block as
 it is drawn, so no more than one whole leaf is held (the same draws as the
 model on one device; ``partition.place_module``, ``default_rules`` by
 default); a mesh of sizes only, with no rank on it, raises; each rank
-feeds its data shard of ``data.batch(step)``, and the step backpropagates
+feeds its data shard of ``data.batch(step)`` (and of the stub frontend's
+frames or image tokens), and the step backpropagates
 the whole batch's loss over the mesh size (the collectives' backward
 passes sum the shares).  The OT term all-gathers the per-sequence features
 over the data axes in batch order, so every rank solves the same problem

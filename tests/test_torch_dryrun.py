@@ -3,11 +3,16 @@
 JAX lowers each cell's step and reads XLA's memory analysis; the port runs rank 0's
 side of the step on ``meta`` tensors, the mesh in dry mode
 (``core.distributed.AxisMesh.dry_run``).  Referees:
-  * the argument bytes of ``yi-9b`` and ``phi3.5-moe-42b-a6.6b`` x ``train_4k`` /
+  * the argument bytes of ``yi-9b``, ``phi3.5-moe-42b-a6.6b``, ``minicpm3-4b``,
+    ``whisper-medium`` and ``llama-3.2-vision-90b`` x ``train_4k`` /
     ``prefill_32k`` / ``decode_32k`` on ``pod16x16``: the sum of JAX's per-device
     blocks of the same arguments, from ``repro.sharding.partition.fit_spec`` and
     ``default_rules(...).spec(axes)`` on JAX's abstract parameters, optimizer state,
-    batch and caches (pure functions: no 256 devices);
+    batch, caches and a prefill's frames or image tokens (pure functions: no 256
+    devices);
+  * the attention families' cells run ``ok`` on both production meshes (rank 0's
+    step on ``meta``: ``prefill_32k`` and ``decode_32k`` on each, ``train_4k`` on
+    ``pod16x16``), ``long_500k`` skipped with JAX's reason;
   * the dry mode's recorded collectives, ``(op, shape)`` in order, for one train,
     prefill and serve step of ``phi3.5-moe-42b-a6.6b.reduced()`` on a sizes-only
     (2, 2) mesh: a live 4-rank gloo run's (rank 0) of the same steps, run as
@@ -32,7 +37,9 @@ THIS = os.path.abspath(__file__)
 TIMEOUT_S = 180
 NAMES = ("data", "model")
 REDUCED = dict(train=(8, 16), prefill=(4, 16), decode=(4, 16))    # (batch, seq)
-ARCHS = ("yi-9b", "phi3.5-moe-42b-a6.6b")
+ARCHS = ("yi-9b", "phi3.5-moe-42b-a6.6b", "minicpm3-4b", "whisper-medium",
+         "llama-3.2-vision-90b")
+ATTN_ARCHS = ARCHS[2:]              # the attention families: MLA, encoder-decoder, VLM
 SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 
 
@@ -175,7 +182,11 @@ def _jax_block_bytes(cfg, shape, sizes):
     caches = model.init_cache(GB, S, abstract=True)
     n = total(params, axes) + total(caches, model.cache_logical_axes())
     if shape.kind == "prefill":
-        return n + total({"t": i32(GB, S)}, {"t": ("batch", "seq")})
+        n += total({"t": i32(GB, S)}, {"t": ("batch", "seq")})
+        ins = specs.input_specs(cfg, shape)
+        if "memory" in ins:             # an encoder-decoder's frames, a VLM's image tokens
+            n += total({"m": ins["memory"]}, {"m": ins["memory_axes"]})
+        return n
     return n + total({"t": i32(GB, 1), "i": i32()}, {"t": ("batch", "seq"), "i": ()})
 
 
@@ -243,6 +254,39 @@ def test_records_keep_the_jax_keys_and_skips(tmp_path):
         f"{a}.json" for a in ("yi-9b__long_500k__pod16x16",
                               "xlstm-1.3b__decode_32k__pod2x16x16",
                               "phi3.5-moe-42b-a6.6b__decode_32k__pod16x16__reduced"))
+
+
+@pytest.mark.parametrize("cell", [(a, s, m) for a in ATTN_ARCHS
+                                  for s, m in (("prefill_32k", False), ("prefill_32k", True),
+                                               ("decode_32k", False), ("decode_32k", True),
+                                               ("train_4k", False))],
+                         ids=lambda c: f"{c[0]}-{c[1]}-{'pod2x16x16' if c[2] else 'pod16x16'}")
+def test_attention_family_cells_run_on_the_production_meshes(cell, tmp_path):
+    """MLA, the encoder-decoder and the VLM on the LM mesh: rank 0's step of the cell runs
+    on ``meta`` (a prefill with the frames or image tokens, a decode reading the cached
+    cross-attention keys), with flops, argument bytes and collectives recorded."""
+    from repro_torch.launch import dryrun
+
+    arch, shape, multi = cell
+    rec = dryrun.run_cell(arch, shape, multi, tmp_path)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["devices"] == (512 if multi else 256)
+    assert rec["cost_analysis"]["flops"] > 0
+    assert rec["memory_analysis"]["argument_size_in_bytes"] > 0
+    assert rec["collectives"]["total_wire_bytes"] > 0
+    assert rec["collectives"]["all-reduce"]["count"] > 0      # the heads' partial sums
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_attention_family_long_context_cell_is_skipped_as_jax(arch, tmp_path):
+    from repro.configs import SHAPES_BY_NAME as JSHAPES
+    from repro.configs import get_config as jget_config
+    from repro.configs import shape_applicable as jshape_applicable
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_cell(arch, "long_500k", True, tmp_path)
+    assert rec["status"] == "skipped"
+    assert rec["reason"] == jshape_applicable(jget_config(arch), JSHAPES["long_500k"])[1]
 
 
 def test_ported_hlo_helpers_keep_their_contract():
